@@ -1,0 +1,51 @@
+"""Weights and round state carried across from the JAX package.
+
+The caller hands over numpy arrays (``np.asarray`` of the JAX values), so
+this module needs nothing of JAX.  Flat buffers keep their layout: the port
+lays leaves out in the same order with the same padding (core/flat.py), so
+a JAX run's flat state resumes in the port as it is.
+"""
+from __future__ import annotations
+
+from typing import Any, Union
+
+import numpy as np
+import torch
+
+Device = Union[str, torch.device]
+
+# the flat round state this slice runs: (P,) server vectors, (M, P) ν⁽ⁱ⁾
+FLAT_STATE_KEYS = ("params", "round", "nu", "nu_i", "server_m", "server_v")
+
+
+def tensor_from_numpy(a: Any, device: Device) -> torch.Tensor:
+    """A numpy array (or scalar) as a tensor on ``device``, bit for bit;
+    bfloat16 arrays (``ml_dtypes``) travel as their 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def params_from_numpy(tree: Any, device: Device) -> Any:
+    """A (nested) dict of numpy arrays → the same dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree, device)
+
+
+def flat_state_from_numpy(state: dict, device: Device) -> dict:
+    """A JAX flat round state (``param_layout="flat"``) as numpy arrays →
+    the port's state: ``params``/``nu``/``server_m``/``server_v`` ``(P,)``,
+    ``nu_i`` ``(M, P)`` and ``round`` an int32 scalar.  Raises on the keys
+    of features this port does not run yet (compression, robust
+    aggregation)."""
+    unknown = sorted(set(state) - set(FLAT_STATE_KEYS))
+    if unknown:
+        raise NotImplementedError(
+            f"state keys {unknown} belong to features the PyTorch port does "
+            f"not run yet")
+    out = {k: tensor_from_numpy(v, device) for k, v in state.items()}
+    out["round"] = out["round"].to(torch.int32).reshape(())
+    return out

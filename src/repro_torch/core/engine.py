@@ -1,0 +1,37 @@
+"""Chunked execution (``repro.core.engine`` counterpart): R rounds per host
+sync.  The reference fuses the chunk into one jitted ``lax.scan``; PyTorch
+runs eagerly, so the chunk is a Python loop over the unmodified round that
+never reads a device value, and the host waits for the device only where
+the caller reads the metrics.  (Capturing the chunk in a CUDA graph is a
+later step.)"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+
+def make_round_chunk(round_fn: Callable, r: int) -> Callable:
+    """``chunk_fn(state, batches, k_steps, weights, lam) -> (state,
+    metrics)`` running ``r`` rounds.
+
+    Inputs are stacked per round: ``batches`` holds ``(r, M, k_max, …)``
+    tensors, ``k_steps`` is ``(r, M)``, ``weights`` ``(r, M)`` and ``lam``
+    a sequence of ``r`` host floats.  Each metric comes back as an ``(r,)``
+    device tensor.  A chunk of r rounds is the same computation as r
+    ``round_fn`` calls."""
+    def chunk_fn(state: dict, batches: dict, k_steps: torch.Tensor,
+                 weights: torch.Tensor, lam: Sequence[float]):
+        if k_steps.shape[0] != r:
+            raise ValueError(f"chunk built for {r} rounds, got "
+                             f"{k_steps.shape[0]}")
+        per_round = []
+        for j in range(r):
+            state, metrics = round_fn(
+                state, {key: v[j] for key, v in batches.items()},
+                k_steps[j], weights[j], lam[j])
+            per_round.append(metrics)
+        return state, {key: torch.stack([mt[key] for mt in per_round])
+                       for key in per_round[0]}
+
+    return chunk_fn

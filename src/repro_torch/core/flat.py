@@ -1,0 +1,255 @@
+"""Flat-parameter execution: the whole round state as one buffer
+(``repro.core.flat`` counterpart).
+
+Server vectors (params, ν, server moments) are ``(P,)`` tensors and
+per-client state (ν⁽ⁱ⁾, the round's x⁽ⁱ⁾ and g₀⁽ⁱ⁾) ``(M, P)`` matrices, with
+``P = ceil(n / 128) · 128`` and zeros in the pad tail ``[n, P)``.  Leaves
+are laid out in ``jax.tree_util.tree_flatten`` order (dicts by sorted key:
+``b, w`` for lr, ``b1, b2, w1, w2`` for the mlp), so a flat buffer means the
+same thing in both packages.
+
+Each local step runs the model on per-leaf views of the buffer
+(``view_tree``: ``narrow`` + ``view``, no copies), takes every client's
+gradient in one autograd pass, and applies the calibrated update with ONE
+kernel launch on the whole ``(M, P)`` matrix
+(``kernels/calibrated_update``).  The K_i mask is folded into the update as
+a per-row step size η_i ∈ {η, 0}.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core import stages
+from repro_torch.core.fedopt import Algorithm
+from repro_torch.core.tree_util import tree_wsum
+from repro_torch.kernels.calibrated_update import ops as cu_ops
+
+LANES = cu_ops.LANES
+
+PyTree = Any
+
+
+# ---------------------------------------------------------------------------
+# layout spec + ravel / unravel
+# ---------------------------------------------------------------------------
+
+def _leaves(tree: PyTree, path: tuple = ()) -> list:
+    """[(key path, leaf)] in ``jax.tree_util.tree_flatten`` order: nested
+    dicts by sorted key, depth first."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in _leaves(tree[k], path + (k,))]
+    return [(path, tree)]
+
+
+def _tree(paths: tuple, leaves: list) -> PyTree:
+    if paths == ((),):
+        return leaves[0]
+    root: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return root
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSpec:
+    """Static description of the tree ↔ flat-buffer bijection.
+
+    ``n`` true elements, padded to ``p`` (a multiple of 128); ``dtype`` is
+    the buffer dtype — the common leaf dtype, float32 for mixed leaves.
+    ``(paths, offsets, shapes, dtypes, sizes)`` form the view table: leaf
+    *i* is ``flat[…, offsets[i] : offsets[i] + sizes[i]]`` viewed as
+    ``shapes[i]`` in ``dtypes[i]``."""
+    paths: tuple
+    shapes: tuple
+    dtypes: tuple
+    sizes: tuple
+    offsets: tuple
+    n: int
+    p: int
+    dtype: torch.dtype
+
+
+def make_flat_spec(tree: PyTree) -> FlatSpec:
+    paths, leaves = zip(*_leaves(tree))
+    shapes = tuple(tuple(lv.shape) for lv in leaves)
+    dtypes = tuple(lv.dtype for lv in leaves)
+    sizes = tuple(math.prod(s) for s in shapes)
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    n = sum(sizes)
+    p = -(-max(n, 1) // LANES) * LANES
+    dtype = dtypes[0] if all(d == dtypes[0] for d in dtypes) \
+        else torch.float32
+    return FlatSpec(paths, shapes, dtypes, sizes, offsets, n, p, dtype)
+
+
+def ravel(spec: FlatSpec, tree: PyTree, client_dims: int = 0
+          ) -> torch.Tensor:
+    """Concat all leaves into a new ``(*lead, P)`` buffer — ``client_dims``
+    leading axes are kept; the tail pads with zeros."""
+    leaves = [lv for _, lv in _leaves(tree)]
+    lead = tuple(leaves[0].shape[:client_dims])
+    flat = leaves[0].new_zeros(lead + (spec.p,), dtype=spec.dtype)
+    for lv, off, size in zip(leaves, spec.offsets, spec.sizes):
+        flat[..., off:off + size] = lv.reshape(lead + (size,))
+    return flat
+
+
+def view_tree(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
+              ) -> PyTree:
+    """The model tree as per-leaf views of the buffer (no copies where the
+    leaf dtype is the buffer dtype)."""
+    lead = tuple(flat.shape[:client_dims])
+    leaves = [flat.narrow(-1, off, size).view(lead + shape).to(dtype)
+              for off, size, shape, dtype in zip(spec.offsets, spec.sizes,
+                                                 spec.shapes, spec.dtypes)]
+    return _tree(spec.paths, leaves)
+
+
+def unravel(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
+            ) -> PyTree:
+    """Inverse of ``ravel``: the tree as new tensors that own their data."""
+    lead = tuple(flat.shape[:client_dims])
+    leaves = [flat.narrow(-1, off, size).reshape(lead + shape)
+              .to(dtype, copy=True)
+              for off, size, shape, dtype in zip(spec.offsets, spec.sizes,
+                                                 spec.shapes, spec.dtypes)]
+    return _tree(spec.paths, leaves)
+
+
+def flat_value_and_grad(spec: FlatSpec,
+                        loss_fn: Callable[[PyTree, PyTree], torch.Tensor]):
+    """``vag(rows, batch) -> (losses (M,), grads (M, P))`` for ``(M, P)``
+    client rows, ``batch`` with a leading client axis.
+
+    ``loss_fn`` is one client's loss; ``torch.func.vmap`` batches it over
+    the client axis and one autograd pass differentiates the sum of the
+    per-client losses.  Each client's loss depends only on its own row, so
+    row *i* of the result is exactly client *i*'s gradient.  The gradient
+    is taken with respect to the leaf views and written into one
+    ``(M, P)`` buffer with a zero pad tail."""
+    batched = torch.func.vmap(loss_fn)
+
+    def run(rows: torch.Tensor, batch: PyTree):
+        m = rows.shape[0]
+        leaves = [rows.narrow(1, off, size).view((m,) + shape).to(dtype)
+                  .detach().requires_grad_()
+                  for off, size, shape, dtype in zip(
+                      spec.offsets, spec.sizes, spec.shapes, spec.dtypes)]
+        with torch.enable_grad():
+            losses = batched(_tree(spec.paths, leaves), batch)
+            grads = torch.autograd.grad(losses.sum(), leaves)
+        g = rows.new_empty((m, spec.p), dtype=spec.dtype)
+        for gl, off, size in zip(grads, spec.offsets, spec.sizes):
+            g[:, off:off + size] = gl.reshape(m, size)
+        g[:, spec.n:] = 0
+        return losses.detach(), g
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# stage 1 (flat): the kernel-backed local steps
+# ---------------------------------------------------------------------------
+
+def make_flat_client_update(spec: FlatSpec,
+                            loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                            algo: Algorithm, *, lr: float, k_max: int):
+    """``f(anchor, c_all, batches, k_steps, lam) -> (x_i, g0_i, loss0)`` on
+    (M, P) rows; ``c_all`` is ignored by algorithms without ν and ``g0_i``
+    is None unless the selector reads the first gradient.
+
+    Every client runs ``k_max`` steps; client *i* applies updates only for
+    ``k < K_i`` through its per-row η, and each step is ONE calibrated-update
+    kernel launch on the whole matrix (the prox variant for FedProx-style
+    algorithms)."""
+    needs_first = algo.selector in ("fedagrac", "first", "reverse")
+    uses_nu = algo.uses_nu
+    # fusing the prox term into the kernel is valid only when nothing
+    # downstream reads the gradient; a first-gradient selector does, and
+    # sees the prox-augmented g as on the reference's tree path
+    fuse_prox = bool(algo.prox_mu) and not needs_first
+    grad_fn = flat_value_and_grad(spec, loss_fn)
+
+    def run(anchor: torch.Tensor, c_all: Optional[torch.Tensor],
+            batches: dict, k_steps: torch.Tensor, lam: float):
+        m = k_steps.shape[0]
+        anchors = anchor[None].expand(m, spec.p).contiguous()
+        # ν-free algorithms pass no correction: the kernel then reads no c
+        # (the same result as the reference's c = 0, λ = 0)
+        lam_k = lam if uses_nu else 0.0
+        c_k = c_all if uses_nu else None
+        steps = torch.arange(k_max, device=k_steps.device)
+        etas = torch.where(steps[:, None] < k_steps[None, :], lr, 0.0
+                           ).to(torch.float32)                  # (k_max, M)
+        x, g0, loss0 = anchors, None, None
+        for k in range(k_max):
+            loss, g = grad_fn(x, {key: v[:, k] for key, v in batches.items()})
+            if k == 0:
+                loss0 = loss
+            if algo.prox_mu and not fuse_prox:
+                g = g + algo.prox_mu * (x - anchors)
+            if k == 0 and needs_first:
+                g0 = g
+            if fuse_prox:
+                x = cu_ops.calibrated_update_prox(x, g, c_k, anchors, etas[k],
+                                                  lam_k, algo.prox_mu)
+            else:
+                x = cu_ops.calibrated_update(x, g, c_k, etas[k], lam_k)
+        return x, g0, loss0
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# composition: the flat synchronous round
+# ---------------------------------------------------------------------------
+
+def make_flat_round(spec: FlatSpec,
+                    loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                    algo: Algorithm, *, lr: float, k_max: int):
+    """``round_fn(state, batches, k_steps, weights, lam=None) -> (state,
+    metrics)`` on flat state (core/rounds.py ``init_state``).  ``batches``
+    holds ``(M, k_max, B, …)`` tensors, ``k_steps`` is ``(M,)`` integer and
+    ``weights`` ``(M,)`` float32, all on the state's device; ``lam`` is a
+    host float (default ``algo.lam``).  The round never waits for the
+    device: the returned state and metrics are device tensors."""
+    client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
+                                            k_max=k_max)
+    aggregate = stages.AGGREGATORS[algo.aggregator]
+
+    def round_fn(state: dict, batches: dict, k_steps: torch.Tensor,
+                 weights: torch.Tensor, lam: Optional[float] = None):
+        if lam is None:
+            lam = algo.lam
+        params0 = state["params"]                          # (P,)
+        kf = k_steps.float()
+        kbar = torch.dot(weights, kf)
+        new_state = dict(state)
+
+        c_all = (state["nu"][None] - state["nu_i"]
+                 if algo.uses_nu else None)                # (M, P)
+        x_i, g0_i, loss0 = client_update(params0, c_all, batches, k_steps,
+                                         lam)
+        agg = aggregate(params0, x_i, kf, weights, kbar)
+        new_state["params"] = stages.server_update(algo, state, params0, agg,
+                                                   new_state)
+        new_state["round"] = state["round"] + 1
+
+        if algo.uses_nu:
+            transmit, avg_g = stages.orientation_transmit(
+                algo, params0, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            new_state["nu"] = tree_wsum(weights, transmit)
+            new_state["nu_i"] = avg_g
+
+        metrics = {"loss": torch.dot(weights, loss0), "kbar": kbar}
+        return new_state, metrics
+
+    return round_fn

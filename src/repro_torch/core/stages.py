@@ -1,0 +1,150 @@
+"""Round stages after the local steps (``repro.core.stages`` counterpart):
+aggregation, orientation (what each client transmits toward the next ν) and
+the server optimizer, on the flat layout's ``(P,)`` / ``(M, P)`` tensors.
+
+``Algorithm`` (core/fedopt.py) names a composition: ``algo.aggregator``,
+``algo.selector`` and ``algo.server_opt`` index these registries.  Every
+stage does the reference's float32 arithmetic in the reference's order and
+returns tensors in the state's dtype; λ arrives as a host float.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.fedopt import Algorithm
+from repro_torch.core.tree_util import expand, tree_wsum
+
+
+# ---------------------------------------------------------------------------
+# aggregation
+# ---------------------------------------------------------------------------
+
+def aggregate_mean(params0: torch.Tensor, x_i: torch.Tensor,
+                   kf: torch.Tensor, weights: torch.Tensor,
+                   kbar: torch.Tensor) -> torch.Tensor:
+    """Plain weighted average  Σ ω_i x⁽ⁱ⁾."""
+    return tree_wsum(weights, x_i)
+
+
+def aggregate_fednova(params0: torch.Tensor, x_i: torch.Tensor,
+                      kf: torch.Tensor, weights: torch.Tensor,
+                      kbar: torch.Tensor) -> torch.Tensor:
+    """FedNova:  x̃ + K̄ Σ ω_i (x⁽ⁱ⁾ − x̃)/K_i  (Wang et al. 2020)."""
+    deltas = (x_i.float() - params0[None]) / expand(kf, x_i)
+    return (params0 + kbar * torch.tensordot(weights, deltas, dims=1)
+            ).to(params0.dtype)
+
+
+AGGREGATORS: dict[str, Callable] = {
+    "mean": aggregate_mean,
+    "fednova": aggregate_fednova,
+}
+
+
+# ---------------------------------------------------------------------------
+# orientation (transmit selection)
+# ---------------------------------------------------------------------------
+
+def _select_avg(g0_i, avg_g, fast):
+    return avg_g
+
+
+def _select_first(g0_i, avg_g, fast):
+    return g0_i
+
+
+def _select_fedagrac(g0_i, avg_g, fast):
+    """Fast clients (K_i > K̄) send the first stochastic gradient, slow
+    clients the averaged gradient (paper §4.2)."""
+    return torch.where(expand(fast, avg_g), g0_i, avg_g)
+
+
+def _select_reverse(g0_i, avg_g, fast):
+    return torch.where(expand(fast, avg_g), avg_g, g0_i)
+
+
+SELECTORS: dict[str, Callable] = {
+    "avg": _select_avg,
+    "first": _select_first,
+    "fedagrac": _select_fedagrac,
+    "reverse": _select_reverse,
+}
+
+
+def fast_mask(kf: torch.Tensor, kbar: torch.Tensor) -> torch.Tensor:
+    """K_i > K̄ with a tie tolerance: K_i are integers but K̄ is a float32
+    dot whose summation order can leave it 1 ulp under an exact tie."""
+    return kf > kbar + 1e-4 * torch.clamp(kbar, min=1.0)
+
+
+def recover_avg_grad(params0: torch.Tensor, x_i: torch.Tensor,
+                     c_all: torch.Tensor, kf: torch.Tensor, lr: float,
+                     lam: float) -> torch.Tensor:
+    """Delta recovery of the averaged local gradient (paper §4.2):
+    ν̄⁽ⁱ⁾ = (x̃ − x⁽ⁱ⁾_{K_i}) / (η K_i) − λ c⁽ⁱ⁾."""
+    return ((params0[None].float() - x_i.float()) / (lr * expand(kf, x_i))
+            - lam * c_all.float()).to(params0.dtype)
+
+
+def orientation_transmit(algo: Algorithm, params0: torch.Tensor,
+                         x_i: torch.Tensor, g0_i: torch.Tensor,
+                         c_all: torch.Tensor, kf: torch.Tensor,
+                         kbar: torch.Tensor, lr: float, lam: float):
+    """Per-client (transmit, avg_g): what flows into the next global ν, and
+    the local reference ν⁽ⁱ⁾ (Alg. 1 line 11 — always the averaged grad)."""
+    avg_g = recover_avg_grad(params0, x_i, c_all, kf, lr, lam)
+    transmit = SELECTORS[algo.selector](g0_i, avg_g, fast_mask(kf, kbar))
+    return transmit, avg_g
+
+
+# ---------------------------------------------------------------------------
+# server optimizer (FedOpt, Reddi et al. 2021)
+# ---------------------------------------------------------------------------
+
+def _server_sgd(algo, state, params0, agg, delta, new_state):
+    """server_opt="sgd", server_lr=1 reproduces plain averaging exactly."""
+    lr = algo.server_lr
+    if lr == 1.0:
+        return agg
+    return (params0.float() + lr * delta).to(params0.dtype)
+
+
+def _server_momentum(algo, state, params0, agg, delta, new_state):
+    """FedAvgM."""
+    lr, b1 = algo.server_lr, algo.server_beta1
+    m = b1 * state["server_m"].float() + delta
+    new_state["server_m"] = m.to(params0.dtype)
+    return (params0.float() + lr * m).to(params0.dtype)
+
+
+def _server_adam(algo, state, params0, agg, delta, new_state):
+    """FedAdam."""
+    lr, b1 = algo.server_lr, algo.server_beta1
+    b2, eps = 0.999, 1e-8
+    t = state["round"].float() + 1.0
+    m = b1 * state["server_m"].float() + (1 - b1) * delta
+    v = b2 * state["server_v"].float() + (1 - b2) * delta * delta
+    new_state["server_m"] = m.to(params0.dtype)
+    new_state["server_v"] = v.to(params0.dtype)
+    bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+    return (params0.float() + lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            ).to(params0.dtype)
+
+
+SERVER_OPTIMIZERS: dict[str, Callable] = {
+    "sgd": _server_sgd,
+    "momentum": _server_momentum,
+    "adam": _server_adam,
+}
+
+
+def server_update(algo: Algorithm, state: dict, params0: torch.Tensor,
+                  agg: torch.Tensor, new_state: dict) -> torch.Tensor:
+    """FedOpt server step on the round pseudo-gradient Δ = agg − x̃_t."""
+    if algo.server_opt not in SERVER_OPTIMIZERS:
+        raise ValueError(algo.server_opt)
+    delta = agg.float() - params0.float()
+    return SERVER_OPTIMIZERS[algo.server_opt](algo, state, params0, agg,
+                                              delta, new_state)

@@ -1,0 +1,60 @@
+"""Federated round batching: the (M, k_max, B, …) microbatch tensors the
+round engine loops over.
+
+Each client re-samples with replacement from its own partition from the
+numpy stream ``default_rng((seed, t))`` — the same stream as
+``repro.data.pipeline.FederatedBatcher``, so round ``t``'s batches are
+bit-identical in both packages.  Rows are gathered on the host and moved to
+the device once per round (``round_batches``) or once per chunk of rounds
+(``chunk_batches``).
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import Dataset
+from repro_torch.device import resolve_device
+
+
+class FederatedBatcher:
+    """Per-round microbatch sampler over client partitions."""
+
+    def __init__(self, data: Dataset, parts: list[np.ndarray],
+                 batch_size: int, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.data = data
+        self.parts = parts
+        self.m = len(parts)
+        self.batch_size = batch_size
+        self.seed = seed
+        n_total = sum(len(p) for p in parts)
+        self.weights = torch.tensor([len(p) / n_total for p in parts],
+                                    dtype=torch.float32, device=self.device)
+        self._x = data.x.numpy()
+        self._y = data.y.numpy()
+
+    def round_indices(self, t: int, k_max: int) -> np.ndarray:
+        """(M, k_max, B) dataset row indices for round ``t``."""
+        rng = np.random.default_rng((self.seed, t))
+        return np.stack([
+            part[rng.integers(0, len(part), (k_max, self.batch_size))]
+            for part in self.parts])
+
+    def _gather(self, idx: np.ndarray) -> dict:
+        return {"x": torch.from_numpy(self._x[idx]).to(self.device),
+                "y": torch.from_numpy(self._y[idx]).to(self.device)}
+
+    def round_batches(self, t: int, k_max: int) -> dict:
+        """(M, k_max, B, …) feature/label tensors for round ``t``."""
+        return self._gather(self.round_indices(t, k_max))
+
+    def chunk_batches(self, t0: int, r: int, k_max: int) -> dict:
+        """(R, M, k_max, B, …) stacked rounds ``t0 … t0+r-1`` — one gather
+        and one host→device transfer per chunk.  Round ``t``'s slice is
+        bit-identical to ``round_batches(t, k_max)``."""
+        return self._gather(np.stack([self.round_indices(t0 + j, k_max)
+                                      for j in range(r)]))

@@ -1,0 +1,64 @@
+"""Synthetic federated datasets.
+
+``fedprox_synthetic`` is the canonical non-IID task the paper-scale
+experiments run (Li et al., FedProx synthetic(α, β)).  It is drawn with
+numpy, so fed the same integer seed it gives the same bits as
+``repro.data.synthetic.fedprox_synthetic`` — which derives that integer from
+a ``jax.random`` key; here the caller passes it directly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Dataset:
+    """In-memory supervised dataset (features x, int labels y), host-side:
+    batchers gather rows on the host and move them to the device in one
+    transfer per chunk."""
+    x: torch.Tensor
+    y: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.x.shape[0]
+
+
+def fedprox_synthetic(seed: int, m: int, alpha: float = 1.0,
+                      beta: float = 1.0, d: int = 60, n_classes: int = 10,
+                      n_per_client: int = 400, iid: bool = False):
+    """Synthetic(α, β) from Li et al. (FedProx).  Client i draws a local
+    softmax model W_i ~ N(u_i, 1), u_i ~ N(0, α), and features
+    x ~ N(v_i, Λ), v_i ~ N(B_i, 1), B_i ~ N(0, β), Λ_jj = j^{-1.2}.
+
+    Returns (Dataset over the union — x float32, y int32 — and the list of
+    per-client index arrays)."""
+    rng = np.random.default_rng(seed)
+    lam = np.diag(np.arange(1, d + 1, dtype=np.float64) ** -1.2)
+    xs, ys, parts = [], [], []
+    offset = 0
+    W_shared = rng.normal(0, 1.0, size=(d, n_classes))
+    b_shared = rng.normal(0, 1.0, size=(n_classes,))
+    for _ in range(m):
+        if iid:
+            W, b, v = W_shared, b_shared, np.zeros(d)
+        else:
+            u = rng.normal(0, np.sqrt(alpha))
+            W = rng.normal(u, 1.0, size=(d, n_classes))
+            b = rng.normal(u, 1.0, size=(n_classes,))
+            Bi = rng.normal(0, np.sqrt(beta))
+            v = rng.normal(Bi, 1.0, size=(d,))
+        x = rng.multivariate_normal(v, lam, size=n_per_client)
+        logits = x @ W + b
+        p = np.exp(logits - logits.max(axis=1, keepdims=True))
+        p /= p.sum(axis=1, keepdims=True)
+        y = np.array([rng.choice(n_classes, p=pi) for pi in p])
+        xs.append(x.astype(np.float32))
+        ys.append(y.astype(np.int32))
+        parts.append(np.arange(offset, offset + n_per_client))
+        offset += n_per_client
+    data = Dataset(x=torch.from_numpy(np.concatenate(xs)),
+                   y=torch.from_numpy(np.concatenate(ys)))
+    return data, parts

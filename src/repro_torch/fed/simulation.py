@@ -1,0 +1,237 @@
+"""Single-device federated simulator (``repro.fed.simulation`` counterpart).
+
+Drives the flat synchronous round (core/flat.py) over T rounds: samples the
+K_i schedule, assembles per-round microbatches, and records loss and eval
+metrics.  ``run`` executes blocks of ``chunk_rounds`` rounds
+(core/engine.py) and waits for the device only at chunk boundaries; the
+eval cadence sets the default chunk size, and ``chunk_rounds=1`` is the
+per-round path.  A chunk computes exactly what the same rounds computed one
+by one.
+
+This slice runs full participation on the flat layout with no scenario,
+compression or defense; a config asking for anything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import engine, flat, rounds
+from repro_torch.core.fedopt import get_algorithm
+from repro_torch.data.partition import gaussian_k_schedule
+from repro_torch.device import resolve_device
+
+PyTree = Any
+
+
+def _check_finite_metric(value: float, t: int) -> None:
+    """Fail loudly at the eval boundary: a non-finite metric means the run
+    diverged or was poisoned."""
+    if not np.isfinite(value):
+        raise FloatingPointError(
+            f"evaluation metric is non-finite ({value}) after round {t}: "
+            f"the run has diverged or been poisoned")
+
+
+def _check_supported(fed: FedConfig) -> None:
+    """Raise for every config field whose feature this port does not run
+    yet, naming the ROADMAP item that brings it."""
+    unported = [
+        (fed.param_layout != "flat",
+         f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
+         f"tree layout is ROADMAP A2)"),
+        (fed.cohort_sampler != "all"
+         or fed.cohort_size not in (0, fed.n_clients),
+         "partial participation (cohort_size/cohort_sampler, ROADMAP A6)"),
+        (fed.buffer_size > 0,
+         "buffered asynchronous rounds (buffer_size, ROADMAP A7)"),
+        (fed.scenario != "baseline",
+         f"scenario={fed.scenario!r} (failure scenarios, ROADMAP A8)"),
+        (fed.compressor != "none" or fed.broadcast_compressor != "none"
+         or fed.quantize_transmit,
+         "wire compression (compressor/broadcast_compressor/"
+         "quantize_transmit, ROADMAP A9)"),
+        (fed.defense != "none" or fed.quarantine_window > 0,
+         "robust aggregation (defense/quarantine_window, ROADMAP A10)"),
+        (fed.master_dtype != "",
+         "a mixed-precision master buffer (master_dtype, ROADMAP A3)"),
+    ]
+    for unsupported, what in unported:
+        if unsupported:
+            raise NotImplementedError(f"the PyTorch port does not run {what}"
+                                      f" yet")
+
+
+@dataclasses.dataclass
+class History:
+    loss: list[float] = dataclasses.field(default_factory=list)
+    metric: list[float] = dataclasses.field(default_factory=list)
+    kbar: list[float] = dataclasses.field(default_factory=list)
+    wall: list[float] = dataclasses.field(default_factory=list)
+
+    def rounds_to_target(self, target: float, higher_is_better=True
+                         ) -> Optional[int]:
+        for t, v in enumerate(self.metric):
+            if (v >= target) if higher_is_better else (v <= target):
+                return t + 1
+        return None
+
+
+class FederatedSimulation:
+    """``run(T)`` executes T rounds of ``fed.algorithm`` on one device
+    (``device=None``: the card; pass ``"cpu"`` to run on the CPU).
+
+    ``params`` is the model tree (a dict of tensors); ``batcher`` a
+    ``FederatedBatcher`` on the same device."""
+
+    def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                 params: PyTree, fed: FedConfig, batcher,
+                 eval_fn: Optional[Callable[[PyTree], float]] = None,
+                 k_schedule: Optional[np.ndarray] = None,
+                 lam_schedule: Optional[Callable[[int], float]] = None,
+                 t_max: int = 10_000,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        _check_supported(fed)
+        if batcher.device != self.device:
+            raise ValueError(f"batcher is on {batcher.device}, the "
+                             f"simulation on {self.device}")
+        self.fed = fed
+        self.algo = get_algorithm(fed.algorithm, fed)
+        self.batcher = batcher
+        self.eval_fn = eval_fn
+        self.lam_schedule = lam_schedule
+        if k_schedule is None:
+            k_schedule = gaussian_k_schedule(
+                fed.n_clients, fed.k_mean, fed.k_var, t_max,
+                mode=fed.k_mode, seed=fed.seed)
+        self.k_schedule = k_schedule
+        self.k_max = int(k_schedule.max())
+        self.weights = (batcher.weights if fed.weights == "data"
+                        else torch.full((fed.n_clients,),
+                                        1.0 / fed.n_clients,
+                                        dtype=torch.float32,
+                                        device=self.device))
+        self._spec = flat.make_flat_spec(params)
+        self.state = rounds.init_state(
+            flat.ravel(self._spec, params).to(self.device), fed.n_clients,
+            self.algo)
+        self._loss_fn = loss_fn
+        self._round: Optional[Callable] = None
+        self._chunks: dict[int, Callable] = {}
+
+    def _build_round(self) -> Callable:
+        return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
+                                    lr=self.fed.lr, k_max=self.k_max)
+
+    def _round_fn(self) -> Callable:
+        if self._round is None:
+            self._round = self._build_round()
+        return self._round
+
+    def _chunk_fn(self, r: int) -> Callable:
+        if r not in self._chunks:
+            self._chunks[r] = engine.make_round_chunk(self._round_fn(), r)
+        return self._chunks[r]
+
+    def _lam(self, t: int) -> float:
+        return (float(self.lam_schedule(t)) if self.lam_schedule
+                else self.algo.lam)
+
+    def _k_row(self, t: int) -> torch.Tensor:
+        return torch.as_tensor(self.k_schedule[t % len(self.k_schedule)],
+                               dtype=torch.int32, device=self.device)
+
+    def _sync(self) -> None:
+        """End of a timed region: wait for the device's work (the
+        counterpart of the reference's ``block_until_ready``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_round(self, t: int, hist: History) -> None:
+        """The chunk_rounds=1 path: one round, one host sync."""
+        lam = self._lam(t)
+        round_fn = self._round_fn()
+        k_t = self._k_row(t)
+        batches = self.batcher.round_batches(t, self.k_max)
+        t0 = time.perf_counter()
+        self.state, metrics = round_fn(self.state, batches, k_t,
+                                       self.weights, lam)
+        self._sync()
+        hist.wall.append(time.perf_counter() - t0)
+        hist.loss.append(float(metrics["loss"]))
+        hist.kbar.append(float(metrics["kbar"]))
+
+    def _run_chunk(self, t0: int, r: int, hist: History) -> None:
+        chunk_fn = self._chunk_fn(r)
+        batches = self.batcher.chunk_batches(t0, r, self.k_max)
+        ks = torch.stack([self._k_row(t0 + j) for j in range(r)])
+        weights = self.weights.expand(r, -1)
+        lams = [self._lam(t0 + j) for j in range(r)]
+        tic = time.perf_counter()
+        self.state, metrics = chunk_fn(self.state, batches, ks, weights,
+                                       lams)
+        self._sync()
+        dt = time.perf_counter() - tic
+        hist.loss.extend(metrics["loss"].double().tolist())
+        hist.kbar.extend(metrics["kbar"].double().tolist())
+        hist.wall.extend([dt / r] * r)
+
+    def run(self, t_rounds: int, eval_every: int = 1,
+            verbose: bool = False,
+            chunk_rounds: Optional[int] = None) -> History:
+        """``chunk_rounds=None`` chunks at the eval cadence (``eval_every``);
+        ``1`` forces the per-round loop.  Chunks never cross an eval
+        boundary, so an explicit ``chunk_rounds`` larger than ``eval_every``
+        is clamped when there is an ``eval_fn``."""
+        chunk = max(int(chunk_rounds if chunk_rounds is not None
+                        else eval_every), 1)
+        if (chunk_rounds is not None and chunk > eval_every
+                and self.eval_fn is not None):
+            warnings.warn(
+                f"chunk_rounds={chunk_rounds} is clamped to the eval "
+                f"cadence (eval_every={eval_every}): the host must sync at "
+                f"every eval boundary", stacklevel=2)
+        hist = History()
+        t = 0
+        while t < t_rounds:
+            r = min(chunk, t_rounds - t)
+            if self.eval_fn is not None:
+                r = min(r, eval_every - t % eval_every)
+            if r == 1:
+                self._run_round(t, hist)
+            else:
+                self._run_chunk(t, r, hist)
+            t += r
+            if t % eval_every == 0 and self.eval_fn is not None:
+                value = float(self.eval_fn(self.params))
+                _check_finite_metric(value, t)
+                hist.metric.append(value)
+            if verbose and (t % 10 < r or t == t_rounds):
+                m = hist.metric[-1] if hist.metric else float("nan")
+                print(f"  round {t - 1:4d}  loss={hist.loss[-1]:.4f}  "
+                      f"metric={m:.4f}")
+        return hist
+
+    @property
+    def params(self) -> PyTree:
+        """Current global model as a tree of tensors that own their data."""
+        return flat.unravel(self._spec, self.state["params"])
+
+
+def compare_algorithms(algorithms: list[str], make_sim: Callable[[str],
+                       FederatedSimulation], t_rounds: int,
+                       eval_every: int = 1) -> dict[str, History]:
+    """Run the same task under several algorithms (benchmark helper)."""
+    out = {}
+    for name in algorithms:
+        sim = make_sim(name)
+        out[name] = sim.run(t_rounds, eval_every=eval_every)
+    return out

@@ -1,0 +1,102 @@
+"""Where a round of the main path spends its time on the card.
+
+    PYTHONPATH=src python -m repro_torch.roofline.round_profile
+
+Builds the paper's non-convex task at full width (mlp 60-64-10, batch 20,
+FedProx synthetic(1,1), 10 clients, the bimodal schedule: nine clients at
+K = 2, one at K = 200; lr 0.03, λ = 1), runs one round warm, then profiles
+one more round per algorithm with ``torch.profiler`` and prints one JSON
+line each: the round's host wall time, the device's busy time (the union
+of kernel intervals) and idle share, kernel launches per local step, the
+calibrated-update kernels' device time, and the kernels by device time.
+Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs.base import FedConfig
+from repro_torch.core import flat, rounds
+from repro_torch.core.fedopt import get_algorithm
+from repro_torch.data import FederatedBatcher, fedprox_synthetic
+from repro_torch.models.simple import mlp_init, mlp_loss
+
+K_MAX = 200
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy
+
+
+def profile_round(algorithm: str, top: int = 8) -> dict:
+    data, parts = fedprox_synthetic(0, 10, alpha=1.0, beta=1.0)
+    params = mlp_init(torch.Generator().manual_seed(0), 60, 64, 10)
+    ks = np.full(10, 2, np.int32)
+    ks[-1] = K_MAX
+    fed = FedConfig(algorithm=algorithm, n_clients=10, lr=0.03,
+                    calibration_rate=1.0, weights="data",
+                    param_layout="flat")
+    algo = get_algorithm(algorithm, fed)
+    spec = flat.make_flat_spec(params)
+    round_fn = flat.make_flat_round(spec, mlp_loss, algo, lr=fed.lr,
+                                    k_max=K_MAX)
+    state = rounds.init_state(flat.ravel(spec, params).cuda(), 10, algo)
+    batcher = FederatedBatcher(data, parts, batch_size=20, device="cuda")
+    weights = batcher.weights
+    k_t = torch.as_tensor(ks, device="cuda")
+    batches = [batcher.round_batches(t, K_MAX) for t in range(2)]
+    state, _ = round_fn(state, batches[0], k_t, weights, 1.0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        round_fn(state, batches[1], k_t, weights, 1.0)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.end - e.time_range.start
+    busy = _busy_us([(e.time_range.start, e.time_range.end)
+                     for e in kernels])
+    return {"algorithm": algorithm, "device": torch.cuda.get_device_name(0),
+            "round_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "kernel_launches": len(kernels),
+            "launches_per_local_step": len(kernels) / K_MAX,
+            "calibrated_update_ms": sum(
+                t for name, (_, t) in by_name.items()
+                if "calibrated_update" in name) / 1e3,
+            "top_kernels": [
+                {"name": name[:80], "launches": n, "ms": t / 1e3}
+                for name, (n, t) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][1])[:top]]}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--algorithms", default="fedavg,fedprox,fednova,fedagrac")
+    args = ap.parse_args()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for algo in args.algorithms.split(","):
+        print(json.dumps(profile_round(algo)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

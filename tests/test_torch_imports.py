@@ -1,0 +1,95 @@
+"""The port's package rules: it imports neither ``jax`` nor the JAX package
+``repro``; its entry points run on the card unless asked for the CPU and
+raise where there is no card; the kernel build raises where there is no
+``nvcc`` instead of handing back anything else."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import ast  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+
+from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
+from repro_torch.fed import FederatedSimulation  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.models.simple import lr_loss  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    mods = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_reference(path):
+    assert path.is_file()
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _small_task():
+    data, parts = fedprox_synthetic(0, 2, d=4, n_classes=3, n_per_client=8)
+    return data, parts
+
+
+def test_entry_points_without_device_raise_where_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    data, parts = _small_task()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederatedBatcher(data, parts, batch_size=2)
+    batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
+    fed = FedConfig(algorithm="fedavg", n_clients=2, param_layout="flat")
+    params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederatedSimulation(lr_loss, params, fed, batcher)
+    sim = FederatedSimulation(lr_loss, params, fed, batcher, device="cpu",
+                              k_schedule=np.ones((1, 2), np.int32))
+    assert sim.state["params"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("param_layout", "tree", "A2"), ("cohort_size", 1, "A6"),
+    ("buffer_size", 1, "A7"), ("scenario", "dropout", "A8"),
+    ("compressor", "int8", "A9"), ("defense", "median", "A10"),
+    ("master_dtype", "float32", "A3")])
+def test_unported_config_fields_raise(field, value, item):
+    data, parts = _small_task()
+    batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
+    kw = {"param_layout": "flat", field: value}
+    fed = FedConfig(algorithm="fedavg", n_clients=2, **kw)
+    params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
+    with pytest.raises(NotImplementedError, match=item):
+        FederatedSimulation(lr_loss, params, fed, batcher, device="cpu")
+
+
+def test_config_validates_registry_fields():
+    with pytest.raises(ValueError, match="algorithm"):
+        FedConfig(algorithm="fedsgd")
+    with pytest.raises(ValueError, match="server_opt"):
+        FedConfig(server_opt="lamb")
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "CUDA_HOME_DEFAULT", str(tmp_path / "none"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        _build.library("calibrated_update")
+    assert not (tmp_path / "build").exists()
