@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Three phases, each printing one JSON line; any failure exits non-zero.
+Four phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
-   the sources in this checkout.
-2. kernels — every kernel of the main path against its plain PyTorch
-   version on the card (float32 and bfloat16, the main path's shapes, ragged
-   row counts and one large shape), and its time beside the plain version's
-   and the least time the card could take (``bound_ms``).
+   the sources in this checkout (one nvcc per source, all started together).
+2. kernels — every kernel of the two paths against its plain PyTorch
+   version on the card (float32 and bfloat16, the paths' shapes, ragged
+   row counts and one large shape), and its time beside the plain version's,
+   the least time the card could take (``bound_ms``) and, where one PyTorch
+   call computes the same function, that call's (``library_ms``).  The
+   calibrated-update kernels agree with their plain versions to an ulp; the
+   quantize kernels exactly (codes, values and masks).
 3. main path — ``FederatedSimulation.run(5, eval_every=5)`` at the full
    width of the paper's non-convex task (mlp 60-64-10, batch 20, FedProx
    synthetic(1,1), 10 clients, the bimodal K schedule: nine clients at
    K = 2, one at K = 200; lr 0.03, λ = 1) for fedavg, fedprox, fednova and
    fedagrac.  Every local step must go through a kernel (launch counters),
    and the trajectory must match the same run on the CPU.
+4. compressed path — the same simulation with wire compression, on the
+   compression bench's sync workload (benchmarks/compression_bench.py: lr
+   on FedProx synthetic(1,1) from zero weights, n = 610, lr 0.02, λ = 1,
+   error feedback on, top-k 5 %): fedagrac and fedavg with each of int8,
+   int4, topk and topk+int8 on the uplink, fedagrac with topk+int8 up and
+   an int8 broadcast, and fedavg topk+int8 on phase 3's mlp task, 5 rounds
+   each.  Every codec call must go through the quantize kernels (exact
+   launch counts), the recorded wire bytes must equal the bytes model, and
+   the trajectory must match the same run on the CPU.
 
 Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or without the repository beside it, the
@@ -41,6 +53,13 @@ LR, LAM, MU = 0.03, 0.7, 0.1
 MAIN_SHAPES = {"lr": (10, 640), "mlp": (10, 4608)}
 CHECK_SHAPES = [(10, 640), (10, 4608), (3, 128), (1000, 384), (65536, 1024)]
 TIMED_SHAPES = [(10, 640), (10, 4608), (65536, 1024)]
+# the quantize kernels' shapes: the broadcast (1, P) and client (10, P) rows
+# of the lr and mlp tasks, ragged row counts, and one large shape
+WIRE_SHAPES = [(1, 640), (10, 640), (10, 4608), (3, 128), (1000, 384),
+               (65536, 1024)]
+WIRE_MAIN_SHAPE = (10, 640)          # the compressed path's client rows
+PAD = 30                             # true columns n = cols − PAD
+TIE_SCALE = 0.125                    # a power of two: x / s is exact
 # the kernel does the plain version's float32 arithmetic, one rounding per
 # operation in the same order, so both agree to the last bit; the stated
 # tolerance (as in tests/test_kernels.py) leaves room for one ulp
@@ -57,6 +76,20 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
 # the check is tight; a run that amplifies rounding has a wide spread, in
 # the JAX package as here, and the check says so instead of failing on it.
 PATH_SPREAD, PATH_RTOL, PATH_SAMPLES = 4.0, 1e-4, 4
+# Phase 4's runs: (task, algorithm, uplink, broadcast compressor); the
+# "none" runs are the uncompressed walls the compressed ones are set beside
+COMPRESSED_RUNS = (
+    ("lr", "fedagrac", "none", "none"), ("lr", "fedavg", "none", "none"),
+    *(("lr", algo, comp, "none") for algo in ("fedagrac", "fedavg")
+      for comp in ("int8", "int4", "topk", "topk+int8")),
+    ("lr", "fedagrac", "topk+int8", "int8"),
+    ("mlp", "fedavg", "none", "none"), ("mlp", "fedavg", "topk+int8", "none"))
+# quantize-kernel launches of one codec call
+CODEC_LAUNCHES = {
+    "none": {}, "int8": {"quantize_2d": 1, "dequantize_2d": 1},
+    "int4": {"quantize_2d": 1, "dequantize_2d": 1},
+    "topk": {"topk_mask_2d": 1},
+    "topk+int8": {"topk_mask_2d": 1, "quantize_2d": 1, "dequantize_2d": 1}}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -197,17 +230,138 @@ def phase_kernels() -> dict:
     return result
 
 
+def _wire_rows(shape, dtype, qmax, gen):
+    """(rows, cols) rows on the card with n = cols − PAD true columns and a
+    poisoned pad tail (1e9).  Row 0 has its largest magnitude at
+    qmax · TIE_SCALE, so its scale is exactly TIE_SCALE, and half of its
+    true entries are exact .5 ties of x / s; with two or more rows, row 1
+    is all zero in its true columns, so its scale is eps."""
+    rows, cols = shape
+    n = cols - PAD
+    amax = qmax * TIE_SCALE
+    x = 3.0 * torch.randn(rows, cols, generator=gen, device=DEVICE)
+    half = n // 2
+    codes = torch.randint(-qmax, qmax, (half,), generator=gen, device=DEVICE)
+    x[0, :half] = (codes + 0.5) * TIE_SCALE
+    x[0, half:n] = x[0, half:n].clamp(-amax, amax)
+    x[0, 0] = amax
+    if rows > 1:
+        x[1, :n] = 0.0
+    x[:, n:] = 1e9
+    return x.to(dtype), n
+
+
+def _library_wire(name, x, scale):
+    """One PyTorch call that computes the kernel's function, or None: int8
+    per-row quantization is ``torch.quantize_per_channel`` and its
+    inverse ``.dequantize()`` (float32 only); no single call masks by a
+    per-row threshold.  Timed here only; the port never calls them."""
+    if name == "topk_mask_2d" or x.dtype != torch.float32:
+        return None
+    scales = scale[:, 0].double()
+    zeros = torch.zeros(x.shape[0], dtype=torch.long, device=x.device)
+
+    def quantize():
+        return torch.quantize_per_channel(x, scales, zeros, 0, torch.qint8)
+    if name == "quantize_2d":
+        return quantize
+    qt = quantize()
+    return qt.dequantize
+
+
+def phase_wire_kernels() -> dict:
+    from repro_torch.kernels.quantize import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    result = {name: {"max_abs_err": 0.0} for name in ops.launches}
+    checks = []
+
+    def check(name, got, want, dtype, shape, exact, **what):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        max_err = float(err.max()) if err.numel() else 0.0
+        tol = 0.0 if exact else KERNEL_TOL[dtype]
+        _require(bool((err <= tol * (1 + want.float().abs())).all()),
+                 f"{name} {dtype} {shape} {what}: max |err| {max_err}")
+        result[name]["max_abs_err"] = max(result[name]["max_abs_err"],
+                                          max_err)
+        checks.append({"kernel": name, "dtype": str(dtype), "shape": shape,
+                       **what, "max_abs_err": max_err, "tol": tol})
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in WIRE_SHAPES:
+            for qmax in (7, 127):
+                x, n = _wire_rows(shape, dtype, qmax, gen)
+                scale = ops.row_scales(x, n, qmax)
+                _require(float(scale[0]) == TIE_SCALE,
+                         f"row 0 scale {float(scale[0])}, not {TIE_SCALE}")
+                q = ops.quantize_2d(x, scale, qmax=qmax)
+                # the codes are integers from the same float32 arithmetic
+                check("quantize_2d", q, ref.quantize_2d(x, scale, qmax),
+                      dtype, shape, True, qmax=qmax)
+                half = n // 2
+                _require(bool((q[0, 1:half].remainder(2) == 0).all()),
+                         f"{dtype} {shape}: a .5 tie did not round to even")
+                _require(shape[0] == 1 or not q[1, :n].any(),
+                         f"{dtype} {shape}: the zero row has codes")
+                out = ops.dequantize_2d(q, scale, out_dtype=dtype)
+                check("dequantize_2d", out,
+                      ref.dequantize_2d(q, scale, dtype), dtype, shape,
+                      dtype == torch.float32, qmax=qmax)
+            k = max(1, round(0.05 * n))
+            thresh = ops.topk_thresholds(x, n, k)
+            xm = x.clone()
+            xm[-1, 1] = float("nan")            # a NaN is masked to 0
+            masked = ops.topk_mask_2d(xm, thresh)
+            check("topk_mask_2d", masked, ref.topk_mask_2d(xm, thresh),
+                  dtype, shape, dtype == torch.float32, k=k)
+            _require(float(masked[-1, 1]) == 0.0, "a NaN survived the mask")
+            if shape not in TIMED_SHAPES:
+                continue
+            # x, scale and q are qmax 127's (the int8 path)
+            timed = {
+                "quantize_2d": (lambda: ops.quantize_2d(x, scale),
+                                lambda: ref.quantize_2d(x, scale),
+                                [x, scale], q, 4),
+                "dequantize_2d": (
+                    lambda: ops.dequantize_2d(q, scale, out_dtype=dtype),
+                    lambda: ref.dequantize_2d(q, scale, dtype),
+                    [q, scale], out, 1),
+                "topk_mask_2d": (lambda: ops.topk_mask_2d(x, thresh),
+                                 lambda: ref.topk_mask_2d(x, thresh),
+                                 [x, thresh], masked, 2)}
+            big = shape[0] * shape[1] > 1 << 20
+            iters = 20 if big else 500
+            for name, (kernel, plain, inputs, res, n_ops) in timed.items():
+                bound_ms, bound_by = _bound(inputs, res, n_ops)
+                library = _library_wire(name, x, scale)
+                timing = {"kernel": name, "dtype": str(dtype),
+                          "shape": shape,
+                          "ms": _time_ms(kernel, iters),
+                          "plain_ms": _time_ms(plain, iters),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": (None if library is None
+                                         else _time_ms(library, iters))}
+                _emit({"phase": "kernel_time", **timing})
+                if dtype == torch.float32 and shape == WIRE_MAIN_SHAPE:
+                    result[name].update(
+                        {k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")})
+            del x, xm, q, out, masked, timed
+            torch.cuda.empty_cache()
+    _emit({"phase": "wire_kernels", "checks": len(checks),
+           "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
+           "worst": max(checks, key=lambda ch: ch["max_abs_err"])})
+    return result
+
+
 def _reverse_rows(batches: dict) -> dict:
     return {"x": batches["x"].flip(-2), "y": batches["y"].flip(-1)}
 
 
-def _run_main_path(device: str, algorithms, data, parts, params0,
-                   reverse_rows: bool = False) -> dict:
-    from repro_torch.configs.base import FedConfig
+def _batcher(data, parts, device: str, reverse_rows: bool):
+    """The host batcher, or one that hands out every microbatch with its
+    rows reversed (the same loss, other float32 roundings)."""
     from repro_torch.data import FederatedBatcher
-    from repro_torch.fed import FederatedSimulation
-    from repro_torch.kernels.calibrated_update import ops
-    from repro_torch.models.simple import mlp_accuracy, mlp_loss
 
     class Batcher(FederatedBatcher):
         def round_batches(self, t, k_max):
@@ -218,15 +372,52 @@ def _run_main_path(device: str, algorithms, data, parts, params0,
             b = super().chunk_batches(t0, r, k_max)
             return _reverse_rows(b) if reverse_rows else b
 
-    x_eval, y_eval = data.x.to(device), data.y.to(device)
+    return Batcher(data, parts, batch_size=20, seed=0, device=device)
+
+
+def _bimodal() -> np.ndarray:
     ks = np.full((1, 10), 2, np.int32)
     ks[0, -1] = 200
+    return ks
+
+
+def _vs_cpu(name: str, g: dict, c: dict, p: dict) -> dict:
+    """The card's run ``g`` against the CPU's ``c`` within PATH_SPREAD
+    times the spread of the CPU rerun with reversed rows ``p``, plus the
+    float32 floor; raises past it.  Returns {metric: (diff, tol)}."""
+    vs = {"loss": (np.abs(g["loss"] - c["loss"]),
+                   PATH_SPREAD * np.abs(p["loss"] - c["loss"])
+                   + PATH_RTOL * np.abs(c["loss"])),
+          "metric_samples": (
+              4000 * np.abs(g["metric"] - c["metric"]),
+              PATH_SPREAD * 4000 * np.abs(p["metric"] - c["metric"])
+              + PATH_SAMPLES),
+          "params": (
+              float((g["params"] - c["params"]).abs().max()),
+              PATH_SPREAD * float((p["params"] - c["params"]).abs().max())
+              + PATH_RTOL * float(c["params"].abs().max()))}
+    for what, (diff, tol) in vs.items():
+        _require(bool(np.all(diff <= tol)),
+                 f"{name}: {what} differs from the CPU run by {diff}, "
+                 f"more than {tol}")
+    return vs
+
+
+def _run_main_path(device: str, algorithms, data, parts, params0,
+                   reverse_rows: bool = False) -> dict:
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fed import FederatedSimulation
+    from repro_torch.kernels.calibrated_update import ops
+    from repro_torch.models.simple import mlp_accuracy, mlp_loss
+
+    x_eval, y_eval = data.x.to(device), data.y.to(device)
+    ks = _bimodal()
     out = {}
     for algo in algorithms:
         fed = FedConfig(algorithm=algo, n_clients=10, lr=0.03,
                         calibration_rate=1.0, weights="data",
                         param_layout="flat")
-        batcher = Batcher(data, parts, batch_size=20, seed=0, device=device)
+        batcher = _batcher(data, parts, device, reverse_rows)
         sim = FederatedSimulation(
             mlp_loss, params0, fed, batcher, k_schedule=ks, device=device,
             eval_fn=lambda p: float(mlp_accuracy(p, {"x": x_eval,
@@ -241,6 +432,13 @@ def _run_main_path(device: str, algorithms, data, parts, params0,
     return out
 
 
+def _reset_all_launches() -> None:
+    from repro_torch.kernels.calibrated_update import ops as cu_ops
+    from repro_torch.kernels.quantize import ops as q_ops
+    cu_ops.reset_launches()
+    q_ops.reset_launches()
+
+
 def phase_main_path() -> dict:
     from repro_torch.data import fedprox_synthetic
     from repro_torch.kernels.calibrated_update import ops
@@ -250,7 +448,7 @@ def phase_main_path() -> dict:
     params0 = mlp_init(torch.Generator().manual_seed(0), 60, 64, 10)
     # warm-up (cuBLAS handles, allocator) outside the counted run
     _run_main_path(DEVICE, ("fedavg",), data, parts, params0)
-    ops.reset_launches()
+    _reset_all_launches()
     gpu = _run_main_path(DEVICE, algorithms, data, parts, params0)
     launches = dict(ops.launches)
     cpu = _run_main_path("cpu", algorithms, data, parts, params0)
@@ -268,26 +466,142 @@ def phase_main_path() -> dict:
         _require(np.isfinite(g["loss"]).all()
                  and np.isfinite(g["metric"]).all(),
                  f"{algo}: non-finite loss or metric")
-        vs = {"loss": (np.abs(g["loss"] - c["loss"]),
-                       PATH_SPREAD * np.abs(p["loss"] - c["loss"])
-                       + PATH_RTOL * np.abs(c["loss"])),
-              "metric_samples": (
-                  4000 * np.abs(g["metric"] - c["metric"]),
-                  PATH_SPREAD * 4000 * np.abs(p["metric"] - c["metric"])
-                  + PATH_SAMPLES),
-              "params": (
-                  float((g["params"] - c["params"]).abs().max()),
-                  PATH_SPREAD * float((p["params"] - c["params"]).abs().max())
-                  + PATH_RTOL * float(c["params"].abs().max()))}
-        for what, (diff, tol) in vs.items():
-            _require(bool(np.all(diff <= tol)),
-                     f"{algo}: {what} differs from the CPU run by {diff}, "
-                     f"more than {tol}")
+        vs = _vs_cpu(algo, g, c, p)
         _emit({"phase": "main_path", "algorithm": algo,
                "loss": g["loss"].tolist(), "metric": g["metric"].tolist(),
                "wall_per_round_s": g["wall_per_round_s"],
                "cpu_wall_per_round_s": c["wall_per_round_s"],
                "launches": g["launches"],
+               "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+               "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return launches
+
+
+def _compressed_tasks() -> dict:
+    """The lr task of the compression bench (zero weights, lr 0.02) and
+    phase 3's mlp task (lr 0.03), on phase 3's data."""
+    from repro_torch.data import fedprox_synthetic
+    from repro_torch.models import simple
+    data, parts = fedprox_synthetic(0, 10, alpha=1.0, beta=1.0)
+    return {
+        "lr": {"data": data, "parts": parts, "lr": 0.02,
+               "params": {"w": torch.zeros(60, 10), "b": torch.zeros(10)},
+               "loss": simple.lr_loss, "accuracy": simple.lr_accuracy},
+        "mlp": {"data": data, "parts": parts, "lr": 0.03,
+                "params": simple.mlp_init(torch.Generator().manual_seed(0),
+                                          60, 64, 10),
+                "loss": simple.mlp_loss, "accuracy": simple.mlp_accuracy}}
+
+
+def _run_compressed(device: str, runs, tasks: dict, t_rounds: int = 5,
+                    reverse_rows: bool = False) -> dict:
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import compress, flat
+    from repro_torch.fed import FederatedSimulation
+    from repro_torch.kernels.quantize import ops
+    out = {}
+    for run in runs:
+        task, algo, up, down = run
+        spec = tasks[task]
+        data = spec["data"]
+        x_eval, y_eval = data.x.to(device), data.y.to(device)
+        fed = FedConfig(algorithm=algo, n_clients=10, lr=spec["lr"],
+                        calibration_rate=1.0, weights="data",
+                        param_layout="flat", compressor=up,
+                        broadcast_compressor=down, error_feedback=True,
+                        topk_frac=0.05)
+        sim = FederatedSimulation(
+            spec["loss"], spec["params"], fed,
+            _batcher(data, spec["parts"], device, reverse_rows),
+            k_schedule=_bimodal(), device=device,
+            eval_fn=lambda p, acc=spec["accuracy"]: float(
+                acc(p, {"x": x_eval, "y": y_eval})))
+        before = dict(ops.launches)
+        hist = sim.run(t_rounds, eval_every=t_rounds)
+        n = flat.make_flat_spec(spec["params"]).n
+        out[run] = {
+            "loss": np.array(hist.loss), "metric": np.array(hist.metric),
+            "wall_per_round_s": float(np.mean(hist.wall)),
+            "params": sim.state["params"].cpu(),
+            "launches": {k: ops.launches[k] - before[k] for k in before},
+            "bytes_up": hist.bytes_up, "bytes_down": hist.bytes_down,
+            "uses_nu": sim.algo.uses_nu,
+            "wire": compress.wire_cost(n, sim.algo.uses_nu, sim.compression)}
+    return out
+
+
+def _codec_ms(tasks: dict) -> dict:
+    """Time of one codec call on the card (CUDA events over back-to-back
+    calls, mask and selection included) at the compressed path's shapes:
+    (task, rows, compressor) → ms, rows 10 for the clients' payloads and 1
+    for the broadcast."""
+    from repro_torch.core import compress, flat
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    out = {}
+    for task, spec in tasks.items():
+        fspec = flat.make_flat_spec(spec["params"])
+        for rows in (10, 1):
+            x = 0.01 * torch.randn(rows, fspec.p, generator=gen,
+                                   device=DEVICE)
+            for name in CODEC_LAUNCHES:
+                codec = compress.make_codec(name, fspec.n)
+                out[(task, rows, name)] = (
+                    0.0 if name == "none"
+                    else _time_ms(lambda: codec(x), 200))
+    return out
+
+
+def phase_compressed_path() -> dict:
+    from repro_torch.kernels.quantize import ops
+    tasks = _compressed_tasks()
+    # warm-up of the codecs' library calls (torch.topk) outside the count
+    _run_compressed(DEVICE, [("lr", "fedagrac", "topk+int8", "int8")],
+                    tasks, t_rounds=1)
+    codec_ms = _codec_ms(tasks)
+    _reset_all_launches()
+    gpu = _run_compressed(DEVICE, COMPRESSED_RUNS, tasks)
+    launches = dict(ops.launches)
+    cpu = _run_compressed("cpu", COMPRESSED_RUNS, tasks)
+    spread = _run_compressed("cpu", COMPRESSED_RUNS, tasks,
+                             reverse_rows=True)
+    for name, n in launches.items():
+        _require(n > 0, f"{name} was never launched on the compressed path")
+    for run in COMPRESSED_RUNS:
+        task, algo, up, down = run
+        g = gpu[run]
+        name = f"{task}/{algo} up={up} down={down}"
+        quantities = 2 if g["uses_nu"] else 1
+        want = {k: 5 * quantities * (CODEC_LAUNCHES[up].get(k, 0)
+                                     + CODEC_LAUNCHES[down].get(k, 0))
+                for k in g["launches"]}
+        _require(g["launches"] == want,
+                 f"{name}: launches {g['launches']}, expected {want}")
+        wire = g["wire"]
+        _require(g["bytes_up"] == [10 * wire["uplink_per_client"]] * 5
+                 and g["bytes_down"]
+                 == [10 * wire["downlink_per_client"]] * 5,
+                 f"{name}: bytes {g['bytes_up'][0]}/{g['bytes_down'][0]} "
+                 f"per round, expected 10 × {wire}")
+        _require(np.isfinite(g["loss"]).all()
+                 and np.isfinite(g["metric"]).all(),
+                 f"{name}: non-finite loss or metric")
+        vs = _vs_cpu(name, g, cpu[run], spread[run])
+        codec_ms_per_round = quantities * (codec_ms[(task, 10, up)]
+                                           + codec_ms[(task, 1, down)])
+        _emit({"phase": "compressed_path", "task": task, "algorithm": algo,
+               "uplink": up, "broadcast": down,
+               "loss": g["loss"].tolist(), "metric": g["metric"].tolist(),
+               "wall_per_round_s": g["wall_per_round_s"],
+               "uncompressed_wall_per_round_s":
+                   gpu[(task, algo, "none", "none")]["wall_per_round_s"],
+               "cpu_wall_per_round_s": cpu[run]["wall_per_round_s"],
+               "codec_ms_per_round": codec_ms_per_round,
+               "launches": g["launches"],
+               "bytes_up_per_round": g["bytes_up"][0],
+               "bytes_down_per_round": g["bytes_down"][0],
+               "bytes_up_fp32_per_round": 10 * wire["uplink_fp32_per_client"],
+               "bytes_down_fp32_per_round":
+                   10 * wire["downlink_fp32_per_client"],
                "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
                "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
     return launches
@@ -300,13 +614,22 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     phase_env()
     timings = phase_kernels()
+    timings.update(phase_wire_kernels())
     launches = phase_main_path()
+    launches.update(phase_compressed_path())
+    quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
     sources = {"calibrated_update": (
         "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
         "src/repro/kernels/calibrated_update/kernel.py:60"),
         "calibrated_update_prox": (
         "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
-        "src/repro/kernels/calibrated_update/kernel.py:83")}
+        "src/repro/kernels/calibrated_update/kernel.py:83"),
+        "quantize_2d": (quantize_src,
+                        "src/repro/kernels/quantize/kernel.py:72"),
+        "dequantize_2d": (quantize_src,
+                          "src/repro/kernels/quantize/kernel.py:94"),
+        "topk_mask_2d": (quantize_src,
+                         "src/repro/kernels/quantize/kernel.py:117")}
     _emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timings[name]}

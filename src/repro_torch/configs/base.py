@@ -52,7 +52,7 @@ class FedConfig:
     scenario_magnitude: float = 10.0
     scenario_period: float = 64.0
     rejoin_delay: float = 0.0
-    # -- wire compression (not ported: ROADMAP A9) --------------------------
+    # -- wire compression (core/compress.py; flat synchronous round) -------
     compressor: str = "none"
     broadcast_compressor: str = "none"
     error_feedback: bool = True
@@ -70,7 +70,12 @@ class FedConfig:
 
     def __post_init__(self):
         """Fail at construction on an unknown name, listing the valid ones
-        (the registries are imported lazily: they live downstream)."""
+        (the registries are imported lazily: they live downstream).  The
+        deprecated ``quantize_transmit=True`` folds into
+        ``compressor="int8"``, as in the reference."""
+        import warnings
+
+        from repro_torch.core.compress import COMPRESSORS
         from repro_torch.core.fedopt import ALGORITHMS
         from repro_torch.core.stages import SERVER_OPTIMIZERS
 
@@ -78,6 +83,20 @@ class FedConfig:
             if value not in valid:
                 raise ValueError(f"unknown {field} {value!r}; valid "
                                  f"options: {sorted(valid)}")
+
+        if self.quantize_transmit:
+            warnings.warn(
+                "FedConfig.quantize_transmit is deprecated; use "
+                "compressor='int8' (delta + ν compression with error "
+                "feedback, core/compress.py)", DeprecationWarning,
+                stacklevel=2)
+            if self.compressor == "none":
+                object.__setattr__(self, "compressor", "int8")
+        _check("compressor", self.compressor, COMPRESSORS)
+        _check("broadcast_compressor", self.broadcast_compressor,
+               COMPRESSORS)
+        if not 0.0 < self.topk_frac <= 1.0:
+            raise ValueError(f"topk_frac {self.topk_frac} not in (0, 1]")
 
         _check("algorithm", self.algorithm, ALGORITHMS)
         _check("server_opt", self.server_opt, SERVER_OPTIMIZERS)

@@ -12,10 +12,14 @@ from typing import Any, Union
 import numpy as np
 import torch
 
+from repro_torch.core.compress import EF_KEYS
+
 Device = Union[str, torch.device]
 
-# the flat round state this slice runs: (P,) server vectors, (M, P) ν⁽ⁱ⁾
-FLAT_STATE_KEYS = ("params", "round", "nu", "nu_i", "server_m", "server_v")
+# the flat round state the port runs: (P,) server vectors, (M, P) ν⁽ⁱ⁾,
+# and the error-feedback accumulators of the compression stage
+FLAT_STATE_KEYS = ("params", "round", "nu", "nu_i", "server_m",
+                   "server_v") + EF_KEYS
 
 
 def tensor_from_numpy(a: Any, device: Device) -> torch.Tensor:
@@ -38,9 +42,9 @@ def params_from_numpy(tree: Any, device: Device) -> Any:
 def flat_state_from_numpy(state: dict, device: Device) -> dict:
     """A JAX flat round state (``param_layout="flat"``) as numpy arrays →
     the port's state: ``params``/``nu``/``server_m``/``server_v`` ``(P,)``,
-    ``nu_i`` ``(M, P)`` and ``round`` an int32 scalar.  Raises on the keys
-    of features this port does not run yet (compression, robust
-    aggregation)."""
+    ``nu_i`` ``(M, P)``, the compression stage's ``ef_*`` accumulators and
+    ``round`` an int32 scalar.  Raises on the keys of features this port
+    does not run yet (robust aggregation, the async broadcast carry)."""
     unknown = sorted(set(state) - set(FLAT_STATE_KEYS))
     if unknown:
         raise NotImplementedError(

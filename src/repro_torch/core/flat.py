@@ -23,7 +23,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core import stages
+from repro_torch.core import compress, stages
 from repro_torch.core.fedopt import Algorithm
 from repro_torch.core.tree_util import tree_wsum
 from repro_torch.kernels.calibrated_update import ops as cu_ops
@@ -214,16 +214,28 @@ def make_flat_client_update(spec: FlatSpec,
 
 def make_flat_round(spec: FlatSpec,
                     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
-                    algo: Algorithm, *, lr: float, k_max: int):
+                    algo: Algorithm, *, lr: float, k_max: int,
+                    compression: Optional[compress.CompressionConfig] = None):
     """``round_fn(state, batches, k_steps, weights, lam=None) -> (state,
     metrics)`` on flat state (core/rounds.py ``init_state``).  ``batches``
     holds ``(M, k_max, B, …)`` tensors, ``k_steps`` is ``(M,)`` integer and
     ``weights`` ``(M,)`` float32, all on the state's device; ``lam`` is a
     host float (default ``algo.lam``).  The round never waits for the
-    device: the returned state and metrics are device tensors."""
+    device: the returned state and metrics are device tensors.
+
+    ``compression`` adds the wire stage (core/compress.py), as the
+    reference's flat round does: the broadcast codec turns params and ν
+    into the anchor x̂ and ν̂ the clients start from, the uplink codec
+    compresses each client's delta x⁽ⁱ⁾ − x̂ and ν transmit, and with the
+    broadcast on the aggregate is re-based onto the true params,
+    x⁺ = x + (agg − x̂), so broadcast error never builds up in the server
+    state.  ``None`` (or all "none") runs the unchanged round."""
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
                                             k_max=k_max)
     aggregate = stages.AGGREGATORS[algo.aggregator]
+    cs = compress.build_stages(compression, spec, algo.uses_nu)
+    down_on = cs is not None and cs.down is not None
+    up_on = cs is not None and cs.up is not None
 
     def round_fn(state: dict, batches: dict, k_steps: torch.Tensor,
                  weights: torch.Tensor, lam: Optional[float] = None):
@@ -234,18 +246,38 @@ def make_flat_round(spec: FlatSpec,
         kbar = torch.dot(weights, kf)
         new_state = dict(state)
 
-        c_all = (state["nu"][None] - state["nu_i"]
+        if down_on:
+            anchor = cs.down(params0, state, new_state)
+            nu_bc = (cs.down_nu(state["nu"], state, new_state)
+                     if algo.uses_nu else None)
+        else:
+            anchor = params0
+            nu_bc = state["nu"] if algo.uses_nu else None
+
+        c_all = (nu_bc[None] - state["nu_i"]
                  if algo.uses_nu else None)                # (M, P)
-        x_i, g0_i, loss0 = client_update(params0, c_all, batches, k_steps,
+        x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
                                          lam)
-        agg = aggregate(params0, x_i, kf, weights, kbar)
+        if cs is not None:
+            d = x_i - anchor[None]
+            if up_on:
+                d = cs.up(d, state, new_state)
+            x_srv = anchor[None] + d
+        else:
+            x_srv = x_i
+        agg = aggregate(anchor, x_srv, kf, weights, kbar)
+        if down_on:
+            agg = (params0.float() + agg.float() - anchor.float()
+                   ).to(spec.dtype)
         new_state["params"] = stages.server_update(algo, state, params0, agg,
                                                    new_state)
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
             transmit, avg_g = stages.orientation_transmit(
-                algo, params0, x_i, g0_i, c_all, kf, kbar, lr, lam)
+                algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            if up_on:
+                transmit = cs.up_nu(transmit, state, new_state)
             new_state["nu"] = tree_wsum(weights, transmit)
             new_state["nu_i"] = avg_g
 

@@ -3,14 +3,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import compress
 from repro_torch.core.fedopt import Algorithm
 
 
-def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm) -> dict:
+def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
+               compression=None, spec=None) -> dict:
     """Server + client state around the ``(P,)`` flat ``params``.  ν/ν⁽ⁱ⁾
     start at zero: the first round runs plain (uncalibrated) local SGD, as
     in the paper, where ν⁽ⁱ⁾ = ∇f_i(x₁) is unknown before any gradient.
-    ``round`` is an int32 device scalar, so no round reads the host."""
+    ``round`` is an int32 device scalar, so no round reads the host.
+
+    With an active ``compression`` (core/compress.py) the error-feedback
+    accumulators are added: ``(M, P)`` rows per uplink quantity, ``(P,)``
+    per broadcast quantity; ``spec`` (a ``FlatSpec``) gives P and the
+    dtype."""
     state = {"params": params,
              "round": torch.zeros((), dtype=torch.int32,
                                   device=params.device)}
@@ -22,4 +29,9 @@ def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm) -> dict:
     elif algo.server_opt == "adam":
         state["server_m"] = torch.zeros_like(params)
         state["server_v"] = torch.zeros_like(params)
+    if compression is not None and compression.active:
+        if spec is None:
+            raise ValueError("compression requires a FlatSpec")
+        compress.init_compression_state(state, compression, n_clients,
+                                        spec.p, spec.dtype, algo.uses_nu)
     return state

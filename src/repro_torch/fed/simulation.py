@@ -8,9 +8,12 @@ eval cadence sets the default chunk size, and ``chunk_rounds=1`` is the
 per-round path.  A chunk computes exactly what the same rounds computed one
 by one.
 
-This slice runs full participation on the flat layout with no scenario,
-compression or defense; a config asking for anything else raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+The port runs full participation on the flat layout with no scenario or
+defense, with or without wire compression (core/compress.py); a config
+asking for anything else raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.  Every run records the wire bytes per round
+(``History.bytes_up`` / ``bytes_down``), at the fp32 cost when compression
+is off.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import engine, flat, rounds
+from repro_torch.core import compress, engine, flat, rounds
 from repro_torch.core.fedopt import get_algorithm
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
@@ -54,10 +57,6 @@ def _check_supported(fed: FedConfig) -> None:
          "buffered asynchronous rounds (buffer_size, ROADMAP A7)"),
         (fed.scenario != "baseline",
          f"scenario={fed.scenario!r} (failure scenarios, ROADMAP A8)"),
-        (fed.compressor != "none" or fed.broadcast_compressor != "none"
-         or fed.quantize_transmit,
-         "wire compression (compressor/broadcast_compressor/"
-         "quantize_transmit, ROADMAP A9)"),
         (fed.defense != "none" or fed.quarantine_window > 0,
          "robust aggregation (defense/quarantine_window, ROADMAP A10)"),
         (fed.master_dtype != "",
@@ -75,6 +74,11 @@ class History:
     metric: list[float] = dataclasses.field(default_factory=list)
     kbar: list[float] = dataclasses.field(default_factory=list)
     wall: list[float] = dataclasses.field(default_factory=list)
+    # wire bytes per round under the configured compressors
+    # (compress.wire_cost × participants), recorded on every run, at the
+    # fp32 cost when compression is off, so runs compare directly
+    bytes_up: list[float] = dataclasses.field(default_factory=list)
+    bytes_down: list[float] = dataclasses.field(default_factory=list)
 
     def rounds_to_target(self, target: float, higher_is_better=True
                          ) -> Optional[int]:
@@ -82,6 +86,16 @@ class History:
             if (v >= target) if higher_is_better else (v <= target):
                 return t + 1
         return None
+
+    def bytes_to_target(self, target: float, higher_is_better=True
+                        ) -> Optional[float]:
+        """Cumulative uplink bytes spent when the eval metric first reaches
+        ``target`` — None if it never does."""
+        r = self.rounds_to_target(target, higher_is_better)
+        if r is None or not self.bytes_up or not self.metric:
+            return None
+        per_eval = max(1, len(self.bytes_up) // len(self.metric))
+        return float(sum(self.bytes_up[:r * per_eval]))
 
 
 class FederatedSimulation:
@@ -120,16 +134,22 @@ class FederatedSimulation:
                                         dtype=torch.float32,
                                         device=self.device))
         self._spec = flat.make_flat_spec(params)
+        # wire compression: None when the config asks for none, and the
+        # round is then the unchanged one
+        self.compression = compress.CompressionConfig.from_fed(fed)
+        self._wire = compress.wire_cost(self._spec.n, self.algo.uses_nu,
+                                        self.compression)
         self.state = rounds.init_state(
             flat.ravel(self._spec, params).to(self.device), fed.n_clients,
-            self.algo)
+            self.algo, compression=self.compression, spec=self._spec)
         self._loss_fn = loss_fn
         self._round: Optional[Callable] = None
         self._chunks: dict[int, Callable] = {}
 
     def _build_round(self) -> Callable:
         return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
-                                    lr=self.fed.lr, k_max=self.k_max)
+                                    lr=self.fed.lr, k_max=self.k_max,
+                                    compression=self.compression)
 
     def _round_fn(self) -> Callable:
         if self._round is None:
@@ -155,6 +175,12 @@ class FederatedSimulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _record_bytes(self, hist: History, r: int) -> None:
+        """Wire traffic of r rounds with every client reporting."""
+        m = self.fed.n_clients
+        hist.bytes_up.extend([m * self._wire["uplink_per_client"]] * r)
+        hist.bytes_down.extend([m * self._wire["downlink_per_client"]] * r)
+
     def _run_round(self, t: int, hist: History) -> None:
         """The chunk_rounds=1 path: one round, one host sync."""
         lam = self._lam(t)
@@ -168,6 +194,7 @@ class FederatedSimulation:
         hist.wall.append(time.perf_counter() - t0)
         hist.loss.append(float(metrics["loss"]))
         hist.kbar.append(float(metrics["kbar"]))
+        self._record_bytes(hist, 1)
 
     def _run_chunk(self, t0: int, r: int, hist: History) -> None:
         chunk_fn = self._chunk_fn(r)
@@ -183,6 +210,7 @@ class FederatedSimulation:
         hist.loss.extend(metrics["loss"].double().tolist())
         hist.kbar.extend(metrics["kbar"].double().tolist())
         hist.wall.extend([dt / r] * r)
+        self._record_bytes(hist, r)
 
     def run(self, t_rounds: int, eval_every: int = 1,
             verbose: bool = False,

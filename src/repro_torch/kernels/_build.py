@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Iterable, Optional
 
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build"
 # the CUDA toolkit's default install prefix, tried after PATH and $CUDA_HOME
@@ -27,9 +29,13 @@ CUDA_HOME_DEFAULT = "/usr/local/cuda"
 SOURCES = {
     "calibrated_update":
         KERNELS_DIR / "calibrated_update" / "csrc" / "calibrated_update.cu",
+    "quantize": KERNELS_DIR / "quantize" / "csrc" / "quantize.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the dtype codes every kernel's C interface takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -115,3 +121,11 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def raise_on_launch_error(rc: int, name: str) -> None:
+    """Raise for a nonzero ``cudaGetLastError()`` code returned by a
+    kernel's C entry point (a launch that was refused never ran)."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{rc} (cudaError_t)")

@@ -21,7 +21,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.calibrated_update import ref
 
 LANES = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"calibrated_update": 0, "calibrated_update_prox": 0}
 
@@ -47,7 +46,7 @@ def _kernels() -> ctypes.CDLL:
 def _check(x: torch.Tensor, eta: torch.Tensor, **operands) -> None:
     if x.dim() != 2 or x.shape[1] % LANES:
         raise ValueError(f"x must be (rows, {LANES}·k), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
@@ -75,12 +74,6 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{rc} (cudaError_t)")
-
-
 def calibrated_update(x: torch.Tensor, g: torch.Tensor,
                       c: Optional[torch.Tensor], eta: torch.Tensor,
                       lam: float) -> torch.Tensor:
@@ -90,10 +83,10 @@ def calibrated_update(x: torch.Tensor, g: torch.Tensor,
         return ref.calibrated_update(x, g, c, eta, lam)
     out = torch.empty_like(x)
     rc = _kernels().calibrated_update(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(), _ptr(c),
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(), _ptr(c),
         eta.data_ptr(), lam, out.data_ptr(), x.shape[0], x.shape[1],
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "calibrated_update")
+    _build.raise_on_launch_error(rc, "calibrated_update")
     launches["calibrated_update"] += 1
     return out
 
@@ -108,9 +101,9 @@ def calibrated_update_prox(x: torch.Tensor, g: torch.Tensor,
         return ref.calibrated_update_prox(x, g, c, x0, eta, lam, mu)
     out = torch.empty_like(x)
     rc = _kernels().calibrated_update_prox(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(), _ptr(c),
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(), _ptr(c),
         x0.data_ptr(), eta.data_ptr(), lam, mu, out.data_ptr(), x.shape[0],
         x.shape[1], torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(rc, "calibrated_update_prox")
+    _build.raise_on_launch_error(rc, "calibrated_update_prox")
     launches["calibrated_update_prox"] += 1
     return out

@@ -1,0 +1,309 @@
+// Wire-compression kernels for Hopper (sm_90a).
+//
+//   quantize_2d:    q  = int8(clip(rint(x / s_row), −qmax, qmax))
+//   dequantize_2d:  x̂ = q · s_row, rounded once to the output type
+//   topk_mask_2d:   x̂ = x · 1[|x| ≥ t_row]
+//
+// Replace the Pallas TPU kernels quantize_2d, dequantize_2d and
+// topk_mask_2d (src/repro/kernels/quantize/kernel.py, lines 41-127).  The
+// compression stage (core/compress.py) calls them on the (rows, P) wire
+// payloads: the clients' deltas and ν transmits (rows = M) and the server
+// broadcast (rows = 1).  The per-row scale and threshold are computed
+// outside, as in the reference (kernels/quantize/ops.py).
+//
+// Contract: x, q and out are (rows, 128·k), contiguous and 16-byte
+// aligned; x and out are float32 or bfloat16, q is int8.  scale / thresh
+// is a (rows,) float32 device tensor (the reference's (rows, 1) operand).
+// qmax is a runtime argument: 127 for int8, 7 for int4 (whose codes ride
+// in the same int8 container).  Arithmetic is float32 and matches the
+// plain PyTorch versions (ref.py) bit for bit:
+//   - the division is IEEE x / s (__fdiv_rn), not a multiplication by 1/s;
+//   - rintf rounds half to even, like jnp.round and torch.round (roundf
+//     would round half away from zero and differ on every .5 tie);
+//   - the clip is in float32 and the cast to int8 comes after it;
+//   - the product q · s is one rounding (__fmul_rn), then one rounding to
+//     the output type (round to nearest even for bfloat16);
+//   - the mask keeps ties (|x| == t) and writes +0.0 where it masks; a NaN
+//     compares false and becomes 0, as jnp.where does.
+// The file is compiled without --use_fast_math.  A NaN input to
+// quantize_2d gives −qmax (fmaxf drops the NaN); the reference's int8
+// cast of a NaN is platform-defined, so no caller relies on either.
+//
+// Bound on the card: bytes.  A handful of float32 operations per element
+// against 4 + 1 bytes (quantize, float32 in), 1 + 4 bytes (dequantize,
+// float32 out) or 4 + 4 bytes (mask) per element at 3.35 TB/s on an H100
+// SXM.  Design for that bound, as in calibrated_update.cu: a grid-stride
+// elementwise loop, each thread moving one 16-byte vector of the float
+// operand per iteration (4 float32 or 8 bfloat16) and the matching 4 or 8
+// bytes of codes, neighbouring threads on neighbouring addresses, at most
+// 8 blocks of 256 threads per SM.  Since cols is a multiple of 128, a
+// vector never straddles two rows, so each vector reads one scale.
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;
+
+// One 16-byte vector of the float operand, unpacked to float32.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  using Raw = float4;
+  __device__ static void unpack(const Raw& r, float (&f)[N]) {
+    f[0] = r.x;
+    f[1] = r.y;
+    f[2] = r.z;
+    f[3] = r.w;
+  }
+  __device__ static Raw pack(const float (&f)[N]) {
+    return make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  using Raw = uint4;
+  __device__ static void unpack(const Raw& r, float (&f)[N]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static Raw pack(const float (&f)[N]) {
+    Raw r;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    }
+    return r;
+  }
+};
+
+// The N int8 codes that belong to one vector: 4 bytes beside a float32
+// vector, 8 beside a bfloat16 one; byte j holds code j (little endian).
+template <int N>
+struct Codes;
+
+template <>
+struct Codes<4> {
+  using Raw = unsigned int;
+  __device__ static Raw pack(const int (&c)[4]) {
+    Raw r = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r |= (static_cast<Raw>(c[j]) & 0xffu) << (8 * j);
+    }
+    return r;
+  }
+  __device__ static void unpack(Raw r, float (&f)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[j] = static_cast<float>(static_cast<int8_t>((r >> (8 * j)) & 0xffu));
+    }
+  }
+};
+
+template <>
+struct Codes<8> {
+  using Raw = uint2;
+  __device__ static Raw pack(const int (&c)[8]) {
+    const int lo[4] = {c[0], c[1], c[2], c[3]};
+    const int hi[4] = {c[4], c[5], c[6], c[7]};
+    return make_uint2(Codes<4>::pack(lo), Codes<4>::pack(hi));
+  }
+  __device__ static void unpack(Raw r, float (&f)[8]) {
+    float lo[4], hi[4];
+    Codes<4>::unpack(r.x, lo);
+    Codes<4>::unpack(r.y, hi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[j] = lo[j];
+      f[4 + j] = hi[j];
+    }
+  }
+};
+
+__device__ __forceinline__ int quantize_one(float x, float s, float qmax) {
+  const float r = rintf(__fdiv_rn(x, s));
+  return __float2int_rn(fminf(fmaxf(r, -qmax), qmax));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    quantize_kernel(const typename Vec<T>::Raw* __restrict__ x,
+                    const float* __restrict__ scale, float qmax,
+                    typename Codes<Vec<T>::N>::Raw* __restrict__ q,
+                    int64_t n_vec, int64_t vec_per_row) {
+  using V = Vec<T>;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const float s = __ldg(scale + i / vec_per_row);
+    float f[V::N];
+    int c[V::N];
+    V::unpack(__ldg(x + i), f);
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) c[j] = quantize_one(f[j], s, qmax);
+    q[i] = Codes<V::N>::pack(c);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dequantize_kernel(const typename Codes<Vec<T>::N>::Raw* __restrict__ q,
+                      const float* __restrict__ scale,
+                      typename Vec<T>::Raw* __restrict__ out, int64_t n_vec,
+                      int64_t vec_per_row) {
+  using V = Vec<T>;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const float s = __ldg(scale + i / vec_per_row);
+    float f[V::N];
+    Codes<V::N>::unpack(__ldg(q + i), f);
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) f[j] = __fmul_rn(f[j], s);
+    out[i] = V::pack(f);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    topk_mask_kernel(const typename Vec<T>::Raw* __restrict__ x,
+                     const float* __restrict__ thresh,
+                     typename Vec<T>::Raw* __restrict__ out, int64_t n_vec,
+                     int64_t vec_per_row) {
+  using V = Vec<T>;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride) {
+    const float t = __ldg(thresh + i / vec_per_row);
+    float f[V::N];
+    V::unpack(__ldg(x + i), f);
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) f[j] = fabsf(f[j]) >= t ? f[j] : 0.0f;
+    out[i] = V::pack(f);
+  }
+}
+
+// Blocks for n_vec vectors: one vector per thread, capped at kBlocksPerSm
+// blocks per SM (the grid-stride loop covers the rest).
+cudaError_t grid_for(int64_t n_vec, unsigned int* blocks) {
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err != cudaSuccess) return err;
+  int64_t b = (n_vec + kThreads - 1) / kThreads;
+  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
+  if (b > cap) b = cap;
+  *blocks = static_cast<unsigned int>(b);
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_quantize(const void* x, const float* scale, float qmax, void* q,
+                    int64_t rows, int64_t cols, cudaStream_t stream) {
+  using V = Vec<T>;
+  const int64_t vec_per_row = cols / V::N;
+  const int64_t n_vec = rows * vec_per_row;
+  if (n_vec == 0) return static_cast<int>(cudaSuccess);
+  unsigned int blocks = 0;
+  const cudaError_t err = grid_for(n_vec, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  quantize_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const typename V::Raw*>(x), scale, qmax,
+      static_cast<typename Codes<V::N>::Raw*>(q), n_vec, vec_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dequantize(const void* q, const float* scale, void* out,
+                      int64_t rows, int64_t cols, cudaStream_t stream) {
+  using V = Vec<T>;
+  const int64_t vec_per_row = cols / V::N;
+  const int64_t n_vec = rows * vec_per_row;
+  if (n_vec == 0) return static_cast<int>(cudaSuccess);
+  unsigned int blocks = 0;
+  const cudaError_t err = grid_for(n_vec, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dequantize_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const typename Codes<V::N>::Raw*>(q), scale,
+      static_cast<typename V::Raw*>(out), n_vec, vec_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_topk_mask(const void* x, const float* thresh, void* out,
+                     int64_t rows, int64_t cols, cudaStream_t stream) {
+  using V = Vec<T>;
+  const int64_t vec_per_row = cols / V::N;
+  const int64_t n_vec = rows * vec_per_row;
+  if (n_vec == 0) return static_cast<int>(cudaSuccess);
+  unsigned int blocks = 0;
+  const cudaError_t err = grid_for(n_vec, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  topk_mask_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const typename V::Raw*>(x), thresh,
+      static_cast<typename V::Raw*>(out), n_vec, vec_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype codes (those of ops.py): 0 = float32, 1 = bfloat16.  Every entry
+// point launches on `stream`, does not synchronise, allocates nothing, and
+// returns cudaGetLastError() after the launch (0 = success).
+extern "C" int quantize_2d(int dtype, const void* x, const float* scale,
+                           float qmax, void* q, long long rows,
+                           long long cols, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_quantize<float>(x, scale, qmax, q, rows, cols, s);
+  }
+  if (dtype == 1) {
+    return launch_quantize<__nv_bfloat16>(x, scale, qmax, q, rows, cols, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int dequantize_2d(int out_dtype, const void* q, const float* scale,
+                             void* out, long long rows, long long cols,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0) {
+    return launch_dequantize<float>(q, scale, out, rows, cols, s);
+  }
+  if (out_dtype == 1) {
+    return launch_dequantize<__nv_bfloat16>(q, scale, out, rows, cols, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int topk_mask_2d(int dtype, const void* x, const float* thresh,
+                            void* out, long long rows, long long cols,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch_topk_mask<float>(x, thresh, out, rows, cols, s);
+  }
+  if (dtype == 1) {
+    return launch_topk_mask<__nv_bfloat16>(x, thresh, out, rows, cols, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -65,7 +65,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
 @pytest.mark.parametrize("field,value,item", [
     ("param_layout", "tree", "A2"), ("cohort_size", 1, "A6"),
     ("buffer_size", 1, "A7"), ("scenario", "dropout", "A8"),
-    ("compressor", "int8", "A9"), ("defense", "median", "A10"),
+    ("quarantine_window", 1, "A10"), ("defense", "median", "A10"),
     ("master_dtype", "float32", "A3")])
 def test_unported_config_fields_raise(field, value, item):
     data, parts = _small_task()

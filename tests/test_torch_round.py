@@ -172,6 +172,6 @@ def test_state_carried_from_jax_resumes(algorithm, server_opt):
 
 def test_carrying_unported_state_raises():
     state = {"params": np.zeros(128, np.float32), "round": np.int32(0),
-             "ef_up": np.zeros((M, 128), np.float32)}
-    with pytest.raises(NotImplementedError, match="ef_up"):
+             "hz_until": np.zeros((M,), np.int32)}
+    with pytest.raises(NotImplementedError, match="hz_until"):
         convert.flat_state_from_numpy(state, "cpu")
