@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Four phases, each printing JSON lines; any failure exits non-zero.
+Six phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -31,12 +31,31 @@ Four phases, each printing JSON lines; any failure exits non-zero.
    launch counts), the recorded wire bytes must equal the bytes model, and
    the trajectory must match the same run on the CPU.
 
-Then a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device":
-{...}}``.  Without a CUDA device, or without the repository beside it, the
+5. attention kernel — the flash-attention forward kernel against its plain
+   version on the card, float32 and bfloat16, ``o`` and ``lse``, at the
+   serving path's shapes (llama3-8b at the largest prefill bucket, a
+   ragged bucket fill), ragged MHA, gemma-2b's MQA with head dim 256, a
+   sliding window, and one long shape; ``kernel_time`` lines at the
+   path's shape and the long shape, with the bound and the time of
+   ``scaled_dot_product_attention`` as a yardstick (the port never calls
+   it).
+6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
+   (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
+   bfloat16, random weights from a seed: 8 requests whose prompts cover
+   every prefill bucket, 4 slots, max_len 512.  Every prefill's 32
+   attention calls must launch the kernel and no decode tick may; prints
+   time to first token, prefill and decode tokens/s and wall per tick.
+   Then the same model in float32, cut to 2 layers, serves 4 requests on
+   the card and is held against the CPU teacher-forced with the card's
+   tokens.
+
+Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
+last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,6 +103,31 @@ COMPRESSED_RUNS = (
       for comp in ("int8", "int4", "topk", "topk+int8")),
     ("lr", "fedagrac", "topk+int8", "int8"),
     ("mlp", "fedavg", "none", "none"), ("mlp", "fedavg", "topk+int8", "none"))
+# Phase 5's shapes (B, S, H, Hkv, D, window): llama3-8b at the engine's
+# largest prefill bucket and at a ragged bucket fill, ragged MHA, gemma-2b's
+# MQA and head dim, a sliding window, and the long shape for timing
+ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
+               (2, 77, 4, 4, 64, 0), (1, 128, 8, 1, 256, 0),
+               (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0)]
+ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
+ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0)]
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+# The kernel sums the plain version's float32 terms in another order:
+# float32 o and lse agree to ~1e-6 relative; a bfloat16 o is that float32
+# value rounded once, so the two may land one bf16 ulp (≤ 2⁻⁷·|o|) apart.
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# Phase 6: the engine's settings, and the card-against-CPU tolerance on
+# float32 logits (std ≈ 1.3 with these random weights): cuBLAS and the
+# CPU's BLAS sum dot products of up to 14336 float32 terms in other
+# orders, ~1e-5 relative per layer; 1e-3 leaves an order of magnitude.
+SERVE = {"slots": 4, "max_len": 512, "prefill_buckets": (32, 64, 128, 256)}
+# (lowest, highest) prompt length of the timing run's 8 requests: every
+# bucket twice, one prompt of 200-256 tokens
+SERVE_PROMPTS = [(8, 32), (33, 64), (65, 128), (200, 256), (16, 32),
+                 (40, 64), (90, 128), (129, 199)]
+SERVE_CHECK_PROMPTS = [(20, 32), (50, 64), (100, 128), (200, 256)]
+LOGIT_TOL = 1e-3
+
 # quantize-kernel launches of one codec call
 CODEC_LAUNCHES = {
     "none": {}, "int8": {"quantize_2d": 1, "dequantize_2d": 1},
@@ -432,11 +476,21 @@ def _run_main_path(device: str, algorithms, data, parts, params0,
     return out
 
 
-def _reset_all_launches() -> None:
+def _launch_counters() -> list:
     from repro_torch.kernels.calibrated_update import ops as cu_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
-    cu_ops.reset_launches()
-    q_ops.reset_launches()
+    return [cu_ops, q_ops, fa_ops]
+
+
+def _reset_all_launches() -> None:
+    for mod in _launch_counters():
+        mod.reset_launches()
+
+
+def _all_launches() -> dict:
+    return {name: n for mod in _launch_counters()
+            for name, n in mod.launches.items()}
 
 
 def phase_main_path() -> dict:
@@ -607,16 +661,329 @@ def phase_compressed_path() -> dict:
     return launches
 
 
+def _band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask lets through: what this run's
+    attention must compute."""
+    qp = np.arange(Sq)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attn_bound(q, k, v, window) -> tuple[float, str]:
+    """The least time for one attention call: every input read once and
+    o and lse written once, or 2·(Dqk + Dv) operations per visible pair
+    and head at the peak of the input type, whichever is larger."""
+    B, Sq, H, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[3]
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+        + B * Sq * H * Dv * q.element_size() + B * H * Sq * 4
+    ops = 2 * (D + Dv) * B * H * _band_pairs(Sq, Skv, True, window)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_attention_kernel() -> dict:
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    result = {"max_abs_err": 0.0}
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ATTN_SHAPES:
+            B, S, H, Hkv, D, window = shape
+            q, k, v = (torch.randn(B, S, h, D, generator=gen, device=DEVICE
+                                   ).to(dtype) for h in (H, Hkv, Hkv))
+            o, lse = ops.flash_attention_fwd(q, k, v, causal=True,
+                                             window=window)
+            want_o, want_lse = ref.attention_fwd(q, k, v, causal=True,
+                                                 window=window)
+            torch.cuda.synchronize()
+            err_o = (o.float() - want_o.float()).abs()
+            if dtype == torch.float32:
+                tol_o = ATTN_TOL[dtype] * (1 + want_o.abs())
+            else:
+                tol_o = ATTN_TOL[dtype] * torch.maximum(
+                    o.float().abs(), want_o.float().abs()) + 1e-6
+            err_lse = (lse - want_lse).abs()
+            tol_lse = ATTN_TOL[torch.float32] * (1 + want_lse.abs())
+            max_o, max_lse = float(err_o.max()), float(err_lse.max())
+            _require(bool((err_o <= tol_o).all())
+                     and bool((err_lse <= tol_lse).all())
+                     and bool(torch.isfinite(o).all()),
+                     f"flash_attention_fwd {dtype} {shape}: max |err| o "
+                     f"{max_o}, lse {max_lse}")
+            result["max_abs_err"] = max(result["max_abs_err"], max_o)
+            checks.append({"kernel": "flash_attention_fwd",
+                           "dtype": str(dtype), "shape": shape,
+                           "max_abs_err_o": max_o, "max_abs_err_lse": max_lse,
+                           "tol": ATTN_TOL[dtype]})
+            del want_o, want_lse, err_o, tol_o
+            if shape in ATTN_TIMED:
+                iters = 200 if S <= 256 else 5
+                bound_ms, bound_by = _attn_bound(q, k, v, window)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                timing = {
+                    "kernel": "flash_attention_fwd", "dtype": str(dtype),
+                    "shape": shape,
+                    "ms": _time_ms(lambda: ops.flash_attention_fwd(
+                        q, k, v, causal=True, window=window), iters),
+                    "plain_ms": _time_ms(lambda: ref.attention_fwd(
+                        q, k, v, causal=True, window=window), iters),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": _time_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True),
+                        iters)}
+                _emit({"phase": "kernel_time", **timing})
+                if dtype == torch.bfloat16 and shape == ATTN_PATH_SHAPE:
+                    result.update({key: timing[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")})
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
+    _emit({"phase": "attention_kernel", "checks": len(checks),
+           "max_abs_err": result["max_abs_err"],
+           "worst": max(checks, key=lambda ch: ch["max_abs_err_o"])})
+    return result
+
+
+def _serve_requests(prompts, max_new, vocab: int, seed: int) -> list:
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(
+                        1, vocab, int(rng.integers(lo, hi + 1))
+                    ).astype(np.int32),
+                    max_new_tokens=int(rng.integers(max_new[0],
+                                                     max_new[1] + 1)))
+            for i, (lo, hi) in enumerate(prompts)]
+
+
+def _timed_engine_class():
+    """``ServeEngine`` that times its admissions and ticks (each ends in a
+    host read of the sampled tokens, so the host clock covers the device
+    work), counts attention-kernel launches in each, checks every logits
+    tensor is finite, and can record the logits each token came from."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.serving import ServeEngine
+
+    class TimedEngine(ServeEngine):
+        def __init__(self, *args, record: bool = False, **kw):
+            super().__init__(*args, **kw)
+            self.record = record
+            self.logits: dict[int, list] = {}
+            self.first_token_s: dict[int, float] = {}
+            self.admit_s, self.tick_s = [], []
+            self.admissions = 0
+            self.prefill_tokens = self.padded_tokens = 0
+            self.decode_tokens = 0
+            self.admit_launches = self.tick_launches = 0
+            self.t0 = time.perf_counter()
+
+        def _admit(self):
+            before = ops.launches["flash_attention_fwd"]
+            t0 = time.perf_counter()
+            super()._admit()
+            self.admit_s.append(time.perf_counter() - t0)
+            self.admit_launches += ops.launches["flash_attention_fwd"] \
+                - before
+
+        def _sample(self, logits, rows, uids, steps):
+            out = super()._sample(logits, rows, uids, steps)
+            now = time.perf_counter() - self.t0    # the tokens are on the host
+            for uid, step in zip(uids, steps):
+                if step == 0:
+                    self.first_token_s[uid] = now
+            return out
+
+        def _tick(self):
+            before = ops.launches["flash_attention_fwd"]
+            live = sum(a is not None for a in self.active)
+            t0 = time.perf_counter()
+            super()._tick()
+            if live:
+                self.tick_s.append(time.perf_counter() - t0)
+                self.decode_tokens += live
+            self.tick_launches += ops.launches["flash_attention_fwd"] \
+                - before
+
+        def _prefill_slot(self, s, req, toks, caches):
+            logits, single = super()._prefill_slot(s, req, toks, caches)
+            _require(bool(torch.isfinite(logits).all()),
+                     f"request {req.uid}: non-finite prefill logits")
+            self.admissions += 1
+            self.prefill_tokens += len(req.prompt)
+            self.padded_tokens += toks.shape[1]
+            if self.record:
+                self.logits[req.uid] = [
+                    logits[0, len(req.prompt) - 1].float().cpu()]
+            return logits, single
+
+        def _decode_tick(self, toks, live):
+            logits = super()._decode_tick(toks, live)
+            _require(bool(torch.isfinite(logits).all()),
+                     "non-finite decode logits")
+            if self.record:
+                rows = logits.float().cpu()
+                for s in live:
+                    self.logits[self.active[s].uid].append(rows[s])
+            return logits
+
+    return TimedEngine
+
+
+def _serve_stats(eng, reqs, wall_s: float) -> dict:
+    done = {c.uid: c for c in eng.done}
+    _require(sorted(done) == [r.uid for r in reqs],
+             f"served {sorted(done)} of {len(reqs)} requests")
+    for r in reqs:
+        toks = done[r.uid].tokens
+        _require(len(toks) == r.max_new_tokens
+                 and all(0 <= t < eng.cfg.vocab for t in toks),
+                 f"request {r.uid}: {len(toks)} tokens, expected "
+                 f"{r.max_new_tokens} ids below {eng.cfg.vocab}")
+    return {"requests": len(reqs), "admissions": eng.admissions,
+            "ticks": eng.ticks, "wall_s": wall_s,
+            "ttft_s": [eng.first_token_s[r.uid] for r in reqs],
+            "prompt_tokens": eng.prefill_tokens,
+            "padded_prefill_tokens": eng.padded_tokens,
+            "prefill_s": float(np.sum(eng.admit_s)),
+            "prefill_tokens_per_s": eng.prefill_tokens
+            / float(np.sum(eng.admit_s)),
+            "decode_tokens": eng.decode_tokens,
+            "decode_s": float(np.sum(eng.tick_s)),
+            "decode_tokens_per_s": eng.decode_tokens
+            / float(np.sum(eng.tick_s)),
+            "wall_per_tick_s": float(np.mean(eng.tick_s)),
+            "wall_per_tick_p50_s": float(np.median(eng.tick_s)),
+            "flash_launches_prefill": eng.admit_launches,
+            "flash_launches_decode": eng.tick_launches}
+
+
+def _serve(cfg, params, reqs, device, record=False):
+    engine_cls = _timed_engine_class()
+    eng = engine_cls(cfg, params, device=device, record=record, **SERVE)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.t0 = t0
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_serving(cfg=None, check_cfg=None) -> dict:
+    """The timing run at full width and depth in bfloat16, then the
+    float32 card-against-CPU check.  Returns the kernels' launch counts
+    of the timing run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model as model_lib
+    cfg = cfg or dataclasses.replace(get_arch("llama3-8b"), dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    tree_map(leaves.append, params)
+    # warm-up (cuBLAS handles, allocator) outside the counted run
+    _serve(cfg, params, _serve_requests([(8, 32)], (2, 2), cfg.vocab, 99),
+           DEVICE)
+    reqs = _serve_requests(SERVE_PROMPTS, (16, 32), cfg.vocab, 0)
+    _reset_all_launches()
+    eng, wall = _serve(cfg, params, reqs, DEVICE)
+    launches = _all_launches()
+    stats = _serve_stats(eng, reqs, wall)
+    want = cfg.n_layers * eng.admissions
+    _require(launches["flash_attention_fwd"] == want
+             and eng.admit_launches == want and eng.tick_launches == 0,
+             f"flash_attention_fwd launches: {eng.admit_launches} in "
+             f"prefills, {eng.tick_launches} in decode ticks; expected "
+             f"{want} ({cfg.n_layers} layers × {eng.admissions} "
+             f"admissions) and 0")
+    _emit({"phase": "serving", "model": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers,
+           "params": sum(t.numel() for t in leaves),
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "init_s": init_s, **SERVE,
+           "max_new_tokens": [r.max_new_tokens for r in reqs],
+           "prompt_lens": [len(r.prompt) for r in reqs], **stats,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del eng, params, leaves
+    torch.cuda.empty_cache()
+
+    check_cfg = check_cfg or dataclasses.replace(get_arch("llama3-8b"),
+                                                 n_layers=2)
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(1), check_cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    reqs = _serve_requests(SERVE_CHECK_PROMPTS, (8, 12), check_cfg.vocab, 1)
+    eng, wall = _serve(check_cfg, params, reqs, DEVICE, record=True)
+    _serve_stats(eng, reqs, wall)
+    _require(eng.admit_launches == check_cfg.n_layers * eng.admissions
+             and eng.tick_launches == 0,
+             f"check run: {eng.admit_launches} / {eng.tick_launches} "
+             f"attention launches in prefill / decode")
+    worst, clear_tokens, near_ties = 0.0, 0, 0
+    with torch.inference_mode():
+        for c in eng.done:
+            r = next(r for r in reqs if r.uid == c.uid)
+            seq = np.concatenate([r.prompt, np.asarray(c.tokens[:-1],
+                                                       np.int32)])
+            ref = model_lib.forward(
+                cpu_params, {"tokens": torch.from_numpy(seq)[None].long()},
+                check_cfg)[0][0, len(r.prompt) - 1:]
+            got = torch.stack(eng.logits[c.uid])
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            _require(err <= LOGIT_TOL,
+                     f"request {c.uid}: card logits differ from the CPU's "
+                     f"by {err} > {LOGIT_TOL}")
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+            toks = torch.tensor(c.tokens)
+            _require(torch.equal(toks[clear], ref.argmax(-1)[clear]),
+                     f"request {c.uid}: a token differs from the CPU's "
+                     f"argmax where its margin exceeds {2 * LOGIT_TOL}")
+            clear_tokens += int(clear.sum())
+            near_ties += int((~clear).sum())
+    _emit({"phase": "serving_vs_cpu", "model": check_cfg.name,
+           "dtype": check_cfg.dtype, "n_layers": check_cfg.n_layers,
+           "requests": len(reqs), "admissions": eng.admissions,
+           "max_abs_logit_err": worst, "tol": LOGIT_TOL,
+           "tokens_checked": clear_tokens, "near_ties": near_ties,
+           "wall_s": wall})
+    del eng, params, cpu_params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    phase_env()
-    timings = phase_kernels()
-    timings.update(phase_wire_kernels())
-    launches = phase_main_path()
-    launches.update(phase_compressed_path())
+    t_start = time.perf_counter()
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        _emit({"phase_time": name, "s": time.perf_counter() - t0})
+        return out
+
+    timed("env", phase_env)
+    timings = timed("kernels", phase_kernels)
+    timings.update(timed("wire_kernels", phase_wire_kernels))
+    timings["flash_attention_fwd"] = timed("attention_kernel",
+                                           phase_attention_kernel)
+    launches = timed("main_path", phase_main_path)
+    launches.update(timed("compressed_path", phase_compressed_path))
+    launches["flash_attention_fwd"] = timed(
+        "serving", phase_serving)["flash_attention_fwd"]
+    _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
     sources = {"calibrated_update": (
         "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
@@ -629,7 +996,10 @@ def main() -> int:
         "dequantize_2d": (quantize_src,
                           "src/repro/kernels/quantize/kernel.py:94"),
         "topk_mask_2d": (quantize_src,
-                         "src/repro/kernels/quantize/kernel.py:117")}
+                         "src/repro/kernels/quantize/kernel.py:117"),
+        "flash_attention_fwd": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:113")}
     _emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timings[name]}

@@ -1,3 +1,6 @@
-from repro_torch.configs.base import FedConfig
+from repro_torch.configs.base import (FedConfig, MLAConfig, MoEConfig,
+                                      ModelConfig, SSMConfig, XLSTMConfig,
+                                      reduced)
 
-__all__ = ["FedConfig"]
+__all__ = ["FedConfig", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
+           "XLSTMConfig", "reduced"]

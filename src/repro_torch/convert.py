@@ -1,7 +1,8 @@
 """Weights and round state carried across from the JAX package.
 
 The caller hands over numpy arrays (``np.asarray`` of the JAX values), so
-this module needs nothing of JAX.  Flat buffers keep their layout: the port
+this module needs nothing of JAX.  LM parameter trees and KV caches keep
+the reference's tree (``models/model.py``), so they cross as they are.  Flat buffers keep their layout: the port
 lays leaves out in the same order with the same padding (core/flat.py), so
 a JAX run's flat state resumes in the port as it is.
 """
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compress import EF_KEYS
+from repro_torch.core.tree_util import tree_map
 
 Device = Union[str, torch.device]
 
@@ -33,10 +35,9 @@ def tensor_from_numpy(a: Any, device: Device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device: Device) -> Any:
-    """A (nested) dict of numpy arrays → the same dict of tensors."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device)
+    """A tree of dicts and lists of numpy arrays → the same tree of
+    tensors, bit for bit."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
 def flat_state_from_numpy(state: dict, device: Device) -> dict:
@@ -53,3 +54,24 @@ def flat_state_from_numpy(state: dict, device: Device) -> dict:
     out = {k: tensor_from_numpy(v, device) for k, v in state.items()}
     out["round"] = out["round"].to(torch.int32).reshape(())
     return out
+
+
+def lm_params_from_numpy(tree: dict, device: Device) -> dict:
+    """A JAX LM parameter tree (``repro.models.model.init_params``, numpy
+    leaves, float32 or bfloat16) → the port's: ``{"segments": [...],
+    "embed", "head"?, "final_norm"}`` with layer leaves stacked
+    ``(n_groups, count, …)``.  Raises on the trees of parts the port does
+    not run yet (the shared hybrid block, multi-codebook heads)."""
+    unknown = sorted(set(tree) - {"segments", "embed", "head", "final_norm"})
+    if unknown:
+        raise NotImplementedError(
+            f"parameter keys {unknown} belong to model parts the PyTorch "
+            f"port does not run yet (ROADMAP A12)")
+    return params_from_numpy(tree, device)
+
+
+def lm_caches_from_numpy(caches: list, device: Device) -> list:
+    """A JAX KV-cache list (``repro.models.model.init_caches`` or a
+    prefill's output; one dict per segment with ``k``/``v``/``pos``/
+    ``idx`` stacked ``(n_groups, count, B, …)``) → the port's."""
+    return [params_from_numpy(c, device) for c in caches]

@@ -30,6 +30,8 @@ SOURCES = {
     "calibrated_update":
         KERNELS_DIR / "calibrated_update" / "csrc" / "calibrated_update.cu",
     "quantize": KERNELS_DIR / "quantize" / "csrc" / "quantize.cu",
+    "flash_attention":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,0 +1,72 @@
+"""Residual blocks (``repro.models.blocks`` counterpart) with the uniform
+``(params, cache)`` calling convention of the reference.  The port runs the
+attention kinds with a dense MLP; Mamba2, mLSTM, sLSTM and MoE blocks are
+not ported yet (ROADMAP A12) and raise ``NotImplementedError``."""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import apply_norm, init_norm
+from repro_torch.models.mlp import init_mlp, mlp
+
+Params = dict[str, Any]
+
+ATTN_KINDS = ("attn", "attn_local", "attn_global")
+UNPORTED_KINDS = {"mamba2": "Mamba2", "mlstm": "mLSTM", "slstm": "sLSTM"}
+
+
+def _refuse(kind: str, cfg: ModelConfig) -> None:
+    if kind in UNPORTED_KINDS:
+        raise NotImplementedError(
+            f"{UNPORTED_KINDS[kind]} blocks are not ported yet "
+            f"(ROADMAP A12)")
+    if kind not in ATTN_KINDS:
+        raise ValueError(kind)
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "MoE feed-forward blocks are not ported yet (ROADMAP A12)")
+
+
+def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
+               dtype: torch.dtype, lead: tuple[int, ...] = ()) -> Params:
+    _refuse(kind, cfg)
+    dev = generator.device
+    p = {
+        "norm1": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
+        "attn": attn_mod.init_attention(generator, cfg, dtype, lead),
+        "norm2": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
+    }
+    if cfg.d_ff:
+        p["mlp"] = init_mlp(generator, cfg, dtype, lead=lead)
+    return p
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype: torch.dtype, device,
+                     lead: tuple[int, ...] = ()) -> Params:
+    _refuse(kind, cfg)
+    return attn_mod.init_cache(cfg, batch, max_len, dtype, device,
+                               window_only=(kind == "attn_local"), lead=lead)
+
+
+def apply_block(params: Params, kind: str, x: torch.Tensor,
+                cfg: ModelConfig, *, angles, q_pos,
+                cache: Optional[Params]
+                ) -> tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss)."""
+    _refuse(kind, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
+    is_global = kind != "attn_local" if cfg.sliding_window else True
+    a, new_cache = attn_mod.attention(
+        params["attn"], h, cfg, angles=angles, q_pos=q_pos,
+        is_global=is_global, cache=cache)
+    x = x + a
+    if cfg.d_ff:
+        h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+        x = x + mlp(params["mlp"], h, cfg)
+    return x, new_cache, aux

@@ -1,9 +1,185 @@
-"""Losses shared by the port's models (``repro.models.model`` counterpart;
-the LM stack waits for a later slice)."""
+"""LM assembly and losses (``repro.models.model`` counterpart): embeddings →
+block segments → head.
+
+Parameters and caches keep the reference's tree, ``{"segments": [...],
+"embed", "head", "final_norm"}`` and one cache dict per segment, with
+every layer leaf stacked ``(n_groups, count, …)``, so weights carried
+across from JAX (``convert.lm_params_from_numpy``) drop in as they are.
+The reference's ``lax.scan`` over the stack is a Python loop over
+``(group, layer)`` views of the same tensors.
+
+The port runs the text front end and uniform attention stacks (dense MHA /
+GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings).  It refuses with
+``NotImplementedError`` what it does not run yet (ROADMAP A12): sliding-
+window / local-global layers, hybrid, SSM and xLSTM stacks, MoE, MLA, and
+the audio and vision front ends.
+"""
 from __future__ import annotations
+
+from typing import Any, Optional, Union
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree_util import tree_map
+from repro_torch.models.blocks import (apply_block, init_block,
+                                       init_block_cache)
+from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
+                                       rope_angles)
+
+Params = dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the port does not
+    run yet, naming its ROADMAP item."""
+    unported = [
+        (cfg.sliding_window > 0, "sliding-window / local-global attention"),
+        (cfg.hybrid_attn_every > 0, "hybrid Mamba2 + attention stacks"),
+        (cfg.xlstm is not None, "xLSTM stacks"),
+        (cfg.ssm is not None or cfg.family == "ssm", "SSM (Mamba2) stacks"),
+        (cfg.moe is not None, "MoE feed-forward"),
+        (cfg.mla is not None, "MLA attention"),
+        (cfg.frontend != "none", f"the {cfg.frontend} front end"),
+    ]
+    for hit, what in unported:
+        if hit:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported yet (ROADMAP A12)")
+
+
+def group_spec(cfg: ModelConfig) -> tuple[list[tuple[str, int, bool]], int]:
+    """The reference's segment layout: [(kind, count, shared)] per group,
+    and the number of groups."""
+    if cfg.hybrid_attn_every:
+        e = cfg.hybrid_attn_every
+        assert cfg.n_layers % e == 0, (cfg.n_layers, e)
+        return ([("mamba2", e, False), ("attn", 1, cfg.hybrid_shared_attn)],
+                cfg.n_layers // e)
+    if cfg.xlstm is not None:
+        e = cfg.xlstm.slstm_every
+        assert cfg.n_layers % e == 0
+        return [("mlstm", e - 1, False), ("slstm", 1, False)], cfg.n_layers // e
+    if cfg.sliding_window and cfg.global_every:
+        e = cfg.global_every
+        assert cfg.n_layers % e == 0
+        return ([("attn_local", e - 1, False), ("attn_global", 1, False)],
+                cfg.n_layers // e)
+    kind = "mamba2" if (cfg.family == "ssm" and cfg.xlstm is None) else "attn"
+    return [(kind, 1, False)], cfg.n_layers
+
+
+def _dtype(cfg: ModelConfig, dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, dtype or cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(generator: torch.Generator, cfg: ModelConfig,
+                dtype: Union[str, torch.dtype, None] = None,
+                device=None) -> Params:
+    """Random weights drawn on ``generator``'s device (a CUDA generator
+    makes a full-size model on the card in seconds), then moved to
+    ``device`` if another one is given."""
+    check_supported(cfg)
+    dt = _dtype(cfg, dtype)
+    segments, n_groups = group_spec(cfg)
+    params: Params = {"segments": [
+        init_block(generator, kind, cfg, dt, lead=(n_groups, count))
+        for kind, count, _shared in segments]}
+    params["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(generator, cfg.d_model, cfg.vocab, dt)
+    params["final_norm"] = init_norm(cfg.d_model, cfg.norm, dt,
+                                     generator.device)
+    if device is not None:
+        params = tree_map(lambda t: t.to(device), params)
+    return params
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: Union[str, torch.dtype, None] = None,
+                device=None) -> list:
+    check_supported(cfg)
+    dt = _dtype(cfg, dtype)
+    segments, n_groups = group_spec(cfg)
+    return [init_block_cache(kind, cfg, batch, max_len, dt, device,
+                             lead=(n_groups, count))
+            for kind, count, _shared in segments]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _row_positions(B: int, S: int, pos_offset, device) -> torch.Tensor:
+    """(B, S) int32 absolute positions from a scalar or per-row (B,)
+    offset — per-row offsets let a continuous-batching engine hold requests
+    at different phases in one cache pool (serving/engine.py)."""
+    off = torch.as_tensor(pos_offset, dtype=torch.int32, device=device)
+    if off.dim() == 0:
+        off = off[None].expand(B)
+    return off[:, None] + torch.arange(S, dtype=torch.int32,
+                                       device=device)[None]
+
+
+def _embed(params: Params, batch: dict, cfg: ModelConfig, pos_offset):
+    tokens = batch["tokens"]
+    B, S = tokens.shape[0], tokens.shape[-1]
+    h = params["embed"][tokens.long()]
+    q_pos = _row_positions(B, S, pos_offset, h.device)
+    angles = rope_angles(q_pos, cfg.resolved_head_dim, cfg.rope_theta)
+    return h, q_pos, angles
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig, *,
+            caches: Optional[list] = None, pos_offset=0,
+            last_only: bool = False
+            ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
+    """Returns (logits, new_caches, aux_loss).  ``last_only`` computes the
+    LM head only for the final position (serving prefill)."""
+    check_supported(cfg)
+    segments, n_groups = group_spec(cfg)
+    h, q_pos, angles = _embed(params, batch, cfg, pos_offset)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    new_layers: list[list] = [[] for _ in segments]
+    for g in range(n_groups):
+        for si, (kind, count, _shared) in enumerate(segments):
+            for c in range(count):
+                p = tree_map(lambda t: t[g, c], params["segments"][si])
+                cache = (None if caches is None
+                         else tree_map(lambda t: t[g, c], caches[si]))
+                h, nc, a = apply_block(p, kind, h, cfg, angles=angles,
+                                       q_pos=q_pos, cache=cache)
+                aux = aux + a
+                new_layers[si].append(nc)
+    new_caches = None
+    if caches is not None:
+        new_caches = []
+        for si, (_kind, count, _shared) in enumerate(segments):
+            layers = new_layers[si]
+            new_caches.append({
+                key: torch.stack([lc[key] for lc in layers]).reshape(
+                    (n_groups, count) + layers[0][key].shape)
+                for key in layers[0]})
+
+    h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
+    if last_only:
+        h = h[:, -1:]
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].T
+    else:
+        logits = h @ params["head"]
+    return logits, new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# losses / steps
+# ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """logits (..., V) any float dtype; labels (...) integer.
@@ -17,3 +193,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                                              dtype=labels.dtype)
     ll = torch.where(mask, logits, 0.0).sum(dim=-1)
     return (lse - ll).mean()
+
+
+def lm_loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    logits, _, aux = forward(params, batch, cfg)
+    return cross_entropy(logits, batch["labels"]) + aux
+
+
+def serve_prefill(params: Params, batch: dict, cfg: ModelConfig,
+                  caches: Optional[list] = None):
+    """Fill the KV caches for the prompt, return last-position logits."""
+    logits, new_caches, _ = forward(params, batch, cfg, caches=caches,
+                                    last_only=True)
+    return logits, new_caches
+
+
+def serve_decode(params: Params, batch: dict, caches: list, pos_offset,
+                 cfg: ModelConfig):
+    logits, new_caches, _ = forward(params, batch, cfg, caches=caches,
+                                    pos_offset=pos_offset)
+    return logits, new_caches

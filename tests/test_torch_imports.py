@@ -93,3 +93,19 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc was not found"):
         _build.library("calibrated_update")
     assert not (tmp_path / "build").exists()
+
+
+def test_serve_engine_without_device_raises_where_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = reduced(get_arch("llama3-8b"), n_layers=1, d_model=64, vocab=32)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params, slots=1, max_len=16, prefill_buckets=(8,))
+    eng = ServeEngine(cfg, params, slots=1, max_len=16, prefill_buckets=(8,),
+                      device="cpu")
+    assert eng.caches[0]["k"].device.type == "cpu"
