@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six phases, each printing JSON lines; any failure exits non-zero.
+Eight phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -35,8 +35,8 @@ Six phases, each printing JSON lines; any failure exits non-zero.
    version on the card, float32 and bfloat16, ``o`` and ``lse``, at the
    serving path's shapes (llama3-8b at the largest prefill bucket, a
    ragged bucket fill), ragged MHA, gemma-2b's MQA with head dim 256, a
-   sliding window, and one long shape; ``kernel_time`` lines at the
-   path's shape and the long shape, with the bound and the time of
+   sliding window, one long shape, and phase 8's local-step and eval
+   shapes; ``kernel_time`` lines at the path's shape and the long shape, with the bound and the time of
    ``scaled_dot_product_attention`` as a yardstick (the port never calls
    it).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
@@ -48,6 +48,24 @@ Six phases, each printing JSON lines; any failure exits non-zero.
    Then the same model in float32, cut to 2 layers, serves 4 requests on
    the card and is held against the CPU teacher-forced with the card's
    tokens.
+
+7. attention backward — the dq and dk/dv kernels against their plain
+   versions on the card, float32 and bfloat16, at the training path's
+   shape (gemma-2b: 4 rows of 128 tokens, 8 heads, 1 kv head, head dim
+   256), MHA, llama3-8b's GQA, ragged lengths, a sliding window, Skv ≠ Sq,
+   one long shape and the --small model's step; ``kernel_time`` lines
+   with the bound and the time of ``scaled_dot_product_attention``'s
+   backward (the port never calls it).
+8. federated LM training — ``FederatedSimulation.run(3, eval_every=3)`` of
+   the LM example (``repro_torch.examples.fed_lm_train``) on gemma-2b at
+   full width (d 2048, 8 heads / 1 kv head, head dim 256, d_ff 16384,
+   vocab 256000) in float32, cut to 2 layers and 2 clients, for fedagrac
+   and fedavg: exact launch counts of the forward, dq, dk/dv and
+   calibrated-update kernels, a finite loss, held-out perplexity below the
+   vocab, wall per round and tokens/s; the calibrated-update kernel
+   against its plain version at the run's (2, P) client matrix, and timed
+   there.  Then the example's --small model on the card against the
+   CPU.
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the repository beside it, the
@@ -61,6 +79,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -105,13 +124,36 @@ COMPRESSED_RUNS = (
     ("mlp", "fedavg", "none", "none"), ("mlp", "fedavg", "topk+int8", "none"))
 # Phase 5's shapes (B, S, H, Hkv, D, window): llama3-8b at the engine's
 # largest prefill bucket and at a ragged bucket fill, ragged MHA, gemma-2b's
-# MQA and head dim, a sliding window, and the long shape for timing
+# MQA and head dim, a sliding window, the long shape for timing, and phase
+# 8's: a local step of gemma-2b (2 clients × batch 2 folded into B) and its
+# held-out eval (8 sequences), and the --small model's (4 clients × batch
+# 2, and the eval)
 ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 64, 0), (1, 128, 8, 1, 256, 0),
-               (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0)]
+               (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0),
+               (4, 128, 8, 1, 256, 0), (8, 128, 8, 1, 256, 0),
+               (8, 32, 2, 1, 32, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0)]
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+# Phase 7's shapes (B, Sq, Skv, H, Hkv, D, window): the training path's
+# (gemma-2b, 2 clients × batch 2 folded into B, S 128, MQA, head dim 256),
+# MHA, llama3-8b's GQA g = 4, ragged lengths, a sliding window, Skv > Sq
+# and Skv < Sq (late rows under the window see no key), the long shape, and
+# the --small model's local step (4 clients × batch 2, head dim 32)
+ATTN_BWD_SHAPES = [(4, 128, 128, 8, 1, 256, 0), (2, 128, 128, 4, 4, 64, 0),
+                   (1, 256, 256, 32, 8, 128, 0), (2, 77, 77, 4, 2, 64, 0),
+                   (1, 200, 200, 8, 2, 128, 0), (1, 512, 512, 4, 2, 64, 128),
+                   (1, 96, 160, 4, 2, 64, 0), (1, 160, 96, 4, 1, 64, 48),
+                   (1, 4096, 4096, 32, 8, 128, 0), (8, 32, 32, 2, 1, 32, 0)]
+ATTN_BWD_PATH_SHAPE = (4, 128, 128, 8, 1, 256, 0)
+ATTN_BWD_TIMED = [ATTN_BWD_PATH_SHAPE, (1, 4096, 4096, 32, 8, 128, 0)]
+# The backward kernels sum the plain version's float32 terms in another
+# order.  Against a float64 autograd reference the plain version's float32
+# error is ≤ 1e-6 of each gradient's largest entry at S ≤ 1024; the kernels
+# are held to 2e-5 of it (bfloat16: plus one bf16 ulp of the entry, the
+# rounding of the same float32 value).
+ATTN_BWD_TOL = 2e-5
 # The kernel sums the plain version's float32 terms in another order:
 # float32 o and lse agree to ~1e-6 relative; a bfloat16 o is that float32
 # value rounded once, so the two may land one bf16 ulp (≤ 2⁻⁷·|o|) apart.
@@ -127,6 +169,17 @@ SERVE_PROMPTS = [(8, 32), (33, 64), (65, 128), (200, 256), (16, 32),
                  (40, 64), (90, 128), (129, 199)]
 SERVE_CHECK_PROMPTS = [(20, 32), (50, 64), (100, 128), (200, 256)]
 LOGIT_TOL = 1e-3
+# Phase 8: the federated LM example (examples/fed_lm_train.py: Zipf
+# topic-skewed streams, K_i ~ N(4, 2²), λ 0.5) on gemma-2b at full width in
+# float32, cut to 2 of 18 layers and 2 of the example's 4 clients.  The
+# example's lr 0.3 diverges at d_model 512, in the JAX package as in the
+# port (ROADMAP C9: the perplexity passes 1e8 after one round, on the
+# CPU); at d 1024 lr 0.03 already oscillates and lr 0.01 learns.  d 2048
+# was not tried at those rates on the CPU (too large there), so the
+# full-width run takes lr 0.003, a margin below the 0.01 that learned at
+# d 1024.  The --small check keeps lr 0.3.
+FED_LM = {"layers": 2, "clients": 2, "seq": 128, "batch": 2, "rounds": 3,
+          "lr": 0.003, "algorithms": ("fedagrac", "fedavg")}
 
 # quantize-kernel launches of one codec call
 CODEC_LAUNCHES = {
@@ -272,6 +325,52 @@ def phase_kernels() -> dict:
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
            "worst": max(checks, key=lambda ch: ch["max_abs_err"])})
     return result
+
+
+def check_update_at(rows: int, cols: int) -> dict:
+    """B1 on the ``(rows, cols)`` float32 client matrix of a path (phase 8:
+    gemma-2b's (2, 744.5 M)) against its plain version, in both forms the
+    flat round launches (fedagrac's c, fedavg's none), compared in column
+    slices so the comparison's temporaries stay small; then timed."""
+    from repro_torch.kernels.calibrated_update import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    x, g, c = (torch.randn(rows, cols, generator=gen, device=DEVICE)
+               for _ in range(3))
+    active = torch.arange(rows, device=DEVICE) % 3 != 1
+    eta = torch.where(active, LR, 0.0).to(torch.float32)
+    tol = KERNEL_TOL[torch.float32]
+    step = 1 << 26
+    max_err = 0.0
+    for c_arg in (c, None):
+        got = ops.calibrated_update(x, g, c_arg, eta, LAM)
+        want = ref.calibrated_update(x, g, c_arg, eta, LAM)
+        torch.cuda.synchronize()
+        for j in range(0, cols, step):
+            gs, ws = got[:, j:j + step], want[:, j:j + step]
+            err = (gs - ws).abs()
+            ok = bool((err <= tol * (1 + ws.abs())).all())
+            max_err = max(max_err, float(err.max()))
+            _require(ok, f"calibrated_update float32 ({rows}, {cols}) "
+                         f"c={c_arg is not None}: max |err| {max_err}")
+        _require(torch.equal(got[~active], x[~active]),
+                 f"calibrated_update ({rows}, {cols}): an η = 0 row moved")
+        del got, want
+        torch.cuda.empty_cache()
+    args = (x, g, c, eta, LAM)
+    bound_ms, bound_by = _bound([x, g, c, eta], x, 4)
+    timing = {"kernel": "calibrated_update", "dtype": str(torch.float32),
+              "shape": (rows, cols),
+              "ms": _time_ms(lambda: ops.calibrated_update(*args), 5),
+              "plain_ms": _time_ms(lambda: ref.calibrated_update(*args), 5),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": None}
+    _emit({"phase": "kernel_check", "kernel": "calibrated_update",
+           "dtype": str(torch.float32), "shape": (rows, cols),
+           "forms": 2, "max_abs_err": max_err, "tol": tol})
+    _emit({"phase": "kernel_time", **timing})
+    del x, g, c, args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, **timing}
 
 
 def _wire_rows(shape, dtype, qmax, gen):
@@ -750,6 +849,140 @@ def phase_attention_kernel() -> dict:
     return result
 
 
+def _attn_bwd_bound(kernel, q, k, v, window) -> tuple[float, str]:
+    """The least time for one backward kernel call: q, k, v and do read
+    once, lse and δ (float32) read once and its outputs (dq; or dk and dv)
+    written once, or its products over the visible pairs at the peak of
+    the input type — per visible (query, key) pair and head, the score
+    and dp products (2·Dqk + 2·Dv) and then dq (2·Dqk), or dk and dv
+    (2·Dqk + 2·Dv) — whichever is larger."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    es = q.element_size()
+    nbytes = (sum(t.numel() for t in (q, k, v)) + B * Sq * H * Dv) * es \
+        + 2 * B * H * Sq * 4
+    per_pair = 2 * (D + Dv)
+    if kernel == "flash_attention_bwd_dq":
+        nbytes += q.numel() * es
+        per_pair += 2 * D
+    else:
+        nbytes += (k.numel() + v.numel()) * es
+        per_pair += 2 * (D + Dv)
+    ops = per_pair * B * H * _band_pairs(Sq, Skv, True, window)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bwd_close(got, want, dtype) -> tuple[float, bool]:
+    """(max |err| over the largest |want|, within tolerance): float32 to
+    ATTN_BWD_TOL of the tensor's largest entry; bfloat16 to one bf16 ulp
+    of the entry plus that float32 term."""
+    got, want = got.float(), want.float()
+    amax = float(want.abs().max())
+    err = (got - want).abs()
+    tol = ATTN_BWD_TOL * amax
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * torch.maximum(got.abs(), want.abs())
+    return float(err.max()) / max(amax, 1e-30), bool((err <= tol).all())
+
+
+def phase_attention_backward() -> dict:
+    """Both backward kernels against their plain versions on the card at
+    ATTN_BWD_SHAPES in float32 and bfloat16, then timed at
+    ATTN_BWD_TIMED.  Returns each kernel's worst error and its timing at
+    the training path's shape in float32."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    result = {name: {"max_abs_err": 0.0} for name in names}
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ATTN_BWD_SHAPES:
+            B, Sq, Skv, H, Hkv, D, window = shape
+            q = torch.randn(B, Sq, H, D, generator=gen, device=DEVICE
+                            ).to(dtype)
+            k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
+                                device=DEVICE).to(dtype) for _ in range(2))
+            kw = {"causal": True, "window": window}
+            o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+            do = torch.randn(o.shape, generator=gen, device=DEVICE
+                             ).to(dtype)
+            delta = ref.row_delta(do, o)
+            got = {"flash_attention_bwd_dq": (ops.flash_attention_bwd_dq(
+                       q, k, v, do, lse, delta, **kw),),
+                   "flash_attention_bwd_dkv": ops.flash_attention_bwd_dkv(
+                       q, k, v, do, lse, delta, **kw)}
+            want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
+            want = {"flash_attention_bwd_dq": want[:1],
+                    "flash_attention_bwd_dkv": want[1:]}
+            torch.cuda.synchronize()
+            for name in names:
+                for what, g_t, w_t in zip(
+                        ("dq",) if name.endswith("dq") else ("dk", "dv"),
+                        got[name], want[name]):
+                    rel, ok = _bwd_close(g_t, w_t, dtype)
+                    _require(ok and bool(torch.isfinite(g_t).all()),
+                             f"{name} {dtype} {shape}: {what} max |err| / "
+                             f"max |want| = {rel}")
+                    err = float((g_t.float() - w_t.float()).abs().max())
+                    result[name]["max_abs_err"] = max(
+                        result[name]["max_abs_err"], err)
+                    checks.append({"kernel": name, "grad": what,
+                                   "dtype": str(dtype), "shape": shape,
+                                   "max_abs_err": err, "rel_err": rel})
+            del got, want
+            if shape in ATTN_BWD_TIMED:
+                _time_backward(result, shape, dtype, q, k, v, o, lse, do,
+                               delta)
+            del q, k, v, o, lse, do, delta
+            torch.cuda.empty_cache()
+    _emit({"phase": "attention_backward", "checks": len(checks),
+           "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
+           "worst": max(checks, key=lambda ch: ch["rel_err"])})
+    return result
+
+
+def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
+    """kernel_time lines of both backward kernels at ``shape``, with the
+    time of scaled_dot_product_attention's backward (dq, dk and dv through
+    autograd) as the yardstick; the port never calls it."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    window = shape[-1]
+    kw = {"causal": True, "window": window}
+    iters = 50 if shape[1] <= 256 else 3
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    library_ms = None
+    if window == 0:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters)
+        del out
+    entries = {
+        "flash_attention_bwd_dq": (
+            lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+            lambda: ref.attention_bwd_dq(q, k, v, do, lse, delta, **kw)),
+        "flash_attention_bwd_dkv": (
+            lambda: ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                **kw),
+            lambda: ref.attention_bwd_dkv(q, k, v, do, lse, delta, **kw))}
+    for name, (kernel, plain) in entries.items():
+        bound_ms, bound_by = _attn_bwd_bound(name, q, k, v, window)
+        timing = {"kernel": name, "dtype": str(dtype), "shape": shape,
+                  "ms": _time_ms(kernel, iters),
+                  "plain_ms": _time_ms(plain, iters),
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": library_ms}
+        _emit({"phase": "kernel_time", **timing})
+        if dtype == torch.float32 and shape == ATTN_BWD_PATH_SHAPE:
+            result[name].update({key: timing[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+
 def _serve_requests(prompts, max_new, vocab: int, seed: int) -> list:
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
@@ -899,11 +1132,13 @@ def phase_serving(cfg=None, check_cfg=None) -> dict:
     stats = _serve_stats(eng, reqs, wall)
     want = cfg.n_layers * eng.admissions
     _require(launches["flash_attention_fwd"] == want
-             and eng.admit_launches == want and eng.tick_launches == 0,
+             and eng.admit_launches == want and eng.tick_launches == 0
+             and launches["flash_attention_bwd_dq"] == 0
+             and launches["flash_attention_bwd_dkv"] == 0,
              f"flash_attention_fwd launches: {eng.admit_launches} in "
              f"prefills, {eng.tick_launches} in decode ticks; expected "
              f"{want} ({cfg.n_layers} layers × {eng.admissions} "
-             f"admissions) and 0")
+             f"admissions) and 0, and no backward launch")
     _emit({"phase": "serving", "model": cfg.name, "dtype": cfg.dtype,
            "n_layers": cfg.n_layers,
            "params": sum(t.numel() for t in leaves),
@@ -961,6 +1196,152 @@ def phase_serving(cfg=None, check_cfg=None) -> dict:
     return launches
 
 
+def _flip_batch_rows(batches: dict) -> dict:
+    return {k: v.flip(-2) for k, v in batches.items()}
+
+
+def _lm_batcher_class(flip_rows: bool):
+    """The host LM batcher, or one that hands out every microbatch with its
+    sequences in reverse order (the same loss, other float32 roundings)."""
+    from repro_torch.data import LMFederatedBatcher
+
+    class Batcher(LMFederatedBatcher):
+        def round_batches(self, t, k_max):
+            b = super().round_batches(t, k_max)
+            return _flip_batch_rows(b) if flip_rows else b
+
+        def chunk_batches(self, t0, r, k_max):
+            b = super().chunk_batches(t0, r, k_max)
+            return _flip_batch_rows(b) if flip_rows else b
+
+    return Batcher
+
+
+def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
+                batch: int, rounds: int, lr: Optional[float] = None,
+                generator=None, flip_rows: bool = False) -> dict:
+    """The example's simulation (``repro_torch.examples.fed_lm_train``)
+    for ``rounds`` rounds in one chunk; returns its history, final params,
+    the kernels' launches, wall and peak memory."""
+    from repro_torch.examples import fed_lm_train as ex
+    batcher = _lm_batcher_class(flip_rows)(
+        ex.make_streams(cfg, seq, clients), batch_size=batch, device=device)
+    fed = ex.fed_config(algo, n_clients=clients)
+    if lr is not None:
+        fed = dataclasses.replace(fed, lr=lr)
+    sim = ex.make_simulation(cfg, fed, seq=seq, batch=batch, rounds=rounds,
+                             device=torch.device(device),
+                             generator=generator, batcher=batcher)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    hist = sim.run(rounds, eval_every=rounds)
+    wall = time.perf_counter() - t0
+    out = {"loss": np.array(hist.loss), "metric": np.array(hist.metric),
+           "round_wall_s": list(hist.wall), "wall_s": wall,
+           "k_max": sim.k_max, "k": sim.k_schedule[0].tolist(),
+           "params": sim.state["params"].cpu(), "n": sim._spec.n,
+           "p": sim._spec.p,
+           "launches": _all_launches(),
+           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
+                                 if device != "cpu" else None)}
+    del sim
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
+    """Federated LM training at full width (FED_LM), then the example's
+    --small model on the card against the CPU.  Returns the kernels'
+    launch counts of the last full-width run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples import fed_lm_train as ex
+    cfg = cfg or dataclasses.replace(get_arch("gemma-2b"),
+                                     n_layers=FED_LM["layers"],
+                                     dtype="float32")
+    run = {k: FED_LM[k] for k in ("clients", "seq", "batch", "rounds",
+                                  "lr")}
+    _emit({"phase": "fed_lm_cuts", "model": cfg.name,
+           "n_layers": f"{cfg.n_layers} of {get_arch(cfg.name).n_layers}",
+           "clients": f"{run['clients']} of {ex.MCLIENTS}",
+           "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab}})
+    # warm-up (cuBLAS handles, allocator) outside the counted runs
+    _run_fed_lm(small_cfg or ex.build_config(True), "fedavg", DEVICE,
+                clients=2, seq=32, batch=2, rounds=1)
+    launches = {}
+    for algo in FED_LM["algorithms"]:
+        g = _run_fed_lm(cfg, algo, DEVICE, **run)
+        launches = g["launches"]
+        L, k_max, R = cfg.n_layers, g["k_max"], run["rounds"]
+        want = {"flash_attention_fwd": L * k_max * R + L,
+                "flash_attention_bwd_dq": L * k_max * R,
+                "flash_attention_bwd_dkv": L * k_max * R,
+                "calibrated_update": k_max * R}
+        got = {k: launches[k] for k in want}
+        _require(got == want and all(
+            n == 0 for k, n in launches.items() if k not in want),
+                 f"{algo}: launches {launches}, expected {want} and no other")
+        _require(np.isfinite(g["loss"]).all()
+                 and np.isfinite(g["metric"]).all(),
+                 f"{algo}: non-finite loss {g['loss']} or perplexity "
+                 f"{g['metric']}")
+        _require(float(g["metric"][-1]) < cfg.vocab,
+                 f"{algo}: held-out perplexity {g['metric'][-1]} is not "
+                 f"below the vocab ({cfg.vocab})")
+        tokens = run["clients"] * k_max * run["batch"] * run["seq"]
+        wall = float(np.mean(g["round_wall_s"]))
+        _emit({"phase": "fed_lm", "model": cfg.name, "algorithm": algo,
+               "dtype": cfg.dtype, "n_layers": cfg.n_layers, **run,
+               "params": g["n"], "k": g["k"], "k_max": k_max,
+               "loss": g["loss"].tolist(), "perplexity": g["metric"].tolist(),
+               "wall_per_round_s": g["round_wall_s"],
+               "wall_per_local_step_s": wall / k_max,
+               "tokens_per_round": tokens,
+               "train_tokens_per_s": tokens / wall,
+               "run_wall_s": g["wall_s"], "launches": got,
+               "peak_memory_bytes": g["peak_memory_bytes"]})
+        width = g["p"]
+        del g
+    # B1 at this path's (M, P), on the memory the runs have given back
+    check_update_at(run["clients"], width)
+    small = small_cfg or ex.build_config(True)
+    srun = {"clients": ex.MCLIENTS, "seq": 32, "batch": 2, "rounds": 3}
+    for algo in FED_LM["algorithms"]:
+        runs = [_run_fed_lm(small, algo, dev, generator=torch.Generator(
+                    ).manual_seed(0), flip_rows=flip, **srun)
+                for dev, flip in ((DEVICE, False), ("cpu", False),
+                                  ("cpu", True))]
+        g, c, p = runs
+        _require(g["launches"]["flash_attention_bwd_dq"] > 0,
+                 f"{algo} --small: the card run launched no backward kernel")
+        vs = {"loss": (np.abs(g["loss"] - c["loss"]),
+                       PATH_SPREAD * np.abs(p["loss"] - c["loss"])
+                       + PATH_RTOL * np.abs(c["loss"])),
+              "perplexity": (np.abs(g["metric"] - c["metric"]),
+                             PATH_SPREAD * np.abs(p["metric"] - c["metric"])
+                             + PATH_RTOL * np.abs(c["metric"])),
+              "params": (float((g["params"] - c["params"]).abs().max()),
+                         PATH_SPREAD * float(
+                             (p["params"] - c["params"]).abs().max())
+                         + PATH_RTOL * float(c["params"].abs().max()))}
+        for what, (diff, tol) in vs.items():
+            _require(bool(np.all(diff <= tol)),
+                     f"{algo} --small: {what} differs from the CPU run by "
+                     f"{diff}, more than {tol}")
+        _emit({"phase": "fed_lm_vs_cpu", "model": "gemma-2b --small",
+               "algorithm": algo, **srun, "k": g["k"],
+               "loss": g["loss"].tolist(), "perplexity": g["metric"].tolist(),
+               "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+               "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -983,8 +1364,15 @@ def main() -> int:
     launches.update(timed("compressed_path", phase_compressed_path))
     launches["flash_attention_fwd"] = timed(
         "serving", phase_serving)["flash_attention_fwd"]
+    timings.update(timed("attention_backward", phase_attention_backward))
+    launches.update({name: n for name, n in timed(
+        "fed_lm", phase_fed_lm).items() if name.startswith(
+            "flash_attention_bwd")})
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
+    bwd_src = ("src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention_bwd.cu")
+    bwd_rep = "src/repro/kernels/flash_attention/backward.py:"
     sources = {"calibrated_update": (
         "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
         "src/repro/kernels/calibrated_update/kernel.py:60"),
@@ -999,7 +1387,9 @@ def main() -> int:
                          "src/repro/kernels/quantize/kernel.py:117"),
         "flash_attention_fwd": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:113")}
+            "src/repro/kernels/flash_attention/kernel.py:113"),
+        "flash_attention_bwd_dq": (bwd_src, bwd_rep + "150"),
+        "flash_attention_bwd_dkv": (bwd_src, bwd_rep + "178")}
     _emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timings[name]}

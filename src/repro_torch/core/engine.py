@@ -11,7 +11,8 @@ from typing import Callable, Sequence
 import torch
 
 
-def make_round_chunk(round_fn: Callable, r: int) -> Callable:
+def make_round_chunk(round_fn: Callable, r: int,
+                     donate: bool = False) -> Callable:
     """``chunk_fn(state, batches, k_steps, weights, lam) -> (state,
     metrics)`` running ``r`` rounds.
 
@@ -19,18 +20,35 @@ def make_round_chunk(round_fn: Callable, r: int) -> Callable:
     tensors, ``k_steps`` is ``(r, M)``, ``weights`` ``(r, M)`` and ``lam``
     a sequence of ``r`` host floats.  Each metric comes back as an ``(r,)``
     device tensor.  A chunk of r rounds is the same computation as r
-    ``round_fn`` calls."""
+    ``round_fn`` calls.
+
+    ``donate=True`` is the counterpart of the reference's donated carry:
+    the chunk empties the ``state`` dict it is given, so the state from
+    before the chunk is freed once round 1 has replaced it, as when rounds
+    run one by one (at an LM's size one state is several ``(M, P)``
+    matrices).  If a round raises, the dict is refilled with the state
+    after the last round that finished.  With ``donate=False`` the chunk
+    leaves its argument alone."""
     def chunk_fn(state: dict, batches: dict, k_steps: torch.Tensor,
                  weights: torch.Tensor, lam: Sequence[float]):
         if k_steps.shape[0] != r:
             raise ValueError(f"chunk built for {r} rounds, got "
                              f"{k_steps.shape[0]}")
+        given = state
+        if donate:
+            state = dict(given)
+            given.clear()
         per_round = []
-        for j in range(r):
-            state, metrics = round_fn(
-                state, {key: v[j] for key, v in batches.items()},
-                k_steps[j], weights[j], lam[j])
-            per_round.append(metrics)
+        try:
+            for j in range(r):
+                state, metrics = round_fn(
+                    state, {key: v[j] for key, v in batches.items()},
+                    k_steps[j], weights[j], lam[j])
+                per_round.append(metrics)
+        except BaseException:
+            if donate:
+                given.update(state)
+            raise
         return state, {key: torch.stack([mt[key] for mt in per_round])
                        for key in per_round[0]}
 

@@ -5,8 +5,9 @@ Server vectors (params, ν, server moments) are ``(P,)`` tensors and
 per-client state (ν⁽ⁱ⁾, the round's x⁽ⁱ⁾ and g₀⁽ⁱ⁾) ``(M, P)`` matrices, with
 ``P = ceil(n / 128) · 128`` and zeros in the pad tail ``[n, P)``.  Leaves
 are laid out in ``jax.tree_util.tree_flatten`` order (dicts by sorted key:
-``b, w`` for lr, ``b1, b2, w1, w2`` for the mlp), so a flat buffer means the
-same thing in both packages.
+``b, w`` for lr, ``b1, b2, w1, w2`` for the mlp; lists, such as an LM's
+``params["segments"]``, by index), so a flat buffer means the same thing in
+both packages.
 
 Each local step runs the model on per-leaf views of the buffer
 (``view_tree``: ``narrow`` + ``view``, no copies), takes every client's
@@ -38,24 +39,46 @@ PyTree = Any
 # ---------------------------------------------------------------------------
 
 def _leaves(tree: PyTree, path: tuple = ()) -> list:
-    """[(key path, leaf)] in ``jax.tree_util.tree_flatten`` order: nested
-    dicts by sorted key, depth first."""
+    """[(key path, leaf)] in ``jax.tree_util.tree_flatten`` order: dicts by
+    sorted key, lists and tuples by index, depth first.  A dict key and a
+    list index are both path elements."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree)
                 for item in _leaves(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, child in enumerate(tree)
+                for item in _leaves(child, path + (i,))]
     return [(path, tree)]
 
 
-def _tree(paths: tuple, leaves: list) -> PyTree:
-    if paths == ((),):
-        return leaves[0]
-    root: dict = {}
-    for path, leaf in zip(paths, leaves):
-        node = root
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = leaf
-    return root
+def _treedef(tree: PyTree):
+    """The tree's containers with the leaves left out (hashable): a dict
+    is ``("dict", ((key, def), …))`` by sorted key, a list or tuple
+    ``("list" | "tuple", (def, …))``, a leaf ``None``."""
+    if isinstance(tree, dict):
+        return ("dict", tuple((k, _treedef(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return (type(tree).__name__, tuple(_treedef(c) for c in tree))
+    return None
+
+
+def _build(node, it) -> PyTree:
+    if node is None:
+        return next(it)
+    kind, children = node
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in children}
+    built = [_build(c, it) for c in children]
+    return tuple(built) if kind == "tuple" else built
+
+
+def _tree(treedef, leaves: list) -> PyTree:
+    """Inverse of ``_leaves``: ``leaves`` in flatten order into the
+    containers of ``treedef``.  (A module-level recursion: a nested
+    recursive closure would form a reference cycle that keeps the leaves,
+    views of a whole ``(M, P)`` buffer, alive until the garbage collector
+    runs.)"""
+    return _build(treedef, iter(leaves))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +89,10 @@ class FlatSpec:
     the buffer dtype — the common leaf dtype, float32 for mixed leaves.
     ``(paths, offsets, shapes, dtypes, sizes)`` form the view table: leaf
     *i* is ``flat[…, offsets[i] : offsets[i] + sizes[i]]`` viewed as
-    ``shapes[i]`` in ``dtypes[i]``."""
+    ``shapes[i]`` in ``dtypes[i]``; ``paths`` names each leaf by its keys
+    and indices, and ``treedef`` holds the containers to rebuild."""
     paths: tuple
+    treedef: Any
     shapes: tuple
     dtypes: tuple
     sizes: tuple
@@ -87,7 +112,8 @@ def make_flat_spec(tree: PyTree) -> FlatSpec:
     p = -(-max(n, 1) // LANES) * LANES
     dtype = dtypes[0] if all(d == dtypes[0] for d in dtypes) \
         else torch.float32
-    return FlatSpec(paths, shapes, dtypes, sizes, offsets, n, p, dtype)
+    return FlatSpec(paths, _treedef(tree), shapes, dtypes, sizes, offsets,
+                    n, p, dtype)
 
 
 def ravel(spec: FlatSpec, tree: PyTree, client_dims: int = 0
@@ -110,7 +136,7 @@ def view_tree(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
     leaves = [flat.narrow(-1, off, size).view(lead + shape).to(dtype)
               for off, size, shape, dtype in zip(spec.offsets, spec.sizes,
                                                  spec.shapes, spec.dtypes)]
-    return _tree(spec.paths, leaves)
+    return _tree(spec.treedef, leaves)
 
 
 def unravel(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
@@ -121,7 +147,7 @@ def unravel(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
               .to(dtype, copy=True)
               for off, size, shape, dtype in zip(spec.offsets, spec.sizes,
                                                  spec.shapes, spec.dtypes)]
-    return _tree(spec.paths, leaves)
+    return _tree(spec.treedef, leaves)
 
 
 def flat_value_and_grad(spec: FlatSpec,
@@ -144,11 +170,16 @@ def flat_value_and_grad(spec: FlatSpec,
                   for off, size, shape, dtype in zip(
                       spec.offsets, spec.sizes, spec.shapes, spec.dtypes)]
         with torch.enable_grad():
-            losses = batched(_tree(spec.paths, leaves), batch)
-            grads = torch.autograd.grad(losses.sum(), leaves)
+            losses = batched(_tree(spec.treedef, leaves), batch)
+            grads = list(torch.autograd.grad(losses.sum(), leaves))
         g = rows.new_empty((m, spec.p), dtype=spec.dtype)
-        for gl, off, size in zip(grads, spec.offsets, spec.sizes):
-            g[:, off:off + size] = gl.reshape(m, size)
+        # each leaf gradient is copied into its view of g, whatever its
+        # strides, and dropped at once: no reshaped temporaries, and the
+        # leaf gradients and g overlap less at the peak
+        for i, (off, size, shape) in enumerate(zip(
+                spec.offsets, spec.sizes, spec.shapes)):
+            g[:, off:off + size].view((m,) + shape).copy_(grads[i])
+            grads[i] = None
         g[:, spec.n:] = 0
         return losses.detach(), g
 
@@ -181,7 +212,10 @@ def make_flat_client_update(spec: FlatSpec,
     def run(anchor: torch.Tensor, c_all: Optional[torch.Tensor],
             batches: dict, k_steps: torch.Tensor, lam: float):
         m = k_steps.shape[0]
-        anchors = anchor[None].expand(m, spec.p).contiguous()
+        x = anchor[None].expand(m, spec.p).contiguous()
+        # the prox term reads the (M, P) anchors at every step; without it
+        # the starting rows are freed after the first update
+        anchors = x if algo.prox_mu else None
         # ν-free algorithms pass no correction: the kernel then reads no c
         # (the same result as the reference's c = 0, λ = 0)
         lam_k = lam if uses_nu else 0.0
@@ -189,7 +223,7 @@ def make_flat_client_update(spec: FlatSpec,
         steps = torch.arange(k_max, device=k_steps.device)
         etas = torch.where(steps[:, None] < k_steps[None, :], lr, 0.0
                            ).to(torch.float32)                  # (k_max, M)
-        x, g0, loss0 = anchors, None, None
+        g0, loss0 = None, None
         for k in range(k_max):
             loss, g = grad_fn(x, {key: v[:, k] for key, v in batches.items()})
             if k == 0:
@@ -203,6 +237,7 @@ def make_flat_client_update(spec: FlatSpec,
                                                   lam_k, algo.prox_mu)
             else:
                 x = cu_ops.calibrated_update(x, g, c_k, etas[k], lam_k)
+            del g           # not held through the next step's backward
         return x, g0, loss0
 
     return run

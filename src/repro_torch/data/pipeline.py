@@ -6,7 +6,10 @@ numpy stream ``default_rng((seed, t))`` — the same stream as
 ``repro.data.pipeline.FederatedBatcher``, so round ``t``'s batches are
 bit-identical in both packages.  Rows are gathered on the host and moved to
 the device once per round (``round_batches``) or once per chunk of rounds
-(``chunk_batches``).
+(``chunk_batches``).  ``LMFederatedBatcher`` does the same over per-client
+token streams (``repro.data.pipeline.LMFederatedBatcher``, bit-identical
+given the same streams).  The cohort methods wait for partial
+participation (ROADMAP A6) and the device-side samplers for A5.
 """
 from __future__ import annotations
 
@@ -58,3 +61,49 @@ class FederatedBatcher:
         bit-identical to ``round_batches(t, k_max)``."""
         return self._gather(np.stack([self.round_indices(t0 + j, k_max)
                                       for j in range(r)]))
+
+
+class LMFederatedBatcher:
+    """Token-stream version: each client owns a topic-skewed stream
+    (``{"tokens", "labels"}`` of shape ``(n_seq, S)``, tensors or numpy
+    arrays); round ``t`` draws ``(k_max, B)`` sequence indices per client,
+    in client order, from ``default_rng((seed, t))``."""
+
+    def __init__(self, streams: list[dict], batch_size: int, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.m = len(streams)
+        self.batch_size = batch_size
+        self.seed = seed
+        n_total = sum(s["tokens"].shape[0] for s in streams)
+        self.weights = torch.tensor(
+            [s["tokens"].shape[0] / n_total for s in streams],
+            dtype=torch.float32, device=self.device)
+        self._toks = [np.asarray(s["tokens"]) for s in streams]
+        self._labs = [np.asarray(s["labels"]) for s in streams]
+
+    def round_indices(self, t: int, k_max: int) -> list[np.ndarray]:
+        """Per client, the (k_max, B) sequence indices of round ``t``."""
+        rng = np.random.default_rng((self.seed, t))
+        return [rng.integers(0, tok.shape[0], (k_max, self.batch_size))
+                for tok in self._toks]
+
+    def _gather(self, rounds: list[list[np.ndarray]]) -> dict:
+        toks = np.stack([np.stack([tok[i] for tok, i in zip(self._toks, idx)])
+                         for idx in rounds])
+        labs = np.stack([np.stack([lab[i] for lab, i in zip(self._labs, idx)])
+                         for idx in rounds])
+        return {"tokens": torch.from_numpy(toks).to(self.device),
+                "labels": torch.from_numpy(labs).to(self.device)}
+
+    def round_batches(self, t: int, k_max: int) -> dict:
+        """(M, k_max, B, S) token / label tensors for round ``t``."""
+        return {k: v[0] for k, v in
+                self._gather([self.round_indices(t, k_max)]).items()}
+
+    def chunk_batches(self, t0: int, r: int, k_max: int) -> dict:
+        """(R, M, k_max, B, S) stacked rounds ``t0 … t0+r-1`` — one gather
+        and one host→device transfer per chunk; round ``t``'s slice is
+        bit-identical to ``round_batches(t, k_max)``."""
+        return self._gather([self.round_indices(t0 + j, k_max)
+                             for j in range(r)])

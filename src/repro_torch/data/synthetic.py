@@ -5,10 +5,17 @@ experiments run (Li et al., FedProx synthetic(α, β)).  It is drawn with
 numpy, so fed the same integer seed it gives the same bits as
 ``repro.data.synthetic.fedprox_synthetic`` — which derives that integer from
 a ``jax.random`` key; here the caller passes it directly.
+
+``token_stream`` / ``lm_sequences`` are the federated LM task's Zipf token
+streams with a per-client topic band, the reference's law drawn from a
+numpy seed: ``jax.random.choice`` has no numpy or torch twin, so the
+streams differ from the reference's, and parity tests feed both packages
+the reference's arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,3 +69,35 @@ def fedprox_synthetic(seed: int, m: int, alpha: float = 1.0,
     data = Dataset(x=torch.from_numpy(np.concatenate(xs)),
                    y=torch.from_numpy(np.concatenate(ys)))
     return data, parts
+
+
+def token_probs(vocab: int, skew_topic: Optional[int] = None,
+                zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf(``zipf_a``) over token ranks; ``skew_topic`` boosts a band of
+    ``vocab // 8`` tokens eightfold, so clients with different topics are
+    non-IID at the unigram level (the reference's ``token_stream`` law)."""
+    probs = np.arange(1, vocab + 1, dtype=np.float64) ** (-zipf_a)
+    if skew_topic is not None:
+        band = vocab // 8
+        start = (skew_topic * band) % max(vocab - band, 1)
+        probs[start:start + band] *= 8.0
+    return probs / probs.sum()
+
+
+def token_stream(seed: int, n_tokens: int, vocab: int,
+                 skew_topic: Optional[int] = None,
+                 zipf_a: float = 1.2) -> torch.Tensor:
+    """(n_tokens,) int32 token ids on the host, drawn from
+    ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(vocab, n_tokens, p=token_probs(vocab, skew_topic,
+                                                    zipf_a))
+    return torch.from_numpy(ids.astype(np.int32))
+
+
+def lm_sequences(seed: int, n_seq: int, seq_len: int, vocab: int,
+                 skew_topic: Optional[int] = None) -> dict:
+    """(tokens, labels) next-token pairs of shape (n_seq, seq_len)."""
+    chunks = token_stream(seed, n_seq * (seq_len + 1), vocab,
+                          skew_topic).reshape(n_seq, seq_len + 1)
+    return {"tokens": chunks[:, :-1], "labels": chunks[:, 1:]}

@@ -102,8 +102,9 @@ class FederatedSimulation:
     """``run(T)`` executes T rounds of ``fed.algorithm`` on one device
     (``device=None``: the card; pass ``"cpu"`` to run on the CPU).
 
-    ``params`` is the model tree (a dict of tensors); ``batcher`` a
-    ``FederatedBatcher`` on the same device."""
+    ``params`` is the model tree (dicts and lists of tensors: a paper
+    model's dict or an LM's ``{"segments": [...], …}``); ``batcher`` a
+    ``FederatedBatcher`` or ``LMFederatedBatcher`` on the same device."""
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  params: PyTree, fed: FedConfig, batcher,
@@ -158,7 +159,11 @@ class FederatedSimulation:
 
     def _chunk_fn(self, r: int) -> Callable:
         if r not in self._chunks:
-            self._chunks[r] = engine.make_round_chunk(self._round_fn(), r)
+            # the chunk takes the state over (freeing the pre-chunk state
+            # after round 1), and hands back the last finished round's
+            # state if a round raises
+            self._chunks[r] = engine.make_round_chunk(self._round_fn(), r,
+                                                      donate=True)
         return self._chunks[r]
 
     def _lam(self, t: int) -> float:

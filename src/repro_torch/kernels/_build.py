@@ -32,6 +32,8 @@ SOURCES = {
     "quantize": KERNELS_DIR / "quantize" / "csrc" / "quantize.cu",
     "flash_attention":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

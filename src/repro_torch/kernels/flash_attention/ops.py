@@ -1,17 +1,22 @@
-"""Checked wrappers of the flash-attention forward kernel, with its launch
-counter, on the model layout: q ``(B, Sq, H, Dqk)``, k ``(B, Skv, Hkv,
+"""Checked wrappers of the flash-attention kernels, with their launch
+counters, on the model layout: q ``(B, Sq, H, Dqk)``, k ``(B, Skv, Hkv,
 Dqk)``, v ``(B, Skv, Hkv, Dv)``.
 
 * ``flash_attention_fwd`` returns ``(o (B, Sq, H, Dv), lse (B, H, Sq))``;
-* ``flash_attention`` returns ``o`` (the serving path's prefill).
+* ``flash_attention`` returns ``o`` (forward only);
+* ``flash_attention_bwd`` returns ``(dq, dk, dv)`` from the forward's ``o``
+  and ``lse`` and the cotangent ``do``: two kernels, ``dq`` and ``dk/dv``,
+  after one plain reduction ``δ = rowsum(do ∘ o)``;
+* ``flash_attention_diff`` returns ``o`` through ``FlashAttentionFn``, whose
+  backward is ``flash_attention_bwd`` and which ``torch.func.vmap`` batches
+  by folding the vmapped axis into B: one launch of each kernel covers
+  every client of a vmapped loss (the training path, core/flat.py).
 
-A CPU tensor takes the plain PyTorch version (``ref.py``); a CUDA tensor
-launches the hand-written kernel (``csrc/flash_attention.cu``) on the
-current stream, or raises — nothing falls back.  ``launches`` gains one
-where the kernel is launched, and nowhere else.  The kernel has no
-backward yet (ROADMAP B7): on the card, a call whose inputs require a
-gradient under autograd raises instead of returning an output that autograd
-would treat as a constant.
+A CPU tensor takes the plain PyTorch versions (``ref.py``); a CUDA tensor
+launches the hand-written kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``) on the current stream, or raises — nothing
+falls back.  ``launches`` gains one where a kernel is launched, and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.kernels.flash_attention import ref
 MAX_HEAD_DIM = 256
 MAX_GRID_DIM = 65535                 # CUDA's limit on grid.y (H), grid.z (B)
 
-launches = {"flash_attention_fwd": 0}
+launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 
 def reset_launches() -> None:
@@ -43,6 +49,17 @@ def _kernels() -> ctypes.CDLL:
         [i32, ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 9
         + [i32, i32, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_kernels() -> ctypes.CDLL:
+    lib = _build.library("flash_attention_bwd")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv):
+        fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
+                       + [i32, i32, ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -101,11 +118,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.attention_fwd(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet "
-            "(ROADMAP B7): the card runs attention forward only")
     B, Sq, H, _ = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -127,3 +139,166 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Forward only: ``o (B, Sq, H, Dv)``."""
     return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                scale=scale)[0]
+
+
+def _check_bwd(q, k, v, do, rows, window) -> None:
+    """``do`` (B, Sq, H, Dv) in q's dtype; ``rows``: the (B, H, Sq)
+    float32 tensors (lse, and δ or o's stand-in) by name."""
+    _check(q, k, v, window)
+    B, Sq, H, _ = q.shape
+    Dv = v.shape[3]
+    if not isinstance(do, torch.Tensor) or do.shape != (B, Sq, H, Dv):
+        raise ValueError(f"do must be (B, Sq, H, Dv) = {(B, Sq, H, Dv)}")
+    if do.dtype != q.dtype or do.device != q.device:
+        raise TypeError(f"do must be {q.dtype} on {q.device}")
+    for name, t in rows.items():
+        if (not isinstance(t, torch.Tensor) or t.shape != (B, H, Sq)
+                or t.dtype != torch.float32 or t.device != q.device):
+            raise ValueError(f"{name} must be float32 (B, H, Sq) = "
+                             f"{(B, H, Sq)} on {q.device}")
+
+
+def _bwd_launch(kernel: str, outs: tuple, q, k, v, do, lse, delta, causal,
+                window, scale) -> None:
+    if do.stride(-1) != 1 or do.data_ptr() % 16:
+        do = do.contiguous()
+    lse, delta = lse.contiguous(), delta.contiguous()
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out0, out1 = (outs + (None,))[:2]
+    # dk/dv of a GQA/MQA group: float32 partials per query head, summed in
+    # head order by the kernel's second pass
+    ws = (torch.empty(B * H * Skv * (D + Dv), dtype=torch.float32,
+                      device=q.device)
+          if out1 is not None and H != Hkv else None)
+    rc = getattr(_bwd_kernels(), kernel)(
+        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+        None if ws is None else ws.data_ptr(), B, H, Hkv, Sq, Skv, D, Dv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], int(causal), int(window),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.raise_on_launch_error(rc, kernel)
+    launches[kernel] += 1
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The dq kernel: ``dq (B, Sq, H, Dqk)`` in q's dtype, from the
+    forward's float32 ``lse`` and ``delta = ref.row_delta(do, o)``."""
+    _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, window)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                    window=window, scale=scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_attention_bwd_dq", (dq,), q, k, v, do, lse, delta,
+                causal, window, scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel: ``(dk, dv)`` shaped and typed as ``(k, v)``, each
+    summed over the query heads of its kv head."""
+    _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, window)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention_bwd_dkv(q, k, v, do, lse, delta,
+                                     causal=causal, window=window,
+                                     scale=scale)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _bwd_launch("flash_attention_bwd_dkv", (dk, dv), q, k, v, do, lse,
+                delta, causal, window, scale)
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients ``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` for
+    the cotangent ``do`` (``(B, Sq, H, Dv)``, q's dtype), from the
+    forward's ``o`` and float32 ``lse (B, H, Sq)``; each gradient has its
+    input's shape and dtype.  On the card: δ, then one launch of each
+    kernel."""
+    _check_bwd(q, k, v, do, {"lse": lse}, window)
+    if o.shape != do.shape or o.dtype != do.dtype or o.device != q.device:
+        raise ValueError(f"o must be shaped and typed as do: "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window, scale=scale)
+    delta = ref.row_delta(do, o)
+    kw = {"causal": causal, "window": window, "scale": scale}
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq,) + flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``(o, lse)`` of ``flash_attention_fwd`` with ``flash_attention_bwd``
+    as its backward (``lse`` is not differentiable).  Under
+    ``torch.func.vmap`` the ``vmap`` rule moves each input's vmapped axis
+    to the front, folds it into B (expanding an input that is not
+    vmapped) and calls the Function on the physical tensors, so each
+    kernel runs once for the whole vmapped batch."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale):
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.attrs = (causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, scale = ctx.attrs
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.expand((n,) + t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape((n * t.shape[1],) + t.shape[2:])
+
+        o, lse = FlashAttentionFn.apply(
+            fold(q, in_dims[0]), fold(k, in_dims[1]), fold(v, in_dims[2]),
+            causal, window, scale)
+        return ((o.reshape((n, -1) + o.shape[1:]),
+                 lse.reshape((n, -1) + lse.shape[1:])), (0, 0))
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable ``o (B, Sq, H, Dv)``: the forward kernel, and the dq
+    and dk/dv kernels in autograd's backward."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FlashAttentionFn.apply(q, k, v, causal, window, scale)[0]

@@ -1,5 +1,5 @@
-"""Plain PyTorch version of the flash-attention forward kernel, on the model
-layout: q ``(B, Sq, H, Dqk)``, k ``(B, Skv, Hkv, Dqk)``, v ``(B, Skv, Hkv,
+"""Plain PyTorch versions of the flash-attention kernels, forward and
+backward, on the model layout: q ``(B, Sq, H, Dqk)``, k ``(B, Skv, Hkv, Dqk)``, v ``(B, Skv, Hkv,
 Dv)``, GQA query head ``h`` reading kv head ``h // (H / Hkv)``.
 
 What ``_attn_kernel`` of ``src/repro/kernels/flash_attention/kernel.py``
@@ -14,8 +14,17 @@ that sees no key (possible only when Skv < Sq under a window) gives
 ``o = 0``.  The CUDA kernel (``csrc/flash_attention.cu``) does the same
 arithmetic with another summation order.
 
-Materializes the ``(B, H, Sq, Skv)`` float32 scores: fine for tests and
-for holding the kernel to it on the card, not for a long context.
+``attention_bwd`` is what the backward kernels ``_dq_kernel`` and
+``_dkv_kernel`` of ``src/repro/kernels/flash_attention/backward.py``
+compute together: with ``p = exp(s − lse)`` recomputed from the forward's
+``lse`` (hidden keys weigh exactly 0), ``δ = rowsum(do ∘ o)``, ``dp = do·vᵀ``
+and ``ds = p ∘ (dp − δ)``, it returns ``dq = scale·ds·k``, ``dk = scale·dsᵀ·q``
+and ``dv = pᵀ·do``, dk and dv summed over the g query heads of each kv head,
+all in float32 and cast to the inputs' dtypes.  The CUDA kernels
+(``csrc/flash_attention_bwd.cu``) do the same arithmetic in another order.
+
+Both materialize the ``(B, H, Sq, Skv)`` float32 scores: fine for tests and
+for holding the kernels to them on the card, not for a long context.
 """
 from __future__ import annotations
 
@@ -60,3 +69,67 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
     lse = (m + torch.log(l)).reshape(B, H, Sq)
     return o, lse
+
+
+
+def row_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``δ = rowsum(do ∘ o)`` in float32, shaped ``(B, H, Sq)``: the one
+    plain reduction both backward kernels read."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd(q, k, v, do, lse, delta, causal, window, scale, want_dq,
+         want_dkv):
+    B, Sq, H, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = H // Hkv
+    if scale is None:
+        scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Sq, Hkv, g, Dv)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf * scale, kf)
+    mask = visible(Sq, Skv, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, Hkv, g, Sq, 1)), 0.0)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - delta.reshape(B, Hkv, g, Sq, 1))
+    out = ()
+    if want_dq:
+        dq = scale * torch.einsum("bhgqk,bkhd->bqhgd", ds, kf)
+        out += (dq.reshape(B, Sq, H, D).to(q.dtype),)
+    if want_dkv:
+        dk = scale * torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+        dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+        out += (dk.to(k.dtype), dv.to(v.dtype))
+    return out
+
+
+def attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                     window: int = 0, scale: Optional[float] = None
+                     ) -> torch.Tensor:
+    """What the dq kernel computes: ``dq`` in q's dtype, from the forward's
+    float32 ``lse`` and ``delta = row_delta(do, o)``, both ``(B, H, Sq)``."""
+    return _bwd(q, k, v, do, lse, delta, causal, window, scale, True,
+                False)[0]
+
+
+def attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                      window: int = 0, scale: Optional[float] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the dk/dv kernel computes: ``(dk, dv)`` in k's and v's dtypes,
+    summed over each kv head's query heads."""
+    return _bwd(q, k, v, do, lse, delta, causal, window, scale, False,
+                True)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of ``attention_fwd``'s ``o`` for the cotangent ``do``
+    (``(B, Sq, H, Dv)``), from the forward's ``o`` and ``lse``.  Returns
+    ``(dq, dk, dv)`` shaped and typed as ``(q, k, v)``: both kernels' work
+    in one pass."""
+    return _bwd(q, k, v, do, lse, row_delta(do, o), causal, window, scale,
+                True, True)

@@ -1,17 +1,22 @@
 """Attention (``repro.models.attention`` counterpart): MHA / GQA / MQA with a
 positional per-row KV cache.
 
-In-flight attention (training forward, prefill) goes through the flash
-kernel's wrapper (``kernels/flash_attention/ops.py``) whenever
+In-flight attention (training forward and backward, prefill) goes through
+``flash_attention_diff`` (``kernels/flash_attention/ops.py``) whenever
 ``logit_cap == 0`` and ``is_global`` is a Python bool, on either device: a
-CPU tensor takes its plain version, a CUDA tensor the hand-written kernel,
-at any sequence length.  Soft-capped logits take ``blocked_attention``.
+CPU tensor takes the plain versions, a CUDA tensor the hand-written
+forward kernel and, under autograd, the dq and dk/dv kernels, at any
+sequence length.  Soft-capped logits take ``blocked_attention``.
 Decode (one query against the cache) stays plain torch, as the reference
 computes it outside any kernel.
 
 Cache updates are functional, as in the reference: ``attention`` returns a
 new cache dict and never writes the one it was given.  The reference's
 ``dist.constrain`` sharding hints are dropped (one device; ROADMAP A15).
+``cfg.remat`` is not honoured: the port keeps each layer's activations for
+the backward (small at the training path's sizes), and
+``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``, which
+batches the clients of a round (core/flat.py).
 MLA (DeepSeek-V2) is not ported yet (ROADMAP A12).
 """
 from __future__ import annotations
@@ -153,8 +158,8 @@ def full_attention(q, k, v, q_pos, *, window: int = 0, is_global=True,
         q_pos = q_pos[0]        # so any row's positions give the same mask
     win = 0 if (is_global is True or not window) else window
     if isinstance(is_global, bool) and logit_cap == 0.0:
-        return fa_ops.flash_attention(q, k, v, causal=True, window=win,
-                                      scale=q.shape[-1] ** -0.5)
+        return fa_ops.flash_attention_diff(q, k, v, causal=True, window=win,
+                                           scale=q.shape[-1] ** -0.5)
     return blocked_attention(q, k, v, q_pos, q_pos, window=window,
                              is_global=is_global, logit_cap=logit_cap)
 

@@ -1,0 +1,174 @@
+"""Federated LM training in the port against the JAX package on the CPU:
+the reference's ``tests/test_flat_apply.py::_lm_setup`` (reduced gemma-2b
+— 2 layers, d 64, vocab 256, MQA, GeGLU, tied embeddings — 3 clients,
+batch 2, K_i = 2, lr 0.1, λ 0.5) run through ``FederatedSimulation`` with
+``param_layout="flat"`` in both packages, from the reference's weights and
+token streams (numpy arrays carried across).
+
+At SEQ 16 the reference takes its blocked attention (its kernel gate needs
+S % 128 == 0); at SEQ 128 with ``REPRO_FLASH_ATTENTION=interpret`` its
+gradients go through the Pallas backward kernels in interpret mode.  The
+port runs its plain flash-attention forward and backward through
+``FlashAttentionFn`` and its vmap rule either way.
+
+Tolerances.  Both sides run the same float32 operations summed in other
+orders (XLA against PyTorch; about an ulp per operation).  After two
+rounds of two local steps the parameters agree to PARAMS_ATOL absolute
+plus PARAMS_RTOL relative (weights up to 0.6, measured ≤ 8.2e-8 apart)
+and the round losses to LOSS_RTOL (~5.5 nats, measured ≤ 9e-8 relative).
+"""
+import functools
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs.base import FedConfig as JFedConfig  # noqa: E402
+from repro.configs.base import reduced as jreduced  # noqa: E402
+from repro.configs.registry import get_arch as jget_arch  # noqa: E402
+from repro.data import LMFederatedBatcher as JLMBatcher  # noqa: E402
+from repro.data import lm_sequences as jlm_sequences  # noqa: E402
+from repro.fed import FederatedSimulation as JSimulation  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs.base import FedConfig  # noqa: E402
+from repro_torch.configs.base import reduced  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.convert import lm_params_from_numpy  # noqa: E402
+from repro_torch.core import flat  # noqa: E402
+from repro_torch.data import LMFederatedBatcher, lm_sequences  # noqa: E402
+from repro_torch.data.synthetic import token_probs  # noqa: E402
+from repro_torch.examples import fed_lm_train  # noqa: E402
+from repro_torch.fed import FederatedSimulation  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+
+M_CLIENTS, BATCH = 3, 2
+PARAMS_RTOL, PARAMS_ATOL, LOSS_RTOL = 1e-5, 2e-6, 1e-5
+
+
+def _setup(seq):
+    """The reference's ``_lm_setup`` at ``seq``: (jax cfg, port cfg, jax
+    streams, jax params)."""
+    cfg = jreduced(jget_arch("gemma-2b"), n_layers=2, d_model=64, vocab=256)
+    tcfg = reduced(get_arch("gemma-2b"), n_layers=2, d_model=64, vocab=256)
+    key = jax.random.PRNGKey(0)
+    streams = [jlm_sequences(jax.random.fold_in(key, i), 16, seq, cfg.vocab,
+                             skew_topic=i) for i in range(M_CLIENTS)]
+    return cfg, tcfg, streams, JM.init_params(key, cfg)
+
+
+def _np_streams(streams):
+    return [{k: np.asarray(v) for k, v in s.items()} for s in streams]
+
+
+def _fed(cls, algo):
+    return cls(algorithm=algo, n_clients=M_CLIENTS, k_mean=2, lr=0.1,
+               calibration_rate=0.5, param_layout="flat")
+
+
+def _run_both(algo, seq, rounds=2):
+    cfg, tcfg, streams, params = _setup(seq)
+    jloss = functools.partial(JM.lm_loss, cfg=cfg)
+    jsim = JSimulation(lambda p, b: jloss(p, b), params, _fed(JFedConfig, algo),
+                       JLMBatcher(streams, batch_size=BATCH), t_max=rounds)
+    jhist = jsim.run(rounds, eval_every=rounds)
+    tloss = functools.partial(TM.lm_loss, cfg=tcfg)
+    tparams = lm_params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    tsim = FederatedSimulation(
+        lambda p, b: tloss(p, b), tparams, _fed(FedConfig, algo),
+        LMFederatedBatcher(_np_streams(streams), batch_size=BATCH,
+                           device="cpu"),
+        t_max=rounds, device="cpu")
+    before = dict(fa_ops.launches)
+    thist = tsim.run(rounds, eval_every=rounds)
+    assert fa_ops.launches == before          # CPU tensors launch nothing
+    return jsim, jhist, tsim, thist
+
+
+def _assert_close(jsim, jhist, tsim, thist):
+    np.testing.assert_allclose(thist.loss, jhist.loss, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(thist.kbar, jhist.kbar, rtol=1e-7)
+    np.testing.assert_allclose(tsim.state["params"].numpy(),
+                               np.asarray(jsim.state["params"]),
+                               rtol=PARAMS_RTOL, atol=PARAMS_ATOL)
+    want = jax.tree_util.tree_leaves(jax.tree.map(np.asarray, jsim.params))
+    got = [t.numpy() for _, t in flat._leaves(tsim.params)]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=PARAMS_RTOL, atol=PARAMS_ATOL)
+
+
+def test_lm_batcher_is_bit_identical():
+    _, _, streams, _ = _setup(16)
+    jb = JLMBatcher(streams, batch_size=BATCH, seed=3)
+    tb = LMFederatedBatcher(_np_streams(streams), batch_size=BATCH, seed=3,
+                            device="cpu")
+    np.testing.assert_array_equal(tb.weights.numpy(), np.asarray(jb.weights))
+    for t in range(3):
+        want = jb.round_batches(t, 4)
+        got = tb.round_batches(t, 4)
+        for key in ("tokens", "labels"):
+            assert got[key].shape == (M_CLIENTS, 4, BATCH, 16)
+            np.testing.assert_array_equal(got[key].numpy(),
+                                          np.asarray(want[key]))
+    chunk = tb.chunk_batches(1, 2, 4)
+    for j in range(2):
+        for key in ("tokens", "labels"):
+            np.testing.assert_array_equal(
+                chunk[key][j].numpy(), np.asarray(jb.round_batches(1 + j, 4)
+                                                  [key]))
+
+
+@pytest.mark.parametrize("algo", ["fedagrac", "fedavg", "fednova"])
+def test_flat_lm_rounds_match_reference(algo):
+    """Two flat rounds at SEQ 16 (the reference's blocked attention)."""
+    _assert_close(*_run_both(algo, 16))
+
+
+def test_flat_lm_round_through_pallas_backward(monkeypatch):
+    """One fedagrac round at SEQ 128, the reference's gradients through its
+    Pallas forward and backward kernels in interpret mode."""
+    monkeypatch.setenv("REPRO_FLASH_ATTENTION", "interpret")
+    _assert_close(*_run_both("fedagrac", 128, rounds=1))
+
+
+def test_token_streams_follow_the_reference_law():
+    """The same Zipf + topic-band law as the reference (which draws with
+    ``jax.random``, so only the law can agree), and a seed fixes the
+    stream."""
+    probs = token_probs(256, skew_topic=2)
+    ranks = np.arange(1, 257, dtype=np.float64) ** -1.2
+    boost = np.zeros(256)
+    boost[64:96] = 1.0
+    want = ranks * (1 + 7 * boost)
+    np.testing.assert_allclose(probs, want / want.sum(), rtol=1e-12)
+    a = lm_sequences(5, 4, 9, 256, skew_topic=2)
+    b = lm_sequences(5, 4, 9, 256, skew_topic=2)
+    assert a["tokens"].shape == (4, 9) and a["tokens"].dtype == torch.int32
+    assert torch.equal(a["tokens"], b["tokens"])
+    assert torch.equal(a["tokens"][:, 1:], a["labels"][:, :-1])
+    big = lm_sequences(0, 256, 32, 256, skew_topic=2)["tokens"].numpy()
+    freq = np.bincount(big.ravel(), minlength=256) / big.size
+    assert np.abs(freq - probs).max() < 0.01
+
+
+def test_small_example_learns_on_cpu(capsys):
+    final = fed_lm_train.main(["--small", "--device", "cpu", "--rounds", "2",
+                               "--eval-every", "1"])
+    out = capsys.readouterr().out
+    ppl = [float(line.split("held-out ppl")[1].split()[0])
+           for line in out.splitlines() if "held-out ppl" in line]
+    assert len(ppl) == 2 and ppl[1] < ppl[0] < 256
+    assert final == pytest.approx(ppl[1], abs=0.05) and final < 0.8 * 256
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--bf16"], "A3"), (["--sampler", "device"], "A5"),
+    (["--layout", "tree"], "A2"), (["--ckpt", "x.msgpack"], "A11")])
+def test_example_refuses_unported_flags(argv, item):
+    with pytest.raises(NotImplementedError, match=item):
+        fed_lm_train.main(["--small", "--device", "cpu", *argv])

@@ -109,3 +109,19 @@ def test_serve_engine_without_device_raises_where_no_cuda():
     eng = ServeEngine(cfg, params, slots=1, max_len=16, prefill_buckets=(8,),
                       device="cpu")
     assert eng.caches[0]["k"].device.type == "cpu"
+
+
+def test_lm_training_entry_points_without_device_raise_where_no_cuda():
+    """The federated LM path's entry points (slice 4): the LM batcher and
+    the example default to the card like every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    from repro_torch.data import LMFederatedBatcher, lm_sequences
+    from repro_torch.examples import fed_lm_train
+    streams = [lm_sequences(i, 2, 4, 16, skew_topic=i) for i in range(2)]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMFederatedBatcher(streams, batch_size=1)
+    assert LMFederatedBatcher(streams, batch_size=1,
+                              device="cpu").weights.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fed_lm_train.main(["--small", "--rounds", "1"])

@@ -98,3 +98,56 @@ def test_chunked_run_equals_per_round(task):
     assert h1.metric == h3.metric and len(h3.metric) == 1
     for key in per_round.state:
         assert torch.equal(per_round.state[key], chunked.state[key]), key
+
+
+def _counting_round(fail_at=None):
+    """A round that adds 1 to ``x`` and raises on round ``fail_at``
+    (numbered by its λ)."""
+    def round_fn(state, batches, k, weights, lam):
+        if lam == fail_at:
+            raise FloatingPointError(f"round {lam}")
+        return {"x": state["x"] + 1}, {"loss": state["x"].sum()}
+    return round_fn
+
+
+def _chunk_inputs(r):
+    return ({"b": torch.zeros(r, 2, 1)}, torch.ones(r, 2, dtype=torch.int32),
+            torch.full((r, 2), 0.5), list(range(r)))
+
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_chunk_donation(donate):
+    """A donated state dict is emptied by the chunk (the pre-chunk state is
+    not held through it); an undonated one is left as it was."""
+    from repro_torch.core import engine
+    given = {"x": torch.zeros(3)}
+    chunk = engine.make_round_chunk(_counting_round(), 3, donate=donate)
+    state, metrics = chunk(given, *_chunk_inputs(3))
+    assert torch.equal(state["x"], torch.full((3,), 3.0))
+    assert metrics["loss"].tolist() == [0.0, 3.0, 6.0]
+    assert (given == {}) if donate else torch.equal(given["x"],
+                                                    torch.zeros(3))
+
+
+def test_chunk_failure_keeps_last_finished_state(task):
+    """When a round of a donated chunk raises, the dict holds the state
+    after the last round that finished, and so does the simulation."""
+    from repro_torch.core import engine
+    given = {"x": torch.zeros(3)}
+    chunk = engine.make_round_chunk(_counting_round(fail_at=2), 3,
+                                    donate=True)
+    with pytest.raises(FloatingPointError):
+        chunk(given, *_chunk_inputs(3))
+    assert torch.equal(given["x"], torch.full((3,), 2.0))
+
+    def failing_round(state, *args):
+        raise FloatingPointError("round 0")
+
+    sim = _port_sim(task, "fedagrac")
+    before = {k: v.clone() for k, v in sim.state.items()}
+    sim._chunks[3] = engine.make_round_chunk(failing_round, 3, donate=True)
+    with pytest.raises(FloatingPointError):
+        sim.run(3, eval_every=3)
+    assert sim.state.keys() == before.keys()
+    for key in before:
+        assert torch.equal(sim.state[key], before[key]), key
