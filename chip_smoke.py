@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, each printing JSON lines; any failure exits non-zero.
+Ten phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -35,10 +35,11 @@ Eight phases, each printing JSON lines; any failure exits non-zero.
    version on the card, float32 and bfloat16, ``o`` and ``lse``, at the
    serving path's shapes (llama3-8b at the largest prefill bucket, a
    ragged bucket fill), ragged MHA, gemma-2b's MQA with head dim 256, a
-   sliding window, one long shape, and phase 8's local-step and eval
-   shapes; ``kernel_time`` lines at the path's shape and the long shape, with the bound and the time of
-   ``scaled_dot_product_attention`` as a yardstick (the port never calls
-   it).
+   sliding window, one long shape, phase 8's local-step and eval shapes
+   and phase 10's shared attention block (head dim 80, MHA);
+   ``kernel_time`` lines at the path's shape and the long shape, with the
+   bound and the time of ``scaled_dot_product_attention`` as a yardstick
+   (the port never calls it).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -66,10 +67,28 @@ Eight phases, each printing JSON lines; any failure exits non-zero.
    against its plain version at the run's (2, P) client matrix, and timed
    there.  Then the example's --small model on the card against the
    CPU.
+9. SSD kernel — the Mamba2 chunked-scan kernel against its plain version
+   on the card, float32 and bfloat16 (x, B and C read in place from one
+   conv-output tensor), y and the final state within 2e-4 of each one's
+   largest entry, at zamba2-2.7b's prefill shapes (one chunk, two, a
+   ragged 100), grouped B/C, P = N = 128, a ragged 77 and one long shape
+   (32 chunks); ``kernel_time`` lines at the path's shape and the long
+   shape with the bound (no PyTorch call computes the SSD: no yardstick).
+10. hybrid inference — zamba2-2.7b at full width and depth (54 Mamba2
+   layers, a shared attention block after every 6, d 2560, 80 SSM heads,
+   d_ff 10240, vocab 32000) in bfloat16, random weights from a seed,
+   through ``serve_prefill`` and ``serve_decode``: prefills of 4 × 128,
+   2 × 256 and 1 × 100 tokens, each followed by 32 greedy decode steps
+   (max_len 512).  Every prefill must launch the SSD kernel 54 times and
+   the attention kernel 9 times, no decode step either; prints prefill
+   tokens/s, wall per decode step, decode tokens/s and peak memory.  Then
+   the same model in float32, cut to 12 layers (two groups), on the card
+   against the CPU, teacher-forced with the card's tokens.
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the repository beside it, the
-script exits non-zero and prints no result.
+last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the repository beside it, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -127,12 +146,14 @@ COMPRESSED_RUNS = (
 # MQA and head dim, a sliding window, the long shape for timing, and phase
 # 8's: a local step of gemma-2b (2 clients × batch 2 folded into B) and its
 # held-out eval (8 sequences), and the --small model's (4 clients × batch
-# 2, and the eval)
+# 2, and the eval), and phase 10's: zamba2-2.7b's shared attention block
+# (MHA 32 / 32 heads of dim 80) at its three prefills
 ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 64, 0), (1, 128, 8, 1, 256, 0),
                (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0),
                (4, 128, 8, 1, 256, 0), (8, 128, 8, 1, 256, 0),
-               (8, 32, 2, 1, 32, 0)]
+               (8, 32, 2, 1, 32, 0), (4, 128, 32, 32, 80, 0),
+               (2, 256, 32, 32, 80, 0), (1, 100, 32, 32, 80, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0)]
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
@@ -180,6 +201,30 @@ LOGIT_TOL = 1e-3
 # d 1024.  The --small check keeps lr 0.3.
 FED_LM = {"layers": 2, "clients": 2, "seq": 128, "batch": 2, "rounds": 3,
           "lr": 0.003, "algorithms": ("fedagrac", "fedavg")}
+
+# Phase 9's shapes (b, l, h, p, g, n, chunk): zamba2-2.7b's SSD (80 heads
+# of dim 64, one group of d_state 64, chunk 128) at phase 10's prefills —
+# 4 prompts of 128 (one chunk), 2 of 256 (two: the inter-chunk carry), 1 of
+# 100 (a ragged chunk) — and at 4 of 256, the path shape of the kernel's
+# bound; grouped B/C; the kernel's limits P = N = 128; a ragged 77 with
+# groups; one long shape (32 chunks) for timing
+SSD_SHAPES = [(4, 256, 80, 64, 1, 64, 128), (4, 128, 80, 64, 1, 64, 128),
+              (2, 256, 80, 64, 1, 64, 128), (1, 100, 80, 64, 1, 64, 128),
+              (2, 64, 4, 16, 2, 8, 16), (1, 256, 4, 128, 1, 128, 128),
+              (1, 77, 4, 16, 2, 8, 128), (1, 4096, 80, 64, 1, 64, 128)]
+SSD_PATH_SHAPE = (4, 256, 80, 64, 1, 64, 128)
+SSD_TIMED = [SSD_PATH_SHAPE, (1, 4096, 80, 64, 1, 64, 128)]
+# The kernel sums the plain version's float32 terms in another order (for
+# bfloat16 inputs too: both read the same values and compute in float32);
+# y and the state are held to SSD_TOL of each tensor's largest entry, the
+# reference's own tolerance (tests/test_ssd_kernel.py)
+SSD_TOL = 2e-4
+# Phase 10: zamba2-2.7b at full width and depth in bfloat16 — three prefill
+# batches (rows, prompt length), each followed by greedy decode steps; then
+# the float32 card-against-CPU check at 12 of 54 layers (two groups)
+HYBRID = {"prompts": [(4, 128), (2, 256), (1, 100)], "decode_steps": 32,
+          "max_len": 512, "check_layers": 12,
+          "check_prompts": [(2, 256), (1, 100)], "check_steps": 8}
 
 # quantize-kernel launches of one codec call
 CODEC_LAUNCHES = {
@@ -579,7 +624,8 @@ def _launch_counters() -> list:
     from repro_torch.kernels.calibrated_update import ops as cu_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.quantize import ops as q_ops
-    return [cu_ops, q_ops, fa_ops]
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return [cu_ops, q_ops, fa_ops, ssd_ops]
 
 
 def _reset_all_launches() -> None:
@@ -1342,6 +1388,244 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
     return launches
 
 
+def _ssd_operands(shape, dtype, gen):
+    """The SSD's operands as the Mamba2 block hands them over: x, B and C
+    views of one (b, l, h·p + 2·g·n) tensor in ``dtype`` (x's position
+    stride is that width), dt = softplus(·) and A = −exp(·) in float32."""
+    b, l, h, p, g, n, _ = shape
+    d_in = h * p
+    xbc = torch.randn(b, l, d_in + 2 * g * n, generator=gen,
+                      device=DEVICE).to(dtype)
+    x = xbc[..., :d_in].reshape(b, l, h, p)
+    B = xbc[..., d_in:d_in + g * n].reshape(b, l, g, n)
+    C = xbc[..., d_in + g * n:].reshape(b, l, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=gen, device=DEVICE))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=DEVICE))
+    return x, dt, A, B, C
+
+
+def _ssd_bound(x, B) -> tuple[float, str]:
+    """The least time for one SSD call: x, dt, A, B and C read once, y and
+    the state (float32) written once; or the fewest operations that give y
+    and the state, at the float32 peak (the reference computes in float32).
+    That is the recurrence, not the chunked form: per (b, h) and position
+    one multiply-add per state entry to add x·dt ⊗ B (the decay kept as a
+    running scalar) and one to read C·S, 4·N·P operations, less N·P at the
+    first position, where the state is zero and the update a product."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    es = x.element_size()
+    nbytes = (b * l * h * p + 2 * b * l * g * n) * es + b * l * h * 4 \
+        + h * 4 + b * l * h * p * 4 + b * h * p * n * 4
+    ops = b * h * (4 * l - 1) * n * p
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_ssd_kernel() -> dict:
+    """B8 against its plain version on the card at SSD_SHAPES in float32
+    and bfloat16 (y and the final state), then timed at SSD_TIMED.  Returns
+    its worst error and its timing at the path's shape in bfloat16."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    result = {"max_abs_err": 0.0}
+    checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_SHAPES:
+            chunk = shape[-1]
+            x, dt, A, B, C = _ssd_operands(shape, dtype, gen)
+            y, state = ops.ssd_scan(x, dt, A, B, C, chunk)
+            want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, chunk)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, got, want in (("y", y, want_y),
+                                    ("state", state, want_s)):
+                amax = float(want.abs().max())
+                err = float((got - want).abs().max())
+                _require(err <= SSD_TOL * amax
+                         and bool(torch.isfinite(got).all()),
+                         f"ssd_scan {dtype} {shape}: {what} max |err| "
+                         f"{err} > {SSD_TOL} × {amax}")
+                errs[what] = err
+                result["max_abs_err"] = max(result["max_abs_err"], err)
+            checks.append({"kernel": "ssd_scan", "dtype": str(dtype),
+                           "shape": shape, "max_abs_err_y": errs["y"],
+                           "max_abs_err_state": errs["state"],
+                           "rel_err": max(errs["y"] / float(
+                               want_y.abs().max()), errs["state"] / max(
+                                   float(want_s.abs().max()), 1e-30)),
+                           "tol": SSD_TOL})
+            del y, state, want_y, want_s
+            if shape in SSD_TIMED:
+                iters = 50 if shape == SSD_PATH_SHAPE else 5
+                bound_ms, bound_by = _ssd_bound(x, B)
+                timing = {
+                    "kernel": "ssd_scan", "dtype": str(dtype),
+                    "shape": shape,
+                    "ms": _time_ms(lambda: ops.ssd_scan(
+                        x, dt, A, B, C, chunk), iters),
+                    "plain_ms": _time_ms(lambda: ref.ssd_chunked(
+                        x, dt, A, B, C, chunk), iters),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None}
+                _emit({"phase": "kernel_time", **timing})
+                if dtype == torch.bfloat16 and shape == SSD_PATH_SHAPE:
+                    result.update({key: timing[key] for key in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")})
+            del x, dt, A, B, C
+            torch.cuda.empty_cache()
+    _emit({"phase": "ssd_kernel", "checks": len(checks),
+           "max_abs_err": result["max_abs_err"],
+           "worst": max(checks, key=lambda ch: ch["rel_err"])})
+    return result
+
+
+def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
+                  device, tokens=None, seed: int = 0) -> dict:
+    """``serve_prefill`` of ``rows`` prompts of ``length`` tokens into
+    fresh caches, then ``steps`` greedy ``serve_decode`` steps — or, given
+    ``tokens`` (rows, steps), those tokens (teacher forcing) — under
+    inference mode.  Host clocks end in a synchronise.  Returns the
+    logits of every step (float32, on the CPU), the tokens fed, the walls
+    and the kernels' launches in the prefill and in the decode steps."""
+    from repro_torch.models import model as model_lib
+    on_card = device != "cpu"
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (rows, length))).to(device)
+    caches = model_lib.init_caches(cfg, rows, HYBRID["max_len"],
+                                   device=device)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    logits_seen, fed, step_s = [], [], []
+    with torch.inference_mode():
+        sync()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        logits, caches = model_lib.serve_prefill(
+            params, {"tokens": prompt}, cfg, caches=caches)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = _all_launches()
+        _reset_all_launches()
+        for i in range(steps):
+            _require(bool(torch.isfinite(logits).all()),
+                     f"non-finite logits at step {i}")
+            logits_seen.append(logits[:, -1].float().cpu())
+            tok = (logits[:, -1].argmax(-1)[:, None] if tokens is None
+                   else tokens[:, i:i + 1].to(device))
+            fed.append(tok.cpu())
+            t0 = time.perf_counter()
+            logits, caches = model_lib.serve_decode(
+                params, {"tokens": tok}, caches, length + i, cfg)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+        _require(bool(torch.isfinite(logits).all()),
+                 "non-finite logits after the last step")
+        logits_seen.append(logits[:, -1].float().cpu())
+    return {"logits": torch.stack(logits_seen, 1),
+            "tokens": torch.cat(fed, 1) if fed else None,
+            "prefill_s": prefill_s, "step_s": step_s,
+            "prefill_launches": prefill_launches,
+            "decode_launches": _all_launches()}
+
+
+def phase_hybrid(cfg=None, check_cfg=None) -> dict:
+    """zamba2-2.7b at full width and depth in bfloat16 through
+    ``serve_prefill`` / ``serve_decode`` (HYBRID), with exact launch counts
+    — one SSD per Mamba2 layer and one attention per shared-block
+    application in each prefill, none in a decode step — then the float32
+    cut to HYBRID["check_layers"] layers on the card against the CPU,
+    teacher-forced with the card's tokens.  Returns the kernels' launch
+    counts summed over the timed runs (their prefills and decode steps)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model as model_lib
+    cfg = cfg or dataclasses.replace(get_arch("zamba2-2.7b"),
+                                     dtype="bfloat16")
+    segments, n_groups = model_lib.group_spec(cfg)
+    n_mamba = sum(count for kind, count, _ in segments
+                  if kind == "mamba2") * n_groups
+    n_attn = sum(count for kind, count, _ in segments
+                 if kind == "attn") * n_groups
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = []
+    tree_map(leaves.append, params)
+    # warm-up (cuBLAS and cuDNN handles, the allocator) outside the count,
+    # at the first prompt shape, whose kernel shapes phases 5 and 9 check
+    _hybrid_serve(cfg, params, *HYBRID["prompts"][0], 2, DEVICE)
+    counted: dict[str, int] = {}
+    for rows, length in HYBRID["prompts"]:
+        torch.cuda.reset_peak_memory_stats()
+        run = _hybrid_serve(cfg, params, rows, length,
+                            HYBRID["decode_steps"], DEVICE, seed=length)
+        want = {name: 0 for name in run["prefill_launches"]}
+        want.update({"ssd_scan": n_mamba, "flash_attention_fwd": n_attn})
+        _require(run["prefill_launches"] == want,
+                 f"prefill ({rows} × {length}): launches "
+                 f"{run['prefill_launches']}, expected {want}")
+        _require(not any(run["decode_launches"].values()),
+                 f"decode steps launched {run['decode_launches']}")
+        for name, n in run["prefill_launches"].items():
+            counted[name] = counted.get(name, 0) + n
+        decode_s = float(np.sum(run["step_s"]))
+        _emit({"phase": "hybrid", "model": cfg.name, "dtype": cfg.dtype,
+               "n_layers": cfg.n_layers, "mamba_layers": n_mamba,
+               "attention_applications": n_attn,
+               "params": sum(t.numel() for t in leaves),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves),
+               "init_s": init_s, "rows": rows, "prompt_len": length,
+               "max_len": HYBRID["max_len"],
+               "prefill_s": run["prefill_s"],
+               "prefill_tokens_per_s": rows * length / run["prefill_s"],
+               "decode_steps": len(run["step_s"]),
+               "wall_per_decode_step_s": decode_s / len(run["step_s"]),
+               "wall_per_decode_step_p50_s": float(np.median(
+                   run["step_s"])),
+               "decode_tokens_per_s": rows * len(run["step_s"]) / decode_s,
+               "prefill_launches": {k: n for k, n in
+                                    run["prefill_launches"].items() if n},
+               "decode_launches": sum(run["decode_launches"].values()),
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del params, leaves
+    torch.cuda.empty_cache()
+
+    check_cfg = check_cfg or dataclasses.replace(
+        get_arch("zamba2-2.7b"), n_layers=HYBRID["check_layers"])
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(1), check_cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    worst = 0.0
+    for rows, length in HYBRID["check_prompts"]:
+        steps = HYBRID["check_steps"]
+        card = _hybrid_serve(check_cfg, params, rows, length, steps, DEVICE,
+                             seed=length + 1)
+        host = _hybrid_serve(check_cfg, cpu_params, rows, length, steps,
+                             "cpu", tokens=card["tokens"], seed=length + 1)
+        err = float((card["logits"] - host["logits"]).abs().max())
+        worst = max(worst, err)
+        _require(err <= LOGIT_TOL,
+                 f"check ({rows} × {length}): card logits differ from the "
+                 f"CPU's by {err} > {LOGIT_TOL}")
+        _emit({"phase": "hybrid_vs_cpu", "model": check_cfg.name,
+               "dtype": check_cfg.dtype, "n_layers": check_cfg.n_layers,
+               "rows": rows, "prompt_len": length, "decode_steps": steps,
+               "max_abs_logit_err": err, "tol": LOGIT_TOL,
+               "logit_std": float(host["logits"].std()),
+               "prefill_launches": {k: n for k, n in
+                                    card["prefill_launches"].items() if n},
+               "cpu_prefill_s": host["prefill_s"]})
+    del params, cpu_params
+    torch.cuda.empty_cache()
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1368,6 +1652,8 @@ def main() -> int:
     launches.update({name: n for name, n in timed(
         "fed_lm", phase_fed_lm).items() if name.startswith(
             "flash_attention_bwd")})
+    timings["ssd_scan"] = timed("ssd_kernel", phase_ssd_kernel)
+    launches["ssd_scan"] = timed("hybrid", phase_hybrid)["ssd_scan"]
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
     bwd_src = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -1389,7 +1675,9 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:113"),
         "flash_attention_bwd_dq": (bwd_src, bwd_rep + "150"),
-        "flash_attention_bwd_dkv": (bwd_src, bwd_rep + "178")}
+        "flash_attention_bwd_dkv": (bwd_src, bwd_rep + "178"),
+        "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:88")}
     _emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timings[name]}

@@ -60,9 +60,11 @@ def lm_params_from_numpy(tree: dict, device: Device) -> dict:
     """A JAX LM parameter tree (``repro.models.model.init_params``, numpy
     leaves, float32 or bfloat16) → the port's: ``{"segments": [...],
     "embed", "head"?, "final_norm"}`` with layer leaves stacked
-    ``(n_groups, count, …)``.  Raises on the trees of parts the port does
-    not run yet (the shared hybrid block, multi-codebook heads)."""
-    unknown = sorted(set(tree) - {"segments", "embed", "head", "final_norm"})
+    ``(n_groups, count, …)``, and for a hybrid stack ``"shared_attn"`` (one
+    unstacked block) with ``{}`` for its segment.  Raises on the trees of
+    parts the port does not run yet (multi-codebook heads)."""
+    unknown = sorted(set(tree) - {"segments", "embed", "head", "final_norm",
+                                  "shared_attn"})
     if unknown:
         raise NotImplementedError(
             f"parameter keys {unknown} belong to model parts the PyTorch "
@@ -71,7 +73,8 @@ def lm_params_from_numpy(tree: dict, device: Device) -> dict:
 
 
 def lm_caches_from_numpy(caches: list, device: Device) -> list:
-    """A JAX KV-cache list (``repro.models.model.init_caches`` or a
-    prefill's output; one dict per segment with ``k``/``v``/``pos``/
-    ``idx`` stacked ``(n_groups, count, B, …)``) → the port's."""
+    """A JAX cache list (``repro.models.model.init_caches`` or a prefill's
+    output; one dict per segment, stacked ``(n_groups, count, B, …)``: an
+    attention segment's ``k``/``v``/``pos``/``idx``, a Mamba2 segment's
+    ``conv`` (model dtype) and ``ssm`` (float32) state) → the port's."""
     return [params_from_numpy(c, device) for c in caches]

@@ -1,7 +1,8 @@
 """Residual blocks (``repro.models.blocks`` counterpart) with the uniform
 ``(params, cache)`` calling convention of the reference.  The port runs the
-attention kinds with a dense MLP; Mamba2, mLSTM, sLSTM and MoE blocks are
-not ported yet (ROADMAP A12) and raise ``NotImplementedError``."""
+attention kinds with a dense MLP and the Mamba2 block; mLSTM, sLSTM and MoE
+blocks are not ported yet (ROADMAP A12) and raise
+``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -10,13 +11,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import apply_norm, init_norm
 from repro_torch.models.mlp import init_mlp, mlp
 
 Params = dict[str, Any]
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-UNPORTED_KINDS = {"mamba2": "Mamba2", "mlstm": "mLSTM", "slstm": "sLSTM"}
+UNPORTED_KINDS = {"mlstm": "mLSTM", "slstm": "sLSTM"}
 
 
 def _refuse(kind: str, cfg: ModelConfig) -> None:
@@ -24,9 +26,9 @@ def _refuse(kind: str, cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{UNPORTED_KINDS[kind]} blocks are not ported yet "
             f"(ROADMAP A12)")
-    if kind not in ATTN_KINDS:
+    if kind not in ATTN_KINDS and kind != "mamba2":
         raise ValueError(kind)
-    if cfg.moe is not None:
+    if cfg.moe is not None and kind in ATTN_KINDS:
         raise NotImplementedError(
             "MoE feed-forward blocks are not ported yet (ROADMAP A12)")
 
@@ -35,6 +37,9 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
                dtype: torch.dtype, lead: tuple[int, ...] = ()) -> Params:
     _refuse(kind, cfg)
     dev = generator.device
+    if kind == "mamba2":
+        return {"norm": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
+                "mamba": mamba_mod.init_mamba(generator, cfg, dtype, lead)}
     p = {
         "norm1": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
         "attn": attn_mod.init_attention(generator, cfg, dtype, lead),
@@ -49,6 +54,8 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype: torch.dtype, device,
                      lead: tuple[int, ...] = ()) -> Params:
     _refuse(kind, cfg)
+    if kind == "mamba2":
+        return mamba_mod.init_mamba_cache(cfg, batch, dtype, device, lead)
     return attn_mod.init_cache(cfg, batch, max_len, dtype, device,
                                window_only=(kind == "attn_local"), lead=lead)
 
@@ -60,6 +67,10 @@ def apply_block(params: Params, kind: str, x: torch.Tensor,
     """Returns (x, new_cache, aux_loss)."""
     _refuse(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "mamba2":
+        h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
+        y, new_cache = mamba_mod.mamba(params["mamba"], h, cfg, cache)
+        return x + y, new_cache, aux
     h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
     is_global = kind != "attn_local" if cfg.sliding_window else True
     a, new_cache = attn_mod.attention(

@@ -8,11 +8,14 @@ across from JAX (``convert.lm_params_from_numpy``) drop in as they are.
 The reference's ``lax.scan`` over the stack is a Python loop over
 ``(group, layer)`` views of the same tensors.
 
-The port runs the text front end and uniform attention stacks (dense MHA /
-GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings).  It refuses with
-``NotImplementedError`` what it does not run yet (ROADMAP A12): sliding-
-window / local-global layers, hybrid, SSM and xLSTM stacks, MoE, MLA, and
-the audio and vision front ends.
+The port runs the text front end, uniform attention stacks (dense MHA /
+GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings), Mamba2 stacks and
+the zamba2 hybrid: groups of Mamba2 layers, each group followed by one
+attention block whose weights every group shares (``params["shared_attn"]``,
+its segment ``{}`` in ``params["segments"]``) and whose cache is the
+group's own (``caches[si][g, 0]``).  It refuses with ``NotImplementedError``
+what it does not run yet (ROADMAP A12): sliding-window / local-global
+layers, xLSTM stacks, MoE, MLA, and the audio and vision front ends.
 """
 from __future__ import annotations
 
@@ -35,9 +38,7 @@ def check_supported(cfg: ModelConfig) -> None:
     run yet, naming its ROADMAP item."""
     unported = [
         (cfg.sliding_window > 0, "sliding-window / local-global attention"),
-        (cfg.hybrid_attn_every > 0, "hybrid Mamba2 + attention stacks"),
         (cfg.xlstm is not None, "xLSTM stacks"),
-        (cfg.ssm is not None or cfg.family == "ssm", "SSM (Mamba2) stacks"),
         (cfg.moe is not None, "MoE feed-forward"),
         (cfg.mla is not None, "MLA attention"),
         (cfg.frontend != "none", f"the {cfg.frontend} front end"),
@@ -88,9 +89,14 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     check_supported(cfg)
     dt = _dtype(cfg, dtype)
     segments, n_groups = group_spec(cfg)
-    params: Params = {"segments": [
-        init_block(generator, kind, cfg, dt, lead=(n_groups, count))
-        for kind, count, _shared in segments]}
+    params: Params = {"segments": []}
+    for kind, count, shared in segments:
+        if shared:
+            params["segments"].append({})
+            params["shared_attn"] = init_block(generator, kind, cfg, dt)
+            continue
+        params["segments"].append(
+            init_block(generator, kind, cfg, dt, lead=(n_groups, count)))
     params["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
     if not cfg.tie_embeddings:
         params["head"] = embed_init(generator, cfg.d_model, cfg.vocab, dt)
@@ -148,9 +154,10 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     new_layers: list[list] = [[] for _ in segments]
     for g in range(n_groups):
-        for si, (kind, count, _shared) in enumerate(segments):
+        for si, (kind, count, shared) in enumerate(segments):
             for c in range(count):
-                p = tree_map(lambda t: t[g, c], params["segments"][si])
+                p = (params["shared_attn"] if shared else
+                     tree_map(lambda t: t[g, c], params["segments"][si]))
                 cache = (None if caches is None
                          else tree_map(lambda t: t[g, c], caches[si]))
                 h, nc, a = apply_block(p, kind, h, cfg, angles=angles,

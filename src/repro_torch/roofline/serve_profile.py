@@ -1,19 +1,27 @@
-"""Where the serving path spends its time on the card.
+"""Where the serving paths spend their time on the card.
 
-    PYTHONPATH=src python -m repro_torch.roofline.serve_profile
+    PYTHONPATH=src python -m repro_torch.roofline.serve_profile [--hybrid]
 
-Builds llama3-8b at full width and depth in bfloat16 (random weights from
-a seed) behind a ``ServeEngine`` with 4 slots, max_len 512 and buckets
-(32, 64, 128, 256), as ``chip_smoke.py`` phase 6 does; fills three slots
-and runs two warm steps, then profiles with ``torch.profiler`` one
-admission of a 240-token prompt (bucket 256) into the free slot and one
-decode tick of the four live slots.  Prints one JSON line each: host wall
-time, the device's busy time (the union of kernel intervals) and idle
-share, kernel launches, the attention kernel's device time, and the
-kernels by device time.  Needs a CUDA device.
+Without ``--hybrid``: builds llama3-8b at full width and depth in bfloat16
+(random weights from a seed) behind a ``ServeEngine`` with 4 slots,
+max_len 512 and buckets (32, 64, 128, 256), as ``chip_smoke.py`` phase 6
+does; fills three slots and runs two warm steps, then profiles with
+``torch.profiler`` one admission of a 240-token prompt (bucket 256) into
+the free slot and one decode tick of the four live slots.
+
+With ``--hybrid``: builds zamba2-2.7b at full width and depth in bfloat16,
+as ``chip_smoke.py`` phase 10 does; after a warm prefill and two decode
+steps, profiles one ``serve_prefill`` of 4 prompts of 128 tokens and one
+``serve_decode`` step of those 4 rows.
+
+Prints one JSON line each: host wall time, the device's busy time (the
+union of kernel intervals) and idle share, kernel launches, the device
+time of the flash-attention and SSD scan kernels, and the kernels by
+device time.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -26,11 +34,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_arch
-from repro_torch.models.model import init_params
+from repro_torch.models.model import (init_caches, init_params,
+                                      serve_decode, serve_prefill)
 from repro_torch.roofline.round_profile import _busy_us
 from repro_torch.serving import Request, ServeEngine
 
 SLOTS, MAX_LEN, BUCKETS = 4, 512, (32, 64, 128, 256)
+HYBRID_ROWS, HYBRID_PROMPT = 4, 128
+# output key: a fragment of the kernel names whose device time it sums
+KERNELS = {"flash_attention_ms": "flash_fwd_kernel",
+           "ssd_scan_ms": "ssd_scan_kernel"}
 
 
 def _profiled(name: str, fn, device: torch.device, top: int) -> dict:
@@ -53,9 +66,8 @@ def _profiled(name: str, fn, device: torch.device, top: int) -> dict:
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_launches": len(kernels),
-            "flash_attention_ms": sum(
-                t for k, (_, t) in by_name.items()
-                if "flash_fwd_kernel" in k) / 1e3,
+            **{key: sum(t for k, (_, t) in by_name.items()
+                        if frag in k) / 1e3 for key, frag in KERNELS.items()},
             "top_kernels": [
                 {"name": k[:80], "launches": n, "ms": t / 1e3}
                 for k, (n, t) in sorted(by_name.items(),
@@ -79,19 +91,62 @@ def profile_serving(cfg: ModelConfig, device: str = "cuda",
     eng.step()
     eng.step()
     eng.submit(request(3, 240))
-    out = [_profiled("admit_240_tokens", eng._admit, dev, top),
-           _profiled("decode_tick_4_slots", eng._tick, dev, top)]
-    for row in out:
+    return _tagged([_profiled("admit_240_tokens", eng._admit, dev, top),
+                    _profiled("decode_tick_4_slots", eng._tick, dev, top)],
+                   cfg, dev)
+
+
+def profile_hybrid(cfg: ModelConfig, device: str = "cuda",
+                   top: int = 10) -> list[dict]:
+    dev = torch.device(device)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (HYBRID_ROWS, HYBRID_PROMPT))).to(dev)
+    state = {}
+
+    def prefill():
+        caches = init_caches(cfg, HYBRID_ROWS, MAX_LEN, device=dev)
+        state["logits"], state["caches"] = serve_prefill(
+            params, {"tokens": prompt}, cfg, caches=caches)
+        state["pos"] = HYBRID_PROMPT
+
+    def step():
+        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        state["logits"], state["caches"] = serve_decode(
+            params, {"tokens": tok}, state["caches"], state["pos"], cfg)
+        state["pos"] += 1
+
+    with torch.inference_mode():
+        prefill()
+        step()
+        step()
+    return _tagged(
+        [_profiled(f"prefill_{HYBRID_ROWS}x{HYBRID_PROMPT}_tokens", prefill,
+                   dev, top),
+         _profiled(f"decode_step_{HYBRID_ROWS}_rows", step, dev, top)],
+        cfg, dev)
+
+
+def _tagged(rows: list[dict], cfg: ModelConfig,
+            dev: torch.device) -> list[dict]:
+    for row in rows:
         row.update(model=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
                    device=(torch.cuda.get_device_name(0)
                            if dev.type == "cuda" else "cpu"))
-    return out
+    return rows
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--hybrid", action="store_true",
+                    help="profile zamba2-2.7b's serve_prefill / "
+                         "serve_decode instead of llama3-8b's engine")
+    args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("llama3-8b"), dtype="bfloat16")
-    for row in profile_serving(cfg):
+    torch.backends.cudnn.allow_tf32 = False
+    name, fn = (("zamba2-2.7b", profile_hybrid) if args.hybrid
+                else ("llama3-8b", profile_serving))
+    for row in fn(dataclasses.replace(get_arch(name), dtype="bfloat16")):
         print(json.dumps(row), flush=True)
 
 

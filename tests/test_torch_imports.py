@@ -22,6 +22,17 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
+def test_scan_covers_every_slice():
+    """The scan walks the whole package: each slice's modules are in it,
+    the Mamba2 slice's included."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/flat.py", "kernels/quantize/ops.py",
+                "kernels/flash_attention/ops.py", "serving/engine.py",
+                "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
+                "models/mamba2.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
 def _imported_modules(path: Path) -> list[str]:
     mods = []
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -221,9 +221,8 @@ def test_lm_loss_gradient_flows_on_cpu(model):
 
 @pytest.mark.parametrize("name,what", [
     ("granite-moe-1b-a400m", "MoE"), ("deepseek-v2-lite-16b", "MoE"),
-    ("xlstm-125m", "xLSTM"), ("zamba2-2.7b", "hybrid"),
-    ("gemma3-12b", "sliding-window"), ("musicgen-medium", "audio"),
-    ("qwen2-vl-2b", "vision")])
+    ("xlstm-125m", "xLSTM"), ("gemma3-12b", "sliding-window"),
+    ("musicgen-medium", "audio"), ("qwen2-vl-2b", "vision")])
 def test_unported_parts_raise(name, what):
     cfg = treduced(tregistry.get_arch(name))
     for call in (lambda: TM.init_params(torch.Generator(), cfg),
