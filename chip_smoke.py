@@ -7,7 +7,10 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
-   the sources in this checkout (one nvcc per source, all started together).
+   the sources in this checkout (one nvcc per source, all started
+   together), with ptxas's registers and spills and, where cuobjdump is
+   there, the forward attention kernel's tensor-core (HMMA), ldmatrix and
+   cp.async instruction counts.
 2. kernels — every kernel of the two paths against its plain PyTorch
    version on the card (float32 and bfloat16, the paths' shapes, ragged
    row counts and one large shape), and its time beside the plain version's,
@@ -36,10 +39,14 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    serving path's shapes (llama3-8b at the largest prefill bucket, a
    ragged bucket fill), ragged MHA, gemma-2b's MQA with head dim 256, a
    sliding window, one long shape, phase 8's local-step and eval shapes
-   and phase 10's shared attention block (head dim 80, MHA);
-   ``kernel_time`` lines at the path's shape and the long shape, with the
-   bound and the time of ``scaled_dot_product_attention`` as a yardstick
-   (the port never calls it).
+   and phase 10's shared attention block (head dim 80, MHA); head dims
+   that are not multiples of 16 on rows that are not 16-byte aligned
+   (36, 77, and 35 cut from rows of 64), views of a fused QKV buffer, and
+   Skv ≠ Sq with rows that see no key.  ``kernel_time`` lines at the
+   path's shape, the long shape and phase 10's (4, 128) prefill, timed
+   from CUDA-graph replay, with the bound and the time of
+   ``scaled_dot_product_attention`` as a yardstick (the port never calls
+   it).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -94,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -147,15 +155,33 @@ COMPRESSED_RUNS = (
 # 8's: a local step of gemma-2b (2 clients × batch 2 folded into B) and its
 # held-out eval (8 sequences), and the --small model's (4 clients × batch
 # 2, and the eval), and phase 10's: zamba2-2.7b's shared attention block
-# (MHA 32 / 32 heads of dim 80) at its three prefills
+# (MHA 32 / 32 heads of dim 80) at its three prefills; and head dims that
+# are not multiples of 16 (36: rows on 8-byte boundaries in bfloat16; 77:
+# on 2-byte ones), zero-filled by the bfloat16 kernel
 ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 64, 0), (1, 128, 8, 1, 256, 0),
                (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0),
                (4, 128, 8, 1, 256, 0), (8, 128, 8, 1, 256, 0),
                (8, 32, 2, 1, 32, 0), (4, 128, 32, 32, 80, 0),
-               (2, 256, 32, 32, 80, 0), (1, 100, 32, 32, 80, 0)]
+               (2, 256, 32, 32, 80, 0), (1, 100, 32, 32, 80, 0),
+               (2, 77, 4, 4, 36, 0), (1, 64, 4, 2, 77, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
-ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0)]
+ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
+              (4, 128, 32, 32, 80, 0)]
+# Views of one fused QKV buffer (B, S, H, Hkv, D, window, lead elements
+# before q in each row): llama3-8b's widths, a head dim of 36 under a
+# window (8-byte rows in bfloat16), and one-element leads (2-byte rows) at
+# head dims 40 and 256
+ATTN_FUSED_SHAPES = [(1, 256, 32, 8, 128, 0, 0), (2, 77, 4, 2, 36, 16, 0),
+                     (1, 64, 4, 2, 40, 0, 1), (1, 96, 2, 1, 256, 0, 1)]
+# Head dims cut from wider rows (B, S, H, Hkv, D, window, row width): 35
+# of 64, 16-byte rows whose last chunk holds 6 bytes of the head, and 120
+# of 128 under a window
+ATTN_CUT_SHAPES = [(2, 100, 1, 1, 35, 0, 64), (1, 64, 1, 1, 120, 16, 128)]
+# Sq ≠ Skv (B, Sq, Skv, H, Hkv, D, window): Skv < Sq under a window, where
+# the late rows see no key (o = 0), and Skv > Sq
+ATTN_CROSS_SHAPES = [(1, 160, 96, 4, 1, 64, 48), (2, 200, 70, 8, 2, 128, 32),
+                     (1, 96, 160, 4, 2, 64, 0)]
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 # Phase 7's shapes (B, Sq, Skv, H, Hkv, D, window): the training path's
 # (gemma-2b, 2 clients × batch 2 folded into B, S 128, MQA, head dim 256),
@@ -259,6 +285,34 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, iters: int) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so no host work sits between the launches (back-to-back
+    calls from Python, as ``_time_ms`` times them, measure the host's issue
+    rate wherever a call takes less device time than host time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
+
+
 def phase_env() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -274,13 +328,37 @@ def phase_env() -> dict:
     ptxas = [ln.strip() for name in _build.SOURCES
              for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
+    # registers and spill bytes of each forward-kernel instance
+    fwd_ptxas, fn = {}, None
+    for ln in _build.build_log("flash_attention").splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif fn and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            fwd_ptxas[fn] = {"spill_stores": int(m[1]),
+                             "spill_loads": int(m[2])}
+        elif fn and "registers" in ln:
+            fwd_ptxas[fn]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+    # the forward kernel's SASS: tensor-core products (HMMA), ldmatrix
+    # (LDSM) and cp.async (LDGSTS), where the toolkit has cuobjdump
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = {}
+    if cuobjdump.is_file():
+        dump = subprocess.run(
+            [str(cuobjdump), "-sass",
+             str(_build.library_path("flash_attention"))],
+            capture_output=True, text=True).stdout
+        sass = {op: dump.count(op) for op in ("HMMA", "LDSM", "LDGSTS")}
     env = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
            "python": sys.version.split()[0], "torch": torch.__version__,
            "cuda": torch.version.cuda,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-           "nvcc_build_s": build_s, "built": sorted(built), "ptxas": ptxas}
+           "nvcc_build_s": build_s, "built": sorted(built), "ptxas": ptxas,
+           "flash_attention_ptxas": fwd_ptxas, "flash_attention_sass": sass}
     _emit(env)
     return env
 
@@ -830,6 +908,46 @@ def _attn_bound(q, k, v, window) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _fused_qkv(shape, dtype, gen):
+    """q, k, v cut as strided views from one (B, S, lead + (H + 2·Hkv)·D)
+    buffer, as a fused QKV projection hands them over: ``lead`` elements
+    before q in every row shift each row's start off a 16-byte boundary."""
+    B, S, H, Hkv, D, _, lead = shape
+    buf = torch.randn(B, S, lead + (H + 2 * Hkv) * D, generator=gen,
+                      device=DEVICE).to(dtype)
+    cuts = [lead, lead + H * D, lead + (H + Hkv) * D, lead + (H + 2 * Hkv) * D]
+    return tuple(buf[..., a:b].unflatten(-1, (h, D)) for a, b, h in
+                 zip(cuts, cuts[1:], (H, Hkv, Hkv)))
+
+
+def _check_attention(checks, result, label, dtype, q, k, v, window):
+    """The kernel against its plain version on the card at ATTN_TOL."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+    want_o, want_lse = ref.attention_fwd(q, k, v, causal=True,
+                                         window=window)
+    torch.cuda.synchronize()
+    err_o = (o.float() - want_o.float()).abs()
+    if dtype == torch.float32:
+        tol_o = ATTN_TOL[dtype] * (1 + want_o.abs())
+    else:
+        tol_o = ATTN_TOL[dtype] * torch.maximum(
+            o.float().abs(), want_o.float().abs()) + 1e-6
+    err_lse = (lse - want_lse).abs()
+    tol_lse = ATTN_TOL[torch.float32] * (1 + want_lse.abs())
+    max_o, max_lse = float(err_o.max()), float(err_lse.max())
+    _require(bool((err_o <= tol_o).all())
+             and bool((err_lse <= tol_lse).all())
+             and bool(torch.isfinite(o).all()),
+             f"flash_attention_fwd {dtype} {label}: max |err| o "
+             f"{max_o}, lse {max_lse}")
+    result["max_abs_err"] = max(result["max_abs_err"], max_o)
+    checks.append({"kernel": "flash_attention_fwd", "dtype": str(dtype),
+                   "shape": label, "copy_width": ops.copy_width(q, k, v),
+                   "max_abs_err_o": max_o, "max_abs_err_lse": max_lse,
+                   "tol": ATTN_TOL[dtype]})
+
+
 def phase_attention_kernel() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -840,44 +958,24 @@ def phase_attention_kernel() -> dict:
             B, S, H, Hkv, D, window = shape
             q, k, v = (torch.randn(B, S, h, D, generator=gen, device=DEVICE
                                    ).to(dtype) for h in (H, Hkv, Hkv))
-            o, lse = ops.flash_attention_fwd(q, k, v, causal=True,
-                                             window=window)
-            want_o, want_lse = ref.attention_fwd(q, k, v, causal=True,
-                                                 window=window)
-            torch.cuda.synchronize()
-            err_o = (o.float() - want_o.float()).abs()
-            if dtype == torch.float32:
-                tol_o = ATTN_TOL[dtype] * (1 + want_o.abs())
-            else:
-                tol_o = ATTN_TOL[dtype] * torch.maximum(
-                    o.float().abs(), want_o.float().abs()) + 1e-6
-            err_lse = (lse - want_lse).abs()
-            tol_lse = ATTN_TOL[torch.float32] * (1 + want_lse.abs())
-            max_o, max_lse = float(err_o.max()), float(err_lse.max())
-            _require(bool((err_o <= tol_o).all())
-                     and bool((err_lse <= tol_lse).all())
-                     and bool(torch.isfinite(o).all()),
-                     f"flash_attention_fwd {dtype} {shape}: max |err| o "
-                     f"{max_o}, lse {max_lse}")
-            result["max_abs_err"] = max(result["max_abs_err"], max_o)
-            checks.append({"kernel": "flash_attention_fwd",
-                           "dtype": str(dtype), "shape": shape,
-                           "max_abs_err_o": max_o, "max_abs_err_lse": max_lse,
-                           "tol": ATTN_TOL[dtype]})
-            del want_o, want_lse, err_o, tol_o
+            _check_attention(checks, result, shape, dtype, q, k, v, window)
             if shape in ATTN_TIMED:
-                iters = 200 if S <= 256 else 5
+                iters = 100 if S <= 256 else 5
                 bound_ms, bound_by = _attn_bound(q, k, v, window)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                def kernel():
+                    ops.flash_attention_fwd(q, k, v, causal=True,
+                                            window=window)
+
                 timing = {
                     "kernel": "flash_attention_fwd", "dtype": str(dtype),
-                    "shape": shape,
-                    "ms": _time_ms(lambda: ops.flash_attention_fwd(
-                        q, k, v, causal=True, window=window), iters),
-                    "plain_ms": _time_ms(lambda: ref.attention_fwd(
+                    "shape": shape, "ms": _graph_ms(kernel, iters),
+                    "stream_ms": _time_ms(kernel, iters),
+                    "plain_ms": _graph_ms(lambda: ref.attention_fwd(
                         q, k, v, causal=True, window=window), iters),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": _time_ms(
+                    "library_ms": _graph_ms(
                         lambda: torch.nn.functional
                         .scaled_dot_product_attention(
                             qt, kt, vt, is_causal=True, enable_gqa=True),
@@ -887,10 +985,29 @@ def phase_attention_kernel() -> dict:
                     result.update({key: timing[key] for key in (
                         "ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")})
-            del q, k, v, o, lse
+            del q, k, v
             torch.cuda.empty_cache()
+        for shape in ATTN_FUSED_SHAPES:
+            q, k, v = _fused_qkv(shape, dtype, gen)
+            _check_attention(checks, result, shape, dtype, q, k, v,
+                             shape[5])
+        for shape in ATTN_CUT_SHAPES:
+            B, S, H, Hkv, D, window, width = shape
+            q, k, v = (torch.randn(B, S, h, width, generator=gen,
+                                   device=DEVICE).to(dtype)[..., :D]
+                       for h in (H, Hkv, Hkv))
+            _check_attention(checks, result, shape, dtype, q, k, v, window)
+        for shape in ATTN_CROSS_SHAPES:
+            B, Sq, Skv, H, Hkv, D, window = shape
+            q = torch.randn(B, Sq, H, D, generator=gen, device=DEVICE
+                            ).to(dtype)
+            k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
+                                device=DEVICE).to(dtype) for _ in range(2))
+            _check_attention(checks, result, shape, dtype, q, k, v, window)
     _emit({"phase": "attention_kernel", "checks": len(checks),
            "max_abs_err": result["max_abs_err"],
+           "copy_widths": sorted({ch["copy_width"] for ch in checks
+                                  if ch["dtype"] == str(torch.bfloat16)}),
            "worst": max(checks, key=lambda ch: ch["max_abs_err_o"])})
     return result
 

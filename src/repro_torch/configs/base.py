@@ -209,6 +209,18 @@ class ModelConfig:
         return dense_like + self.n_layers * (m.top_k + m.n_shared_experts) * per
 
 
+# Names of the registries the port has not brought over yet; FedConfig
+# checks against these copies until the registries come (ROADMAP A6, A8,
+# A10).  Each mirrors the reference registry named beside it.
+SAMPLERS = ("all", "availability", "round_robin", "uniform",
+            "weighted")                        # repro.fed.population.SAMPLERS
+SCENARIOS = ("baseline", "diurnal", "dropout", "flaky", "garbage",
+             "inf_inject", "nan_inject", "scale_attack", "sign_flip",
+             "spike", "trace")                 # repro.fed.scenarios.SCENARIOS
+DEFENSES = ("clip", "krum", "median", "none",
+            "trimmed_mean")                    # repro.core.robust.DEFENSES
+
+
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
     """FedaGrac / baseline round configuration."""
@@ -265,9 +277,10 @@ class FedConfig:
     quarantine_nonfinite: int = 1
 
     def __post_init__(self):
-        """Fail at construction on an unknown name, listing the valid ones
-        (the registries are imported lazily: they live downstream).  The
-        deprecated ``quantize_transmit=True`` folds into
+        """Fail at construction on an unknown name, listing the valid ones,
+        or on a value out of its range, in the reference's order and with
+        its messages (the registries are imported lazily: they live
+        downstream).  The deprecated ``quantize_transmit=True`` folds into
         ``compressor="int8"``, as in the reference."""
         import warnings
 
@@ -295,10 +308,40 @@ class FedConfig:
             raise ValueError(f"topk_frac {self.topk_frac} not in (0, 1]")
 
         _check("algorithm", self.algorithm, ALGORITHMS)
+        _check("cohort_sampler", self.cohort_sampler, SAMPLERS)
+        _check("param_layout", self.param_layout, ("tree", "flat"))
+        _check("master_dtype", self.master_dtype,
+               ("", "float32", "bfloat16", "float16"))
+        if self.master_dtype and self.param_layout != "flat":
+            raise ValueError(
+                f"master_dtype={self.master_dtype!r} requires "
+                f"param_layout='flat' (the master buffer IS the flat "
+                f"buffer); the tree layout keeps per-leaf dtypes")
         _check("server_opt", self.server_opt, SERVER_OPTIMIZERS)
+        _check("scenario", self.scenario, SCENARIOS)
+        _check("defense", self.defense, DEFENSES)
+        if not 0.0 <= self.trim_frac < 0.5:
+            raise ValueError(f"trim_frac {self.trim_frac} not in [0, 0.5) "
+                             f"(trimming both tails must leave rows)")
+        if self.defense_clip < 0:
+            raise ValueError(f"defense_clip must be ≥ 0 (0 = adaptive), "
+                             f"got {self.defense_clip}")
+        if self.krum_f < 0:
+            raise ValueError(f"krum_f must be ≥ 0, got {self.krum_f}")
+        if self.quarantine_window < 0:
+            raise ValueError(f"quarantine_window must be ≥ 0, "
+                             f"got {self.quarantine_window}")
+        if self.quarantine_nonfinite < 1:
+            raise ValueError(f"quarantine_nonfinite must be ≥ 1, "
+                             f"got {self.quarantine_nonfinite}")
+        if self.quarantine_z <= 0:
+            raise ValueError(f"quarantine_z must be > 0, "
+                             f"got {self.quarantine_z}")
+        _check("staleness", self.staleness, ("constant", "hinge", "poly"))
+        _check("speed_dist", self.speed_dist,
+               ("fixed", "uniform", "lognormal", "bimodal", "trace"))
         _check("weights", self.weights, ("uniform", "data"))
         _check("k_mode", self.k_mode, ("fixed", "random"))
-        _check("param_layout", self.param_layout, ("tree", "flat"))
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2, d_model: int = 128,

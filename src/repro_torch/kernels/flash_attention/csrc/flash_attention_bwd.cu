@@ -6,7 +6,7 @@
 // pallas_call at line 150) and _dkv_kernel (line 178).  They compute what
 // those kernels compute, not their block structure:
 //   s  = (q · scale) · kᵀ in float32 (q scaled first, one rounding, as the
-//        forward kernel csrc/flash_attention.cu does);
+//        forward kernel's float32 instance does);
 //   p  = exp(s − lse) where key kp is visible from query qp (kp ≤ qp when
 //        causal, kp > qp − window when window > 0, both < their lengths),
 //        exactly 0 elsewhere — lse is the forward's, m + log(max(l, 1e-30)),

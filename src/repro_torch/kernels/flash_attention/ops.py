@@ -46,7 +46,7 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
-        [i32, ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 9
+        [i32, i32, ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [i64] * 9
         + [i32, i32, ctypes.c_float, ptr])
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
@@ -75,8 +75,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-        if t.device.type == "cuda" and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -106,6 +104,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be ≥ 0, got {window}")
 
 
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def copy_width(*tensors: torch.Tensor) -> int:
+    """The bfloat16 forward kernel's staging width in bytes: 16, 8 or 4
+    (a ``cp.async`` of that width; 2 = plain loads), the widest that divides
+    every row start of the (B, S, H, D) ``tensors`` — each base address, and
+    each of the batch, position and head strides in bytes whose dimension
+    is longer than 1 (a stride of a size-1 dimension is never applied)."""
+    width = 16
+    for t in tensors:
+        offsets = [t.data_ptr()] + [
+            stride * t.element_size()
+            for size, stride in zip(t.shape[:3], t.stride()[:3]) if size > 1]
+        for off in offsets:
+            while off % width:
+                width //= 2
+    return width
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None
@@ -115,7 +134,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return ref.attention_fwd(q, k, v, causal=causal, window=window,
                                  scale=scale)
     B, Sq, H, _ = q.shape
@@ -123,9 +142,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     rc = _kernels().flash_attention_fwd(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, Hkv, Sq, Skv,
-        q.shape[3], Dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        _build.DTYPE_CODES[q.dtype], copy_width(q, k, v), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
+        Hkv, Sq, Skv, q.shape[3], Dv, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3],
         int(causal), int(window), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on_launch_error(rc, "flash_attention_fwd")
@@ -193,7 +213,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor,
     _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return ref.attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                     window=window, scale=scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -213,7 +233,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor,
     _check_bwd(q, k, v, do, {"lse": lse, "delta": delta}, window)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return ref.attention_bwd_dkv(q, k, v, do, lse, delta,
                                      causal=causal, window=window,
                                      scale=scale)
@@ -240,7 +260,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(do.shape)} {do.dtype}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return ref.attention_bwd(q, k, v, o, lse, do, causal=causal,
                                  window=window, scale=scale)
     delta = ref.row_delta(do, o)

@@ -7,6 +7,9 @@ reads the model layout ``(B, S, H, D)`` itself.  Tolerances: float32 1e-5
 (the two sum the same float32 terms in another order); bfloat16 one bf16
 ulp of ``o`` (the same float32 value, within summation order, rounded once
 to bfloat16 can land one ulp apart) and 1e-5 for the float32 ``lse``."""
+import math
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -162,3 +165,122 @@ def test_wrapper_rejects_negative_window():
     q = _t(1, 4, 2, 8)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, window=-1)
+
+
+def _fake_card(monkeypatch):
+    """Route the forward wrapper to the launch with the C library and the
+    stream replaced by recorders; returns the list of the C entry's
+    arguments."""
+    calls = []
+
+    def flash_attention_fwd(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_kernels", lambda: types.SimpleNamespace(
+        flash_attention_fwd=flash_attention_fwd))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return calls
+
+
+def _fused(B, S, H, Hkv, D, lead, dtype=torch.bfloat16):
+    """q, k, v as views of one fused QKV buffer with ``lead`` elements
+    before q in each row."""
+    buf = torch.randn(B, S, lead + (H + 2 * Hkv) * D).to(dtype)
+    cuts = [lead, lead + H * D, lead + (H + Hkv) * D, lead + (H + 2 * Hkv) * D]
+    return [buf[..., a:b].unflatten(-1, (h, D))
+            for a, b, h in zip(cuts, cuts[1:], (H, Hkv, Hkv))]
+
+
+@pytest.mark.parametrize("make,width", [
+    (lambda: [_t(1, 8, 4, 128, dtype=torch.bfloat16)] * 3, 16),
+    (lambda: [_t(2, 8, 4, 36, dtype=torch.bfloat16)] * 3, 8),   # 72-B heads
+    (lambda: [_t(2, 8, 4, 77, dtype=torch.bfloat16)] * 3, 2),   # 154-B heads
+    (lambda: [_t(2, 8, 4, 77)] * 3, 4),                         # float32
+    (lambda: [_t(2, 8, 4, 40, dtype=torch.bfloat16)] * 3, 16),  # 80-B heads
+    (lambda: _fused(1, 8, 4, 2, 128, 0), 16),
+    (lambda: _fused(1, 8, 4, 2, 128, 1), 2),     # one element before q
+    (lambda: _fused(1, 8, 4, 2, 128, 4), 8),     # four: 8-byte rows
+    # a size-1 dimension's stride is never applied: heads of 2 bytes'
+    # stride on one head, and a 2-byte batch stride at B = 1
+    (lambda: [_t(1, 8, 1, 36, dtype=torch.bfloat16)[:, :, :, :35]] * 3, 8),
+    (lambda: [torch.zeros(2, 8, 1, 64, dtype=torch.bfloat16)
+              .as_strided((1, 8, 1, 64), (1, 64, 64, 1))] * 3, 16),
+    # a base 2 or 8 bytes past a 16-byte boundary
+    (lambda: [torch.zeros(64, dtype=torch.bfloat16)[1:33]
+              .reshape(1, 2, 2, 8)], 2),
+    (lambda: [torch.zeros(64, dtype=torch.bfloat16)[4:36]
+              .reshape(1, 2, 2, 8)], 8),
+])
+def test_copy_width_divides_every_row_start(make, width):
+    """The bf16 kernel stages rows with the widest copy (16, 8 or 4 bytes
+    a cp.async; 2 = plain loads) that divides each base address and each
+    applied stride in bytes."""
+    tensors = make()
+    assert ops.copy_width(*tensors) == width
+    for t in tensors:
+        starts = [t.data_ptr() + t.element_size() * (
+            b * t.stride(0) + s * t.stride(1) + h * t.stride(2))
+            for b in range(t.shape[0]) for s in range(t.shape[1])
+            for h in range(t.shape[2])]
+        assert all(x % width == 0 for x in starts)
+
+
+ACCEPTED = [
+    # (B, Sq, Skv, H, Hkv, Dqk, Dv, window, layout): every shape the
+    # wrapper takes reaches the launch, whatever the head dims (1, not a
+    # multiple of 16, up to 256, Dv ≠ Dqk), lengths (ragged, Sq ≠ Skv),
+    # GQA/MQA, windows and row alignment
+    (1, 256, 256, 32, 8, 128, 128, 0, "contiguous"),
+    (4, 128, 128, 32, 32, 80, 80, 0, "contiguous"),
+    (2, 77, 77, 4, 4, 36, 36, 0, "contiguous"),
+    (1, 64, 64, 4, 2, 77, 77, 0, "contiguous"),
+    (1, 128, 128, 8, 1, 256, 256, 0, "contiguous"),
+    (1, 40, 40, 4, 2, 48, 32, 0, "contiguous"),
+    (1, 5, 5, 2, 1, 1, 1, 0, "contiguous"),
+    (1, 160, 96, 4, 1, 64, 64, 48, "contiguous"),
+    (1, 96, 160, 4, 2, 64, 64, 0, "contiguous"),
+    (1, 256, 256, 32, 8, 128, 128, 0, "fused"),
+    (2, 77, 77, 4, 2, 36, 36, 16, "fused"),
+    (1, 64, 64, 4, 2, 40, 40, 0, "fused+1"),
+    (1, 33, 33, 4, 2, 64, 64, 0, "offset+1"),
+]
+
+
+def _accepted_operands(B, Sq, Skv, H, Hkv, Dqk, Dv, layout, dtype):
+    if layout.startswith("fused"):
+        lead = 1 if layout.endswith("+1") else 0
+        return _fused(B, Sq, H, Hkv, Dqk, lead, dtype)
+    shapes = [(B, Sq, H, Dqk), (B, Skv, Hkv, Dqk), (B, Skv, Hkv, Dv)]
+    lead = 1 if layout == "offset+1" else 0
+    return [torch.randn(math.prod(s) + lead).to(dtype)[lead:].reshape(s)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dqk,Dv,window,layout", ACCEPTED)
+def test_accepted_shapes_reach_the_kernel(monkeypatch, B, Sq, Skv, H, Hkv,
+                                          Dqk, Dv, window, layout, dtype):
+    """On a CUDA tensor (the dispatch mocked here) the wrapper refuses
+    none of these: it launches once with the tensors in place, their
+    strides, the copy width and the dtype code."""
+    q, k, v = _accepted_operands(B, Sq, Skv, H, Hkv, Dqk, Dv, layout, dtype)
+    calls = _fake_card(monkeypatch)
+    before = ops.launches["flash_attention_fwd"]
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=window,
+                                     scale=0.125)
+    assert ops.launches["flash_attention_fwd"] == before + 1
+    (args,) = calls
+    assert args[0] == (0 if dtype == torch.float32 else 1)
+    assert args[1] == ops.copy_width(q, k, v)
+    assert args[2:7] == tuple(t.data_ptr() for t in (q, k, v, o, lse))
+    assert args[7:14] == (B, H, Hkv, Sq, Skv, Dqk, Dv)
+    assert args[14:23] == (*q.stride()[:3], *k.stride()[:3],
+                           *v.stride()[:3])
+    assert args[23:] == (1, window, 0.125, 0)
+    assert o.shape == (B, Sq, H, Dv) and o.dtype == dtype
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
