@@ -9,8 +9,8 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
    the sources in this checkout (one nvcc per source, all started
    together), with ptxas's registers and spills and, where cuobjdump is
-   there, the forward attention kernel's tensor-core (HMMA), ldmatrix and
-   cp.async instruction counts.
+   there, the forward and backward attention libraries' tensor-core
+   (HMMA), ldmatrix and cp.async instruction counts.
 2. kernels — every kernel of the two paths against its plain PyTorch
    version on the card (float32 and bfloat16, the paths' shapes, ragged
    row counts and one large shape), and its time beside the plain version's,
@@ -61,9 +61,18 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    versions on the card, float32 and bfloat16, at the training path's
    shape (gemma-2b: 4 rows of 128 tokens, 8 heads, 1 kv head, head dim
    256), MHA, llama3-8b's GQA, ragged lengths, a sliding window, Skv ≠ Sq,
-   one long shape and the --small model's step; ``kernel_time`` lines
-   with the bound and the time of ``scaled_dot_product_attention``'s
-   backward (the port never calls it).
+   one long shape, the --small model's step, zamba2's MHA at head dim 80,
+   head dims whose bfloat16 rows start on 8-, 4- and 2-byte boundaries
+   (36, 98, 77) and a view of a fused QKV buffer, so that every head-dim
+   bucket, copy width and group path of the bfloat16 (tensor-core)
+   kernels runs.  ``kernel_time`` lines at the path's shape and the long
+   one, timed from CUDA-graph replay, with the bound, the bfloat16
+   kernels' tensor-core work, and the time of
+   ``scaled_dot_product_attention``'s backward, also from graph replay
+   (the port never calls it).  ``dkv_group`` lines: the bfloat16 dk/dv
+   kernel's two ways of summing a GQA/MQA group, each forced and checked,
+   timed against each other at four shapes beside the one the wrapper
+   picks.
 8. federated LM training — ``FederatedSimulation.run(3, eval_every=3)`` of
    the LM example (``repro_torch.examples.fed_lm_train``) on gemma-2b at
    full width (d 2048, 8 heads / 1 kv head, head dim 256, d_ff 16384,
@@ -187,14 +196,38 @@ BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
 # (gemma-2b, 2 clients × batch 2 folded into B, S 128, MQA, head dim 256),
 # MHA, llama3-8b's GQA g = 4, ragged lengths, a sliding window, Skv > Sq
 # and Skv < Sq (late rows under the window see no key), the long shape, and
-# the --small model's local step (4 clients × batch 2, head dim 32)
+# the --small model's local step (4 clients × batch 2, head dim 32), and
+# for the bfloat16 kernels' copy widths and head-dim buckets: head dims 36,
+# 98 and 77 (bfloat16 rows on 8-, 4- and 2-byte boundaries) and zamba2's
+# MHA block (32 / 32 heads of dim 80) at its 4 × 128 prefill
 ATTN_BWD_SHAPES = [(4, 128, 128, 8, 1, 256, 0), (2, 128, 128, 4, 4, 64, 0),
                    (1, 256, 256, 32, 8, 128, 0), (2, 77, 77, 4, 2, 64, 0),
                    (1, 200, 200, 8, 2, 128, 0), (1, 512, 512, 4, 2, 64, 128),
                    (1, 96, 160, 4, 2, 64, 0), (1, 160, 96, 4, 1, 64, 48),
-                   (1, 4096, 4096, 32, 8, 128, 0), (8, 32, 32, 2, 1, 32, 0)]
+                   (1, 4096, 4096, 32, 8, 128, 0), (8, 32, 32, 2, 1, 32, 0),
+                   (2, 77, 77, 4, 2, 36, 0), (2, 64, 64, 4, 1, 98, 0),
+                   (1, 64, 64, 4, 2, 77, 0), (4, 128, 128, 32, 32, 80, 0)]
+# a view of a fused QKV buffer (B, S, H, Hkv, D, window, lead): one
+# element before q in each row (2-byte rows) at gemma-2b's MQA head dim
+ATTN_BWD_FUSED_SHAPES = [(2, 96, 4, 1, 256, 0, 1)]
 ATTN_BWD_PATH_SHAPE = (4, 128, 128, 8, 1, 256, 0)
 ATTN_BWD_TIMED = [ATTN_BWD_PATH_SHAPE, (1, 4096, 4096, 32, 8, 128, 0)]
+# GQA/MQA shapes at which the bfloat16 dk/dv kernel's two ways of summing
+# a group (ops.dkv_split picks one) are timed against each other: S = 4096
+# and 8 × 512 (512 blocks when one loops over a group), llama3-8b's
+# 1 × 256 prefill and gemma-2b's training step (32 and 8)
+ATTN_BWD_GROUP_SHAPES = [(1, 4096, 4096, 32, 8, 128, 0),
+                         (8, 512, 512, 32, 8, 128, 0),
+                         (1, 256, 256, 32, 8, 128, 0), ATTN_BWD_PATH_SHAPE]
+# The bfloat16 backward kernels' shape of work, copied from
+# csrc/flash_attention_bwd.cu (tests/test_torch_build.py holds each against
+# the source): P and dS split into kPieces bfloat16 pieces; the head-dim
+# buckets launch_mma picks (Dqk and Dv zero-filled up to one); above
+# BWD_WIDE_HEAD_DIM dq splits each row's columns over two warps
+# (kDqHalves) and dk/dv takes dk and dv in separate blocks (kPasses)
+BWD_PIECES = 2
+BWD_HEAD_BUCKETS = (64, 80, 128, 256)
+BWD_WIDE_HEAD_DIM = 128
 # The backward kernels sum the plain version's float32 terms in another
 # order.  Against a float64 autograd reference the plain version's float32
 # error is ≤ 1e-6 of each gradient's largest entry at S ≤ 1024; the kernels
@@ -285,19 +318,22 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _graph_ms(fn, iters: int) -> float:
+def _graph_ms(fn, iters: int, stream=None) -> float:
     """Device time per call: ``iters`` calls captured in one CUDA graph and
     replayed, so no host work sits between the launches (back-to-back
     calls from Python, as ``_time_ms`` times them, measure the host's issue
-    rate wherever a call takes less device time than host time)."""
-    side = torch.cuda.Stream()
+    rate wherever a call takes less device time than host time).  With
+    ``stream``, the warm-up and the capture run on it: autograd issues a
+    backward on the stream its forward ran on, so a backward is captured
+    on that one."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -311,6 +347,24 @@ def _graph_ms(fn, iters: int) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (3 * iters)
+
+
+def _ptxas_table(log: str) -> dict:
+    """Registers and spill bytes of each kernel instance in an nvcc
+    ``-Xptxas -v`` log, by mangled name."""
+    table, fn = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for")[-1].strip()
+        elif fn and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            table[fn] = {"spill_stores": int(m[1]),
+                         "spill_loads": int(m[2])}
+        elif fn and "registers" in ln:
+            table[fn]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln)[1])
+    return table
 
 
 def phase_env() -> dict:
@@ -328,29 +382,24 @@ def phase_env() -> dict:
     ptxas = [ln.strip() for name in _build.SOURCES
              for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
-    # registers and spill bytes of each forward-kernel instance
-    fwd_ptxas, fn = {}, None
-    for ln in _build.build_log("flash_attention").splitlines():
-        if "Function properties for" in ln:
-            fn = ln.split("Function properties for")[-1].strip()
-        elif fn and "spill stores" in ln:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
-            fwd_ptxas[fn] = {"spill_stores": int(m[1]),
-                             "spill_loads": int(m[2])}
-        elif fn and "registers" in ln:
-            fwd_ptxas[fn]["registers"] = int(
-                re.search(r"Used (\d+) registers", ln)[1])
-    # the forward kernel's SASS: tensor-core products (HMMA), ldmatrix
-    # (LDSM) and cp.async (LDGSTS), where the toolkit has cuobjdump
+    # registers and spill bytes of each attention-kernel instance, and,
+    # where the toolkit has cuobjdump, each attention library's
+    # tensor-core products (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = {}
-    if cuobjdump.is_file():
-        dump = subprocess.run(
-            [str(cuobjdump), "-sass",
-             str(_build.library_path("flash_attention"))],
-            capture_output=True, text=True).stdout
-        sass = {op: dump.count(op) for op in ("HMMA", "LDSM", "LDGSTS")}
+    attn = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        table = _ptxas_table(_build.build_log(lib))
+        attn[f"{lib}_ptxas"] = table
+        # spill bytes over the bfloat16 (tensor-core) instances
+        attn[f"{lib}_mma_spill_bytes"] = sum(
+            t["spill_stores"] + t["spill_loads"]
+            for name, t in table.items() if "_mma" in name)
+        if cuobjdump.is_file():
+            dump = subprocess.run(
+                [str(cuobjdump), "-sass", str(_build.library_path(lib))],
+                capture_output=True, text=True).stdout
+            attn[f"{lib}_sass"] = {op: dump.count(op)
+                                   for op in ("HMMA", "LDSM", "LDGSTS")}
     env = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
            "python": sys.version.split()[0], "torch": torch.__version__,
@@ -358,7 +407,7 @@ def phase_env() -> dict:
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "nvcc_build_s": build_s, "built": sorted(built), "ptxas": ptxas,
-           "flash_attention_ptxas": fwd_ptxas, "flash_attention_sass": sass}
+           **attn}
     _emit(env)
     return env
 
@@ -1051,12 +1100,70 @@ def _bwd_close(got, want, dtype) -> tuple[float, bool]:
     return float(err.max()) / max(amax, 1e-30), bool((err <= tol).all())
 
 
+def _bwd_mma_ops(kernel, q, k, v, window) -> int:
+    """Tensor-core operations of a bfloat16 backward kernel on this run's
+    visible pairs, with P and dS split into BWD_PIECES bf16 pieces: per
+    visible (query, key) pair and head, 2·D for each product over the
+    head-dim bucket D — dq: S, dP and the pieces of dS·K; dk/dv: S, dP and
+    the pieces of Pᵀ·dO and dSᵀ·Q.  Above BWD_WIDE_HEAD_DIM dq takes S and
+    dP twice (two warps split each row's columns) and dk/dv S twice (dk
+    and dv are taken by separate blocks).  The masked halves of tiles on
+    the diagonal are not counted."""
+    B, Sq, H, _ = q.shape
+    D = min(b for b in BWD_HEAD_BUCKETS if b >= max(q.shape[3], v.shape[3]))
+    wide = D > BWD_WIDE_HEAD_DIM
+    n = BWD_PIECES
+    if kernel == "flash_attention_bwd_dq":
+        products = 2 + n + (2 if wide else 0)
+    else:
+        products = 2 + 2 * n + (1 if wide else 0)
+    return 2 * D * products * B * H * _band_pairs(Sq, k.shape[1], True,
+                                                   window)
+
+
+def _check_backward(checks, result, label, dtype, q, k, v, window, gen):
+    """Both backward kernels against their plain versions on the card, from
+    the forward kernel's o and lse and a random cotangent; returns
+    (o, lse, do, δ)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    kw = {"causal": True, "window": window}
+    o, lse = ops.flash_attention_fwd(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=gen, device=DEVICE).to(dtype)
+    delta = ref.row_delta(do, o)
+    got = {"flash_attention_bwd_dq": (ops.flash_attention_bwd_dq(
+               q, k, v, do, lse, delta, **kw),),
+           "flash_attention_bwd_dkv": ops.flash_attention_bwd_dkv(
+               q, k, v, do, lse, delta, **kw)}
+    want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
+    want = {"flash_attention_bwd_dq": want[:1],
+            "flash_attention_bwd_dkv": want[1:]}
+    torch.cuda.synchronize()
+    for name in got:
+        for what, g_t, w_t in zip(
+                ("dq",) if name.endswith("dq") else ("dk", "dv"),
+                got[name], want[name]):
+            rel, ok = _bwd_close(g_t, w_t, dtype)
+            _require(ok and bool(torch.isfinite(g_t).all()),
+                     f"{name} {dtype} {label}: {what} max |err| / "
+                     f"max |want| = {rel}")
+            err = float((g_t.float() - w_t.float()).abs().max())
+            result[name]["max_abs_err"] = max(result[name]["max_abs_err"],
+                                              err)
+            checks.append({"kernel": name, "grad": what,
+                           "dtype": str(dtype), "shape": label,
+                           "copy_width": ops.copy_width(q, k, v, do),
+                           "split": ops.dkv_split(q, k),
+                           "max_abs_err": err, "rel_err": rel})
+    return o, lse, do, delta
+
+
 def phase_attention_backward() -> dict:
     """Both backward kernels against their plain versions on the card at
-    ATTN_BWD_SHAPES in float32 and bfloat16, then timed at
-    ATTN_BWD_TIMED.  Returns each kernel's worst error and its timing at
-    the training path's shape in float32."""
-    from repro_torch.kernels.flash_attention import ops, ref
+    ATTN_BWD_SHAPES and ATTN_BWD_FUSED_SHAPES in float32 and bfloat16,
+    then timed at ATTN_BWD_TIMED; the bfloat16 dk/dv kernel's group paths
+    at ATTN_BWD_GROUP_SHAPES.  Returns each kernel's worst error and
+    its timing at the training path's shape in float32 (the path's
+    type)."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     result = {name: {"max_abs_err": 0.0} for name in names}
@@ -1068,62 +1175,103 @@ def phase_attention_backward() -> dict:
                             ).to(dtype)
             k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
                                 device=DEVICE).to(dtype) for _ in range(2))
-            kw = {"causal": True, "window": window}
-            o, lse = ops.flash_attention_fwd(q, k, v, **kw)
-            do = torch.randn(o.shape, generator=gen, device=DEVICE
-                             ).to(dtype)
-            delta = ref.row_delta(do, o)
-            got = {"flash_attention_bwd_dq": (ops.flash_attention_bwd_dq(
-                       q, k, v, do, lse, delta, **kw),),
-                   "flash_attention_bwd_dkv": ops.flash_attention_bwd_dkv(
-                       q, k, v, do, lse, delta, **kw)}
-            want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
-            want = {"flash_attention_bwd_dq": want[:1],
-                    "flash_attention_bwd_dkv": want[1:]}
-            torch.cuda.synchronize()
-            for name in names:
-                for what, g_t, w_t in zip(
-                        ("dq",) if name.endswith("dq") else ("dk", "dv"),
-                        got[name], want[name]):
-                    rel, ok = _bwd_close(g_t, w_t, dtype)
-                    _require(ok and bool(torch.isfinite(g_t).all()),
-                             f"{name} {dtype} {shape}: {what} max |err| / "
-                             f"max |want| = {rel}")
-                    err = float((g_t.float() - w_t.float()).abs().max())
-                    result[name]["max_abs_err"] = max(
-                        result[name]["max_abs_err"], err)
-                    checks.append({"kernel": name, "grad": what,
-                                   "dtype": str(dtype), "shape": shape,
-                                   "max_abs_err": err, "rel_err": rel})
-            del got, want
+            o, lse, do, delta = _check_backward(checks, result, shape, dtype,
+                                                q, k, v, window, gen)
             if shape in ATTN_BWD_TIMED:
                 _time_backward(result, shape, dtype, q, k, v, o, lse, do,
                                delta)
             del q, k, v, o, lse, do, delta
             torch.cuda.empty_cache()
+        for shape in ATTN_BWD_FUSED_SHAPES:
+            q, k, v = _fused_qkv(shape, dtype, gen)
+            _check_backward(checks, result, shape, dtype, q, k, v, shape[5],
+                            gen)
+    _time_group_paths(gen)
+    bf16 = [ch for ch in checks if ch["dtype"] == str(torch.bfloat16)]
     _emit({"phase": "attention_backward", "checks": len(checks),
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
+           "copy_widths": sorted({ch["copy_width"] for ch in bf16}),
+           "bf16_split_paths": sorted({ch["split"] for ch in bf16
+                                       if ch["grad"] != "dq"}),
+           "reserved_bytes_after": torch.cuda.memory_reserved(),
            "worst": max(checks, key=lambda ch: ch["rel_err"])})
     return result
 
 
+def _time_group_paths(gen) -> None:
+    """The bfloat16 dk/dv kernel at ATTN_BWD_GROUP_SHAPES with each way of
+    summing a GQA/MQA group forced in turn — one block looping over the g
+    query heads, or one block a head writing float32 partials that
+    dkv_reduce_kernel sums: each held against the plain version, then both
+    timed from CUDA-graph replay in the order loop, split, split, loop.
+    Prints a dkv_group line a shape, with the path ``ops.dkv_split``
+    picks there."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    rule = ops.dkv_split
+    dtype = torch.bfloat16
+    try:
+        for shape in ATTN_BWD_GROUP_SHAPES:
+            B, Sq, Skv, H, Hkv, D, window = shape
+            q = torch.randn(B, Sq, H, D, generator=gen, device=DEVICE
+                            ).to(dtype)
+            k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
+                                device=DEVICE).to(dtype) for _ in range(2))
+            o, lse = ops.flash_attention_fwd(q, k, v)
+            do = torch.randn(o.shape, generator=gen, device=DEVICE).to(dtype)
+            delta = ref.row_delta(do, o)
+            want = ref.attention_bwd_dkv(q, k, v, do, lse, delta)
+            line = {"phase": "dkv_group", "shape": shape,
+                    "rule": "split" if rule(q, k) else "loop"}
+
+            def run():
+                return ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+
+            for path in ("loop", "split"):
+                ops.dkv_split = lambda q_, k_, split=path == "split": split
+                for what, g_t, w_t in zip(("dk", "dv"), run(), want):
+                    rel, ok = _bwd_close(g_t, w_t, dtype)
+                    _require(ok and bool(torch.isfinite(g_t).all()),
+                             f"dk/dv {path} {shape}: {what} max |err| / "
+                             f"max |want| = {rel}")
+                    line[f"{path}_{what}_rel_err"] = rel
+            iters = 50 if Sq <= 512 else 5
+            for path in ("loop", "split", "split", "loop"):
+                ops.dkv_split = lambda q_, k_, split=path == "split": split
+                line.setdefault(f"{path}_ms", []).append(_graph_ms(run,
+                                                                   iters))
+            _emit(line)
+            del q, k, v, o, lse, do, delta, want
+            torch.cuda.empty_cache()
+    finally:
+        ops.dkv_split = rule
+
+
 def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
-    """kernel_time lines of both backward kernels at ``shape``, with the
-    time of scaled_dot_product_attention's backward (dq, dk and dv through
-    autograd) as the yardstick; the port never calls it."""
+    """kernel_time lines of both backward kernels at ``shape``, kernel and
+    plain version from CUDA-graph replay (the kernel also from
+    back-to-back calls, ``stream_ms``), with the time of
+    scaled_dot_product_attention's backward (dq, dk and dv through
+    autograd, from graph replay too) as the yardstick (the port never calls
+    it) and, for bfloat16, the tensor-core work done."""
     from repro_torch.kernels.flash_attention import ops, ref
     window = shape[-1]
     kw = {"causal": True, "window": window}
     iters = 50 if shape[1] <= 256 else 3
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
     library_ms = None
     if window == 0:
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        # SDPA's forward runs on the stream the backward is captured on:
+        # captured on another, the backward invalidated the capture
+        # (cudaErrorStreamCaptureInvalidated) at some shapes
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
         dot = do.transpose(1, 2)
-        library_ms = _time_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), iters)
+        library_ms = _graph_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters, stream=side)
         del out
     entries = {
         "flash_attention_bwd_dq": (
@@ -1136,10 +1284,15 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
     for name, (kernel, plain) in entries.items():
         bound_ms, bound_by = _attn_bwd_bound(name, q, k, v, window)
         timing = {"kernel": name, "dtype": str(dtype), "shape": shape,
-                  "ms": _time_ms(kernel, iters),
-                  "plain_ms": _time_ms(plain, iters),
+                  "ms": _graph_ms(kernel, iters),
+                  "stream_ms": _time_ms(kernel, iters),
+                  "plain_ms": _graph_ms(plain, iters),
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
+        if dtype == torch.bfloat16:
+            ops_done = _bwd_mma_ops(name, q, k, v, window)
+            timing.update({"mma_ops": ops_done, "mma_pieces": BWD_PIECES,
+                           "mma_tflops": ops_done / timing["ms"] / 1e9})
         _emit({"phase": "kernel_time", **timing})
         if dtype == torch.float32 and shape == ATTN_BWD_PATH_SHAPE:
             result[name].update({key: timing[key] for key in (

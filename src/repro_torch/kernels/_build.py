@@ -3,10 +3,10 @@
 Each source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/`` at the repository root; the library is loaded with ``ctypes``.
-A library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and never shadowed by an old build.  Only sources in this
-package are compiled.  There is no fallback: without ``nvcc``, or when a
-build fails, the call raises.
+A library's file name carries a hash of its source, the headers beside it
+and the flags, so an edited source or header is rebuilt and never shadowed
+by an old build.  Only sources in this package are compiled.  There is no
+fallback: without ``nvcc``, or when a build fails, the call raises.
 """
 from __future__ import annotations
 
@@ -62,10 +62,15 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where library ``name`` is built: its file name carries a hash of the
+    source, of every header (``*.cuh``) in the source's directory, which
+    the source may include, and of the flags."""
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> dict[str, float]:

@@ -31,6 +31,9 @@ from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
 MAX_GRID_DIM = 65535                 # CUDA's limit on grid.y (H), grid.z (B)
+# keys a block of the bfloat16 dk/dv kernel takes (csrc/
+# flash_attention_bwd.cu, BwdCfg::kKvBK)
+DKV_BLOCK_KEYS = 64
 
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
@@ -57,7 +60,7 @@ def _bwd_kernels() -> ctypes.CDLL:
     lib = _build.library("flash_attention_bwd")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.flash_attention_bwd_dq, lib.flash_attention_bwd_dkv):
-        fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
+        fn.argtypes = ([i32, i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
                        + [i32, i32, ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
     return lib
@@ -109,7 +112,7 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def copy_width(*tensors: torch.Tensor) -> int:
-    """The bfloat16 forward kernel's staging width in bytes: 16, 8 or 4
+    """The bfloat16 kernels' staging width in bytes: 16, 8 or 4
     (a ``cp.async`` of that width; 2 = plain loads), the widest that divides
     every row start of the (B, S, H, D) ``tensors`` — each base address, and
     each of the batch, position and head strides in bytes whose dimension
@@ -178,23 +181,57 @@ def _check_bwd(q, k, v, do, rows, window) -> None:
                              f"{(B, H, Sq)} on {q.device}")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dkv_split(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the dk/dv kernel splits each GQA/MQA group (H > Hkv) over
+    blocks, one per query head writing float32 partials that a second
+    kernel sums in head order, rather than having one block loop over the
+    group's g query heads.  float32: always (its blocks hold both
+    accumulators for one head at a time).  bfloat16: when one block per
+    (64-key tile, kv head, batch) would give fewer blocks than q's card
+    has SMs — the MQA training shape (B 4, Skv 128, Hkv 1) gives 8.  Both
+    sides of the rule were timed on an H100 80GB HBM3 (PERF.md §6): at 8
+    and 32 such blocks the split was 3.0× and 2.2× faster, at 512 the loop
+    3% and 34% faster (it writes and reads no partials)."""
+    B, H, Skv, Hkv = q.shape[0], q.shape[2], k.shape[1], k.shape[2]
+    if H == Hkv:
+        return False
+    if q.dtype == torch.float32:
+        return True
+    return B * Hkv * -(-Skv // DKV_BLOCK_KEYS) < _sm_count(q.device.index)
+
+
+def dkv_workspace(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Optional[torch.Tensor]:
+    """The dk/dv kernel's float32 scratch where ``dkv_split``: the
+    partial dk (B, H, Skv, Dqk), then dv (B, H, Skv, Dv), flat; else
+    ``None``."""
+    if not dkv_split(q, k):
+        return None
+    B, _, H, D = q.shape
+    return torch.empty(B * H * k.shape[1] * (D + v.shape[3]),
+                       dtype=torch.float32, device=q.device)
+
+
 def _bwd_launch(kernel: str, outs: tuple, q, k, v, do, lse, delta, causal,
                 window, scale) -> None:
-    if do.stride(-1) != 1 or do.data_ptr() % 16:
+    if do.stride(-1) != 1:
         do = do.contiguous()
     lse, delta = lse.contiguous(), delta.contiguous()
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     out0, out1 = (outs + (None,))[:2]
-    # dk/dv of a GQA/MQA group: float32 partials per query head, summed in
-    # head order by the kernel's second pass
-    ws = (torch.empty(B * H * Skv * (D + Dv), dtype=torch.float32,
-                      device=q.device)
-          if out1 is not None and H != Hkv else None)
+    ws = dkv_workspace(q, k, v) if out1 is not None else None
     rc = getattr(_bwd_kernels(), kernel)(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], copy_width(q, k, v, do), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), out0.data_ptr(),
+        None if out1 is None else out1.data_ptr(),
         None if ws is None else ws.data_ptr(), B, H, Hkv, Sq, Skv, D, Dv,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *do.stride()[:3], int(causal), int(window),

@@ -1,0 +1,114 @@
+"""The port's kernel build (``repro_torch.kernels._build``): a library's
+file name hashes its source, the headers beside it and the flags, so an
+edited source or header is rebuilt and an old build never loads in its
+place.  Checked on copies of the sources, with nothing compiled.  The
+constants that Python code copies from the backward source are held
+against it here."""
+import importlib.util
+import re
+import shutil
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+
+ATTN = ("flash_attention", "flash_attention_bwd")
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """The flash-attention sources and their shared header, copied under
+    ``tmp_path`` and put in place of the package's in ``_build.SOURCES``."""
+    src_dir = _build.SOURCES["flash_attention"].parent
+    dst = tmp_path / "csrc"
+    shutil.copytree(src_dir, dst)
+    monkeypatch.setattr(_build, "SOURCES", {
+        name: dst / _build.SOURCES[name].name for name in ATTN})
+    return dst
+
+
+def test_both_attention_sources_include_the_shared_header():
+    for name in ATTN:
+        assert '#include "mma_tiles.cuh"' in _build.SOURCES[name].read_text()
+
+
+def test_library_path_is_that_of_the_package_sources(csrc_copy):
+    """A byte-identical copy gives the same library (the hash reads bytes
+    and header names, not paths)."""
+    copied = {name: _build.library_path(name) for name in ATTN}
+    shutil.rmtree(csrc_copy)
+    shutil.copytree(_build.KERNELS_DIR / "flash_attention" / "csrc",
+                    csrc_copy)
+    assert {name: _build.library_path(name) for name in ATTN} == copied
+
+
+@pytest.mark.parametrize("edit", ["header", "new_header", "source", "flags"])
+def test_editing_a_header_or_source_changes_library_path(csrc_copy,
+                                                         monkeypatch, edit):
+    before = {name: _build.library_path(name) for name in ATTN}
+    if edit == "header":
+        header = csrc_copy / "mma_tiles.cuh"
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        changed = set(ATTN)
+    elif edit == "new_header":
+        (csrc_copy / "extra.cuh").write_text("#pragma once\n")
+        changed = set(ATTN)
+    elif edit == "source":
+        src = csrc_copy / "flash_attention_bwd.cu"
+        src.write_bytes(src.read_bytes() + b"\n")
+        changed = {"flash_attention_bwd"}
+    else:
+        monkeypatch.setattr(_build, "NVCC_FLAGS",
+                            _build.NVCC_FLAGS + ("-lineinfo",))
+        changed = set(ATTN)
+    after = {name: _build.library_path(name) for name in ATTN}
+    for name in ATTN:
+        assert (after[name] != before[name]) == (name in changed)
+        assert after[name].parent == _build.BUILD_DIR
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _bwd_constant(pattern: str) -> int:
+    (found,) = re.findall(pattern,
+                          _build.SOURCES["flash_attention_bwd"].read_text())
+    return int(found)
+
+
+@pytest.mark.parametrize("constant", [
+    "pieces", "head_buckets", "wide_head_dim", "dkv_block_keys"])
+def test_python_copies_of_backward_constants_match_the_source(constant):
+    """chip_smoke.py counts the bfloat16 backward's tensor-core work, and
+    ops.dkv_split its blocks, from copies of the CUDA source's template
+    constants; each copy equals the value the source has."""
+    smoke = _chip_smoke()
+    if constant == "pieces":
+        assert smoke.BWD_PIECES == _bwd_constant(
+            r"constexpr int kPieces = (\d+);")
+    elif constant == "head_buckets":
+        src = _build.SOURCES["flash_attention_bwd"].read_text()
+        body = src[src.index("cudaError_t launch_mma("):]
+        body = body[:body.index("\n}\n")]
+        buckets = tuple(int(d) for d in re.findall(r"if \(d <= (\d+)\)",
+                                                   body))
+        assert smoke.BWD_HEAD_BUCKETS == buckets + (ops.MAX_HEAD_DIM,)
+    elif constant == "wide_head_dim":
+        for name in ("kDqHalves", "kPasses"):
+            assert smoke.BWD_WIDE_HEAD_DIM == _bwd_constant(
+                rf"{name} = D <= (\d+) \? 1 : 2;")
+    else:
+        warps = _bwd_constant(r"constexpr int kMmaWarps = (\d+);")
+        assert re.search(r"kKvBK = 16 \* kMmaWarps;",
+                         _build.SOURCES["flash_attention_bwd"].read_text())
+        assert ops.DKV_BLOCK_KEYS == 16 * warps

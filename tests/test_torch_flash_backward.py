@@ -11,7 +11,15 @@ Tolerance: float32 summation-order noise.  Against a float64 autograd
 reference the plain version is within 1e-6 of each gradient's largest
 entry at these sizes; the two packages are held to GRAD_TOL of it
 (absolute) plus GRAD_TOL relative.
+
+The tests at the end route the wrappers to a recorder in place of the CUDA
+library (a fake card): what reaches the C interface — copy width, tensors,
+shapes, strides, the GQA group's workspace — is checked here, the kernels
+themselves only on the card (chip_smoke.py phase 7).
 """
+import math
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -177,3 +185,204 @@ def test_backward_rejects_bad_operands(do, lse, match):
     with pytest.raises((ValueError, TypeError), match=match):
         ops.flash_attention_bwd_dq(q, q, q, do, lse, _t(1, 2, 4))
     assert ops.launches == before
+
+
+H100_SMS = 132                        # an H100 SXM's SMs
+
+
+def _fake_card(monkeypatch):
+    """Route both backward wrappers to the launch with the C library, the
+    stream and the card's SM count replaced by recorders and an H100's;
+    returns each C entry's list of argument tuples."""
+    calls = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
+
+    def recorder(name):
+        def entry(*args):
+            calls[name].append(args)
+            return 0
+        return entry
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(ops, "_bwd_kernels", lambda: types.SimpleNamespace(
+        **{name: recorder(name) for name in calls}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return calls
+
+
+def _fused(B, S, H, Hkv, D, lead, dtype=torch.bfloat16):
+    """q, k, v as views of one fused QKV buffer with ``lead`` elements
+    before q in each row."""
+    buf = torch.zeros(B, S, lead + (H + 2 * Hkv) * D, dtype=dtype)
+    cuts = [lead, lead + H * D, lead + (H + Hkv) * D, lead + (H + 2 * Hkv) * D]
+    return [buf[..., a:b].unflatten(-1, (h, D))
+            for a, b, h in zip(cuts, cuts[1:], (H, Hkv, Hkv))]
+
+
+def _rows(q):
+    """lse and δ stand-ins, float32 (B, H, Sq)."""
+    B, Sq, H, _ = q.shape
+    return _t(B, H, Sq), _t(B, H, Sq)
+
+
+def _offset(shape, lead, dtype=torch.bfloat16):
+    """A contiguous tensor whose base lies ``lead`` elements past an
+    allocation's start."""
+    return torch.zeros(math.prod(shape) + lead, dtype=dtype)[lead:].reshape(
+        shape)
+
+
+@pytest.mark.parametrize("make,width", [
+    # (q, k, v, do) -> the widest copy that divides every row start
+    (lambda: [_t(1, 8, 4, 128, dtype=torch.bfloat16)] * 4, 16),
+    (lambda: [_t(2, 8, 4, 36, dtype=torch.bfloat16)] * 4, 8),   # 72-B heads
+    (lambda: [_t(2, 8, 4, 98, dtype=torch.bfloat16)] * 4, 4),   # 196-B heads
+    (lambda: [_t(2, 8, 4, 77, dtype=torch.bfloat16)] * 4, 2),   # 154-B heads
+    (lambda: [_t(2, 8, 4, 77)] * 4, 4),                         # float32
+    (lambda: _fused(1, 8, 4, 2, 128, 0) + [_t(1, 8, 4, 128,
+                                                dtype=torch.bfloat16)], 16),
+    (lambda: _fused(1, 8, 4, 2, 128, 1) + [_t(1, 8, 4, 128,
+                                                dtype=torch.bfloat16)], 2),
+    (lambda: _fused(1, 8, 4, 2, 128, 4) + [_t(1, 8, 4, 128,
+                                                dtype=torch.bfloat16)], 8),
+    # the cotangent alone off a 16-byte boundary
+    (lambda: [_t(1, 8, 4, 64, dtype=torch.bfloat16)] * 3
+     + [_offset((1, 8, 4, 64), 2)], 4),
+    (lambda: [_t(1, 8, 4, 64, dtype=torch.bfloat16)] * 3
+     + [_offset((1, 8, 4, 64), 1)], 2),
+])
+def test_backward_wrappers_pass_the_copy_width(monkeypatch, make, width):
+    """Both backward wrappers hand the C entry the widest copy width that
+    divides every row start of q, k, v and do (``ops.copy_width``)."""
+    q, k, v, do = make()
+    lse, delta = _rows(q)
+    calls = _fake_card(monkeypatch)
+    ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    assert ops.copy_width(q, k, v, do) == width
+    for name in calls:
+        (args,) = calls[name]
+        assert args[1] == width
+        assert args[2:6] == tuple(t.data_ptr() for t in (q, k, v, do))
+
+
+BWD_ACCEPTED = [
+    # (B, Sq, Skv, H, Hkv, Dqk, Dv, window): every shape the wrappers take
+    # reaches the launch — MHA, GQA, MQA, ragged lengths, Sq ≠ Skv both
+    # ways, windows, head dims of 1, not multiples of 16, up to 256, and
+    # Dv ≠ Dqk
+    (4, 128, 128, 8, 1, 256, 256, 0),
+    (1, 256, 256, 32, 8, 128, 128, 0),
+    (4, 128, 128, 32, 32, 80, 80, 0),
+    (2, 77, 77, 4, 2, 36, 36, 0),
+    (1, 64, 64, 4, 2, 77, 77, 0),
+    (1, 160, 96, 4, 1, 64, 64, 48),
+    (1, 96, 160, 4, 2, 64, 64, 0),
+    (1, 512, 512, 4, 2, 64, 64, 128),
+    (1, 40, 40, 4, 2, 48, 32, 0),
+    (1, 50, 50, 2, 2, 64, 256, 0),
+    (1, 5, 5, 2, 1, 1, 1, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,Dqk,Dv,window", BWD_ACCEPTED)
+def test_backward_shapes_reach_the_kernels(monkeypatch, B, Sq, Skv, H, Hkv,
+                                           Dqk, Dv, window, dtype):
+    """On a CUDA tensor (the dispatch mocked here) each backward wrapper
+    launches once with the arguments its C interface documents: dtype
+    code, copy width, the tensors in place, the outputs, the workspace,
+    the shape, the strides of q, k, v and do, the mask and the scale."""
+    q, k = _t(B, Sq, H, Dqk, dtype=dtype), _t(B, Skv, Hkv, Dqk, dtype=dtype)
+    v, do = _t(B, Skv, Hkv, Dv, dtype=dtype), _t(B, Sq, H, Dv, dtype=dtype)
+    lse, delta = _rows(q)
+    calls = _fake_card(monkeypatch)
+    before = dict(ops.launches)
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, window=window,
+                                    scale=0.125)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         window=window, scale=0.125)
+    assert ops.launches["flash_attention_bwd_dq"] == (
+        before["flash_attention_bwd_dq"] + 1)
+    assert ops.launches["flash_attention_bwd_dkv"] == (
+        before["flash_attention_bwd_dkv"] + 1)
+    for t, like in ((dq, q), (dk, k), (dv, v)):
+        assert t.shape == like.shape and t.dtype == dtype
+    (a_dq,), (a_dkv,) = (calls["flash_attention_bwd_dq"],
+                         calls["flash_attention_bwd_dkv"])
+    for args in (a_dq, a_dkv):
+        assert args[0] == (0 if dtype == torch.float32 else 1)
+        assert args[1] == ops.copy_width(q, k, v, do)
+        assert args[2:8] == tuple(t.data_ptr()
+                                  for t in (q, k, v, do, lse, delta))
+        assert args[11:18] == (B, H, Hkv, Sq, Skv, Dqk, Dv)
+        assert args[18:30] == (*q.stride()[:3], *k.stride()[:3],
+                               *v.stride()[:3], *do.stride()[:3])
+        assert args[30:] == (1, window, 0.125, 0)
+    assert a_dq[8:11] == (dq.data_ptr(), None, None)
+    assert a_dkv[8:10] == (dk.data_ptr(), dv.data_ptr())
+    assert (a_dkv[10] is not None) == ops.dkv_split(q, k)
+
+
+@pytest.mark.parametrize("B,Skv,H,Hkv,dtype,split", [
+    # bfloat16: split when one block per (64-key tile, kv head, batch)
+    # would give fewer blocks than the card's 132 SMs
+    (4, 128, 8, 1, torch.bfloat16, True),      # gemma-2b's step: 8 blocks
+    (1, 256, 32, 8, torch.bfloat16, True),     # 32 blocks
+    (2, 4224, 4, 1, torch.bfloat16, False),    # 132 blocks: loop
+    (2, 4160, 4, 1, torch.bfloat16, True),     # 130 blocks
+    (1, 4096, 32, 8, torch.bfloat16, False),   # 512 blocks
+    (1, 65, 4, 4, torch.bfloat16, False),      # MHA: no group to sum
+    # float32: every GQA/MQA group is split
+    (1, 4096, 32, 8, torch.float32, True),
+    (4, 128, 8, 1, torch.float32, True),
+    (1, 128, 4, 4, torch.float32, False),
+])
+def test_dkv_group_split_and_workspace(monkeypatch, B, Skv, H, Hkv, dtype,
+                                       split):
+    """The dk/dv wrapper's group handling follows ``dkv_split``'s
+    documented rule, and the workspace it passes exactly when it splits
+    holds B·H·Skv·(Dqk + Dv) float32 partials."""
+    Dqk, Dv = 8, 4
+    q, k = _t(B, 4, H, Dqk, dtype=dtype), _t(B, Skv, Hkv, Dqk, dtype=dtype)
+    v, do = _t(B, Skv, Hkv, Dv, dtype=dtype), _t(B, 4, H, Dv, dtype=dtype)
+    calls = _fake_card(monkeypatch)
+    assert ops.dkv_split(q, k) == split
+    ws = ops.dkv_workspace(q, k, v)
+    if split:
+        assert ws.dtype == torch.float32 and ws.device == q.device
+        assert ws.numel() == B * H * Skv * (Dqk + Dv)
+    else:
+        assert ws is None
+    lse, delta = _rows(q)
+    ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    ops.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    assert (calls["flash_attention_bwd_dkv"][0][10] is not None) == split
+    assert calls["flash_attention_bwd_dq"][0][10] is None
+
+
+@pytest.mark.parametrize("sms,split", [(132, True), (114, False)],
+                         ids=["h100_sxm", "h100_pcie"])
+def test_dkv_split_reads_the_cards_sm_count(monkeypatch, sms, split):
+    """The bfloat16 rule compares its block count with the SMs the card
+    reports: 116 blocks (B 2, Skv 3712, Hkv 1) are fewer than an H100
+    SXM's 132 SMs but more than an H100 PCIe's 114."""
+    q, k = (_t(2, 4, 4, 8, dtype=torch.bfloat16),
+            _t(2, 3712, 1, 8, dtype=torch.bfloat16))
+    seen = []
+
+    def properties(index):
+        seen.append(index)
+        return types.SimpleNamespace(multi_processor_count=sms)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
+    ops._sm_count.cache_clear()
+    try:
+        assert ops.dkv_split(q, k) == split
+        assert ops.dkv_split(q, k) == split
+    finally:
+        ops._sm_count.cache_clear()
+    assert seen == [q.device.index]           # read once, then cached
