@@ -10,7 +10,8 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    the sources in this checkout (one nvcc per source, all started
    together), with ptxas's registers and spills and, where cuobjdump is
    there, the forward and backward attention libraries' tensor-core
-   (HMMA), ldmatrix and cp.async instruction counts.
+   (HMMA), ldmatrix and cp.async instruction counts, and each float32
+   backward instance's TF32 HMMA count (none may lack them).
 2. kernels — every kernel of the two paths against its plain PyTorch
    version on the card (float32 and bfloat16, the paths' shapes, ragged
    row counts and one large shape), and its time beside the plain version's,
@@ -43,10 +44,11 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    that are not multiples of 16 on rows that are not 16-byte aligned
    (36, 77, and 35 cut from rows of 64), views of a fused QKV buffer, and
    Skv ≠ Sq with rows that see no key.  ``kernel_time`` lines at the
-   path's shape, the long shape and phase 10's (4, 128) prefill, timed
-   from CUDA-graph replay, with the bound and the time of
-   ``scaled_dot_product_attention`` as a yardstick (the port never calls
-   it).
+   path's shape, the long shape, phase 10's (4, 128) prefill and phase
+   8's local step, timed from CUDA-graph replay, with the bound (float32:
+   at a third of the TF32 tensor-core peak, and at the SIMT peak beside
+   it) and the time of ``scaled_dot_product_attention`` as a yardstick
+   (the port never calls it).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -64,15 +66,16 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    one long shape, the --small model's step, zamba2's MHA at head dim 80,
    head dims whose bfloat16 rows start on 8-, 4- and 2-byte boundaries
    (36, 98, 77) and a view of a fused QKV buffer, so that every head-dim
-   bucket, copy width and group path of the bfloat16 (tensor-core)
-   kernels runs.  ``kernel_time`` lines at the path's shape and the long
-   one, timed from CUDA-graph replay, with the bound, the bfloat16
-   kernels' tensor-core work, and the time of
+   bucket, copy width and group path of the tensor-core kernels (bfloat16
+   on bf16 products, float32 on 3×TF32 ones) runs.  ``kernel_time`` lines
+   at the path's shape and the long one, timed from CUDA-graph replay,
+   with the bound (float32: at a third of the TF32 peak, and at the SIMT
+   peak beside it), the kernels' tensor-core work, and the time of
    ``scaled_dot_product_attention``'s backward, also from graph replay
-   (the port never calls it).  ``dkv_group`` lines: the bfloat16 dk/dv
-   kernel's two ways of summing a GQA/MQA group, each forced and checked,
-   timed against each other at four shapes beside the one the wrapper
-   picks.
+   (the port never calls it).  ``dkv_group`` lines: the dk/dv kernel's
+   two ways of summing a GQA/MQA group, float32 and bfloat16, each forced
+   and checked, timed against each other at four shapes beside the one
+   the wrapper picks.
 8. federated LM training — ``FederatedSimulation.run(3, eval_every=3)`` of
    the LM example (``repro_torch.examples.fed_lm_train``) on gemma-2b at
    full width (d 2048, 8 heads / 1 kv head, head dim 256, d_ff 16384,
@@ -176,7 +179,7 @@ ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 36, 0), (1, 64, 4, 2, 77, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
-              (4, 128, 32, 32, 80, 0)]
+              (4, 128, 32, 32, 80, 0), (4, 128, 8, 1, 256, 0)]
 # Views of one fused QKV buffer (B, S, H, Hkv, D, window, lead elements
 # before q in each row): llama3-8b's widths, a head dim of 36 under a
 # window (8-byte rows in bfloat16), and one-element leads (2-byte rows) at
@@ -192,6 +195,7 @@ ATTN_CUT_SHAPES = [(2, 100, 1, 1, 35, 0, 64), (1, 64, 1, 1, 120, 16, 128)]
 ATTN_CROSS_SHAPES = [(1, 160, 96, 4, 1, 64, 48), (2, 200, 70, 8, 2, 128, 32),
                      (1, 96, 160, 4, 2, 64, 0)]
 BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 494.7e12          # H100 SXM dense TF32 tensor cores
 # Phase 7's shapes (B, Sq, Skv, H, Hkv, D, window): the training path's
 # (gemma-2b, 2 clients × batch 2 folded into B, S 128, MQA, head dim 256),
 # MHA, llama3-8b's GQA g = 4, ragged lengths, a sliding window, Skv > Sq
@@ -212,20 +216,24 @@ ATTN_BWD_SHAPES = [(4, 128, 128, 8, 1, 256, 0), (2, 128, 128, 4, 4, 64, 0),
 ATTN_BWD_FUSED_SHAPES = [(2, 96, 4, 1, 256, 0, 1)]
 ATTN_BWD_PATH_SHAPE = (4, 128, 128, 8, 1, 256, 0)
 ATTN_BWD_TIMED = [ATTN_BWD_PATH_SHAPE, (1, 4096, 4096, 32, 8, 128, 0)]
-# GQA/MQA shapes at which the bfloat16 dk/dv kernel's two ways of summing
-# a group (ops.dkv_split picks one) are timed against each other: S = 4096
+# GQA/MQA shapes at which the dk/dv kernel's two ways of summing a group
+# (ops.dkv_split picks one) are timed against each other: S = 4096
 # and 8 × 512 (512 blocks when one loops over a group), llama3-8b's
 # 1 × 256 prefill and gemma-2b's training step (32 and 8)
 ATTN_BWD_GROUP_SHAPES = [(1, 4096, 4096, 32, 8, 128, 0),
                          (8, 512, 512, 32, 8, 128, 0),
                          (1, 256, 256, 32, 8, 128, 0), ATTN_BWD_PATH_SHAPE]
-# The bfloat16 backward kernels' shape of work, copied from
-# csrc/flash_attention_bwd.cu (tests/test_torch_build.py holds each against
-# the source): P and dS split into kPieces bfloat16 pieces; the head-dim
-# buckets launch_mma picks (Dqk and Dv zero-filled up to one); above
+# The backward kernels' shape of work, copied from
+# csrc/flash_attention_bwd.cu and csrc/tf32_tiles.cuh
+# (tests/test_torch_build.py holds each against the source): bfloat16 P
+# and dS split into kPieces bfloat16 pieces; every float32 product taken
+# as kTerms TF32 products (3×TF32); the head-dim buckets launch_mma and
+# launch_tf32 pick (Dqk and Dv zero-filled up to one); above
 # BWD_WIDE_HEAD_DIM dq splits each row's columns over two warps
-# (kDqHalves) and dk/dv takes dk and dv in separate blocks (kPasses)
+# (kDqHalves) and dk/dv takes dk and dv in separate blocks (kPasses), in
+# both dtypes
 BWD_PIECES = 2
+BWD_TF32_TERMS = 3
 BWD_HEAD_BUCKETS = (64, 80, 128, 256)
 BWD_WIDE_HEAD_DIM = 128
 # The backward kernels sum the plain version's float32 terms in another
@@ -367,6 +375,22 @@ def _ptxas_table(log: str) -> dict:
     return table
 
 
+def _tf32_hmma(dump: str) -> dict:
+    """Each kernel's tensor-core products with TF32 operands (HMMA ….TF32)
+    and all its instructions in a ``cuobjdump -sass`` listing, by mangled
+    name."""
+    counts, fn = {}, None
+    for ln in dump.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m[1]
+            counts[fn] = {"hmma_tf32": 0, "instructions": 0}
+        elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", ln):
+            counts[fn]["instructions"] += 1
+            counts[fn]["hmma_tf32"] += "HMMA" in ln and "TF32" in ln
+    return counts
+
+
 def phase_env() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -390,16 +414,27 @@ def phase_env() -> dict:
     for lib in ("flash_attention", "flash_attention_bwd"):
         table = _ptxas_table(_build.build_log(lib))
         attn[f"{lib}_ptxas"] = table
-        # spill bytes over the bfloat16 (tensor-core) instances
-        attn[f"{lib}_mma_spill_bytes"] = sum(
-            t["spill_stores"] + t["spill_loads"]
-            for name, t in table.items() if "_mma" in name)
+        # spill bytes over the bfloat16 and float32 tensor-core instances
+        for kind in ("_mma", "_tf32"):
+            attn[f"{lib}{kind}_spill_bytes"] = sum(
+                t["spill_stores"] + t["spill_loads"]
+                for name, t in table.items() if kind in name)
         if cuobjdump.is_file():
             dump = subprocess.run(
                 [str(cuobjdump), "-sass", str(_build.library_path(lib))],
                 capture_output=True, text=True).stdout
             attn[f"{lib}_sass"] = {op: dump.count(op)
                                    for op in ("HMMA", "LDSM", "LDGSTS")}
+            if lib == "flash_attention_bwd":
+                # every float32 dq and dk/dv instance runs TF32 HMMA
+                tf32 = {fn: n for fn, n in _tf32_hmma(dump).items()
+                        if "_tf32" in fn}
+                attn[f"{lib}_tf32_hmma"] = tf32
+                _require(all(any(k in fn for fn in tf32) for k in (
+                    "dq_kernel_tf32", "dkv_kernel_tf32"))
+                         and min(n["hmma_tf32"] for n in tf32.values()) > 0,
+                         f"float32 backward instances without TF32 HMMA: "
+                         f"{tf32}")
     env = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
            "python": sys.version.split()[0], "torch": torch.__version__,
@@ -942,19 +977,36 @@ def _band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _attn_bound(q, k, v, window) -> tuple[float, str]:
+def _tensor_bound(nbytes: int, ops: int, dtype
+                  ) -> tuple[float, str, Optional[float]]:
+    """(bound ms, "bytes" or "operations", SIMT bound ms or None): the
+    larger of ``nbytes`` over the memory rate and ``ops`` over the tensor
+    cores' peak for ``dtype`` — bfloat16's, or for float32 a third of
+    TF32's, since three TF32 products stand for one float32 product
+    (3×TF32).  For float32 also the bound at the SIMT float32 peak, the
+    float32 bound before the kernels ran on the tensor cores."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        t_ops, simt = ops / BF16_OPS_PER_S * 1e3, None
+    else:
+        t_ops = ops / (TF32_OPS_PER_S / BWD_TF32_TERMS) * 1e3
+        simt = max(t_bytes, ops / FP32_OPS_PER_S * 1e3)
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", simt
+    return t_ops, "operations", simt
+
+
+def _attn_bound(q, k, v, window) -> tuple[float, str, Optional[float]]:
     """The least time for one attention call: every input read once and
     o and lse written once, or 2·(Dqk + Dv) operations per visible pair
-    and head at the peak of the input type, whichever is larger."""
+    and head at the tensor cores' peak of the input type (``_tensor_bound``),
+    whichever is larger."""
     B, Sq, H, D = q.shape
     Skv, Dv = k.shape[1], v.shape[3]
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v)) \
         + B * Sq * H * Dv * q.element_size() + B * H * Sq * 4
     ops = 2 * (D + Dv) * B * H * _band_pairs(Sq, Skv, True, window)
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _tensor_bound(nbytes, ops, q.dtype)
 
 
 def _fused_qkv(shape, dtype, gen):
@@ -1010,7 +1062,7 @@ def phase_attention_kernel() -> dict:
             _check_attention(checks, result, shape, dtype, q, k, v, window)
             if shape in ATTN_TIMED:
                 iters = 100 if S <= 256 else 5
-                bound_ms, bound_by = _attn_bound(q, k, v, window)
+                bound_ms, bound_by, simt_ms = _attn_bound(q, k, v, window)
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
                 def kernel():
@@ -1024,6 +1076,8 @@ def phase_attention_kernel() -> dict:
                     "plain_ms": _graph_ms(lambda: ref.attention_fwd(
                         q, k, v, causal=True, window=window), iters),
                     "bound_ms": bound_ms, "bound_by": bound_by,
+                    **({} if simt_ms is None else
+                       {"simt_bound_ms": simt_ms}),
                     "library_ms": _graph_ms(
                         lambda: torch.nn.functional
                         .scaled_dot_product_attention(
@@ -1061,13 +1115,15 @@ def phase_attention_kernel() -> dict:
     return result
 
 
-def _attn_bwd_bound(kernel, q, k, v, window) -> tuple[float, str]:
+def _attn_bwd_bound(kernel, q, k, v, window
+                    ) -> tuple[float, str, Optional[float]]:
     """The least time for one backward kernel call: q, k, v and do read
     once, lse and δ (float32) read once and its outputs (dq; or dk and dv)
-    written once, or its products over the visible pairs at the peak of
-    the input type — per visible (query, key) pair and head, the score
-    and dp products (2·Dqk + 2·Dv) and then dq (2·Dqk), or dk and dv
-    (2·Dqk + 2·Dv) — whichever is larger."""
+    written once, or its products over the visible pairs at the tensor
+    cores' peak of the input type (``_tensor_bound``) — per visible
+    (query, key) pair and head, the score and dp products (2·Dqk + 2·Dv)
+    and then dq (2·Dqk), or dk and dv (2·Dqk + 2·Dv) — whichever is
+    larger."""
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     es = q.element_size()
@@ -1081,10 +1137,7 @@ def _attn_bwd_bound(kernel, q, k, v, window) -> tuple[float, str]:
         nbytes += (k.numel() + v.numel()) * es
         per_pair += 2 * (D + Dv)
     ops = per_pair * B * H * _band_pairs(Sq, Skv, True, window)
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _tensor_bound(nbytes, ops, q.dtype)
 
 
 def _bwd_close(got, want, dtype) -> tuple[float, bool]:
@@ -1101,24 +1154,28 @@ def _bwd_close(got, want, dtype) -> tuple[float, bool]:
 
 
 def _bwd_mma_ops(kernel, q, k, v, window) -> int:
-    """Tensor-core operations of a bfloat16 backward kernel on this run's
-    visible pairs, with P and dS split into BWD_PIECES bf16 pieces: per
-    visible (query, key) pair and head, 2·D for each product over the
-    head-dim bucket D — dq: S, dP and the pieces of dS·K; dk/dv: S, dP and
-    the pieces of Pᵀ·dO and dSᵀ·Q.  Above BWD_WIDE_HEAD_DIM dq takes S and
-    dP twice (two warps split each row's columns) and dk/dv S twice (dk
-    and dv are taken by separate blocks).  The masked halves of tiles on
-    the diagonal are not counted."""
+    """Tensor-core operations of a backward kernel on this run's visible
+    pairs: per visible (query, key) pair and head, 2·D for each product
+    over the head-dim bucket D — dq: S, dP and dS·K; dk/dv: S, dP, Pᵀ·dO
+    and dSᵀ·Q — with bfloat16 P and dS split into BWD_PIECES bf16 pieces
+    (a product of each), and every float32 product taken as
+    BWD_TF32_TERMS TF32 products.  Above BWD_WIDE_HEAD_DIM two warps split
+    each dq row's columns — the bfloat16 dq's both take all of S and dP,
+    the float32 dq's each take half and trade dS — and dk/dv takes S twice
+    (dk and dv are taken by separate blocks).  The masked halves of tiles
+    on the diagonal are not counted."""
     B, Sq, H, _ = q.shape
     D = min(b for b in BWD_HEAD_BUCKETS if b >= max(q.shape[3], v.shape[3]))
     wide = D > BWD_WIDE_HEAD_DIM
-    n = BWD_PIECES
+    f32 = q.dtype == torch.float32
+    n = 1 if f32 else BWD_PIECES
     if kernel == "flash_attention_bwd_dq":
-        products = 2 + n + (2 if wide else 0)
+        products = 2 + n + (2 if wide and not f32 else 0)
     else:
         products = 2 + 2 * n + (1 if wide else 0)
-    return 2 * D * products * B * H * _band_pairs(Sq, k.shape[1], True,
-                                                   window)
+    terms = BWD_TF32_TERMS if f32 else 1
+    return terms * 2 * D * products * B * H * _band_pairs(
+        Sq, k.shape[1], True, window)
 
 
 def _check_backward(checks, result, label, dtype, q, k, v, window, gen):
@@ -1160,8 +1217,8 @@ def _check_backward(checks, result, label, dtype, q, k, v, window, gen):
 def phase_attention_backward() -> dict:
     """Both backward kernels against their plain versions on the card at
     ATTN_BWD_SHAPES and ATTN_BWD_FUSED_SHAPES in float32 and bfloat16,
-    then timed at ATTN_BWD_TIMED; the bfloat16 dk/dv kernel's group paths
-    at ATTN_BWD_GROUP_SHAPES.  Returns each kernel's worst error and
+    then timed at ATTN_BWD_TIMED; the dk/dv kernel's group paths at
+    ATTN_BWD_GROUP_SHAPES.  Returns each kernel's worst error and
     its timing at the training path's shape in float32 (the path's
     type)."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -1188,29 +1245,35 @@ def phase_attention_backward() -> dict:
                             gen)
     _time_group_paths(gen)
     bf16 = [ch for ch in checks if ch["dtype"] == str(torch.bfloat16)]
+    f32 = [ch for ch in checks if ch["dtype"] == str(torch.float32)]
     _emit({"phase": "attention_backward", "checks": len(checks),
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
            "copy_widths": sorted({ch["copy_width"] for ch in bf16}),
            "bf16_split_paths": sorted({ch["split"] for ch in bf16
                                        if ch["grad"] != "dq"}),
+           "f32_copy_widths": sorted({ch["copy_width"] for ch in f32}),
+           "f32_split_paths": sorted({ch["split"] for ch in f32
+                                      if ch["grad"] != "dq"}),
+           "worst_f32": max(f32, key=lambda ch: ch["rel_err"]),
            "reserved_bytes_after": torch.cuda.memory_reserved(),
            "worst": max(checks, key=lambda ch: ch["rel_err"])})
     return result
 
 
 def _time_group_paths(gen) -> None:
-    """The bfloat16 dk/dv kernel at ATTN_BWD_GROUP_SHAPES with each way of
-    summing a GQA/MQA group forced in turn — one block looping over the g
-    query heads, or one block a head writing float32 partials that
-    dkv_reduce_kernel sums: each held against the plain version, then both
-    timed from CUDA-graph replay in the order loop, split, split, loop.
-    Prints a dkv_group line a shape, with the path ``ops.dkv_split``
-    picks there."""
+    """The dk/dv kernel, float32 and bfloat16, at ATTN_BWD_GROUP_SHAPES
+    with each way of summing a GQA/MQA group forced in turn — one block
+    looping over the g query heads, or one block a head writing float32
+    partials that dkv_reduce_kernel sums: each held against the plain
+    version, then both timed from CUDA-graph replay in the order loop,
+    split, split, loop.  Prints a dkv_group line a shape and dtype, with
+    the path ``ops.dkv_split`` picks there."""
     from repro_torch.kernels.flash_attention import ops, ref
     rule = ops.dkv_split
-    dtype = torch.bfloat16
     try:
-        for shape in ATTN_BWD_GROUP_SHAPES:
+        for dtype, shape in ((dtype, shape)
+                             for dtype in (torch.float32, torch.bfloat16)
+                             for shape in ATTN_BWD_GROUP_SHAPES):
             B, Sq, Skv, H, Hkv, D, window = shape
             q = torch.randn(B, Sq, H, D, generator=gen, device=DEVICE
                             ).to(dtype)
@@ -1220,7 +1283,8 @@ def _time_group_paths(gen) -> None:
             do = torch.randn(o.shape, generator=gen, device=DEVICE).to(dtype)
             delta = ref.row_delta(do, o)
             want = ref.attention_bwd_dkv(q, k, v, do, lse, delta)
-            line = {"phase": "dkv_group", "shape": shape,
+            line = {"phase": "dkv_group", "dtype": str(dtype),
+                    "shape": shape,
                     "rule": "split" if rule(q, k) else "loop"}
 
             def run():
@@ -1252,7 +1316,8 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
     back-to-back calls, ``stream_ms``), with the time of
     scaled_dot_product_attention's backward (dq, dk and dv through
     autograd, from graph replay too) as the yardstick (the port never calls
-    it) and, for bfloat16, the tensor-core work done."""
+    it), the tensor-core work done and, for float32, the bound at the SIMT
+    peak beside the 3×TF32 one."""
     from repro_torch.kernels.flash_attention import ops, ref
     window = shape[-1]
     kw = {"causal": True, "window": window}
@@ -1282,17 +1347,21 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
                                                 **kw),
             lambda: ref.attention_bwd_dkv(q, k, v, do, lse, delta, **kw))}
     for name, (kernel, plain) in entries.items():
-        bound_ms, bound_by = _attn_bwd_bound(name, q, k, v, window)
+        bound_ms, bound_by, simt_ms = _attn_bwd_bound(name, q, k, v, window)
         timing = {"kernel": name, "dtype": str(dtype), "shape": shape,
                   "ms": _graph_ms(kernel, iters),
                   "stream_ms": _time_ms(kernel, iters),
                   "plain_ms": _graph_ms(plain, iters),
                   "bound_ms": bound_ms, "bound_by": bound_by,
                   "library_ms": library_ms}
+        ops_done = _bwd_mma_ops(name, q, k, v, window)
+        timing["mma_ops"] = ops_done
         if dtype == torch.bfloat16:
-            ops_done = _bwd_mma_ops(name, q, k, v, window)
-            timing.update({"mma_ops": ops_done, "mma_pieces": BWD_PIECES,
-                           "mma_tflops": ops_done / timing["ms"] / 1e9})
+            timing["mma_pieces"] = BWD_PIECES
+        else:
+            timing.update({"mma_terms": BWD_TF32_TERMS,
+                           "simt_bound_ms": simt_ms})
+        timing["mma_tflops"] = ops_done / timing["ms"] / 1e9
         _emit({"phase": "kernel_time", **timing})
         if dtype == torch.float32 and shape == ATTN_BWD_PATH_SHAPE:
             result[name].update({key: timing[key] for key in (

@@ -5,9 +5,8 @@
 // (src/repro/kernels/flash_attention/backward.py): _dq_kernel (the
 // pallas_call at line 150) and _dkv_kernel (line 178).  They compute what
 // those kernels compute, not their block structure:
-//   s  = (q · scale) · kᵀ in float32 (the float32 instances scale q first,
-//        as the forward's float32 instance does; the bfloat16 instances
-//        take scale · (q · kᵀ), below);
+//   s  = scale · (q · kᵀ) in float32 (the plain version scales q first,
+//        (q · scale) · kᵀ: an ulp-level rounding of s apart);
 //   p  = exp(s − lse) where key kp is visible from query qp (kp ≤ qp when
 //        causal, kp > qp − window when window > 0, both < their lengths),
 //        exactly 0 elsewhere — lse is the forward's, m + log(max(l, 1e-30)),
@@ -16,9 +15,10 @@
 //        wrapper (ops.py), as the reference precomputes it in jnp;
 //   dq = scale · Σ_kv ds · k;  dv = Σ_q pᵀ · do;  dk = Σ_q dsᵀ · (q · scale),
 //        dk and dv summed over the g query heads of each kv head.
-// expf and IEEE arithmetic, no --use_fast_math: the float32 instances
-// differ from the plain version (ref.attention_bwd) only in summation
-// order, the bfloat16 instances also in the two roundings named below.
+// expf and IEEE arithmetic, no --use_fast_math: both dtypes' instances
+// differ from the plain version (ref.attention_bwd) in summation order,
+// where the scale is applied, and in how their tensor-core products round
+// (bfloat16: P and dS in pieces; float32: 3×TF32; both below).
 //
 // Where they differ from the TPU kernels, and why:
 //   - Layout: q, k, v and do are read in the model layout (B, S, H, D)
@@ -45,7 +45,8 @@
 // S = 128, 8 heads, 1 kv head, D = 256) the bytes — q, k, v, do, o, lse
 // read once and dq, dk, dv written once — against ~10·D operations per
 // visible (q, kv) pair and head (the two score products, dq, dk, dv: 2·D
-// each); at long S the operations.
+// each); at long S the operations, at the tensor cores' peak of the type
+// (float32: a third of TF32's, three TF32 products standing for one).
 //
 // The bfloat16 instances (dq_kernel_mma, dkv_kernel_mma) run every product
 // on the tensor cores, mma.sync m16n8k16 bf16 → f32, on the tile machinery
@@ -109,36 +110,67 @@
 //     and (4 + 4n)·D for dk/dv (at D = 256, (8 + 2n)·D and (6 + 4n)·D),
 //     against the 6·D and 8·D of the bound.  expf, no --use_fast_math.
 //
-// The float32 instances (dq_kernel, dkv_kernel, dkv_reduce_kernel) are
-// the first, SIMT design.  Tiles of q, do, k and v are staged in shared
-// memory as float32 with rows padded to D + 1 (the score loops' column
-// reads hit distinct banks), > 48 KB, so dynamic shared memory raised with
-// cudaFuncSetAttribute.  Tile heights are picked per head dim (a
-// template): 64 × 64 up to D = 128, 32 × 32 at D = 256, where four float32
-// tiles of 257-float rows fill ~136-140 KB.  256 threads as a 16 × 16 grid
-// each own rows ty + 16a and columns tx + 16c of the score tile and of the
-// accumulators; every product is a float32 FMA; q is scaled first.  A
-// 3×TF32 tensor-core route is queued (ROADMAP).  With g > 1 their group
-// is split over blocks whenever the wrapper passes the workspace, which
-// it does for every float32 GQA/MQA call: at gemma-2b's shape (Hkv = 1,
-// g = 8) one block per kv head would give 16 blocks on 132 SMs, each
-// reducing 8 heads × all q tiles of its band in sequence; split, 128
-// blocks of at most 4 q tiles each, and the partials add 2 · B·H·Skv·D
-// float32 of workspace traffic (8 MB at that shape).
+//
+// The float32 instances (dq_kernel_tf32, dkv_kernel_tf32) run every
+// product on the tensor cores too, as three TF32 products, mma.sync
+// m16n8k8 tf32 → f32 (tf32_tiles.cuh): each float32 operand is split in
+// registers into x_hi = rna(x) and x_lo = rna(x − x_hi), and a·b is
+// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, so every product keeps ~2⁻²¹ of
+// float32's 2⁻²⁴ (one TF32 product would keep 2⁻¹¹ and miss the
+// tolerance).  The grids, bands, masks, loop-or-split group rule,
+// kDqHalves and kPasses are the bfloat16 kernels'; what differs:
+//   - Staging.  Float32 tiles are copied by cp.async at the wrapper's copy
+//     width (16, 8 or 4 bytes), ragged rows and head-dim tails zero-filled
+//     by the copy's source size, into rows of D + 8 floats (no swizzle),
+//     through the same two-stage ring.
+//   - Fragments without ldmatrix, which moves 16-bit elements: every
+//     fragment is read with 32- or 64-bit LDS.  Over the head dim a lane's
+//     k = t and t + 4 stand for dims 2t and 2t + 1 (one float2 per row);
+//     the accumulator of S (or Sᵀ) feeds dS·K (Pᵀ·dO, dSᵀ·Q) as the A
+//     operand in place, its columns 2t and 2t + 1 standing for k = t and
+//     t + 4, the B operand reading those two rows.  A tile read both ways
+//     (K in dq; Q and dO in dk/dv) has its rows permuted in the score
+//     product (perm8): with the pitch D + 8 both reads are free of bank
+//     conflicts at every head-dim bucket.
+//   - Accumulation.  The tensor cores truncate as they add into an
+//     accumulator; summed in place over a band of 4096 queries and 4
+//     heads that biased dk past the tolerance.  dQ, dK and dV therefore
+//     sum each step's products in a fresh fragment and add it to the
+//     running sum in float32 (mma_rows_tf32).
+//   - dq: 4 warps.  Up to D = 128 each owns 16 of 64 query rows; at
+//     D = 256 two row warps each split their 16 rows' dq columns over two
+//     warps (kDqHalves), which take S and dP of half of each 32-key tile
+//     and trade dS through shared memory (rather than both computing all
+//     of S and dP, as the bfloat16 dq does).  Q and dO of the 64 (32) rows
+//     resident, K and V tiles of 32 keys streamed: 74-208 KB.
+//   - dk/dv: 8 warps.  Each of 4 key groups of 16 keys (64 a block, K and
+//     V resident) is shared by two warps, each taking half the rows of
+//     every streamed q tile (32 queries; 16 from D = 128 on); the second
+//     half's partial dk and dv are added to the first's through the ring
+//     at the end, in a fixed order, in the K and V tiles' place.  Two
+//     warps an SM sub-partition hide each other's latency, where one warp
+//     (4 a block) stalled on its own.  74-203 KB.
+//   - Unrolling.  The score products' loops over the head dim are
+//     unrolled by 4 (a full unroll hoisted loads and made dk/dv slower at
+//     D = 256), and every TF32 rounding is two integer operations
+//     (to_tf32).
+//   - The tolerance is the bfloat16 instances' 2e-5 of each gradient's
+//     largest entry, without the bf16 ulp.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
 using namespace fa_tiles;
-// the bfloat16 staging, an overload beside the float32 instances' own
-using fa_tiles::load_tile;
+namespace tf32 = fa_tf32;
 
-constexpr int kThreads = 256;                 // a 16 × 16 grid
+constexpr int kThreads = 256;                 // dkv_reduce_kernel's blocks
 
 struct Params {
   const void* q;
@@ -161,19 +193,6 @@ struct Params {
   float scale;
 };
 
-// Tile heights per head-dim bucket (max(Dqk, Dv) ≤ DMAX): query rows BQ
-// and key rows BK, both multiples of 16.
-template <int DMAX>
-struct Tiles {
-  static constexpr int BQ = DMAX <= 128 ? 64 : 32;
-  static constexpr int BK = DMAX <= 128 ? 64 : 32;
-};
-
-// The float32 instances' templates take T = float only (the bfloat16
-// instances are the tensor-core kernels below); from_float<bf16> serves
-// dkv_reduce_kernel, which both share.
-__device__ __forceinline__ float to_float(float x) { return x; }
-
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -183,368 +202,6 @@ __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ bool visible(int qp, int kp, const Params& p) {
-  return qp < p.Sq && kp < p.Skv && (!p.causal || kp <= qp) &&
-         (p.window <= 0 || kp > qp - p.window);
-}
-
-// rows [r0, r0 + rows) of one head of a (B, S, H, d) tensor whose head
-// base is `src` and position stride `ss`, into dst[rows][ld] as float32
-// times `mul` (1 is exact); rows at or past n are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long ss, int r0, int rows,
-                                          int n, int d, float mul) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += kThreads) {
-    const int i = idx / d;
-    const int c = idx - i * d;
-    const int r = r0 + i;
-    dst[i * ld + c] =
-        r < n ? __fmul_rn(to_float(src[r * ss + c]), mul) : 0.0f;
-  }
-}
-
-// lse and δ of rows [q0, q0 + rows) of head h, 0 past Sq
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const Params& p, int b, int h,
-                                          int q0, int rows) {
-  const long long base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const int qp = q0 + i;
-    lse_s[i] = qp < p.Sq ? p.lse[base + qp] : 0.0f;
-    delta_s[i] = qp < p.Sq ? p.delta[base + qp] : 0.0f;
-  }
-}
-
-template <int DMAX>
-size_t dq_smem_bytes(int dqk, int dv) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  const size_t floats = static_cast<size_t>(BQ + BK) * (dqk + 1)  // q, k
-                        + static_cast<size_t>(BQ + BK) * (dv + 1) // do, v
-                        + static_cast<size_t>(BQ) * (BK + 1)      // ds
-                        + 2 * BQ;                                 // lse, δ
-  return floats * sizeof(float);
-}
-
-template <int DMAX>
-size_t dkv_smem_bytes(int dqk, int dv) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  const size_t floats = static_cast<size_t>(BQ + BK) * (dqk + 1)  // q, k
-                        + static_cast<size_t>(BQ + BK) * (dv + 1) // do, v
-                        + 2 * static_cast<size_t>(BK) * (BQ + 1)  // pᵀ, dsᵀ
-                        + 2 * BQ;                                 // lse, δ
-  return floats * sizeof(float);
-}
-
-// dq: one block per (q tile, head, batch)
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  constexpr int RA = BQ / 16;                 // query rows per thread
-  constexpr int CS = BK / 16;                 // score columns per thread
-  constexpr int CD = DMAX / 16;               // dq columns per thread
-  extern __shared__ float smem[];
-  const int D = p.Dqk;
-  const int Dv = p.Dv;
-  const int ldq = D + 1;
-  const int ldv = Dv + 1;
-  float* qs = smem;                           // [BQ][ldq], scaled
-  float* dos = qs + BQ * ldq;                 // [BQ][ldv]
-  float* ks = dos + BQ * ldv;                 // [BK][ldq]
-  float* vs = ks + BK * ldq;                  // [BK][ldv]
-  float* dss = vs + BK * ldv;                 // [BQ][BK + 1]
-  float* lse_s = dss + BQ * (BK + 1);
-  float* delta_s = lse_s + BQ;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-
-  load_tile(qs, ldq, q, p.q_ss, q0, BQ, p.Sq, D, p.scale);
-  load_tile(dos, ldv, dout, p.do_ss, q0, BQ, p.Sq, Dv, 1.0f);
-  load_rows(lse_s, delta_s, p, b, h, q0, BQ);
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  float acc[RA][CD];
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[a][c] = 0.0f;
-  }
-
-  // the kv tiles that meet this q tile's band
-  const int n_tiles = (p.Skv + BK - 1) / BK;
-  int t_end = n_tiles;
-  if (p.causal) t_end = min(t_end, (q0 + BQ - 1) / BK + 1);
-  int t_begin = 0;
-  if (p.window > 0) {
-    const int lo = q0 - p.window + 1;         // first key row q0 sees
-    if (lo > 0) t_begin = lo / BK;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                          // the last tile's readers
-    load_tile(ks, ldq, k, p.k_ss, k0, BK, p.Skv, D, 1.0f);
-    load_tile(vs, ldv, v, p.v_ss, k0, BK, p.Skv, Dv, 1.0f);
-    __syncthreads();
-
-    float s[RA][CS], dp[RA][CS];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-#pragma unroll
-      for (int c = 0; c < CS; ++c) s[a][c] = dp[a][c] = 0.0f;
-    }
-    for (int d = 0; d < D; ++d) {
-      float qa[RA], kc[CS];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) qa[a] = qs[(ty + 16 * a) * ldq + d];
-#pragma unroll
-      for (int c = 0; c < CS; ++c) kc[c] = ks[(tx + 16 * c) * ldq + d];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-#pragma unroll
-        for (int c = 0; c < CS; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-      }
-    }
-    for (int d = 0; d < Dv; ++d) {
-      float da[RA], vc[CS];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) da[a] = dos[(ty + 16 * a) * ldv + d];
-#pragma unroll
-      for (int c = 0; c < CS; ++c) vc[c] = vs[(tx + 16 * c) * ldv + d];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-#pragma unroll
-        for (int c = 0; c < CS; ++c) dp[a][c] = fmaf(da[a], vc[c], dp[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int i = ty + 16 * a;
-#pragma unroll
-      for (int c = 0; c < CS; ++c) {
-        const int j = tx + 16 * c;
-        const float pv =
-            visible(q0 + i, k0 + j, p) ? expf(s[a][c] - lse_s[i]) : 0.0f;
-        dss[i * (BK + 1) + j] = pv * (dp[a][c] - delta_s[i]);
-      }
-    }
-    __syncthreads();
-
-    // acc += ds · k
-    for (int j = 0; j < BK; ++j) {
-      float dsa[RA];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) dsa[a] = dss[(ty + 16 * a) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) {
-          const float kv = ks[j * ldq + col];
-#pragma unroll
-          for (int a = 0; a < RA; ++a) acc[a][c] = fmaf(dsa[a], kv, acc[a][c]);
-        }
-      }
-    }
-  }
-
-  T* dq = static_cast<T*>(p.out0);
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int qp = q0 + ty + 16 * a;
-    if (qp >= p.Sq) continue;
-    T* row = dq + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * D;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) row[col] = from_float<T>(__fmul_rn(acc[a][c], p.scale));
-    }
-  }
-}
-
-// dk, dv: one block per (kv tile, kv head, batch) summing its g query heads;
-// or, with a workspace, one block per (kv tile, query head, batch) writing
-// that head's float32 partials there
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
-  constexpr int BQ = Tiles<DMAX>::BQ, BK = Tiles<DMAX>::BK;
-  constexpr int RA = BK / 16;                 // key rows per thread
-  constexpr int CS = BQ / 16;                 // score columns per thread
-  constexpr int CD = DMAX / 16;               // dk / dv columns per thread
-  extern __shared__ float smem[];
-  const int D = p.Dqk;
-  const int Dv = p.Dv;
-  const int ldq = D + 1;
-  const int ldv = Dv + 1;
-  float* ks = smem;                           // [BK][ldq]
-  float* vs = ks + BK * ldq;                  // [BK][ldv]
-  float* qs = vs + BK * ldv;                  // [BQ][ldq], scaled
-  float* dos = qs + BQ * ldq;                 // [BQ][ldv]
-  float* pt = dos + BQ * ldv;                 // [BK][BQ + 1]: pᵀ
-  float* dst = pt + BK * (BQ + 1);            // [BK][BQ + 1]: dsᵀ
-  float* lse_s = dst + BK * (BQ + 1);
-  float* delta_s = lse_s + BQ;
-
-  const int k0 = blockIdx.x * BK;
-  const int b = blockIdx.z;
-  const int g = p.H / p.Hkv;
-  const bool split = p.ws != nullptr;
-  const int hk = split ? blockIdx.y / g : blockIdx.y;
-  const int h_begin = split ? blockIdx.y : hk * g;
-  const int h_end = split ? h_begin + 1 : h_begin + g;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  load_tile(ks, ldq, k, p.k_ss, k0, BK, p.Skv, D, 1.0f);
-  load_tile(vs, ldv, v, p.v_ss, k0, BK, p.Skv, Dv, 1.0f);
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  float dk_acc[RA][CD], dv_acc[RA][CD];
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-#pragma unroll
-    for (int c = 0; c < CD; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.0f;
-  }
-
-  // the q tiles that meet this kv tile's band
-  const int n_q = (p.Sq + BQ - 1) / BQ;
-  const int qt_begin = p.causal ? min(k0 / BQ, n_q) : 0;
-  int qt_end = n_q;
-  if (p.window > 0) {
-    // the last query row that sees key k0 + BK − 1
-    const long long last = static_cast<long long>(k0) + BK - 1 + p.window - 1;
-    const long long end = last / BQ + 1;
-    qt_end = end < n_q ? static_cast<int>(end) : n_q;
-  }
-
-  for (int hq = h_begin; hq < h_end; ++hq) {
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const T* dout =
-        static_cast<const T*>(p.dout) + b * p.do_sb + hq * p.do_sh;
-    for (int t = qt_begin; t < qt_end; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();                        // the last tile's readers
-      load_tile(qs, ldq, q, p.q_ss, q0, BQ, p.Sq, D, p.scale);
-      load_tile(dos, ldv, dout, p.do_ss, q0, BQ, p.Sq, Dv, 1.0f);
-      load_rows(lse_s, delta_s, p, b, hq, q0, BQ);
-      __syncthreads();
-
-      // sᵀ and dpᵀ: rows are keys, columns queries
-      float s[RA][CS], dp[RA][CS];
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-#pragma unroll
-        for (int c = 0; c < CS; ++c) s[a][c] = dp[a][c] = 0.0f;
-      }
-      for (int d = 0; d < D; ++d) {
-        float ka[RA], qc[CS];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) ka[a] = ks[(ty + 16 * a) * ldq + d];
-#pragma unroll
-        for (int c = 0; c < CS; ++c) qc[c] = qs[(tx + 16 * c) * ldq + d];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-#pragma unroll
-          for (int c = 0; c < CS; ++c) s[a][c] = fmaf(qc[c], ka[a], s[a][c]);
-        }
-      }
-      for (int d = 0; d < Dv; ++d) {
-        float va[RA], dc[CS];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) va[a] = vs[(ty + 16 * a) * ldv + d];
-#pragma unroll
-        for (int c = 0; c < CS; ++c) dc[c] = dos[(tx + 16 * c) * ldv + d];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-#pragma unroll
-          for (int c = 0; c < CS; ++c) dp[a][c] = fmaf(dc[c], va[a], dp[a][c]);
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const int j = ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < CS; ++c) {
-          const int i = tx + 16 * c;
-          const float pv =
-              visible(q0 + i, k0 + j, p) ? expf(s[a][c] - lse_s[i]) : 0.0f;
-          pt[j * (BQ + 1) + i] = pv;
-          dst[j * (BQ + 1) + i] = pv * (dp[a][c] - delta_s[i]);
-        }
-      }
-      __syncthreads();
-
-      // dv += pᵀ · do;  dk += dsᵀ · (q · scale)
-      for (int i = 0; i < BQ; ++i) {
-        float pa[RA], da[RA];
-#pragma unroll
-        for (int a = 0; a < RA; ++a) {
-          pa[a] = pt[(ty + 16 * a) * (BQ + 1) + i];
-          da[a] = dst[(ty + 16 * a) * (BQ + 1) + i];
-        }
-#pragma unroll
-        for (int c = 0; c < CD; ++c) {
-          const int col = tx + 16 * c;
-          if (col < Dv) {
-            const float dov = dos[i * ldv + col];
-#pragma unroll
-            for (int a = 0; a < RA; ++a)
-              dv_acc[a][c] = fmaf(pa[a], dov, dv_acc[a][c]);
-          }
-          if (col < D) {
-            const float qv = qs[i * ldq + col];
-#pragma unroll
-            for (int a = 0; a < RA; ++a)
-              dk_acc[a][c] = fmaf(da[a], qv, dk_acc[a][c]);
-          }
-        }
-      }
-    }
-  }
-
-  if (split) {
-    float* wk = p.ws;
-    float* wv = p.ws + static_cast<long long>(p.B) * p.H * p.Skv * D;
-#pragma unroll
-    for (int a = 0; a < RA; ++a) {
-      const int kp = k0 + ty + 16 * a;
-      if (kp >= p.Skv) continue;
-      const long long row =
-          (static_cast<long long>(b) * p.H + h_begin) * p.Skv + kp;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const int col = tx + 16 * c;
-        if (col < D) wk[row * D + col] = dk_acc[a][c];
-        if (col < Dv) wv[row * Dv + col] = dv_acc[a][c];
-      }
-    }
-    return;
-  }
-  T* dk = static_cast<T*>(p.out0);
-  T* dv = static_cast<T*>(p.out1);
-#pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int kp = k0 + ty + 16 * a;
-    if (kp >= p.Skv) continue;
-    const long long row = (static_cast<long long>(b) * p.Skv + kp) * p.Hkv + hk;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) dk[row * D + col] = from_float<T>(dk_acc[a][c]);
-      if (col < Dv) dv[row * Dv + col] = from_float<T>(dv_acc[a][c]);
-    }
-  }
 }
 
 // dk and dv from the split dk/dv kernel's partials: each element of the
@@ -582,18 +239,6 @@ __global__ void __launch_bounds__(kThreads) dkv_reduce_kernel(Params p) {
   }
 }
 
-template <typename T, int DMAX>
-cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<DMAX>(p.Dqk, p.Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + Tiles<DMAX>::BQ - 1) / Tiles<DMAX>::BQ, p.H, p.B);
-  dq_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // dk and dv from the partials in `ws`: dkv_reduce_kernel, after the split
 // dk/dv kernel on the same stream
 template <typename T>
@@ -604,35 +249,6 @@ cudaError_t launch_reduce(const Params& p, cudaStream_t stream) {
   dkv_reduce_kernel<T><<<static_cast<unsigned>(blocks < 8192 ? blocks : 8192),
                          kThreads, 0, stream>>>(p);
   return cudaGetLastError();
-}
-
-template <typename T, int DMAX>
-cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<DMAX>(p.Dqk, p.Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const bool split = p.ws != nullptr;
-  const dim3 grid((p.Skv + Tiles<DMAX>::BK - 1) / Tiles<DMAX>::BK,
-                  split ? p.H : p.Hkv, p.B);
-  dkv_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (!split || err != cudaSuccess) return err;
-  return launch_reduce<T>(p, stream);
-}
-
-cudaError_t launch_f32(bool dkv, const Params& p, cudaStream_t stream) {
-  using T = float;
-  const int dmax = p.Dqk > p.Dv ? p.Dqk : p.Dv;
-  if (dmax <= 64) {
-    return dkv ? launch_dkv<T, 64>(p, stream) : launch_dq<T, 64>(p, stream);
-  }
-  if (dmax <= 128) {
-    return dkv ? launch_dkv<T, 128>(p, stream)
-               : launch_dq<T, 128>(p, stream);
-  }
-  return dkv ? launch_dkv<T, 256>(p, stream) : launch_dq<T, 256>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1266,28 +882,670 @@ cudaError_t launch_dkv_mma(const Params& p, cudaStream_t stream) {
   return launch_reduce<bf16>(p, stream);
 }
 
-template <int W>
-cudaError_t launch_mma(bool dkv, const Params& p, cudaStream_t stream) {
+// launch(bucket) at the head-dim bucket of max(Dqk, Dv), 64, 80, 128 or
+// 256, given as a compile-time std::integral_constant (both dtypes')
+template <typename Launch>
+cudaError_t by_bucket(const Params& p, Launch launch) {
   const int d = p.Dqk > p.Dv ? p.Dqk : p.Dv;
-  if (d <= 64) {
-    return dkv ? launch_dkv_mma<64, W>(p, stream)
-               : launch_dq_mma<64, W>(p, stream);
-  }
-  if (d <= 80) {
-    return dkv ? launch_dkv_mma<80, W>(p, stream)
-               : launch_dq_mma<80, W>(p, stream);
-  }
-  if (d <= 128) {
-    return dkv ? launch_dkv_mma<128, W>(p, stream)
-               : launch_dq_mma<128, W>(p, stream);
-  }
-  return dkv ? launch_dkv_mma<256, W>(p, stream)
-             : launch_dq_mma<256, W>(p, stream);
+  if (d <= 64) return launch(std::integral_constant<int, 64>());
+  if (d <= 80) return launch(std::integral_constant<int, 80>());
+  if (d <= 128) return launch(std::integral_constant<int, 128>());
+  return launch(std::integral_constant<int, 256>());
 }
 
-// the copy width must divide every bf16 row start of q, k, v and do: each
-// base address, and each stride in bytes of a dimension longer than 1
-bool rows_aligned(const Params& p, int width) {
+template <int W>
+cudaError_t launch_mma(bool dkv, const Params& p, cudaStream_t stream) {
+  return by_bucket(p, [&](auto bucket) {
+    constexpr int D = decltype(bucket)::value;
+    return dkv ? launch_dkv_mma<D, W>(p, stream)
+               : launch_dq_mma<D, W>(p, stream);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// float32: the 3×TF32 tensor-core instances
+// ---------------------------------------------------------------------------
+
+// D: the head-dim bucket the products run over (that of the bfloat16
+// instances; Dqk and Dv zero-filled up to it); rows of kPitch floats
+template <int D>
+struct Tf32Cfg {
+  static constexpr int kPitch = tf32::pitch<D>();
+  static constexpr int kRowBytes = 4 * kPitch;
+  // dq: 4 warps; each 16 query rows' dq columns split over kDqHalves warps
+  // as in the bfloat16 dq (two at D = 256), so kDqRowWarps warps of 16
+  // rows; Q and dO of kDqBQ rows resident, K and V tiles of kDqBK keys
+  // streamed.  With two halves each warp of a pair takes S and dP of half
+  // the tile's keys and the pair trades dS through shared memory (rows of
+  // kDsPitch floats, 8·odd as the tiles' pitch).
+  static constexpr int kDqHalves = BwdCfg<D>::kDqHalves;
+  static constexpr int kDqRowWarps = kMmaWarps / kDqHalves;
+  static constexpr int kDqBQ = 16 * kDqRowWarps;
+  static constexpr int kDqBK = 32;
+  static constexpr int kDqTile = kDqBK * kRowBytes;
+  static constexpr int kDsPitch = kDqBK + 8;
+  static constexpr int kDqSmem =
+      2 * kDqBQ * kRowBytes + 2 * kStages * kDqTile +
+      (kDqHalves == 2 ? kDqBQ * kDsPitch * 4 : 0);
+  // dk/dv: K and V of kKvBK keys resident, Q, dO, lse and δ of kKvBQ
+  // query rows streamed; 8 warps, each 16 keys of 4 key groups and half
+  // of each q tile's rows (kKvHalves), the halves' partial sums added in
+  // the K and V tiles' place at the end; dk and dv in kPasses blocks as in
+  // the bfloat16 dk/dv (two at D = 256)
+  static constexpr int kKvBK = 16 * kMmaWarps;
+  static constexpr int kKvHalves = 2;
+  static constexpr int kKvThreads = kMmaThreads * kKvHalves;
+  // 16 from D = 128 on: at D = 128 32 rows (dk and dv both held) spilled
+  static constexpr int kKvBQ = D <= 80 ? 32 : 16;
+  static constexpr int kKvQTile = kKvBQ * kRowBytes;
+  static constexpr int kKvStage = 2 * kKvQTile + 2 * kKvBQ * 4;
+  static constexpr int kKvSmem = 2 * kKvBK * kRowBytes + kStages * kKvStage;
+  static constexpr int kPasses = BwdCfg<D>::kPasses;
+  // the unroll of the score products' loops over the head dim's k8 steps
+  // (a full unroll made the dk/dv kernel slower at D = 256)
+  static constexpr int kUnroll = 4;
+  static_assert(kDqSmem <= 232448 && kKvSmem <= 232448,
+                "a block has at most 227 KB of shared memory");
+};
+
+__device__ __forceinline__ float2 ld2(const float* ptr) {
+  return *reinterpret_cast<const float2*>(ptr);
+}
+
+// The A fragment of k8 step kk over the head dim from the 16 rows at
+// `row` (row g; g + 8 at 8 rows below) of a tile of pitch P: dims 2t and
+// 2t + 1 of the step stand for k = t and t + 4
+template <int P>
+__device__ __forceinline__ tf32::FragA head_a(const float* row, int kk,
+                                              int quad) {
+  const int c = 8 * kk + 2 * quad;
+  const float2 x = ld2(row + c);
+  const float2 y = ld2(row + 8 * P + c);
+  return tf32::FragA(x.x, y.x, x.y, y.y);
+}
+
+// The A operand of the next product from the accumulator fragment x of a
+// score block's n8 tile: its columns 2t and 2t + 1 stand for k = t and
+// t + 4 (the B operand reads the rows of those columns)
+__device__ __forceinline__ tf32::FragA acc_a(const float (&x)[4]) {
+  return tf32::FragA(x[0], x[2], x[1], x[3]);
+}
+
+// acc (16 × 8·NO) += a (16 × 8·NK: A operands from a score block's NK n8
+// tiles, k8 step j from tile j, acc_a) · the tile rows 8·j + pk[0]
+// and 8·j + pk[1] of step j, at columns cols + 8·n of n8 tile n.  Each n8
+// tile of the product is summed over the NK steps in a fresh fragment and
+// then added to acc in float32 (round to nearest): the tensor cores
+// truncate as they accumulate, which over a long band biased a running sum
+// past the tolerance.
+template <int NO, int NK, int P>
+__device__ __forceinline__ void mma_rows_tf32(float (&acc)[NO][4],
+                                              const tf32::FragA (&a)[NK],
+                                              const float* cols,
+                                              const int (&pk)[2]) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      tf32::mma_3xtf32(part, a[j],
+                       tf32::FragB(cols[(8 * j + pk[0]) * P + 8 * n],
+                                   cols[(8 * j + pk[1]) * P + 8 * n]));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// dq: one block of 4 warps per (q tile of kDqBQ rows, head, batch), the
+// last q tile first (the longest band under a causal mask)
+template <int D, int W>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    dq_kernel_tf32(Params p) {
+  using Cfg = Tf32Cfg<D>;
+  constexpr int P = Cfg::kPitch;
+  constexpr int BQ = Cfg::kDqBQ;
+  constexpr int BK = Cfg::kDqBK;
+  constexpr int NC = D / Cfg::kDqHalves;      // dq columns of a warp
+  constexpr int NS = BK / 8;                  // n8 tiles of a score block
+  constexpr int NSW = NS / Cfg::kDqHalves;    // those of S a warp takes
+  constexpr int KD = D / 8;                   // k8 steps over the head dim
+  constexpr int NO = NC / 8;                  // n8 tiles of a warp's dq
+  constexpr int kUnrollKd = Cfg::kUnroll;
+  extern __shared__ __align__(128) unsigned char dq_tf32_smem[];
+  float* const s_q = reinterpret_cast<float*>(dq_tf32_smem);
+  float* const s_do = s_q + BQ * P;
+  float* const s_k = s_do + BQ * P;           // kStages K tiles,
+  float* const s_v = s_k + kStages * BK * P;  // then kStages V tiles,
+  float* const s_ds = s_v + kStages * BK * P;  // then dS (two halves)
+
+  const int warp = threadIdx.x / 32 % Cfg::kDqRowWarps;  // its 16 rows
+  const int half = threadIdx.x / 32 / Cfg::kDqRowWarps;
+  const int c0 = half * NC;                   // its first dq column
+  const int j0 = half * NSW;                  // its first n8 tile of S
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int pg = tf32::perm8(lane / 4);       // the key row of n index g
+  const int pk[2] = {tf32::perm8(2 * quad), tf32::perm8(2 * quad + 1)};
+  const float minus_inf = __int_as_float(0xff800000);
+  const int n_qt = (p.Sq + BQ - 1) / BQ;
+  const long long heads = static_cast<long long>(p.B) * p.H;
+  const long long items = heads * n_qt;
+  const float* q_all = static_cast<const float*>(p.q);
+  const float* k_all = static_cast<const float*>(p.k);
+  const float* v_all = static_cast<const float*>(p.v);
+  const float* do_all = static_cast<const float*>(p.dout);
+  const float* q_row = s_q + (16 * warp + lane / 4) * P;
+  const float* do_row = s_do + (16 * warp + lane / 4) * P;
+  float* const ds_row = s_ds + (16 * warp + lane / 4) * Cfg::kDsPitch;
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int q0 = (n_qt - 1 - static_cast<int>(item / heads)) * BQ;
+    const int bh = static_cast<int>(item % heads);
+    const int b = bh / p.H;
+    const int h = bh - b * p.H;
+    const int hk = h / (p.H / p.Hkv);
+    const float* q = q_all + b * p.q_sb + h * p.q_sh;
+    const float* k = k_all + b * p.k_sb + hk * p.k_sh;
+    const float* v = v_all + b * p.v_sb + hk * p.v_sh;
+    const float* dout = do_all + b * p.do_sb + h * p.do_sh;
+
+    // the kv tiles that meet this q tile's band
+    int t_end = (p.Skv + BK - 1) / BK;
+    if (p.causal) t_end = min(t_end, (q0 + BQ - 1) / BK + 1);
+    int t_begin = 0;
+    if (p.window > 0) {
+      const int lo = q0 - p.window + 1;       // first key row q0 sees
+      if (lo > 0) t_begin = lo / BK;
+    }
+
+    __syncthreads();                          // the last item's readers
+    tf32::load_tile<P, D, BQ, W, kMmaThreads>(smem_u32(s_q), q, p.q_ss, q0,
+                                              p.Sq, p.Dqk);
+    tf32::load_tile<P, D, BQ, W, kMmaThreads>(smem_u32(s_do), dout, p.do_ss,
+                                              q0, p.Sq, p.Dv);
+    if (t_begin < t_end) {
+      tf32::load_tile<P, D, BK, W, kMmaThreads>(smem_u32(s_k), k, p.k_ss,
+                                                t_begin * BK, p.Skv, p.Dqk);
+      tf32::load_tile<P, D, BK, W, kMmaThreads>(smem_u32(s_v), v, p.v_ss,
+                                                t_begin * BK, p.Skv, p.Dv);
+    }
+    cp_async_commit();
+
+    // this thread's rows r0 and r0 + 8, their lse and δ (0 past Sq: those
+    // rows are never written)
+    const int r0 = q0 + 16 * warp + lane / 4;
+    const long long rows = (static_cast<long long>(b) * p.H + h) * p.Sq;
+    float lse[2], dlt[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + 8 * i;
+      lse[i] = qp < p.Sq ? p.lse[rows + qp] : 0.0f;
+      dlt[i] = qp < p.Sq ? p.delta[rows + qp] : 0.0f;
+    }
+    float acc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    }
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int stage = (t - t_begin) % kStages;
+      const float* k_tile = s_k + stage * BK * P;
+      const float* v_tile = s_v + stage * BK * P;
+      if (t + 1 < t_end) {                    // the next tile, meanwhile
+        const int nxt = (stage + 1) % kStages;
+        tf32::load_tile<P, D, BK, W, kMmaThreads>(
+            smem_u32(s_k + nxt * BK * P), k, p.k_ss, (t + 1) * BK, p.Skv,
+            p.Dqk);
+        tf32::load_tile<P, D, BK, W, kMmaThreads>(
+            smem_u32(s_v + nxt * BK * P), v, p.v_ss, (t + 1) * BK, p.Skv,
+            p.Dv);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();                     // all but the newest group
+      __syncthreads();
+
+      // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows × this warp's NSW n8 tiles of
+      // keys, n index g of n8 tile j0 + j reading key row
+      // 8·(j0 + j) + perm8(g)
+      float s[NSW][4], dp[NSW][4];
+#pragma unroll
+      for (int j = 0; j < NSW; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+      }
+#pragma unroll kUnrollKd
+      for (int kk = 0; kk < KD; ++kk) {
+        const tf32::FragA aq = head_a<P>(q_row, kk, quad);
+        const tf32::FragA ad = head_a<P>(do_row, kk, quad);
+        const int c = 8 * kk + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < NSW; ++j) {
+          const float2 kx = ld2(k_tile + (8 * (j0 + j) + pg) * P + c);
+          const float2 vx = ld2(v_tile + (8 * (j0 + j) + pg) * P + c);
+          tf32::mma_3xtf32(s[j], aq, tf32::FragB(kx.x, kx.y));
+          tf32::mma_3xtf32(dp[j], ad, tf32::FragB(vx.x, vx.y));
+        }
+      }
+
+      // scale; then, where the tile crosses the diagonal, the window's
+      // edge or Skv, hide keys outside the row's band [lo, hi] with −∞, so
+      // that p = exp(−∞) = 0 exactly; ds = p ∘ (dp − δ) over s.  Element
+      // (j, e) is row r0 + 8·(e / 2), key k0 + 8·(j0 + j) + pk[e % 2].
+#pragma unroll
+      for (int j = 0; j < NSW; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.scale);
+      }
+      const int k0 = t * BK;
+      const int w0 = q0 + 16 * warp;          // this warp's first row
+      if ((p.causal && k0 + BK - 1 > w0) ||
+          (p.window > 0 && k0 <= w0 + 15 - p.window) || k0 + BK > p.Skv) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qp = r0 + 8 * i;
+          const int hi = p.causal ? min(qp, p.Skv - 1) : p.Skv - 1;
+          const int lo = p.window > 0 ? qp - p.window + 1 : 0;
+#pragma unroll
+          for (int j = 0; j < NSW; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kp = k0 + 8 * (j0 + j) + pk[c];
+              if (kp < lo || kp > hi) s[j][2 * i + c] = minus_inf;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NSW; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - lse[e / 2]) * (dp[j][e] - dlt[e / 2]);
+        }
+      }
+
+      // dQ += dS·K: n8 tile j of dS is k8 step j, reading K rows
+      // 8·j + pk[0] and 8·j + pk[1] at this warp's columns; with two
+      // halves, the other half's dS tiles come through shared memory
+      // (stored and read in the accumulator's column order)
+      tf32::FragA a[NS];
+      if constexpr (Cfg::kDqHalves == 1) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) a[j] = acc_a(s[j]);
+      } else {
+        constexpr int DP = Cfg::kDsPitch;
+#pragma unroll
+        for (int j = 0; j < NSW; ++j) {
+          const int col = 8 * (j0 + j) + 2 * quad;
+          *reinterpret_cast<float2*>(ds_row + col) =
+              make_float2(s[j][0], s[j][1]);
+          *reinterpret_cast<float2*>(ds_row + 8 * DP + col) =
+              make_float2(s[j][2], s[j][3]);
+        }
+        __syncthreads();                      // both halves' dS
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float2 x = ld2(ds_row + 8 * j + 2 * quad);
+          const float2 y = ld2(ds_row + 8 * DP + 8 * j + 2 * quad);
+          a[j] = tf32::FragA(x.x, y.x, x.y, y.y);
+        }
+      }
+      mma_rows_tf32<NO, NS, P>(acc, a, k_tile + c0 + lane / 4, pk);
+      __syncthreads();                        // this stage's readers
+    }
+    cp_async_wait<0>();
+
+    // dq = scale · acc
+    float* dq = static_cast<float*>(p.out0);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + 8 * i;
+      if (qp >= p.Sq) continue;
+      float* row = dq + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) *
+                            p.Dqk;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        store_pair(row, p.Dqk, c0 + 8 * n + 2 * quad,
+                   __fmul_rn(acc[n][2 * i], p.scale),
+                   __fmul_rn(acc[n][2 * i + 1], p.scale));
+      }
+    }
+  }
+}
+
+// One float32 dk/dv work item: the kKvBK keys [k0, k0 + kKvBK) of kv head
+// hk against the q tiles of their band in query heads [h_begin, h_end).
+// PASS 0 takes dk and dv, 1 dv alone, 2 dk alone.  Writes dk and dv when
+// the item covers the whole group, else its head's partials to p.ws.
+template <int D, int W, int PASS>
+__device__ __forceinline__ void dkv_item_tf32(const Params& p,
+                                              unsigned char* smem, int k0,
+                                              int b, int hk, int h_begin,
+                                              int h_end) {
+  using Cfg = Tf32Cfg<D>;
+  constexpr bool kDv = PASS != 2;
+  constexpr bool kDk = PASS != 1;
+  constexpr int P = Cfg::kPitch;
+  constexpr int BK = Cfg::kKvBK;
+  constexpr int BQ = Cfg::kKvBQ;
+  constexpr int NQ = BQ / 8 / Cfg::kKvHalves;  // n8 tiles of a warp's rows
+  constexpr int T = Cfg::kKvThreads;
+  constexpr int KD = D / 8;
+  constexpr int NO = D / 8;
+  constexpr int kUnrollKd = Cfg::kUnroll;
+  float* const s_k = reinterpret_cast<float*>(smem);
+  float* const s_v = s_k + BK * P;
+  unsigned char* const s_ring =               // kStages × (Q, dO, lse, δ)
+      reinterpret_cast<unsigned char*>(s_v + BK * P);
+  const int warp = threadIdx.x / 32 % kMmaWarps;  // its 16 keys
+  const int half = threadIdx.x / 32 / kMmaWarps;  // its rows of a q tile
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int pg = tf32::perm8(lane / 4);       // the query row of n index g
+  const int pq[2] = {tf32::perm8(2 * quad), tf32::perm8(2 * quad + 1)};
+  const float minus_inf = __int_as_float(0xff800000);
+  const float* q_all = static_cast<const float*>(p.q);
+  const float* do_all = static_cast<const float*>(p.dout);
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  // the q tiles that meet this kv tile's band, for each query head
+  const int n_q = (p.Sq + BQ - 1) / BQ;
+  const int qt_begin = p.causal ? min(k0 / BQ, n_q) : 0;
+  int qt_end = n_q;
+  if (p.window > 0) {
+    // the last query row that sees key k0 + BK − 1
+    const long long last = static_cast<long long>(k0) + BK - 1 + p.window - 1;
+    const long long end = last / BQ + 1;
+    qt_end = end < n_q ? static_cast<int>(end) : n_q;
+  }
+  const int nt = max(qt_end - qt_begin, 0);
+  const int steps = (h_end - h_begin) * nt;
+
+  // step i: the q tile qt_begin + i % nt of head h_begin + i / nt
+  auto load_step = [&](int i, int stage) {
+    const int hq = h_begin + i / nt;
+    const int q0 = (qt_begin + i % nt) * BQ;
+    const uint32_t base = smem_u32(s_ring + stage * Cfg::kKvStage);
+    tf32::load_tile<P, D, BQ, W, T>(
+        base, q_all + b * p.q_sb + hq * p.q_sh, p.q_ss, q0, p.Sq, p.Dqk);
+    tf32::load_tile<P, D, BQ, W, T>(
+        base + Cfg::kKvQTile, do_all + b * p.do_sb + hq * p.do_sh, p.do_ss,
+        q0, p.Sq, p.Dv);
+    load_rows_async<BQ>(base + 2 * Cfg::kKvQTile, p, b, hq, q0);
+  };
+
+  __syncthreads();                            // the last item's readers
+  tf32::load_tile<P, D, BK, W, T>(smem_u32(s_k), k, p.k_ss, k0, p.Skv,
+                                  p.Dqk);
+  tf32::load_tile<P, D, BK, W, T>(smem_u32(s_v), v, p.v_ss, k0, p.Skv,
+                                  p.Dv);
+  if (steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dv_acc[kDv ? NO : 1][4], dk_acc[kDk ? NO : 1][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kDv) dv_acc[n][e] = 0.0f;
+      if constexpr (kDk) dk_acc[n][e] = 0.0f;
+    }
+  }
+  const int kw0 = k0 + 16 * warp;             // this warp's first key
+  const int kr = kw0 + lane / 4;              // this thread's keys kr, kr + 8
+  const float* k_row = s_k + (16 * warp + lane / 4) * P;
+  const float* v_row = s_v + (16 * warp + lane / 4) * P;
+  const int jq = half * NQ;                   // its first n8 tile of a q tile
+
+  for (int i = 0; i < steps; ++i) {
+    const int stage = i % kStages;
+    if (i + 1 < steps) load_step(i + 1, (i + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<1>();                       // all but the newest group
+    __syncthreads();
+    const int q0 = (qt_begin + i % nt) * BQ;
+    const float* q_tile =
+        reinterpret_cast<const float*>(s_ring + stage * Cfg::kKvStage);
+    const float* do_tile = q_tile + BQ * P;
+    const float* lse_s = do_tile + BQ * P;
+    const float* dlt_s = lse_s + BQ;
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys × this warp's NQ n8 tiles of
+    // queries, n index g of n8 tile jq + j reading query row
+    // 8·(jq + j) + perm8(g)
+    float st[NQ][4], dpt[kDk ? NQ : 1][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[j][e] = 0.0f;
+        if constexpr (kDk) dpt[j][e] = 0.0f;
+      }
+    }
+#pragma unroll kUnrollKd
+    for (int kk = 0; kk < KD; ++kk) {
+      const int c = 8 * kk + 2 * quad;
+      const tf32::FragA ak = head_a<P>(k_row, kk, quad);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float2 qx = ld2(q_tile + (8 * (jq + j) + pg) * P + c);
+        tf32::mma_3xtf32(st[j], ak, tf32::FragB(qx.x, qx.y));
+      }
+      if constexpr (kDk) {
+        const tf32::FragA av = head_a<P>(v_row, kk, quad);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const float2 dx = ld2(do_tile + (8 * (jq + j) + pg) * P + c);
+          tf32::mma_3xtf32(dpt[j], av, tf32::FragB(dx.x, dx.y));
+        }
+      }
+    }
+
+    // scale; hide the pairs outside the band with −∞ where the block
+    // crosses the diagonal, the window's edge or Sq (keys past Skv are
+    // rows that are never written); pᵀ over sᵀ, dsᵀ = pᵀ ∘ (dpᵀ − δ) over
+    // dpᵀ.  Element (j, e) is key kr + 8·(e / 2), query
+    // q0 + 8·(jq + j) + pq[e % 2].
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = __fmul_rn(st[j][e], p.scale);
+    }
+    if ((p.causal && kw0 + 15 > q0) ||
+        (p.window > 0 && kw0 <= q0 + BQ - 1 - p.window) || q0 + BQ > p.Sq) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int kp = kr + 8 * r;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qp = q0 + 8 * (jq + j) + pq[c];
+            if (qp >= p.Sq || (p.causal && kp > qp) ||
+                (p.window > 0 && kp <= qp - p.window)) {
+              st[j][2 * r + c] = minus_inf;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * (jq + j) + pq[e % 2];
+        const float pv = expf(st[j][e] - lse_s[col]);
+        if constexpr (kDk) dpt[j][e] = pv * (dpt[j][e] - dlt_s[col]);
+        st[j][e] = pv;
+      }
+    }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q: n8 tile j is k8 step j, reading the dO
+    // and Q rows 8·(jq + j) + pq[0] and 8·(jq + j) + pq[1]
+    if constexpr (kDv) {
+      tf32::FragA a[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) a[j] = acc_a(st[j]);
+      mma_rows_tf32<NO, NQ, P>(dv_acc, a, do_tile + 8 * jq * P + lane / 4,
+                               pq);
+    }
+    if constexpr (kDk) {
+      tf32::FragA a[NQ];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) a[j] = acc_a(dpt[j]);
+      mma_rows_tf32<NO, NQ, P>(dk_acc, a, q_tile + 8 * jq * P + lane / 4,
+                               pq);
+    }
+    __syncthreads();                          // this stage's readers
+  }
+  cp_async_wait<0>();
+
+  // the second half's sums into the first's, in the K and V tiles' place
+  // (2·kKvBK·(D + 8) floats, at least the kKvBK·D of each accumulator):
+  // each lane of a warp of the second half stores its accumulator
+  // fragments where the same lane of the first half's warp for those keys
+  // reads them
+  __syncthreads();                            // K and V's last readers
+  float* const red = s_k + warp * NO * 4 * 32 + lane;
+  constexpr int kAccFloats = kMmaWarps * NO * 4 * 32;
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kDv) red[(4 * n + e) * 32] = dv_acc[n][e];
+        if constexpr (kDk) red[(kDv ? kAccFloats : 0) + (4 * n + e) * 32] =
+            dk_acc[n][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kDv) dv_acc[n][e] += red[(4 * n + e) * 32];
+      if constexpr (kDk) {
+        dk_acc[n][e] += red[(kDv ? kAccFloats : 0) + (4 * n + e) * 32];
+      }
+    }
+  }
+
+  // dk = scale · acc; dv = acc: into (B, Skv, Hkv, ·), or partials of head
+  // h_begin into ws (B, H, Skv, Dqk), then (B, H, Skv, Dv)
+  const bool split = p.ws != nullptr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = kr + 8 * r;
+    if (kp >= p.Skv) continue;
+    const long long ws_row =
+        (static_cast<long long>(b) * p.H + h_begin) * p.Skv + kp;
+    const long long out_row =
+        (static_cast<long long>(b) * p.Skv + kp) * p.Hkv + hk;
+    float* dk = split ? p.ws + ws_row * p.Dqk
+                      : static_cast<float*>(p.out0) + out_row * p.Dqk;
+    float* dv = split ? p.ws + static_cast<long long>(p.B) * p.H * p.Skv *
+                                   p.Dqk + ws_row * p.Dv
+                      : static_cast<float*>(p.out1) + out_row * p.Dv;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = 8 * n + 2 * quad;
+      if constexpr (kDk) {
+        store_pair(dk, p.Dqk, col, __fmul_rn(dk_acc[n][2 * r], p.scale),
+                   __fmul_rn(dk_acc[n][2 * r + 1], p.scale));
+      }
+      if constexpr (kDv) {
+        store_pair(dv, p.Dv, col, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dk/dv: one block of 8 warps per (kKvBK-key tile, kv head, batch),
+// looping over the g query heads; with a workspace, per (kKvBK-key tile,
+// query head, batch); at D = 256 per pass as well.  The first kv tile
+// first (the longest band under a causal mask).
+template <int D, int W>
+__global__ void __launch_bounds__(Tf32Cfg<D>::kKvThreads, 1)
+    dkv_kernel_tf32(Params p) {
+  using Cfg = Tf32Cfg<D>;
+  extern __shared__ __align__(128) unsigned char dkv_tf32_smem[];
+  const bool split = p.ws != nullptr;
+  const int g = p.H / p.Hkv;
+  const int heads = split ? p.H : p.Hkv;      // the grid's head axis
+  const long long per_tile =
+      static_cast<long long>(p.B) * heads * Cfg::kPasses;
+  const long long items =
+      per_tile * ((p.Skv + Cfg::kKvBK - 1) / Cfg::kKvBK);
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int k0 = static_cast<int>(item / per_tile) * Cfg::kKvBK;
+    const int rest = static_cast<int>(item % per_tile);
+    const int pass = rest % Cfg::kPasses;
+    const int bh = rest / Cfg::kPasses;
+    const int b = bh / heads;
+    const int hg = bh - b * heads;
+    const int hk = split ? hg / g : hg;
+    const int h_begin = split ? hg : hk * g;
+    const int h_end = split ? h_begin + 1 : h_begin + g;
+    if constexpr (Cfg::kPasses == 1) {
+      dkv_item_tf32<D, W, 0>(p, dkv_tf32_smem, k0, b, hk, h_begin, h_end);
+    } else if (pass == 0) {
+      dkv_item_tf32<D, W, 1>(p, dkv_tf32_smem, k0, b, hk, h_begin, h_end);
+    } else {
+      dkv_item_tf32<D, W, 2>(p, dkv_tf32_smem, k0, b, hk, h_begin, h_end);
+    }
+  }
+}
+
+template <int D, int W>
+cudaError_t launch_dq_tf32(const Params& p, cudaStream_t stream) {
+  using Cfg = Tf32Cfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel_tf32<D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg::kDqSmem);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(p.B) * p.H *
+                          ((p.Sq + Cfg::kDqBQ - 1) / Cfg::kDqBQ);
+  dq_kernel_tf32<D, W><<<grid_of(items), kMmaThreads, Cfg::kDqSmem,
+                         stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int W>
+cudaError_t launch_dkv_tf32(const Params& p, cudaStream_t stream) {
+  using Cfg = Tf32Cfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel_tf32<D, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg::kKvSmem);
+  if (err != cudaSuccess) return err;
+  const bool split = p.ws != nullptr;
+  const long long items = static_cast<long long>(p.B) *
+                          (split ? p.H : p.Hkv) * Cfg::kPasses *
+                          ((p.Skv + Cfg::kKvBK - 1) / Cfg::kKvBK);
+  dkv_kernel_tf32<D, W><<<grid_of(items), Cfg::kKvThreads, Cfg::kKvSmem,
+                          stream>>>(p);
+  err = cudaGetLastError();
+  if (!split || err != cudaSuccess) return err;
+  return launch_reduce<float>(p, stream);
+}
+
+template <int W>
+cudaError_t launch_tf32(bool dkv, const Params& p, cudaStream_t stream) {
+  return by_bucket(p, [&](auto bucket) {
+    constexpr int D = decltype(bucket)::value;
+    return dkv ? launch_dkv_tf32<D, W>(p, stream)
+               : launch_dq_tf32<D, W>(p, stream);
+  });
+}
+
+// the copy width must divide every row start of q, k, v and do: each base
+// address, and each stride in bytes (elements of `esize` bytes) of a
+// dimension longer than 1
+bool rows_aligned(const Params& p, int width, int esize) {
   const long long ptrs[4] = {reinterpret_cast<long long>(p.q),
                              reinterpret_cast<long long>(p.k),
                              reinterpret_cast<long long>(p.v),
@@ -1301,7 +1559,7 @@ bool rows_aligned(const Params& p, int width) {
     if (x % width) return false;
   }
   for (int i = 0; i < 12; ++i) {
-    if (sizes[i] > 1 && (2 * strides[i]) % width) return false;
+    if (sizes[i] > 1 && (esize * strides[i]) % width) return false;
   }
   return true;
 }
@@ -1309,18 +1567,25 @@ bool rows_aligned(const Params& p, int width) {
 int run(bool dkv, int dtype, int copy_width, const Params& p, void* stream) {
   if (p.B <= 0 || p.H <= 0 || p.Hkv <= 0 || p.H % p.Hkv != 0 || p.Sq <= 0 ||
       p.Skv <= 0 || p.Dqk <= 0 || p.Dqk > 256 || p.Dv <= 0 || p.Dv > 256 ||
-      p.out0 == nullptr || (dkv && p.out1 == nullptr)) {
+      p.out0 == nullptr || (dkv && p.out1 == nullptr) ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // float32 rows take 16-, 8- or 4-byte copies; bfloat16 rows 2 as well
+  if (copy_width != 16 && copy_width != 8 && copy_width != 4 &&
+      (dtype == 0 || copy_width != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!rows_aligned(p, copy_width, dtype == 0 ? 4 : 2)) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_f32(dkv, p, s));
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (copy_width != 16 && copy_width != 8 && copy_width != 4 &&
-      copy_width != 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!rows_aligned(p, copy_width)) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (dtype == 0) {
+    switch (copy_width) {
+      case 16: return static_cast<int>(launch_tf32<16>(dkv, p, s));
+      case 8: return static_cast<int>(launch_tf32<8>(dkv, p, s));
+      default: return static_cast<int>(launch_tf32<4>(dkv, p, s));
+    }
   }
   switch (copy_width) {
     case 16: return static_cast<int>(launch_mma<16>(dkv, p, s));
@@ -1335,11 +1600,11 @@ int run(bool dkv, int dtype, int copy_width, const Params& p, void* stream) {
 // dtype codes (those of ops.py): 0 = float32, 1 = bfloat16.  q, k, v and do
 // in the model layout with the given element strides of (batch, position,
 // head) and a contiguous last dimension; lse and delta contiguous float32
-// (B, H, Sq).  `copy_width` (16, 8, 4 or 2 bytes) is the bfloat16
-// instances' staging width: it must divide each of q, k, v and do's base
-// addresses and (batch, position, head) strides in bytes, those of
+// (B, H, Sq).  `copy_width` is the staging width in bytes (float32: 16, 8
+// or 4; bfloat16: 16, 8, 4 or 2): it must divide each of q, k, v and do's
+// base addresses and (batch, position, head) strides in bytes, those of
 // dimensions of size 1 excepted (else the call returns
-// cudaErrorMisalignedAddress); the float32 instances ignore it.
+// cudaErrorMisalignedAddress).
 // flash_attention_bwd_dq writes dq contiguous (B, Sq, H, Dqk) to out0 (out1
 // and ws are not read); flash_attention_bwd_dkv writes dk contiguous
 // (B, Skv, Hkv, Dqk) to out0 and dv (B, Skv, Hkv, Dv) to out1.  Its `ws`

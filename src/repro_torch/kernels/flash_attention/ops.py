@@ -31,8 +31,8 @@ from repro_torch.kernels.flash_attention import ref
 
 MAX_HEAD_DIM = 256
 MAX_GRID_DIM = 65535                 # CUDA's limit on grid.y (H), grid.z (B)
-# keys a block of the bfloat16 dk/dv kernel takes (csrc/
-# flash_attention_bwd.cu, BwdCfg::kKvBK)
+# keys a block of the dk/dv kernel takes, both dtypes (csrc/
+# flash_attention_bwd.cu, BwdCfg::kKvBK and Tf32Cfg::kKvBK)
 DKV_BLOCK_KEYS = 64
 
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
@@ -112,8 +112,9 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def copy_width(*tensors: torch.Tensor) -> int:
-    """The bfloat16 kernels' staging width in bytes: 16, 8 or 4
-    (a ``cp.async`` of that width; 2 = plain loads), the widest that divides
+    """The attention kernels' staging width in bytes: 16, 8 or 4 (a
+    ``cp.async`` of that width; 2 = plain loads, bfloat16 only: a float32
+    row start is a multiple of 4), the widest that divides
     every row start of the (B, S, H, D) ``tensors`` — each base address, and
     each of the batch, position and head strides in bytes whose dimension
     is longer than 1 (a stride of a size-1 dimension is never applied)."""
@@ -191,18 +192,16 @@ def dkv_split(q: torch.Tensor, k: torch.Tensor) -> bool:
     """Whether the dk/dv kernel splits each GQA/MQA group (H > Hkv) over
     blocks, one per query head writing float32 partials that a second
     kernel sums in head order, rather than having one block loop over the
-    group's g query heads.  float32: always (its blocks hold both
-    accumulators for one head at a time).  bfloat16: when one block per
-    (64-key tile, kv head, batch) would give fewer blocks than q's card
-    has SMs — the MQA training shape (B 4, Skv 128, Hkv 1) gives 8.  Both
-    sides of the rule were timed on an H100 80GB HBM3 (PERF.md §6): at 8
-    and 32 such blocks the split was 3.0× and 2.2× faster, at 512 the loop
-    3% and 34% faster (it writes and reads no partials)."""
+    group's g query heads: for both dtypes, when one block per (64-key
+    tile, kv head, batch) would give fewer blocks than q's card has SMs —
+    the MQA training shape (B 4, Skv 128, Hkv 1) gives 8.  Both sides of
+    the rule were timed on an H100 80GB HBM3 (PERF.md §6): at 8 and 32
+    such blocks the split was 3.0× and 2.2× faster in bfloat16, 6.4× and
+    3.3× in float32; at 512 the loop was 3% and 34% faster in bfloat16,
+    1% and 12% in float32 (it writes and reads no partials)."""
     B, H, Skv, Hkv = q.shape[0], q.shape[2], k.shape[1], k.shape[2]
     if H == Hkv:
         return False
-    if q.dtype == torch.float32:
-        return True
     return B * Hkv * -(-Skv // DKV_BLOCK_KEYS) < _sm_count(q.device.index)
 
 

@@ -86,29 +86,52 @@ def _bwd_constant(pattern: str) -> int:
     return int(found)
 
 
+def _body(src: str, head: str) -> str:
+    """The text of the function or struct that starts at ``head`` in
+    ``src``, to its closing brace at the start of a line."""
+    body = src[src.index(head):]
+    return body[:re.search(r"\n\};?\n", body).start()]
+
+
 @pytest.mark.parametrize("constant", [
-    "pieces", "head_buckets", "wide_head_dim", "dkv_block_keys"])
+    "pieces", "head_buckets", "wide_head_dim", "dkv_block_keys",
+    "tf32_terms", "tf32_tiles"])
 def test_python_copies_of_backward_constants_match_the_source(constant):
-    """chip_smoke.py counts the bfloat16 backward's tensor-core work, and
-    ops.dkv_split its blocks, from copies of the CUDA source's template
-    constants; each copy equals the value the source has."""
+    """chip_smoke.py counts the backward kernels' tensor-core work, and
+    ops.dkv_split their blocks, from copies of the CUDA sources' template
+    constants; each copy equals the value the source has, for the
+    bfloat16 instances and for the float32 (3×TF32) ones."""
     smoke = _chip_smoke()
+    src = _build.SOURCES["flash_attention_bwd"].read_text()
     if constant == "pieces":
         assert smoke.BWD_PIECES == _bwd_constant(
             r"constexpr int kPieces = (\d+);")
     elif constant == "head_buckets":
-        src = _build.SOURCES["flash_attention_bwd"].read_text()
-        body = src[src.index("cudaError_t launch_mma("):]
-        body = body[:body.index("\n}\n")]
-        buckets = tuple(int(d) for d in re.findall(r"if \(d <= (\d+)\)",
-                                                   body))
+        buckets = tuple(int(d) for d in re.findall(
+            r"if \(d <= (\d+)\)", _body(src, "cudaError_t by_bucket(")))
         assert smoke.BWD_HEAD_BUCKETS == buckets + (ops.MAX_HEAD_DIM,)
+        for launch in ("cudaError_t launch_mma(", "cudaError_t launch_tf32("):
+            assert "return by_bucket(p, " in _body(src, launch)
     elif constant == "wide_head_dim":
         for name in ("kDqHalves", "kPasses"):
             assert smoke.BWD_WIDE_HEAD_DIM == _bwd_constant(
                 rf"{name} = D <= (\d+) \? 1 : 2;")
-    else:
+    elif constant == "dkv_block_keys":
         warps = _bwd_constant(r"constexpr int kMmaWarps = (\d+);")
-        assert re.search(r"kKvBK = 16 \* kMmaWarps;",
-                         _build.SOURCES["flash_attention_bwd"].read_text())
+        assert re.search(r"kKvBK = 16 \* kMmaWarps;", src)
         assert ops.DKV_BLOCK_KEYS == 16 * warps
+    elif constant == "tf32_terms":
+        header = (_build.SOURCES["flash_attention_bwd"].parent
+                  / "tf32_tiles.cuh").read_text()
+        (terms,) = re.findall(r"constexpr int kTerms = (\d+);", header)
+        body = _body(header, "__device__ __forceinline__ void mma_3xtf32(")
+        assert smoke.BWD_TF32_TERMS == int(terms)
+        assert body.count("mma_tf32(d, ") == int(terms)
+    else:
+        # the float32 instances take the bfloat16 ones' column halves,
+        # passes and dk/dv block keys, so the copies above hold for both
+        cfg = _body(src, "struct Tf32Cfg {")
+        assert "kDqHalves = BwdCfg<D>::kDqHalves;" in cfg
+        assert "kPasses = BwdCfg<D>::kPasses;" in cfg
+        assert "kKvBK = 16 * kMmaWarps;" in cfg
+        assert len(re.findall(r"kKvBK = 16 \* kMmaWarps;", src)) == 2

@@ -328,7 +328,7 @@ def test_backward_shapes_reach_the_kernels(monkeypatch, B, Sq, Skv, H, Hkv,
 
 
 @pytest.mark.parametrize("B,Skv,H,Hkv,dtype,split", [
-    # bfloat16: split when one block per (64-key tile, kv head, batch)
+    # both dtypes: split when one block per (64-key tile, kv head, batch)
     # would give fewer blocks than the card's 132 SMs
     (4, 128, 8, 1, torch.bfloat16, True),      # gemma-2b's step: 8 blocks
     (1, 256, 32, 8, torch.bfloat16, True),     # 32 blocks
@@ -336,10 +336,12 @@ def test_backward_shapes_reach_the_kernels(monkeypatch, B, Sq, Skv, H, Hkv,
     (2, 4160, 4, 1, torch.bfloat16, True),     # 130 blocks
     (1, 4096, 32, 8, torch.bfloat16, False),   # 512 blocks
     (1, 65, 4, 4, torch.bfloat16, False),      # MHA: no group to sum
-    # float32: every GQA/MQA group is split
-    (1, 4096, 32, 8, torch.float32, True),
-    (4, 128, 8, 1, torch.float32, True),
-    (1, 128, 4, 4, torch.float32, False),
+    (1, 4096, 32, 8, torch.float32, False),    # 512 blocks
+    (4, 128, 8, 1, torch.float32, True),       # gemma-2b's step: 8 blocks
+    (1, 128, 4, 4, torch.float32, False),      # MHA: no group to sum
+    (1, 256, 32, 8, torch.float32, True),      # 32 blocks
+    (2, 4224, 4, 1, torch.float32, False),     # 132 blocks: loop
+    (2, 4160, 4, 1, torch.float32, True),      # 130 blocks
 ])
 def test_dkv_group_split_and_workspace(monkeypatch, B, Skv, H, Hkv, dtype,
                                        split):
@@ -364,25 +366,42 @@ def test_dkv_group_split_and_workspace(monkeypatch, B, Skv, H, Hkv, dtype,
     assert calls["flash_attention_bwd_dq"][0][10] is None
 
 
-@pytest.mark.parametrize("sms,split", [(132, True), (114, False)],
-                         ids=["h100_sxm", "h100_pcie"])
-def test_dkv_split_reads_the_cards_sm_count(monkeypatch, sms, split):
-    """The bfloat16 rule compares its block count with the SMs the card
-    reports: 116 blocks (B 2, Skv 3712, Hkv 1) are fewer than an H100
-    SXM's 132 SMs but more than an H100 PCIe's 114."""
-    q, k = (_t(2, 4, 4, 8, dtype=torch.bfloat16),
-            _t(2, 3712, 1, 8, dtype=torch.bfloat16))
+def _split_at_sm_count(sms, dtype):
+    """``dkv_split`` at 116 blocks (B 2, Skv 3712, Hkv 1) on a card of
+    ``sms`` SMs, twice, with the SM counts asked for."""
+    q, k = _t(2, 4, 4, 8, dtype=dtype), _t(2, 3712, 1, 8, dtype=dtype)
     seen = []
 
     def properties(index):
         seen.append(index)
         return types.SimpleNamespace(multi_processor_count=sms)
 
-    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
-    ops._sm_count.cache_clear()
-    try:
-        assert ops.dkv_split(q, k) == split
-        assert ops.dkv_split(q, k) == split
-    finally:
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "get_device_properties", properties)
         ops._sm_count.cache_clear()
-    assert seen == [q.device.index]           # read once, then cached
+        try:
+            got = [ops.dkv_split(q, k), ops.dkv_split(q, k)]
+        finally:
+            ops._sm_count.cache_clear()
+    return got, seen, q.device.index
+
+
+@pytest.mark.parametrize("sms,split", [(132, True), (114, False)],
+                         ids=["h100_sxm", "h100_pcie"])
+def test_dkv_split_reads_the_cards_sm_count_in_float32(sms, split):
+    """The float32 rule is bfloat16's: 116 blocks split on an H100 SXM's
+    132 SMs and loop on an H100 PCIe's 114, the count read once."""
+    got, seen, index = _split_at_sm_count(sms, torch.float32)
+    assert got == [split, split]
+    assert seen == [index]
+
+
+@pytest.mark.parametrize("sms,split", [(132, True), (114, False)],
+                         ids=["h100_sxm", "h100_pcie"])
+def test_dkv_split_reads_the_cards_sm_count(sms, split):
+    """The bfloat16 rule compares its block count with the SMs the card
+    reports: 116 blocks (B 2, Skv 3712, Hkv 1) are fewer than an H100
+    SXM's 132 SMs but more than an H100 PCIe's 114."""
+    got, seen, index = _split_at_sm_count(sms, torch.bfloat16)
+    assert got == [split, split]
+    assert seen == [index]                    # read once, then cached
