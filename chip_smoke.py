@@ -9,14 +9,18 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
    the sources in this checkout (one nvcc per source, all started
    together), with ptxas's registers and spills and, where cuobjdump is
-   there, the forward and backward attention libraries' tensor-core
-   (HMMA), ldmatrix and cp.async instruction counts, and each float32
-   backward instance's TF32 HMMA count (none may lack them).
+   there, the attention and SSD libraries' tensor-core (HMMA), ldmatrix
+   and cp.async instruction counts, and the HMMA of each instance that
+   must run them (HMMA_REQUIRED: TF32 in every float32 attention instance
+   and every SSD instance, bf16 too in the SSD's bfloat16 ones; none may
+   lack them).
 2. kernels — every kernel of the two paths against its plain PyTorch
    version on the card (float32 and bfloat16, the paths' shapes, ragged
-   row counts and one large shape), and its time beside the plain version's,
-   the least time the card could take (``bound_ms``) and, where one PyTorch
-   call computes the same function, that call's (``library_ms``).  The
+   row counts and one large shape), and its time from CUDA-graph replay
+   (back to back as ``stream_ms``) beside the plain version's, the least
+   time the card could take (``bound_ms``) and, where one PyTorch call
+   computes the same function, that call's (``library_ms``, back to back:
+   ``torch.quantize_per_channel`` cannot be captured).  The
    calibrated-update kernels agree with their plain versions to an ulp; the
    quantize kernels exactly (codes, values and masks).
 3. main path — ``FederatedSimulation.run(5, eval_every=5)`` at the full
@@ -35,20 +39,22 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    launch counts), the recorded wire bytes must equal the bytes model, and
    the trajectory must match the same run on the CPU.
 
-5. attention kernel — the flash-attention forward kernel against its plain
-   version on the card, float32 and bfloat16, ``o`` and ``lse``, at the
+5. attention kernel — the flash-attention forward kernel (on the tensor
+   cores: bfloat16 products, float32 as three TF32 products) against its
+   plain version on the card, float32 and bfloat16, ``o`` and ``lse``, at the
    serving path's shapes (llama3-8b at the largest prefill bucket, a
    ragged bucket fill), ragged MHA, gemma-2b's MQA with head dim 256, a
    sliding window, one long shape, phase 8's local-step and eval shapes
    and phase 10's shared attention block (head dim 80, MHA); head dims
    that are not multiples of 16 on rows that are not 16-byte aligned
-   (36, 77, and 35 cut from rows of 64), views of a fused QKV buffer, and
-   Skv ≠ Sq with rows that see no key.  ``kernel_time`` lines at the
-   path's shape, the long shape, phase 10's (4, 128) prefill and phase
-   8's local step, timed from CUDA-graph replay, with the bound (float32:
-   at a third of the TF32 tensor-core peak, and at the SIMT peak beside
-   it) and the time of ``scaled_dot_product_attention`` as a yardstick
-   (the port never calls it).
+   (36, 77, 98, and 35 cut from rows of 64), views of a fused QKV buffer,
+   and Skv ≠ Sq with rows that see no key, so that every copy width of
+   both dtypes runs.  ``kernel_time`` lines at the path's shape, the long
+   shape, phase 10's (4, 128) prefill and phase 8's local step, timed from
+   CUDA-graph replay, with the bound (float32: at a third of the TF32
+   tensor-core peak, and at the SIMT peak beside it; its tensor-core work
+   as ``mma_ops``) and the time of ``scaled_dot_product_attention`` as a
+   yardstick (the port never calls it).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -86,13 +92,17 @@ Ten phases, each printing JSON lines; any failure exits non-zero.
    against its plain version at the run's (2, P) client matrix, and timed
    there.  Then the example's --small model on the card against the
    CPU.
-9. SSD kernel — the Mamba2 chunked-scan kernel against its plain version
-   on the card, float32 and bfloat16 (x, B and C read in place from one
-   conv-output tensor), y and the final state within 2e-4 of each one's
-   largest entry, at zamba2-2.7b's prefill shapes (one chunk, two, a
+9. SSD kernel — the Mamba2 chunked-scan kernel (on the tensor cores, every
+   chunk a block, the blocks chained through the state) against its plain
+   version on the card, float32 and bfloat16 (x, B and C read in place from
+   one conv-output tensor), y and the final state within 2e-4 of each
+   one's largest entry, at zamba2-2.7b's prefill shapes (one chunk, two, a
    ragged 100), grouped B/C, P = N = 128, a ragged 77 and one long shape
    (32 chunks); ``kernel_time`` lines at the path's shape and the long
-   shape with the bound (no PyTorch call computes the SSD: no yardstick).
+   shape, timed from CUDA-graph replay (back to back as ``stream_ms``),
+   with the bound (a third of the TF32 peak; the SIMT one beside it) and
+   the tensor-core work (``mma_ops``; no PyTorch call computes the SSD: no
+   yardstick).
 10. hybrid inference — zamba2-2.7b at full width and depth (54 Mamba2
    layers, a shared attention block after every 6, d 2560, 80 SSM heads,
    d_ff 10240, vocab 32000) in bfloat16, random weights from a seed,
@@ -169,17 +179,26 @@ COMPRESSED_RUNS = (
 # 2, and the eval), and phase 10's: zamba2-2.7b's shared attention block
 # (MHA 32 / 32 heads of dim 80) at its three prefills; and head dims that
 # are not multiples of 16 (36: rows on 8-byte boundaries in bfloat16; 77:
-# on 2-byte ones), zero-filled by the bfloat16 kernel
+# on 2-byte ones, 4-byte ones in float32; 98: on 8-byte ones in float32),
+# zero-filled by the kernels
 ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 64, 0), (1, 128, 8, 1, 256, 0),
                (1, 512, 4, 2, 64, 128), (1, 4096, 32, 8, 128, 0),
                (4, 128, 8, 1, 256, 0), (8, 128, 8, 1, 256, 0),
                (8, 32, 2, 1, 32, 0), (4, 128, 32, 32, 80, 0),
                (2, 256, 32, 32, 80, 0), (1, 100, 32, 32, 80, 0),
-               (2, 77, 4, 4, 36, 0), (1, 64, 4, 2, 77, 0)]
+               (2, 77, 4, 4, 36, 0), (1, 64, 4, 2, 77, 0),
+               (2, 64, 4, 2, 98, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
               (4, 128, 32, 32, 80, 0), (4, 128, 8, 1, 256, 0)]
+# The float32 forward's tiles, copied from csrc/flash_attention.cu
+# (tests/test_torch_build.py holds each against the source): q tiles of
+# FWD_TF32_BLOCK_ROWS rows, kv tiles of FWD_TF32_BLOCK_KEYS[bucket] keys;
+# above FWD_TF32_WIDE_HEAD_DIM two warps share each 16 rows, both taking S
+FWD_TF32_BLOCK_ROWS = 64
+FWD_TF32_BLOCK_KEYS = {64: 64, 80: 64, 128: 32, 256: 32}
+FWD_TF32_WIDE_HEAD_DIM = 128
 # Views of one fused QKV buffer (B, S, H, Hkv, D, window, lead elements
 # before q in each row): llama3-8b's widths, a head dim of 36 under a
 # window (8-byte rows in bfloat16), and one-element leads (2-byte rows) at
@@ -274,13 +293,21 @@ FED_LM = {"layers": 2, "clients": 2, "seq": 128, "batch": 2, "rounds": 3,
 # 4 prompts of 128 (one chunk), 2 of 256 (two: the inter-chunk carry), 1 of
 # 100 (a ragged chunk) — and at 4 of 256, the path shape of the kernel's
 # bound; grouped B/C; the kernel's limits P = N = 128; a ragged 77 with
-# groups; one long shape (32 chunks) for timing
+# groups; P = 20 and N = 10, whose rows hold no whole 16-byte vectors (the
+# kernel's element-by-element loads), over three chunks; one long shape
+# (32 chunks) for timing
 SSD_SHAPES = [(4, 256, 80, 64, 1, 64, 128), (4, 128, 80, 64, 1, 64, 128),
               (2, 256, 80, 64, 1, 64, 128), (1, 100, 80, 64, 1, 64, 128),
               (2, 64, 4, 16, 2, 8, 16), (1, 256, 4, 128, 1, 128, 128),
-              (1, 77, 4, 16, 2, 8, 128), (1, 4096, 80, 64, 1, 64, 128)]
+              (1, 77, 4, 16, 2, 8, 128), (2, 96, 4, 20, 2, 10, 32),
+              (1, 4096, 80, 64, 1, 64, 128)]
 SSD_PATH_SHAPE = (4, 256, 80, 64, 1, 64, 128)
 SSD_TIMED = [SSD_PATH_SHAPE, (1, 4096, 80, 64, 1, 64, 128)]
+# The SSD kernel's buckets of max(P, N), to which it zero-pads P and N,
+# and its row tiles of 16 positions, copied from ssd_scan/csrc/ssd_scan.cu
+# (tests/test_torch_build.py holds them against the source)
+SSD_BUCKETS = (32, 64, 128)
+SSD_ROW_TILE = 16
 # The kernel sums the plain version's float32 terms in another order (for
 # bfloat16 inputs too: both read the same values and compute in float32);
 # y and the state are held to SSD_TOL of each tensor's largest entry, the
@@ -375,20 +402,36 @@ def _ptxas_table(log: str) -> dict:
     return table
 
 
-def _tf32_hmma(dump: str) -> dict:
+def _hmma_counts(dump: str) -> dict:
     """Each kernel's tensor-core products with TF32 operands (HMMA ….TF32)
-    and all its instructions in a ``cuobjdump -sass`` listing, by mangled
-    name."""
+    and with bf16 ones (HMMA ….BF16), and all its instructions, in a
+    ``cuobjdump -sass`` listing, by mangled name."""
     counts, fn = {}, None
     for ln in dump.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m[1]
-            counts[fn] = {"hmma_tf32": 0, "instructions": 0}
+            counts[fn] = {"hmma_tf32": 0, "hmma_bf16": 0, "instructions": 0}
         elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", ln):
             counts[fn]["instructions"] += 1
-            counts[fn]["hmma_tf32"] += "HMMA" in ln and "TF32" in ln
+            if "HMMA" in ln:
+                counts[fn]["hmma_tf32"] += "TF32" in ln
+                counts[fn]["hmma_bf16"] += "BF16" in ln
     return counts
+
+
+# The instances phase 1 requires tensor-core products of, by library: the
+# name every instance of a kernel carries, and the HMMA kinds it must run
+# (the SSD scan's bfloat16 instances take C·Bᵀ in bf16, its float32 ones
+# in TF32, and every other product in TF32)
+HMMA_REQUIRED = {
+    "flash_attention": {"flash_fwd_kernel_tf32": ("hmma_tf32",)},
+    "flash_attention_bwd": {"dq_kernel_tf32": ("hmma_tf32",),
+                            "dkv_kernel_tf32": ("hmma_tf32",)},
+    "ssd_scan": {"ssd_scan_kernel_mmaIf": ("hmma_tf32",),
+                 "ssd_scan_kernel_mmaI13__nv_bfloat16": ("hmma_tf32",
+                                                        "hmma_bf16")},
+}
 
 
 def phase_env() -> dict:
@@ -406,12 +449,13 @@ def phase_env() -> dict:
     ptxas = [ln.strip() for name in _build.SOURCES
              for ln in _build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
-    # registers and spill bytes of each attention-kernel instance, and,
-    # where the toolkit has cuobjdump, each attention library's
-    # tensor-core products (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+    # registers and spill bytes of each attention and SSD kernel instance,
+    # and, where the toolkit has cuobjdump, each library's tensor-core
+    # (HMMA), ldmatrix (LDSM) and cp.async (LDGSTS) instruction counts and
+    # each required instance's HMMA by operand type (HMMA_REQUIRED)
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     attn = {}
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib, required in HMMA_REQUIRED.items():
         table = _ptxas_table(_build.build_log(lib))
         attn[f"{lib}_ptxas"] = table
         # spill bytes over the bfloat16 and float32 tensor-core instances
@@ -425,16 +469,14 @@ def phase_env() -> dict:
                 capture_output=True, text=True).stdout
             attn[f"{lib}_sass"] = {op: dump.count(op)
                                    for op in ("HMMA", "LDSM", "LDGSTS")}
-            if lib == "flash_attention_bwd":
-                # every float32 dq and dk/dv instance runs TF32 HMMA
-                tf32 = {fn: n for fn, n in _tf32_hmma(dump).items()
-                        if "_tf32" in fn}
-                attn[f"{lib}_tf32_hmma"] = tf32
-                _require(all(any(k in fn for fn in tf32) for k in (
-                    "dq_kernel_tf32", "dkv_kernel_tf32"))
-                         and min(n["hmma_tf32"] for n in tf32.values()) > 0,
-                         f"float32 backward instances without TF32 HMMA: "
-                         f"{tf32}")
+            counts = _hmma_counts(dump)
+            for kernel, kinds in required.items():
+                found = {fn: n for fn, n in counts.items() if kernel in fn}
+                attn[f"{kernel}_hmma"] = found
+                _require(found and all(n[kind] > 0 for n in found.values()
+                                       for kind in kinds),
+                         f"{kernel} instances without {kinds} HMMA: "
+                         f"{found}")
     env = {"phase": "env", "nvidia_smi": smi,
            "device": torch.cuda.get_device_name(0),
            "python": sys.version.split()[0], "torch": torch.__version__,
@@ -517,8 +559,10 @@ def phase_kernels() -> dict:
                 bound_ms, bound_by = _bound(inputs, out, n_ops)
                 timing = {"kernel": name, "dtype": str(dtype),
                           "shape": shape,
-                          "ms": _time_ms(lambda: kernel(*args), iters),
-                          "plain_ms": _time_ms(lambda: plain(*args), iters),
+                          "ms": _graph_ms(lambda: kernel(*args), iters),
+                          "stream_ms": _time_ms(lambda: kernel(*args),
+                                                iters),
+                          "plain_ms": _graph_ms(lambda: plain(*args), iters),
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": None}
                 _emit({"phase": "kernel_time", **timing})
@@ -686,9 +730,12 @@ def phase_wire_kernels() -> dict:
                 library = _library_wire(name, x, scale)
                 timing = {"kernel": name, "dtype": str(dtype),
                           "shape": shape,
-                          "ms": _time_ms(kernel, iters),
-                          "plain_ms": _time_ms(plain, iters),
+                          "ms": _graph_ms(kernel, iters),
+                          "stream_ms": _time_ms(kernel, iters),
+                          "plain_ms": _graph_ms(plain, iters),
                           "bound_ms": bound_ms, "bound_by": bound_by,
+                          # back to back: quantize_per_channel cannot
+                          # be captured in a CUDA graph
                           "library_ms": (None if library is None
                                          else _time_ms(library, iters))}
                 _emit({"phase": "kernel_time", **timing})
@@ -1009,6 +1056,27 @@ def _attn_bound(q, k, v, window) -> tuple[float, str, Optional[float]]:
     return _tensor_bound(nbytes, ops, q.dtype)
 
 
+def _fwd_mma_ops(q, k, v, window) -> int:
+    """Tensor-core operations of the float32 forward kernel on this run's
+    inputs: per (q tile, kv tile) pair it visits — FWD_TF32_BLOCK_ROWS
+    queries against FWD_TF32_BLOCK_KEYS[bucket] keys, the tiles of the
+    causal / window band — two products over the head-dim bucket D (S and
+    P·V; above FWD_TF32_WIDE_HEAD_DIM S twice, once by each warp of a
+    pair), each taken as BWD_TF32_TERMS TF32 products.  Masked entries of
+    the tiles it visits are counted."""
+    B, Sq, H, _ = q.shape
+    Skv = k.shape[1]
+    D = min(b for b in BWD_HEAD_BUCKETS if b >= max(q.shape[3], v.shape[3]))
+    BQ, BK = FWD_TF32_BLOCK_ROWS, FWD_TF32_BLOCK_KEYS[D]
+    tiles = 0
+    for q0 in range(0, Sq, BQ):
+        t_end = min(-(-Skv // BK), (q0 + BQ - 1) // BK + 1)
+        t_begin = max(q0 - window + 1, 0) // BK if window else 0
+        tiles += max(t_end - t_begin, 0)
+    products = 3 if D > FWD_TF32_WIDE_HEAD_DIM else 2
+    return BWD_TF32_TERMS * products * (2 * D) * BQ * BK * tiles * B * H
+
+
 def _fused_qkv(shape, dtype, gen):
     """q, k, v cut as strided views from one (B, S, lead + (H + 2·Hkv)·D)
     buffer, as a fused QKV projection hands them over: ``lead`` elements
@@ -1072,6 +1140,8 @@ def phase_attention_kernel() -> dict:
                 timing = {
                     "kernel": "flash_attention_fwd", "dtype": str(dtype),
                     "shape": shape, "ms": _graph_ms(kernel, iters),
+                    **({} if dtype != torch.float32 else
+                       {"mma_ops": _fwd_mma_ops(q, k, v, window)}),
                     "stream_ms": _time_ms(kernel, iters),
                     "plain_ms": _graph_ms(lambda: ref.attention_fwd(
                         q, k, v, causal=True, window=window), iters),
@@ -1107,10 +1177,14 @@ def phase_attention_kernel() -> dict:
             k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
                                 device=DEVICE).to(dtype) for _ in range(2))
             _check_attention(checks, result, shape, dtype, q, k, v, window)
+    widths = {str(dtype): sorted({ch["copy_width"] for ch in checks
+                                  if ch["dtype"] == str(dtype)})
+              for dtype in (torch.float32, torch.bfloat16)}
+    _require(widths[str(torch.float32)] == [4, 8, 16]
+             and widths[str(torch.bfloat16)] == [2, 4, 8, 16],
+             f"phase 5 left a copy width unchecked: {widths}")
     _emit({"phase": "attention_kernel", "checks": len(checks),
-           "max_abs_err": result["max_abs_err"],
-           "copy_widths": sorted({ch["copy_width"] for ch in checks
-                                  if ch["dtype"] == str(torch.bfloat16)}),
+           "max_abs_err": result["max_abs_err"], "copy_widths": widths,
            "worst": max(checks, key=lambda ch: ch["max_abs_err_o"])})
     return result
 
@@ -1744,12 +1818,14 @@ def _ssd_operands(shape, dtype, gen):
     return x, dt, A, B, C
 
 
-def _ssd_bound(x, B) -> tuple[float, str]:
+def _ssd_bound(x, B) -> tuple[float, str, Optional[float]]:
     """The least time for one SSD call: x, dt, A, B and C read once, y and
     the state (float32) written once; or the fewest operations that give y
-    and the state, at the float32 peak (the reference computes in float32).
-    That is the recurrence, not the chunked form: per (b, h) and position
-    one multiply-add per state entry to add x·dt ⊗ B (the decay kept as a
+    and the state, at a third of the TF32 tensor-core peak (the reference
+    computes in float32, and three TF32 products stand for one float32
+    product: ``_tensor_bound``, whose SIMT bound comes third).  That is the
+    recurrence, not the chunked form: per (b, h) and position one
+    multiply-add per state entry to add x·dt ⊗ B (the decay kept as a
     running scalar) and one to read C·S, 4·N·P operations, less N·P at the
     first position, where the state is zero and the update a product."""
     b, l, h, p = x.shape
@@ -1758,9 +1834,32 @@ def _ssd_bound(x, B) -> tuple[float, str]:
     nbytes = (b * l * h * p + 2 * b * l * g * n) * es + b * l * h * 4 \
         + h * 4 + b * l * h * p * 4 + b * h * p * n * 4
     ops = b * h * (4 * l - 1) * n * p
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _tensor_bound(nbytes, ops, torch.float32)
+
+
+def _ssd_mma_ops(x, B, chunk) -> int:
+    """Tensor-core operations of the SSD kernel on these inputs: per
+    (b, h, chunk), over the bucket D of max(P, N) and the chunk's Lp
+    positions (a multiple of SSD_ROW_TILE): ΔS (2·Lp·D²), the causal
+    triangle's diagonal blocks of SSD_ROW_TILE² positions — C·Bᵀ and y's
+    diagonal term, 2·SSD_ROW_TILE²·D each — and, past the first chunk,
+    C·S_{c−1}ᵀ (2·Lp·D²).  Float32 inputs take every product as
+    BWD_TF32_TERMS TF32 products; bfloat16 inputs C·Bᵀ as one bf16
+    product and the others as two TF32 products (x, B or C exact)."""
+    b, l, h, p = x.shape
+    n = B.shape[3]
+    D = min(d for d in SSD_BUCKETS if d >= max(p, n))
+    L = min(chunk, l)
+    chunks = -(-l // L)
+    rows = -(-L // SSD_ROW_TILE)
+    Lp = rows * SSD_ROW_TILE
+    bf16 = x.dtype == torch.bfloat16
+    terms = 2 if bf16 else BWD_TF32_TERMS
+    blocks = rows * (rows + 1) // 2 * 2 * SSD_ROW_TILE ** 2 * D
+    per_chunk = terms * 2 * Lp * D * D + blocks * ((1 if bf16 else terms)
+                                                   + terms)
+    off = terms * 2 * Lp * D * D
+    return b * h * (chunks * per_chunk + (chunks - 1) * off)
 
 
 def phase_ssd_kernel() -> dict:
@@ -1799,16 +1898,20 @@ def phase_ssd_kernel() -> dict:
             del y, state, want_y, want_s
             if shape in SSD_TIMED:
                 iters = 50 if shape == SSD_PATH_SHAPE else 5
-                bound_ms, bound_by = _ssd_bound(x, B)
+                bound_ms, bound_by, simt_ms = _ssd_bound(x, B)
+
+                def kernel():
+                    ops.ssd_scan(x, dt, A, B, C, chunk)
+
                 timing = {
                     "kernel": "ssd_scan", "dtype": str(dtype),
-                    "shape": shape,
-                    "ms": _time_ms(lambda: ops.ssd_scan(
-                        x, dt, A, B, C, chunk), iters),
-                    "plain_ms": _time_ms(lambda: ref.ssd_chunked(
+                    "shape": shape, "ms": _graph_ms(kernel, iters),
+                    "mma_ops": _ssd_mma_ops(x, B, chunk),
+                    "stream_ms": _time_ms(kernel, iters),
+                    "plain_ms": _graph_ms(lambda: ref.ssd_chunked(
                         x, dt, A, B, C, chunk), iters),
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None}
+                    "simt_bound_ms": simt_ms, "library_ms": None}
                 _emit({"phase": "kernel_time", **timing})
                 if dtype == torch.bfloat16 and shape == SSD_PATH_SHAPE:
                     result.update({key: timing[key] for key in (

@@ -3,10 +3,12 @@
 Each source under ``kernels/*/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, at first use, into
 ``build/`` at the repository root; the library is loaded with ``ctypes``.
-A library's file name carries a hash of its source, the headers beside it
-and the flags, so an edited source or header is rebuilt and never shadowed
-by an old build.  Only sources in this package are compiled.  There is no
-fallback: without ``nvcc``, or when a build fails, the call raises.
+A library's file name carries a hash of its source, the headers beside it,
+the shared headers of ``kernels/common/csrc/`` (on every build's include
+path) and the flags, so an edited source or header is rebuilt and never
+shadowed by an old build.  Only sources in this package are compiled.
+There is no fallback: without ``nvcc``, or when a build fails, the call
+raises.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ from typing import Iterable, Optional
 import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
+# headers shared by several sources: on every build's include path, and
+# hashed into every library's name
+COMMON_DIR = KERNELS_DIR / "common" / "csrc"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build"
 # the CUDA toolkit's default install prefix, tried after PATH and $CUDA_HOME
 CUDA_HOME_DEFAULT = "/usr/local/cuda"
@@ -63,12 +68,14 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where library ``name`` is built: its file name carries a hash of the
-    source, of every header (``*.cuh``) in the source's directory, which
-    the source may include, and of the flags."""
+    source, of every header (``*.cuh``) in the source's directory and in
+    ``COMMON_DIR``, which the source may include, and of the flags."""
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
-        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    for where, headers in (("", src.parent), ("common/", COMMON_DIR)):
+        for header in sorted(headers.glob("*.cuh")):
+            h.update(f"{where}{header.name}".encode() + b"\0"
+                     + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -95,7 +102,8 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, float]:
             log = out.with_suffix(".log")
             with open(log, "w") as fh:
                 proc = subprocess.Popen(
-                    [exe, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                    [exe, *NVCC_FLAGS, "-I", str(COMMON_DIR), "-o",
+                     str(tmp), str(SOURCES[name])],
                     stdout=fh, stderr=subprocess.STDOUT)
             jobs.append((name, proc, tmp, out, log))
         seconds, errors = {}, []

@@ -2,9 +2,10 @@
 // by the forward (flash_attention.cu) and the backward
 // (flash_attention_bwd.cu): XOR-swizzled shared tiles, their cp.async
 // staging at a copy width chosen by the wrapper, ldmatrix, mma.sync
-// m16n8k16 bf16 → f32, and the split of float32 weights into bf16 pieces.
-// The build hashes this header with each source that includes it
-// (kernels/_build.py), so an edit rebuilds both libraries.
+// m16n8k16 bf16 → f32, and the split of float32 weights into bf16 pieces;
+// the SSD scan (ssd_scan.cu) takes its cp.async group helpers and mma_bf16.
+// Every build hashes the headers of this directory (kernels/_build.py), so
+// an edit rebuilds every library that may include it.
 #pragma once
 
 #include <cstdint>

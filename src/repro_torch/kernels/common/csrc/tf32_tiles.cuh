@@ -1,8 +1,9 @@
-// Tile machinery of the float32 tensor-core flash-attention kernels: every
-// float32 product as three TF32 products (3×TF32) on mma.sync m16n8k8, from
-// float32 tiles staged in shared memory by cp.async.  Beside mma_tiles.cuh
-// (the bfloat16 machinery, whose cp.async group helpers it uses); the build
-// hashes both with each source of this directory (kernels/_build.py).
+// Tile machinery of the float32 tensor-core kernels (the flash-attention
+// forward and backward, the SSD scan): every float32 product as three TF32
+// products (3×TF32) on mma.sync m16n8k8, from float32 tiles staged in shared
+// memory by cp.async.  Beside mma_tiles.cuh (the bfloat16 machinery, whose
+// cp.async group helpers it uses); every build hashes both
+// (kernels/_build.py).
 //
 // 3×TF32.  A float32 x splits in registers into two TF32 values,
 // x_hi = rna(x) and x_lo = rna(x − x_hi) (rna: round to nearest, ties away,
@@ -162,6 +163,53 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const float* src,
         copy_zfill<W>(dst + r * (4 * PITCH) + cb, g, bytes);
       }
     }
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* ptr) {
+  return *reinterpret_cast<const float2*>(ptr);
+}
+
+// The A fragment of k8 step kk over the head dim from the 16 rows at
+// `row` (row g; g + 8 at 8 rows below) of a tile of pitch P: dims 2t and
+// 2t + 1 of the step stand for k = t and t + 4
+template <int P>
+__device__ __forceinline__ FragA head_a(const float* row, int kk, int quad) {
+  const int c = 8 * kk + 2 * quad;
+  const float2 x = ld2(row + c);
+  const float2 y = ld2(row + 8 * P + c);
+  return FragA(x.x, y.x, x.y, y.y);
+}
+
+// The A operand of the next product from the accumulator fragment x of a
+// score block's n8 tile: its columns 2t and 2t + 1 stand for k = t and
+// t + 4 (the B operand reads the rows of those columns)
+__device__ __forceinline__ FragA acc_a(const float (&x)[4]) {
+  return FragA(x[0], x[2], x[1], x[3]);
+}
+
+// acc (16 × 8·NO) += a (16 × 8·NK: A operands from a score block's NK n8
+// tiles, k8 step j from tile j, acc_a) · the tile rows 8·j + pk[0]
+// and 8·j + pk[1] of step j, at columns cols + 8·n of n8 tile n.  Each n8
+// tile of the product is summed over the NK steps in a fresh fragment and
+// then added to acc in float32 (round to nearest): the tensor cores
+// truncate as they accumulate, which over a long band biased a running sum
+// past the tolerance.
+template <int NO, int NK, int P>
+__device__ __forceinline__ void mma_rows_tf32(float (&acc)[NO][4],
+                                              const FragA (&a)[NK],
+                                              const float* cols,
+                                              const int (&pk)[2]) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      mma_3xtf32(part, a[j], FragB(cols[(8 * j + pk[0]) * P + 8 * n],
+                                   cols[(8 * j + pk[1]) * P + 8 * n]));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
 }
 

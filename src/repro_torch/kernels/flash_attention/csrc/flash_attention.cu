@@ -32,8 +32,9 @@
 // 32 heads, 8 kv heads, D 128) the bytes — q, k, v read once, o and lse
 // written once, 5.3 MB in bf16, 1.6 µs at 3.35 TB/s — against 0.5 µs of
 // bf16 tensor-core work; at long S the operations (4·D per visible (q, kv)
-// pair and head: 1.4e11 at S = 4096, 0.14 ms at 989 TFLOP/s bf16, 2.05 ms at
-// 67 TFLOP/s f32).
+// pair and head: 1.4e11 at S = 4096, 0.14 ms at 989 TFLOP/s bf16, 0.85 ms
+// in float32 at a third of the 495 TFLOP/s TF32 peak, three TF32 products
+// standing for one float32 product).
 //
 // The bfloat16 instance (flash_fwd_kernel_mma) runs both products on the
 // tensor cores (its tile machinery, shared with the backward's bfloat16
@@ -88,24 +89,59 @@
 //     tolerance.  Three pieces triple the P·V product's tensor-core work:
 //     8·D operations per visible pair instead of 4·D.
 //
-// The float32 instance (flash_fwd_kernel) is the first, SIMT design: a
-// 64-row q tile (pre-scaled, float32) and each 64-key K/V tile are staged
-// in shared memory (rows padded to D + 1 floats so the score loop's column
-// reads hit distinct banks); 256 threads each own a 4 × 4 block of the
-// 64 × 64 score tile and a 4 × (Dv / 16) block of the output accumulator
-// in registers; one warp per 8 rows runs the online softmax with shuffles;
-// both products are float32 FMAs.  It scales q first, as the reference
-// does.  A 3×TF32 tensor-core route for it is queued (ROADMAP).
+// The float32 instance (flash_fwd_kernel_tf32) runs both products on the
+// tensor cores too, as three TF32 products, mma.sync m16n8k8 tf32 → f32
+// (tf32_tiles.cuh, shared with the backward's float32 kernels): each float32
+// operand is split in registers into x_hi = rna(x) and x_lo = rna(x − x_hi)
+// and a·b is a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, so every product keeps
+// ~2⁻²¹ of float32's 2⁻²⁴ (one TF32 product, 2⁻¹¹, misses ATTN_TOL).  The
+// grid, band, masks and online softmax are the bfloat16 instance's; what
+// differs:
+//   - Numerics.  Q is scaled first, as the reference scales it: once per
+//     q tile, in shared memory, q·scale rounded to float32 (__fmul_rn),
+//     before any split; the scores are not scaled again.  Each kv tile's
+//     P·V is summed in a fresh fragment and added to the rescaled O in
+//     float32: the tensor cores truncate as they add, which summed in place
+//     over a long band biased the backward's dk past its tolerance
+//     (flash_attention_bwd.cu).  l is summed from the float32 p.
+//   - Staging.  Float32 tiles by cp.async at the wrapper's copy width (16,
+//     8 or 4 bytes; a float32 row start is a multiple of 4), ragged rows
+//     and head-dim tails zero-filled by the copy's source size, into rows
+//     of D + 8 floats (no swizzle); K and V tiles of 64 keys (32 from
+//     D = 128 on) in the two-stage ring: 90, 110, 102 and 198 KB at
+//     D = 64, 80, 128 and 256, two blocks an SM below D = 256.
+//   - Fragments by 64-bit LDS, as in the backward: a lane's k = t, t + 4
+//     over the head dim stand for dims 2t, 2t + 1 (one float2 per row);
+//     the score accumulator is P·V's A operand in place, its columns 2t,
+//     2t + 1 standing for k = t, t + 4; the score product's n index g reads
+//     key row perm8(g), so that V, read by rows perm8(2t), perm8(2t + 1),
+//     and K, read by rows perm8(g), both hit 32 distinct banks.
+//   - Q.  Read from shared memory at each kv tile: Q's split halves for
+//     D ≥ 128, or even Q's float32 values, do not fit in registers beside
+//     the O accumulator (64-128 registers a thread).  Each warp splits its
+//     Q fragments at every kv tile.  Q's hi and lo halves kept resident
+//     instead, split once per q tile in a second Q tile of shared memory,
+//     were timed slower or level at head dims 64, 80 and 128 (PERF.md).
+//   - 64-row q tiles, as the bfloat16 instance's.  At phase 8's training
+//     step (B 4, S 128, 8 heads, D 256) that is 64 blocks, whose 4 warps
+//     of 16 rows would leave one warp an SM sub-partition, as 32-row tiles
+//     spread over 128 SMs would (the kernel is latency-bound there).  So
+//     from D = 256 on two warps share each 16 rows (kHalves), both
+//     computing all of S and the softmax — the same values, so nothing is
+//     traded — and each half of O's columns (64 accumulator registers, not
+//     128): 8 warps a block, S's work twice.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_tiles.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
 using namespace fa_tiles;
+namespace tf32 = fa_tf32;
 
 constexpr float kNegInf = -1073741824.0f;     // −2³⁰, the reference's NEG_INF
 
@@ -126,232 +162,6 @@ struct Params {
 __device__ __forceinline__ bool visible(int qp, int kp, const Params& p) {
   return kp < p.Skv && (!p.causal || kp <= qp) &&
          (p.window <= 0 || kp > qp - p.window);
-}
-
-// ---------------------------------------------------------------------------
-// float32: the SIMT instance
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;                       // query rows per block
-constexpr int kBK = 64;                       // keys per kv tile
-constexpr int kThreads = 256;
-constexpr int kRowsPerWarp = kBQ / (kThreads / 32);
-
-size_t smem_bytes(int dqk, int dv) {
-  const size_t floats = static_cast<size_t>(kBQ) * (dqk + 1)   // q tile
-                        + static_cast<size_t>(kBK) * (dqk + 1) // k tile
-                        + static_cast<size_t>(kBK) * dv        // v tile
-                        + static_cast<size_t>(kBQ) * (kBK + 1) // scores
-                        + 3 * kBQ;                             // m, l, alpha
-  return floats * sizeof(float);
-}
-
-// DV_MAX: the output accumulator's width in registers (Dv ≤ DV_MAX).
-template <int DV_MAX>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.Dqk;
-  const int Dv = p.Dv;
-  const int ldq = D + 1;
-  float* qs = smem;                           // [kBQ][ldq], scaled
-  float* ks = qs + kBQ * ldq;                 // [kBK][ldq]
-  float* vs = ks + kBK * ldq;                 // [kBK][Dv]
-  float* ss = vs + kBK * Dv;                  // [kBQ][kBK + 1]
-  float* row_m = ss + kBQ * (kBK + 1);
-  float* row_l = row_m + kBQ;
-  float* row_a = row_l + kBQ;
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k =
-      static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const float* v =
-      static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    const int qp = q0 + i;
-    qs[i * ldq + d] = qp < p.Sq ? __fmul_rn(q[qp * p.q_ss + d], p.scale)
-                                : 0.0f;
-  }
-  for (int i = tid; i < kBQ; i += kThreads) {
-    row_m[i] = kNegInf;
-    row_l[i] = 0.0f;
-  }
-
-  // thread (ty, tx) owns score rows ty + 16a and columns tx + 16c, and
-  // output rows ty + 16a, columns tx + 16c
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  constexpr int NB = DV_MAX / 16;
-  float acc[4][NB];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int c = 0; c < NB; ++c) acc[a][c] = 0.0f;
-  }
-
-  // the kv tiles that meet this q tile's band
-  const int n_tiles = (p.Skv + kBK - 1) / kBK;
-  int t_end = n_tiles;
-  if (p.causal) t_end = min(t_end, (q0 + kBQ - 1) / kBK + 1);
-  int t_begin = 0;
-  if (p.window > 0) {
-    const int lo = q0 - p.window + 1;         // first key row q0 sees
-    if (lo > 0) t_begin = lo / kBK;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                          // the last tile's readers
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const int kp = k0 + j;
-      ks[j * ldq + d] = kp < p.Skv ? k[kp * p.k_ss + d] : 0.0f;
-    }
-    for (int idx = tid; idx < kBK * Dv; idx += kThreads) {
-      const int j = idx / Dv;
-      const int d = idx - j * Dv;
-      const int kp = k0 + j;
-      vs[j * Dv + d] = kp < p.Skv ? v[kp * p.v_ss + d] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
-    }
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kc[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qs[(ty + 16 * a) * ldq + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kc[c] = ks[(tx + 16 * c) * ldq + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = fmaf(qa[a], kc[c], s[a][c]);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = ty + 16 * a;
-        const int j = tx + 16 * c;
-        ss[i * (kBK + 1) + j] =
-            visible(q0 + i, k0 + j, p) ? s[a][c] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: warp w owns rows [w·8, w·8 + 8), lane the columns
-    // lane and lane + 32; p is written over the scores
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int i = warp * kRowsPerWarp + r;
-      const int qp = q0 + i;
-      float* srow = ss + i * (kBK + 1);
-      const float s0 = srow[lane];
-      const float s1 = srow[lane + 32];
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_prev = row_m[i];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = visible(qp, k0 + lane, p) ? expf(s0 - m_new) : 0.0f;
-      const float p1 =
-          visible(qp, k0 + lane + 32, p) ? expf(s1 - m_new) : 0.0f;
-      srow[lane] = p0;
-      srow[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        row_a[i] = alpha;
-        row_m[i] = m_new;
-        row_l[i] = alpha * row_l[i] + sum;
-      }
-    }
-    __syncthreads();
-
-    // acc ← alpha · acc + p · v
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const float alpha = row_a[ty + 16 * a];
-#pragma unroll
-      for (int c = 0; c < NB; ++c) acc[a][c] *= alpha;
-    }
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = ss[(ty + 16 * a) * (kBK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < NB; ++c) {
-        const int col = tx + 16 * c;
-        if (col < Dv) {
-          const float vv = vs[j * Dv + col];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pa[a], vv, acc[a][c]);
-        }
-      }
-    }
-  }
-  // row_m / row_l were last written before the final __syncthreads
-
-  float* o = static_cast<float*>(p.o);
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = ty + 16 * a;
-    const int qp = q0 + i;
-    if (qp >= p.Sq) continue;
-    const float l = fmaxf(row_l[i], 1e-30f);
-    float* orow = o + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * Dv;
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      const int col = tx + 16 * c;
-      if (col < Dv) orow[col] = acc[a][c] / l;
-    }
-  }
-  for (int i = tid; i < kBQ; i += kThreads) {
-    const int qp = q0 + i;
-    if (qp < p.Sq) {
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
-          row_m[i] + logf(fmaxf(row_l[i], 1e-30f));
-    }
-  }
-}
-
-template <int DV_MAX>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.Dqk, p.Dv);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DV_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_fwd_kernel<DV_MAX><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_f32_dv(const Params& p, cudaStream_t stream) {
-  if (p.Dv <= 64) return launch_f32<64>(p, stream);
-  if (p.Dv <= 128) return launch_f32<128>(p, stream);
-  return launch_f32<256>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -661,9 +471,293 @@ cudaError_t launch_mma_d(const Params& p, cudaStream_t stream) {
   return launch_mma<256, W>(p, stream);
 }
 
-// the copy width must divide every bf16 row start of q, k and v: each base
-// address, and each stride in bytes of a dimension longer than 1
-bool rows_aligned(const Params& p, int width) {
+// ---------------------------------------------------------------------------
+// float32: the 3×TF32 tensor-core instance
+// ---------------------------------------------------------------------------
+
+// D: the head-dim bucket the products run over (that of the bfloat16
+// instance; Dqk and Dv zero-filled up to it), rows of kPitch floats
+template <int D>
+struct Tf32Cfg {
+  // above D = 128 two warps share each 16 query rows, each computing all
+  // of S and the softmax (the same values) and half of O's columns
+  static constexpr int kHalves = D <= 128 ? 1 : 2;
+  static constexpr int kThreads = kMmaThreads * kHalves;
+  static constexpr int kPitch = tf32::pitch<D>();
+  static constexpr int kBKv = D <= 80 ? 64 : 32;      // keys per kv tile
+  static constexpr int kQTile = kMmaBQ * kPitch;      // floats
+  static constexpr int kTile = kBKv * kPitch;         // one K or V tile
+  static constexpr int kSmem = 4 * (kQTile + 2 * kStages * kTile);
+  // the unroll of the score product's loop over the head dim's k8 steps
+  // (the backward's float32 kernels found a full unroll slower)
+  static constexpr int kUnroll = 4;
+  static_assert(kSmem <= 232448,
+                "a block has at most 227 KB of shared memory");
+};
+
+template <int D, int W>
+__global__ void __launch_bounds__(Tf32Cfg<D>::kThreads)
+    flash_fwd_kernel_tf32(Params p) {
+  using Cfg = Tf32Cfg<D>;
+  constexpr int P = Cfg::kPitch;
+  constexpr int BK = Cfg::kBKv;
+  constexpr int T = Cfg::kThreads;
+  constexpr int NS = BK / 8;                  // n8 tiles of a score block
+  constexpr int KD = D / 8;                   // k8 steps over the head dim
+  constexpr int NC = D / Cfg::kHalves;        // O columns of a warp
+  constexpr int NO = NC / 8;                  // n8 tiles of a warp's O
+  constexpr int kUnrollKd = Cfg::kUnroll;
+  extern __shared__ __align__(128) unsigned char fwd_tf32_smem[];
+  float* const s_q = reinterpret_cast<float*>(fwd_tf32_smem);  // q·scale
+  float* const s_k = s_q + Cfg::kQTile;       // kStages K tiles,
+  float* const s_v = s_k + kStages * Cfg::kTile;  // then kStages V tiles
+
+  const int warp = threadIdx.x / 32 % kMmaWarps;  // its 16 rows
+  const int c0 = threadIdx.x / 32 / kMmaWarps * NC;  // its first O column
+  const int lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  const int pg = tf32::perm8(lane / 4);       // the key row of n index g
+  const int pk[2] = {tf32::perm8(2 * quad), tf32::perm8(2 * quad + 1)};
+  const float minus_inf = __int_as_float(0xff800000);
+  const int n_qt = (p.Sq + kMmaBQ - 1) / kMmaBQ;
+  const long long heads = static_cast<long long>(p.B) * p.H;
+  const long long items = heads * n_qt;
+  const float* q_all = static_cast<const float*>(p.q);
+  const float* k_all = static_cast<const float*>(p.k);
+  const float* v_all = static_cast<const float*>(p.v);
+  const float* q_row = s_q + (16 * warp + lane / 4) * P;
+
+  // work item: (q tile, batch, head), the last q tile first
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int q0 = (n_qt - 1 - static_cast<int>(item / heads)) * kMmaBQ;
+    const int bh = static_cast<int>(item % heads);
+    const int b = bh / p.H;
+    const int h = bh - b * p.H;
+    const int hk = h / (p.H / p.Hkv);
+    const float* q = q_all + b * p.q_sb + h * p.q_sh;
+    const float* k = k_all + b * p.k_sb + hk * p.k_sh;
+    const float* v = v_all + b * p.v_sb + hk * p.v_sh;
+
+    // the kv tiles that meet this q tile's band
+    int t_end = (p.Skv + BK - 1) / BK;
+    if (p.causal) t_end = min(t_end, (q0 + kMmaBQ - 1) / BK + 1);
+    int t_begin = 0;
+    if (p.window > 0) {
+      const int lo = q0 - p.window + 1;       // first key row q0 sees
+      if (lo > 0) t_begin = lo / BK;
+    }
+
+    __syncthreads();                          // the last item's readers
+    tf32::load_tile<P, D, kMmaBQ, W, T>(smem_u32(s_q), q, p.q_ss, q0, p.Sq,
+                                        p.Dqk);
+    cp_async_commit();
+    if (t_begin < t_end) {
+      tf32::load_tile<P, D, BK, W, T>(smem_u32(s_k), k, p.k_ss,
+                                      t_begin * BK, p.Skv, p.Dqk);
+      tf32::load_tile<P, D, BK, W, T>(smem_u32(s_v), v, p.v_ss,
+                                      t_begin * BK, p.Skv, p.Dv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                       // Q's group
+    __syncthreads();
+    // q·scale in float32, as the reference scales q, before any split
+    // (zero-filled rows and columns stay 0); the loop's first barrier
+    // orders these stores before the fragments' reads
+    for (int i = threadIdx.x; i < kMmaBQ * D / 4; i += T) {
+      const int r = i / (D / 4);
+      const int c = 4 * (i - r * (D / 4));
+      float4* x = reinterpret_cast<float4*>(s_q + r * P + c);
+      float4 y = *x;
+      y.x = __fmul_rn(y.x, p.scale);
+      y.y = __fmul_rn(y.y, p.scale);
+      y.z = __fmul_rn(y.z, p.scale);
+      y.w = __fmul_rn(y.w, p.scale);
+      *x = y;
+    }
+
+    // this thread's rows: r0 = q0 + 16·warp + lane / 4 and r0 + 8
+    const int r0 = q0 + 16 * warp + lane / 4;
+    float acc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+    }
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.0f, 0.0f};                // this lane's columns only
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int stage = (t - t_begin) % kStages;
+      const float* k_tile = s_k + stage * Cfg::kTile;
+      const float* v_tile = s_v + stage * Cfg::kTile;
+      if (t + 1 < t_end) {                    // the next tile, meanwhile
+        const int nxt = (stage + 1) % kStages;
+        tf32::load_tile<P, D, BK, W, T>(
+            smem_u32(s_k + nxt * Cfg::kTile), k, p.k_ss, (t + 1) * BK,
+            p.Skv, p.Dqk);
+        tf32::load_tile<P, D, BK, W, T>(
+            smem_u32(s_v + nxt * Cfg::kTile), v, p.v_ss, (t + 1) * BK,
+            p.Skv, p.Dv);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();                     // all but the newest group
+      __syncthreads();
+
+      // S = (q·scale)·Kᵀ: 16 rows × BK keys per warp, n index g of n8 tile
+      // j reading key row 8·j + perm8(g)
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+      }
+#pragma unroll kUnrollKd
+      for (int kk = 0; kk < KD; ++kk) {
+        const tf32::FragA aq = tf32::head_a<P>(q_row, kk, quad);
+        const int c = 8 * kk + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float2 kx = tf32::ld2(k_tile + (8 * j + pg) * P + c);
+          tf32::mma_3xtf32(s[j], aq, tf32::FragB(kx.x, kx.y));
+        }
+      }
+
+      // where the tile crosses the diagonal, the window's edge or Skv,
+      // hide keys outside the row's band [lo, hi] with −∞ (the row max
+      // starts at NEG_INF, as the reference's hidden scores do, and
+      // exp(−∞ − m) = 0 exactly).  Element (j, e) is row r0 + 8·(e / 2),
+      // key k0 + 8·j + pk[e % 2].
+      const int k0 = t * BK;
+      const int w0 = q0 + 16 * warp;          // this warp's first row
+      if ((p.causal && k0 + BK - 1 > w0) ||
+          (p.window > 0 && k0 <= w0 + 15 - p.window) || k0 + BK > p.Skv) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qp = r0 + 8 * i;
+          const int hi = p.causal ? min(qp, p.Skv - 1) : p.Skv - 1;
+          const int lo = p.window > 0 ? qp - p.window + 1 : 0;
+#pragma unroll
+          for (int j = 0; j < NS; ++j) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kp = k0 + 8 * j + pk[c];
+              if (kp < lo || kp > hi) s[j][2 * i + c] = minus_inf;
+            }
+          }
+        }
+      }
+
+      // online softmax over the row's 4 lanes
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        alpha[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e / 2]);
+          sum[e / 2] += s[j][e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = alpha[i] * l[i] + sum[i];
+      // acc ← α·acc; a factor of exactly 1 (the max did not move) is
+      // skipped for the whole warp
+      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+      }
+
+      // O += P·V over this warp's columns: n8 tile j of P is k8 step j
+      // (its columns in place), reading V rows 8·j + pk[0] and 8·j + pk[1];
+      // each n8 tile of O sums the tile's steps in a fresh fragment
+      tf32::FragA a[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) a[j] = tf32::acc_a(s[j]);
+      tf32::mma_rows_tf32<NO, NS, P>(acc, a, v_tile + c0 + lane / 4, pk);
+      __syncthreads();                        // this stage's readers
+    }
+    cp_async_wait<0>();
+
+    // epilogue: l over the row's 4 lanes, o = acc / l, lse
+    float* o = static_cast<float*>(p.o);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      const int qp = r0 + 8 * i;
+      if (qp >= p.Sq) continue;
+      const float li = fmaxf(l[i], 1e-30f);
+      float* orow =
+          o + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.Dv;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int col = c0 + 8 * n + 2 * quad;
+        if (col < p.Dv) {
+          const float x = acc[n][2 * i] / li;
+          const float y = acc[n][2 * i + 1] / li;
+          if (p.Dv % 2 == 0) {
+            *reinterpret_cast<float2*>(orow + col) = make_float2(x, y);
+          } else {
+            orow[col] = x;
+            if (col + 1 < p.Dv) orow[col + 1] = y;
+          }
+        }
+      }
+      if (quad == 0 && c0 == 0) {
+        p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
+            m[i] + logf(li);
+      }
+    }
+  }
+}
+
+template <int D, int W>
+cudaError_t launch_tf32(const Params& p, cudaStream_t stream) {
+  using Cfg = Tf32Cfg<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_tf32<D, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(p.B) * p.H *
+                          ((p.Sq + kMmaBQ - 1) / kMmaBQ);
+  const unsigned grid =
+      static_cast<unsigned>(items < 0x7fffffffLL ? items : 0x7fffffffLL);
+  flash_fwd_kernel_tf32<D, W>
+      <<<grid, Cfg::kThreads, Cfg::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_tf32_d(const Params& p, cudaStream_t stream) {
+  const int d = p.Dqk > p.Dv ? p.Dqk : p.Dv;
+  if (d <= 64) return launch_tf32<64, W>(p, stream);
+  if (d <= 80) return launch_tf32<80, W>(p, stream);
+  if (d <= 128) return launch_tf32<128, W>(p, stream);
+  return launch_tf32<256, W>(p, stream);
+}
+
+// the copy width must divide every row start of q, k and v: each base
+// address, and each stride in bytes (elements of `esize` bytes) of a
+// dimension longer than 1
+bool rows_aligned(const Params& p, int width, int esize) {
   const long long ptrs[3] = {reinterpret_cast<long long>(p.q),
                              reinterpret_cast<long long>(p.k),
                              reinterpret_cast<long long>(p.v)};
@@ -674,7 +768,7 @@ bool rows_aligned(const Params& p, int width) {
     if (x % width) return false;
   }
   for (int i = 0; i < 9; ++i) {
-    if (sizes[i] > 1 && (2 * strides[i]) % width) return false;
+    if (sizes[i] > 1 && (esize * strides[i]) % width) return false;
   }
   return true;
 }
@@ -684,14 +778,14 @@ bool rows_aligned(const Params& p, int width) {
 // dtype codes (those of ops.py): 0 = float32, 1 = bfloat16.  q, k, v in
 // the model layout with the given element strides of (batch, position,
 // head) and a contiguous last dimension; o is written contiguous
-// (B, Sq, H, Dv), lse contiguous float32 (B, H, Sq).  `copy_width` (16, 8,
-// 4 or 2 bytes) is the bfloat16 instance's staging width: it must divide
-// each of q, k and v's base addresses and (batch, position, head) strides
-// in bytes, those of dimensions of size 1 excepted (else the call returns
-// cudaErrorMisalignedAddress); the float32 instance ignores it.  Requires
-// 1 ≤ Dqk, Dv ≤ 256, H % Hkv == 0, and B, H ≤ 65535.  Launches on
-// `stream`, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() after the launch (0 = success).
+// (B, Sq, H, Dv), lse contiguous float32 (B, H, Sq).  `copy_width` is the
+// staging width in bytes (float32: 16, 8 or 4; bfloat16: 16, 8, 4 or 2): it
+// must divide each of q, k and v's base addresses and (batch, position,
+// head) strides in bytes, those of dimensions of size 1 excepted (else the
+// call returns cudaErrorMisalignedAddress).  Requires 1 ≤ Dqk, Dv ≤ 256,
+// H % Hkv == 0, and B, H ≤ 65535.  Launches on `stream`, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() after the
+// launch (0 = success).
 extern "C" int flash_attention_fwd(
     int dtype, int copy_width, const void* q, const void* k, const void* v,
     void* o, float* lse, int B, int H, int Hkv, int Sq, int Skv, int Dqk,
@@ -699,21 +793,28 @@ extern "C" int flash_attention_fwd(
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, int causal, int window, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0 ||
-      Dqk <= 0 || Dqk > 256 || Dv <= 0 || Dv > 256) {
+      Dqk <= 0 || Dqk > 256 || Dv <= 0 || Dv > 256 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // float32 rows take 16-, 8- or 4-byte copies; bfloat16 rows 2 as well
+  if (copy_width != 16 && copy_width != 8 && copy_width != 4 &&
+      (dtype == 0 || copy_width != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{q,    k,    v,    o,    lse,  B,    H,    Hkv,    Sq,     Skv,
            Dqk,  Dv,   q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,
            v_sh, causal, window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch_f32_dv(p, s));
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (copy_width != 16 && copy_width != 8 && copy_width != 4 &&
-      copy_width != 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (!rows_aligned(p, copy_width)) {
+  if (!rows_aligned(p, copy_width, dtype == 0 ? 4 : 2)) {
     return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    switch (copy_width) {
+      case 16: return static_cast<int>(launch_tf32_d<16>(p, s));
+      case 8: return static_cast<int>(launch_tf32_d<8>(p, s));
+      default: return static_cast<int>(launch_tf32_d<4>(p, s));
+    }
   }
   switch (copy_width) {
     case 16: return static_cast<int>(launch_mma_d<16>(p, s));

@@ -2,19 +2,19 @@
 //
 // Replaces the Pallas TPU kernel ssd_scan_bhclp / _ssd_kernel
 // (src/repro/kernels/ssd_scan/kernel.py:36-121).  It computes what that
-// kernel computes, not its block structure.  Per (batch, head) the chunks of
-// L positions are walked in order with the (P, N) float32 state S carried
-// from one to the next; per chunk, with xdt = x·dt (one float32 multiply),
-// dA = dt·A and cum = cumsum(dA):
-//   y   = ((C·Bᵀ) ∘ Λ)·xdt + exp(cum) ∘ (C·Sᵀ),
-//         Λ[z, s] = exp(cum_z − cum_s) for s ≤ z and 0 above the diagonal
-//         (selected before the exp: above it the difference is positive and
-//         the exp may overflow, and inf·0 would be NaN);
-//   S  ← exp(cum_last)·S + xdtᵀ·(exp(cum_last − cum) ∘ B);
-// y is written after each chunk, S after the last.  All arithmetic is float32
-// for float32 and bfloat16 inputs alike; expf and IEEE arithmetic, no
-// --use_fast_math: the kernel differs from the plain version (ref.py) only
-// in summation order.
+// kernel computes, not its block structure.  Per (batch, head) and chunk c
+// of L positions, with xdt = x·dt (one float32 multiply), dA = dt·A and
+// cum = cumsum(dA) over the chunk:
+//   y    = ((C·Bᵀ) ∘ Λ)·xdt + exp(cum) ∘ (C·S_{c−1}ᵀ),
+//          Λ[z, s] = exp(cum_z − cum_s) for s ≤ z and 0 above the diagonal
+//          (selected before the exp: above it the difference is positive and
+//          the exp may overflow, and inf·0 would be NaN);
+//   ΔS_c = xdtᵀ·(exp(cum_last − cum) ∘ B),
+//   S_c  = exp(cum_last)·S_{c−1} + ΔS_c,  S_{−1} = 0;
+// y is written per chunk, S after the last.  All arithmetic is float32 for
+// float32 and bfloat16 inputs alike; expf and IEEE arithmetic, no
+// --use_fast_math: the kernel differs from the plain version (ref.py) in
+// summation order and in the TF32 splits below.
 //
 // Where it differs from the TPU kernel, and why:
 //   - Layout: x (b, l, h, p), dt (b, l, h), B and C (b, l, g, n) are read in
@@ -25,54 +25,90 @@
 //     transposed to (B, H, C, L, ·) and lane-padded P and N to 128: five
 //     copies per call.  y is written contiguous (b, l, h, p) float32, the
 //     state contiguous (b, h, p, n) float32.
-//   - Sizes: P, N ≤ 128 and the chunk length L ≤ 128 at run time (any L,
-//     not a multiple of anything: 100 and 77 run); a ragged last chunk
-//     (l % L ≠ 0) is masked, though the wrapper's contract (the
+//   - Sizes: P, N ≤ 128 and the chunk length L ≤ 128 at run time (any L:
+//     100 and 77 run); P and N are zero-padded to a bucket D = 32, 64 or 128
+//     (of max(P, N)) and L to a multiple of 16 in shared memory; a ragged
+//     last chunk (l % L ≠ 0) is masked, though the wrapper's contract (the
 //     reference's) never gives one.
-//   - Grid: one block per (32-column slice of P, head, batch).  The rows of
-//     S are independent across p, so P is split over blocks: at the serving
-//     path's batch of 4 that is 4 × 80 × 2 = 640 blocks on 132 SMs (80 per
-//     (b, h) would leave SMs idle at batch 1).  Each slice recomputes
-//     (C·Bᵀ) ∘ Λ, a third more operations at P = 64.  A loop inside the
-//     block over the chunks takes the place of the TPU's sequential grid
-//     axis, and S stays in shared memory between chunks.
+//   - Grid: the TPU kernel walks one (b, h)'s chunks in sequence on its
+//     sequential grid axis, S carried in VMEM.  Here every (chunk, b, h) is
+//     a block, and only the state's recurrence runs in chunk order (the
+//     GPU SSD's usual split, fused into one kernel): each block computes
+//     its chunk's ΔS_c and y's diagonal blocks, then waits for S_{c−1},
+//     publishes S_c and only then adds y's off-diagonal term, which needs
+//     S_{c−1}.  The blocks chain through the state output itself: block
+//     (c, b, h) reads S_{c−1} from `state` (L2, ld.cg) once flag (b, h)
+//     reads c, writes S_c over it and sets the flag to c + 1: one thread's
+//     st.release after a barrier, read by one thread's ld.acquire before
+//     one (the pattern of CUTLASS's split-k semaphore).  A block's
+//     item comes from a ticket (atomicAdd on a counter), chunk-major, so
+//     every block waits only on a block that took an earlier ticket and is
+//     running or done: no block waits on one that has not started,
+//     whatever order the card schedules them in.  The flags and the
+//     counter are zeroed by a memset before the launch; one call is that
+//     memset and one kernel.  A wait that does not end (a fault; the
+//     tickets rule out a deadlock) traps after 2²⁸ polls, seconds to
+//     minutes, rather than hang the card.
+//   - Products on the tensor cores, mma.sync: C·Bᵀ for bfloat16 inputs as
+//     m16n8k16 bf16 → f32 (a bf16 product is exact in float32), for float32
+//     inputs and every other product as TF32 products m16n8k8
+//     (tf32_tiles.cuh: each float32 operand split in registers into TF32
+//     halves, a·b = a_lo·b_hi + a_hi·b_lo + a_hi·b_hi; one TF32 product
+//     misses SSD_TOL).  An operand that is exactly TF32 — a bfloat16 x, B
+//     or C — has no lo half, so its products take two terms; for bfloat16
+//     inputs the scalars move to the other operand to keep x and B exact:
+//     y's diagonal term is (W ∘ dt_s)·x and ΔS is (x ∘ dt·w)ᵀ·B, where
+//     float32 inputs take W·xdt and xdtᵀ·(w ∘ B) with three terms.
+//     S_{c−1}, the B operand of every warp's C·S_{c−1}ᵀ, is split once per
+//     block for bfloat16 inputs (its halves resident), at each use for
+//     float32 ones (whose shared memory has no room for them at D = 128).
+//     W = (C·Bᵀ) ∘ Λ feeds y's product from the accumulator in place (its
+//     columns 2t, 2t + 1 standing for k = t, t + 4; B's rows permuted by
+//     perm8 in C·Bᵀ, so x, read by rows perm8(2t), perm8(2t + 1), and B,
+//     read by rows perm8(g), hit 32 distinct banks at the pitch D + 8).
+//     The tensor cores truncate as they add: y's diagonal term and ΔS sum
+//     each 16 positions' products in a fresh fragment and add it to their
+//     sums in float32; the state's recurrence over the chunks is float32
+//     FMAs on S_{c−1} itself.
+//   - Work of a block (8 warps): ΔS_c in m16 × n8 tiles split over the
+//     warps; y in row tiles of 16 positions, one a warp — warp w takes tile
+//     w, and warp 4 + i tile 7 − i, so that the two warps of an SM
+//     sub-partition (w and w + 4) take 9 of the causal triangle's 36
+//     diagonal blocks at L = 128; per row tile the diagonal blocks' C·Bᵀ
+//     (16 × 16, masked and weighted) and W·xdt, then C·S_{c−1}ᵀ.
+//   - Staging: x (bfloat16 as it is; float32 as xdt), B and C in rows of
+//     D + 8 elements, 16-byte vectors where every row start allows; S_{c−1}
+//     over x's rows once they are read, and its lo half beside them: 74 KB
+//     (bfloat16) or 110 KB (float32) at zamba2's P = N = 64 and L = 128,
+//     two blocks an SM.
 //
 // Bound on an H100 SXM at the serving path's prefill (b 4, l 256, h 80,
-// p 64, n 64, L 128): the fewest operations that give y and the state are
-// the recurrence's, per (b, h) and position one multiply-add per state
-// entry for the update and one for C·S, 4NP: 1.34 GFLOP in all, 0.020 ms
-// at 67 TFLOP/s float32; the bytes (x bf16 in, y float32 out, the states)
-// are ~37 MB, 0.011 ms at 3.35 TB/s.  So it is bound by float32
-// operations.  The chunked form does more of them — L(L+1)(N+P) for the
-// causal triangles and 4LNP for the carried state per chunk, 2.0× the
+// p 64, n 64, L 128): the bytes (x bf16 in, y float32 out, the states),
+// ~37 MB, 0.011 ms at 3.35 TB/s, against the fewest operations that give y
+// and the state — the recurrence's, per (b, h) and position one
+// multiply-add per state entry for the update and one for C·S, 4NP: 1.34
+// GFLOP, 0.008 ms at a third of the 495 TFLOP/s TF32 peak.  So it is bound
+// by bytes.  The chunked form does more operations — L(L+1)(N+P) for the
+// causal triangles and 4LNP for ΔS and C·S_{c−1}ᵀ per chunk, 2.0× the
 // recurrence's at these sizes — in exchange for work that is parallel
-// within a chunk.  This first version does the chunked form's operations
-// as FMAs on the CUDA cores from shared-memory
-// tiles.  Per chunk Bᵀ and Cᵀ (N × L, positions contiguous), xdt (L × 32)
-// and Sᵀ (N × 32) are staged in shared memory (> 48 KB, so dynamic shared
-// memory with cudaFuncSetAttribute: 107.5 KB at the path's sizes, two
-// blocks per SM at ≤ 128 registers).  The L × L weights are built 32 rows
-// at a time, each thread a 4 × 4 block from one float4 of Cᵀ and one of Bᵀ
-// per state column, warps whose positions lie past the rows' diagonal block
-// skipping the tile; y takes 2 × 2 blocks per thread (whole 128-byte rows
-// per warp in its stores), the state 4 × 2 blocks kept in registers across
-// chunks, four positions a step.  At the path's shape it runs at ~15× its
-// bound (PERF.md); which stall holds it there is not measured.  One (b, h)
-// walks its chunks in sequence; chunk states computed in parallel and
-// scanned apart (the GPU SSD's usual split), mma.sync / wgmma on TMA-fed
-// tiles are the later work.
+// within and across chunks.
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_tiles.cuh"
+#include "tf32_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPT = 32;           // columns of P per block
-constexpr int kZT = 32;           // rows of the L × L weights built at once
+namespace tf32 = fa_tf32;
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxL = 128;        // chunk length
-constexpr int kMaxN = 128;        // d_state
-constexpr int kMaxP = 128;        // head_dim
-constexpr int kNR = kMaxN / 64;   // 4-row state groups per thread
+constexpr int kMaxDim = 128;      // head_dim P and d_state N
 
 struct Params {
   const void* x;
@@ -87,298 +123,578 @@ struct Params {
   long long dt_sb, dt_sl, dt_sh;
   long long b_sb, b_sl, b_sg;     // batch, position, group
   long long c_sb, c_sl, c_sg;
+  int vec;                        // x, B and C rows in 16-byte vectors
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+__device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
-
-// Shared-memory layout (floats; every region a multiple of 4 floats, so
-// float4 reads stay 16-byte aligned).  Bᵀ and Cᵀ (N × ldt, position
-// contiguous: the products read four positions at once), xdt (Lz × kPT),
-// Sᵀ (N × kPT), the current rows' weights Wᵀ (Lz × kZT), cum, exp(cum_last −
-// cum) and dt (Lz each); Lz is L rounded up to kZT, ldt = Lz + 4 spreads the
-// transposed stores over the banks.
-struct Smem {
-  int ldt;
-  size_t bt, ct, x, st, wt, cum, wend, dt, total;
-};
-
-__host__ __device__ inline Smem smem_layout(int L, int N) {
-  Smem m;
-  const int Lz = (L + kZT - 1) / kZT * kZT;
-  m.ldt = Lz + 4;
-  m.bt = 0;
-  m.ct = m.bt + static_cast<size_t>(N) * m.ldt;
-  m.x = m.ct + static_cast<size_t>(N) * m.ldt;
-  m.st = m.x + static_cast<size_t>(Lz) * kPT;
-  m.wt = m.st + static_cast<size_t>(N) * kPT;
-  m.cum = m.wt + static_cast<size_t>(Lz) * kZT;
-  m.wend = m.cum + Lz;
-  m.dt = m.wend + Lz;
-  m.total = (m.dt + Lz) * sizeof(float);
-  return m;
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) {
+  return __float2bfloat16_rn(v);  // exact: v came from a bf16
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-ssd_scan_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const Smem m = smem_layout(p.L, p.N);
-  float* Bt = smem + m.bt;
-  float* Ct = smem + m.ct;
-  float* Xs = smem + m.x;
-  float* St = smem + m.st;
-  float* Wt = smem + m.wt;
-  float* cum = smem + m.cum;
-  float* wend = smem + m.wend;
-  float* dts = smem + m.dt;
-  const int ldt = m.ldt;
+// elements (col, col + 1) of a tile row as floats (col even)
+__device__ __forceinline__ float2 pair(const float* row, int col) {
+  return tf32::ld2(row + col);
+}
+__device__ __forceinline__ float2 pair(const bf16* row, int col) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + col);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
+// d += a·b for an operand that is exactly TF32 (a bf16 value; its lo half
+// is 0): a·b_lo + a·b_hi for such an a, a_lo·b + a_hi·b for such a b
+__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  tf32::mma_tf32(d, a, b_lo);
+  tf32::mma_tf32(d, a, b_hi);
+}
+__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
+                                           const tf32::FragA& a,
+                                           const uint32_t (&b)[2]) {
+  tf32::mma_tf32(d, a.lo, b);
+  tf32::mma_tf32(d, a.hi, b);
+}
+
+// The bits of a bf16 as a float32 (exactly TF32)
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(&v))
+         << 16;
+}
+
+// acc (16 × 8·NO) += a (16 × 8·NK, from the accumulator, tf32::acc_a) ·
+// the bf16 tile rows 8·j + pk[0] and 8·j + pk[1] of step j, at columns
+// cols + 8·n of n8 tile n: tf32::mma_rows_tf32 for a B operand that is
+// exactly TF32, two products a step
+template <int NO, int NK, int P>
+__device__ __forceinline__ void mma_rows_exact(float (&acc)[NO][4],
+                                               const tf32::FragA (&a)[NK],
+                                               const bf16* cols,
+                                               const int (&pk)[2]) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const uint32_t bv[2] = {bits(cols[(8 * j + pk[0]) * P + 8 * n]),
+                              bits(cols[(8 * j + pk[1]) * P + 8 * n])};
+      mma_2xtf32(part, a[j], bv);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+__device__ __forceinline__ int ld_acquire(const int* ptr) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(ptr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* ptr, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(ptr), "r"(v)
+               : "memory");
+}
+
+// Shared memory of one block, in bytes, in rows of kPitch elements: x's
+// tile (float32 inputs: xdt = x·dt in float32; bfloat16: x as it is),
+// which S_{c−1} (float32; bfloat16: its TF32 hi half) takes over once it
+// is read, so max(Lp, D) rows; for bfloat16 S_{c−1}'s lo half (D rows);
+// B and C (T, Lp rows each); cum, the ΔS weights, exp(cum) and dt (kMaxL
+// floats each)
+template <typename T, int D>
+struct Smem {
+  static constexpr int kPitch = tf32::pitch<D>();
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr size_t kSBytes = size_t{D} * kPitch * sizeof(float);
+  static __host__ __device__ size_t x_bytes(int Lp) {
+    const size_t xb = static_cast<size_t>(Lp) * kPitch * sizeof(T);
+    return xb > kSBytes ? xb : kSBytes;
+  }
+  static __host__ __device__ size_t b_offset(int Lp) {
+    return x_bytes(Lp) + (kBf16 ? kSBytes : 0);
+  }
+  static __host__ __device__ size_t bytes(int Lp) {
+    return b_offset(Lp) + 2 * static_cast<size_t>(Lp) * kPitch * sizeof(T) +
+           4 * kMaxL * sizeof(float);
+  }
+};
+
+// blocks an SM the registers must leave room for: two below D = 128,
+// where two blocks' shared memory fits
+template <int D>
+constexpr int min_blocks() {
+  return D <= 64 ? 2 : 1;
+}
+
+// One block per (chunk, batch, head), taken in ticket order (chunk-major).
+// T: the type of x, B and C; D: the bucket of max(P, N).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, min_blocks<D>())
+    ssd_scan_kernel_mma(const Params p, int* flags) {
+  using Sm = Smem<T, D>;
+  constexpr bool kBf16 = Sm::kBf16;
+  constexpr int PT = Sm::kPitch;
+  constexpr int KD = D / 8;       // k8 steps over n
+  constexpr int NP = D / 8;       // n8 tiles of y's (and ΔS's) columns
+  // ΔS's m16 (p) × n8 (n) tiles over the warps: kMW warps along p, each
+  // taking one m16 tile and NPW n8 tiles
+  constexpr int kMW = D / 16 < kWarps ? D / 16 : kWarps;
+  constexpr int NPW = NP / (kWarps / kMW);
+  static_assert(D / 16 <= kWarps, "one m16 tile of ΔS a warp");
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+  __shared__ int s_ticket;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int p0 = blockIdx.x * kPT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int N = p.N;
-  const int N8 = (N + 7) / 8 * 8;
+  const int lane = tid % 32;
+  const int g8 = lane / 4;        // fragment row / column index g
+  const int quad = lane % 4;      // t
+  const int pg = tf32::perm8(g8);
+  const int pk[2] = {tf32::perm8(2 * quad), tf32::perm8(2 * quad + 1)};
+
+  if (tid == 0) s_ticket = atomicAdd(flags, 1);
+  const int Lp = (p.L + 15) / 16 * 16;
+  T* const xs = reinterpret_cast<T*>(ssd_smem);          // x or xdt [Lp]
+  float* const sp = reinterpret_cast<float*>(ssd_smem);  // S_{c−1} [D]
+  float* const sp_lo = reinterpret_cast<float*>(ssd_smem + Sm::x_bytes(Lp));
+  T* const bs = reinterpret_cast<T*>(ssd_smem + Sm::b_offset(Lp));
+  T* const cs = bs + Lp * PT;                            // [Lp][PT]
+  float* const cum = reinterpret_cast<float*>(cs + Lp * PT);
+  float* const wend = cum + kMaxL;  // ΔS's weights (below)
+  float* const ez = wend + kMaxL;
+  float* const dts = ez + kMaxL;
+  __syncthreads();                // s_ticket
+
+  const int BH = p.batch * p.H;
+  const int ci = s_ticket / BH;
+  const int bh = s_ticket - ci * BH;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
   const int gi = h / (p.H / p.G);
+  const int pos0 = ci * p.L;
+  const int Lc = min(p.L, p.l - pos0);
   const float a = p.A[h];
-  const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh + p0;
+  const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
   const T* bg = static_cast<const T*>(p.B) + b * p.b_sb + gi * p.b_sg;
   const T* cg = static_cast<const T*>(p.C) + b * p.c_sb + gi * p.c_sg;
   const float* dtg = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const int pt = min(kPT, p.P - p0);
+  float* const state = p.state + static_cast<long long>(bh) * p.P * p.N;
 
-  // the thread's state entries Sᵀ[n][c]: rows n = 4·(sn + 16r) + i, columns
-  // c = 2·sc + j; kept in registers across chunks, mirrored in St
-  const int sn = tid / 16;
-  const int sc = tid % 16;
-  float sreg[kNR][4][2];
+  // ---- the chunk's tiles, zero-padded to Lp × D: 16-byte vectors where
+  // every row start allows them (p.vec, a choice for the whole call), else
+  // element by element; each thread keeps several rows' loads in flight.
+  // A float32 x is stored as xdt = x·dt; a bfloat16 x as it is, exactly
+  // TF32, dt going to the other operand of its products.
+  for (int s = tid; s < kMaxL; s += kThreads) {
+    dts[s] = s < Lc ? dtg[(pos0 + s) * p.dt_sl] : 0.0f;
+  }
+  if (p.vec) {
+    constexpr int VEC = 16 / sizeof(T);       // elements a vector
+    constexpr int VPR = D / VEC;              // vectors a padded row
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll 4
+    for (int i = tid; i < Lp * VPR; i += kThreads) {
+      const int s = i / VPR;
+      const int col = VEC * (i - s * VPR);
+      const long long pos = pos0 + s;
+      const bool row = s < Lc;
+      const bool in_p = row && col < p.P;
+      const bool in_n = row && col < p.N;
+      const uint4 xv =
+          in_p ? *reinterpret_cast<const uint4*>(xg + pos * p.x_sl + col)
+               : zero;
+      if constexpr (kBf16) {
+        *reinterpret_cast<uint4*>(xs + s * PT + col) = xv;
+      } else {
+        const float d = in_p ? dtg[pos * p.dt_sl] : 0.0f;
+        *reinterpret_cast<float4*>(xs + s * PT + col) = make_float4(
+            __uint_as_float(xv.x) * d, __uint_as_float(xv.y) * d,
+            __uint_as_float(xv.z) * d, __uint_as_float(xv.w) * d);
+      }
+      *reinterpret_cast<uint4*>(bs + s * PT + col) =
+          in_n ? *reinterpret_cast<const uint4*>(bg + pos * p.b_sl + col)
+               : zero;
+      *reinterpret_cast<uint4*>(cs + s * PT + col) =
+          in_n ? *reinterpret_cast<const uint4*>(cg + pos * p.c_sl + col)
+               : zero;
+    }
+  } else {
+#pragma unroll 8
+    for (int i = tid; i < Lp * D; i += kThreads) {
+      const int s = i / D;
+      const int col = i - s * D;
+      const bool row = s < Lc;
+      const long long pos = pos0 + s;
+      if constexpr (kBf16) {
+        xs[s * PT + col] =
+            row && col < p.P ? xg[pos * p.x_sl + col] : from_float<T>(0.0f);
+      } else {
+        xs[s * PT + col] = row && col < p.P
+                               ? xg[pos * p.x_sl + col] * dtg[pos * p.dt_sl]
+                               : 0.0f;
+      }
+      bs[s * PT + col] =
+          row && col < p.N ? bg[pos * p.b_sl + col] : from_float<T>(0.0f);
+      cs[s * PT + col] =
+          row && col < p.N ? cg[pos * p.c_sl + col] : from_float<T>(0.0f);
+    }
+  }
+  __syncthreads();                // dts
+  if (warp == 0) {
+    // inclusive scan of dA = dt·A: 4 positions per lane, then the lanes;
+    // positions past Lc keep cum_last
+    float v[4];
+    float run = 0.0f;
 #pragma unroll
-  for (int r = 0; r < kNR; ++r)
+    for (int k = 0; k < 4; ++k) {
+      run += dts[lane * 4 + k] * a;
+      v[k] = run;
+    }
+    float off = run;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sreg[r][i][0] = sreg[r][i][1] = 0.f;
-  for (int i = tid; i < N * kPT; i += kThreads) St[i] = 0.f;
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, off, d);
+      if (lane >= d) off += o;
+    }
+    off -= run;                   // exclusive prefix of this lane
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cum[lane * 4 + k] = off + v[k];
+  }
+  __syncthreads();                // tiles, cum
+  const float cum_last = cum[Lc - 1];
+  // ΔS's weights: exp(cum_last − cum) on B's side for float32 inputs, and
+  // dt·exp(cum_last − cum) on x's for bfloat16, whose B stays exact
+  for (int s = tid; s < kMaxL; s += kThreads) {
+    const float w = s < Lc ? expf(cum_last - cum[s]) : 0.0f;
+    wend[s] = kBf16 ? dts[s] * w : w;
+    ez[s] = s < Lc ? expf(cum[s]) : 0.0f;
+  }
+  __syncthreads();                // wend, ez
 
-  const int n_chunks = (p.l + p.L - 1) / p.L;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int pos0 = ci * p.L;
-    const int Lc = min(p.L, p.l - pos0);
-    __syncthreads();  // the previous chunk is done with every tile
-
-    for (int s = tid; s < Lc; s += kThreads) {
-      dts[s] = dtg[(pos0 + s) * p.dt_sl];
-    }
-    // Bᵀ, Cᵀ: a warp covers 8 consecutive n of 4 positions, so its
-    // transposed stores hit 32 distinct banks when ldt ≡ 4 (mod 32)
-    for (int i = tid; i < Lc * N8; i += kThreads) {
-      const int n = (i / 8 / Lc) * 8 + i % 8;
-      const int s = (i / 8) % Lc;
-      if (n < N) {
-        const long long pos = pos0 + s;
-        Bt[n * ldt + s] = to_float(bg[pos * p.b_sl + n]);
-        Ct[n * ldt + s] = to_float(cg[pos * p.c_sl + n]);
+  // ---- ΔS_c[p][n] = Σ_s xdt[s][p]·(exp(cum_last − cum_s)·B[s][n]): this
+  // warp's m16 tile (A = (xdt ∘ w)ᵀ or xdtᵀ: rows p, k over positions in
+  // natural order) and its NPW n8 tiles (B = B or w ∘ B: rows s, column
+  // n); each 16 positions' products in fresh fragments, then added
+  const int pc = 16 * (warp % kMW) + g8;      // A's rows pc, pc + 8
+  const int nw0 = NPW * (warp / kMW);
+  float ds[NPW][4];
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[j][e] = 0.0f;
+  }
+  for (int s0 = 0; s0 < Lp; s0 += 16) {
+    tf32::FragA ax[2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int s = s0 + 8 * kk + quad;
+      const T* r0 = xs + s * PT + pc;
+      const T* r4 = r0 + 4 * PT;
+      if constexpr (kBf16) {
+        ax[kk] = tf32::FragA(
+            to_float(r0[0]) * wend[s], to_float(r0[8]) * wend[s],
+            to_float(r4[0]) * wend[s + 4], to_float(r4[8]) * wend[s + 4]);
+      } else {
+        ax[kk] = tf32::FragA(r0[0], r0[8], r4[0], r4[8]);
       }
     }
-    __syncthreads();  // dts
-    for (int i = tid; i < Lc * kPT; i += kThreads) {
-      const int s = i / kPT, c = i % kPT;
-      Xs[s * kPT + c] =
-          c < pt ? to_float(xg[(pos0 + s) * p.x_sl + c]) * dts[s] : 0.f;
-    }
-    if (warp == 0) {
-      // inclusive scan of dA = dt·A: 4 positions per lane, then the lanes
-      float v[4];
-      float run = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int s = tid * 4 + k;
-        run += s < Lc ? dts[s] * a : 0.f;
-        v[k] = run;
-      }
-      float off = run;
+    for (int j = 0; j < NPW; ++j) {
+      const int nc = 8 * (nw0 + j) + g8;
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, off, d);
-        if (tid >= d) off += o;
-      }
-      off -= run;  // exclusive prefix of this lane
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int s = tid * 4 + k;
-        if (s < Lc) cum[s] = off + v[k];
-      }
-    }
-    __syncthreads();  // cum, tiles
-    const float cum_last = cum[Lc - 1];
-    for (int s = tid; s < Lc; s += kThreads) wend[s] = expf(cum_last - cum[s]);
-
-    // y, kZT rows at a time
-    for (int zb = 0; zb < Lc; zb += kZT) {
-      const int s_hi = min(Lc, zb + kZT);
-      // Wᵀ[s][z − zb] = (C·Bᵀ)[z, s] · Λ[z, s] over s < s_hi: 4 rows
-      // (4·zg + i) × 4 positions (4·sg + j) a thread; warp w covers
-      // positions [16w, 16w + 16) and skips the tile when they all lie past
-      // the diagonal block
-      if (16 * warp < s_hi) {
-        const int zg = tid % 8, sg = tid / 8;
-        float acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-        const float* crow = Ct + zb + 4 * zg;
-        const float* brow = Bt + 4 * sg;
-        for (int n = 0; n < N; ++n) {
-          const float4 c4 = *reinterpret_cast<const float4*>(crow + n * ldt);
-          const float4 b4 = *reinterpret_cast<const float4*>(brow + n * ldt);
-          const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
-          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[i][j] = fmaf(cv[i], bv[j], acc[i][j]);
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int s = 4 * sg + j;
-          float w[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int z = zb + 4 * zg + i;
-            // select before the exp: above the diagonal the exponent is
-            // positive and may overflow
-            w[i] = (s <= z && z < Lc) ? acc[i][j] * expf(cum[z] - cum[s])
-                                      : 0.f;
-          }
-          *reinterpret_cast<float4*>(Wt + s * kZT + 4 * zg) =
-              make_float4(w[0], w[1], w[2], w[3]);
-        }
-      }
-      __syncthreads();  // Wᵀ
-      {
-        // y[z][c] = (Wᵀ)ᵀ·xdt + exp(cum_z)·(C·Sᵀ): rows zb + 2·zq + i,
-        // columns 2·cq + j; a warp writes 4 whole rows of 32 columns
-        const int zq = tid / 16, cq = tid % 16;
-        float off[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        float diag[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-        const float* crow = Ct + zb + 2 * zq;
-        for (int n = 0; n < N; ++n) {
-          const float2 c2 = *reinterpret_cast<const float2*>(crow + n * ldt);
-          const float2 s2 =
-              *reinterpret_cast<const float2*>(St + n * kPT + 2 * cq);
-          off[0][0] = fmaf(c2.x, s2.x, off[0][0]);
-          off[0][1] = fmaf(c2.x, s2.y, off[0][1]);
-          off[1][0] = fmaf(c2.y, s2.x, off[1][0]);
-          off[1][1] = fmaf(c2.y, s2.y, off[1][1]);
-        }
-        for (int s = 0; s < s_hi; ++s) {
-          const float2 w2 =
-              *reinterpret_cast<const float2*>(Wt + s * kZT + 2 * zq);
-          const float2 x2 =
-              *reinterpret_cast<const float2*>(Xs + s * kPT + 2 * cq);
-          diag[0][0] = fmaf(w2.x, x2.x, diag[0][0]);
-          diag[0][1] = fmaf(w2.x, x2.y, diag[0][1]);
-          diag[1][0] = fmaf(w2.y, x2.x, diag[1][0]);
-          diag[1][1] = fmaf(w2.y, x2.y, diag[1][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int z = zb + 2 * zq + i;
-          if (z >= Lc) continue;
-          const float ez = expf(cum[z]);
-          float* yrow = p.y + ((static_cast<long long>(b) * p.l + pos0 + z) *
-                                   p.H + h) * p.P + p0;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 2 * cq + j;
-            if (c < pt) yrow[c] = diag[i][j] + ez * off[i][j];
-          }
-        }
-      }
-      __syncthreads();  // Wᵀ and Sᵀ are read
-    }
-
-    // S ← exp(cum_last)·S + xdtᵀ·(exp(cum_last − cum) ∘ B), as Sᵀ[n][c]
-    const float decay = expf(cum_last);
-#pragma unroll
-    for (int r = 0; r < kNR; ++r) {
-      const int n0 = 4 * (sn + 16 * r);
-      if (n0 >= N) continue;
-      float inc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-      // four positions a step: one float4 of Bᵀ per state row
-      for (int s = 0; s < Lc; s += 4) {
-        float xw[4][2];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (s + k < Lc) {
-            const float2 x2 =
-                *reinterpret_cast<const float2*>(Xs + (s + k) * kPT + 2 * sc);
-            const float w = wend[s + k];
-            xw[k][0] = x2.x * w;
-            xw[k][1] = x2.y * w;
-          } else {
-            xw[k][0] = xw[k][1] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (n0 + i >= N) continue;
-          const float4 b4 =
-              *reinterpret_cast<const float4*>(Bt + (n0 + i) * ldt + s);
-          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            // past Lc the tile holds stale values: select, do not multiply
-            const float bk = s + k < Lc ? bv[k] : 0.f;
-            inc[i][0] = fmaf(xw[k][0], bk, inc[i][0]);
-            inc[i][1] = fmaf(xw[k][1], bk, inc[i][1]);
-          }
+      for (int kk = 0; kk < 2; ++kk) {
+        const int s = s0 + 8 * kk + quad;
+        if constexpr (kBf16) {
+          const uint32_t bv[2] = {bits(bs[s * PT + nc]),
+                                  bits(bs[(s + 4) * PT + nc])};
+          mma_2xtf32(part, ax[kk], bv);
+        } else {
+          tf32::mma_3xtf32(
+              part, ax[kk],
+              tf32::FragB(wend[s] * to_float(bs[s * PT + nc]),
+                          wend[s + 4] * to_float(bs[(s + 4) * PT + nc])));
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (n0 + i >= N) continue;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          sreg[r][i][j] = inc[i][j] + decay * sreg[r][i][j];
-          St[(n0 + i) * kPT + 2 * sc + j] = sreg[r][i][j];
-        }
-      }
+      for (int e = 0; e < 4; ++e) ds[j][e] += part[e];
     }
   }
 
+  // ---- y's diagonal blocks: this warp's row tile of 16 positions, z0 =
+  // 16·rt, rt = warp for warps 0-3 and 11 − warp for 4-7, so that the two
+  // warps of each SM sub-partition (w, w + 4) take 9 of the causal
+  // triangle's 36 diagonal blocks (at L = 128)
+  const int rt = warp < 4 ? warp : 11 - warp;
+  const int z0 = 16 * rt;
+  const bool has_rows = z0 < Lp;
+  const T* crow = cs + (z0 + g8) * PT;        // C rows z0 + g, + 8
+  float yacc[NP][4];
 #pragma unroll
-  for (int r = 0; r < kNR; ++r) {
-    const int n0 = 4 * (sn + 16 * r);
+  for (int n = 0; n < NP; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yacc[n][e] = 0.0f;
+  }
+  for (int s0 = 0; has_rows && s0 <= z0; s0 += 16) {
+    // G = C·Bᵀ (16 positions z × 16 positions s): n8 tile j's column g
+    // reads B row s0 + 8·j + perm8(g)
+    float gm[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      const int c = 2 * sc + j;
-      if (c >= pt) continue;
-      float* srow = p.state + ((static_cast<long long>(b) * p.H + h) * p.P +
-                               p0 + c) * N;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (n0 + i < N) srow[n0 + i] = sreg[r][i][j];
+      for (int e = 0; e < 4; ++e) gm[j][e] = 0.0f;
+    }
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = 16 * kk + 2 * quad;
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(crow + c);
+        af[1] = *reinterpret_cast<const uint32_t*>(crow + 8 * PT + c);
+        af[2] = *reinterpret_cast<const uint32_t*>(crow + c + 8);
+        af[3] = *reinterpret_cast<const uint32_t*>(crow + 8 * PT + c + 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const T* brow = bs + (s0 + 8 * j + pg) * PT;
+          fa_tiles::mma_bf16(
+              gm[j], af, *reinterpret_cast<const uint32_t*>(brow + c),
+              *reinterpret_cast<const uint32_t*>(brow + c + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const tf32::FragA ac = tf32::head_a<PT>(
+            reinterpret_cast<const float*>(crow), kk, quad);
+        const int c = 8 * kk + 2 * quad;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 bx = tf32::ld2(reinterpret_cast<const float*>(bs) +
+                                      (s0 + 8 * j + pg) * PT + c);
+          tf32::mma_3xtf32(gm[j], ac, tf32::FragB(bx.x, bx.y));
+        }
+      }
+    }
+    // W = G ∘ Λ (for bfloat16 inputs also ∘ dt_s, x's factor): element
+    // (j, e) is position z0 + g + 8·(e / 2) against s0 + 8·j + pk[e % 2];
+    // the mask selects before the exp
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int z = z0 + g8 + 8 * (e / 2);
+        const int s = s0 + 8 * j + pk[e % 2];
+        const float w = gm[j][e] * expf(cum[z] - cum[s]);
+        gm[j][e] = s <= z && z < Lc ? (kBf16 ? w * dts[s] : w) : 0.0f;
+      }
+    }
+    // y += W·xdt (bfloat16: (W ∘ dt)·x): k8 step j from W's n8 tile j in
+    // place, reading x's rows s0 + 8·j + pk[0] and pk[1]; a fresh fragment
+    // per n8 tile
+    const tf32::FragA aw[2] = {tf32::acc_a(gm[0]), tf32::acc_a(gm[1])};
+    if constexpr (kBf16) {
+      mma_rows_exact<NP, 2, PT>(yacc, aw, xs + s0 * PT + g8, pk);
+    } else {
+      tf32::mma_rows_tf32<NP, 2, PT>(
+          yacc, aw, reinterpret_cast<const float*>(xs) + s0 * PT + g8, pk);
+    }
+  }
+  __syncthreads();                // x is read: its rows take S_{c−1}
+
+  // ---- the chain: S_{c−1} from the state output once chunk c − 1 of this
+  // (b, h) has published it, read by each thread at its entries of ΔS's
+  // fragments (which cover the D × D entries once) and staged for every
+  // warp's C·S_{c−1}ᵀ (bfloat16: split into TF32 halves once); then
+  // S_c = exp(cum_last)·S_{c−1} + ΔS_c over it
+  int* const flag = flags + 1 + bh;
+  if (ci > 0) {
+    if (tid == 0) {
+      long long polls = 0;
+      while (ld_acquire(flag) < ci) {
+        __nanosleep(64);
+        if (++polls > (1LL << 28)) __trap();
+      }
+    }
+    __syncthreads();              // the acquire orders the block's reads
+  }
+  float prev[NPW][4];
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = pc + 8 * (e / 2);
+      const int col = 8 * (nw0 + j) + 2 * quad + e % 2;
+      prev[j][e] = ci > 0 && r < p.P && col < p.N
+                       ? __ldcg(state + r * p.N + col)
+                       : 0.0f;
+    }
+  }
+  const float decay = expf(cum_last);
+#pragma unroll
+  for (int j = 0; j < NPW; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = pc + 8 * (e / 2);
+      const int col = 8 * (nw0 + j) + 2 * quad + e % 2;
+      if (ci > 0) {
+        if constexpr (kBf16) {
+          uint32_t hi, lo;
+          tf32::split(prev[j][e], hi, lo);
+          sp[r * PT + col] = __uint_as_float(hi);
+          sp_lo[r * PT + col] = __uint_as_float(lo);
+        } else {
+          sp[r * PT + col] = prev[j][e];
+        }
+      }
+      if (r < p.P && col < p.N) {
+        __stcg(state + r * p.N + col, ds[j][e] + decay * prev[j][e]);
+      }
+    }
+  }
+  __syncthreads();                // S_{c−1} staged; the release orders the
+                                  // block's writes of S_c
+  if (tid == 0) st_release(flag, ci + 1);
+  if (!has_rows) return;
+
+  // ---- y += exp(cum) ∘ (C·S_{c−1}ᵀ): B reads S_{c−1} row 8·n + g (a p)
+  // at the step's columns (n) 2t, 2t + 1; y's n8 tiles in two halves, each
+  // summed in a fresh fragment (the float32 instance at D = 64 spilled
+  // with all of them at once beside y).  A bfloat16 C is exact: two
+  // products, C·S_lo + C·S_hi, from S's resident halves.
+  if (ci > 0) {
+    const float e0 = ez[z0 + g8];
+    const float e8 = ez[z0 + g8 + 8];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      constexpr int NH = NP / 2;
+      float off[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) off[n][e] = 0.0f;
+      }
+#pragma unroll 2
+      for (int kk = 0; kk < KD; ++kk) {
+        const int c = 8 * kk + 2 * quad;
+        const float2 x = pair(crow, c);
+        const float2 x8 = pair(crow + 8 * PT, c);
+        const int srow = (8 * NH * half + g8) * PT + c;
+        if constexpr (kBf16) {
+          const uint32_t ac[4] = {__float_as_uint(x.x), __float_as_uint(x8.x),
+                                  __float_as_uint(x.y),
+                                  __float_as_uint(x8.y)};
+#pragma unroll
+          for (int n = 0; n < NH; ++n) {
+            const float2 hv = tf32::ld2(sp + srow + 8 * n * PT);
+            const float2 lv = tf32::ld2(sp_lo + srow + 8 * n * PT);
+            const uint32_t bh[2] = {__float_as_uint(hv.x),
+                                    __float_as_uint(hv.y)};
+            const uint32_t bl[2] = {__float_as_uint(lv.x),
+                                    __float_as_uint(lv.y)};
+            mma_2xtf32(off[n], ac, bh, bl);
+          }
+        } else {
+          const tf32::FragA ac(x.x, x8.x, x.y, x8.y);
+#pragma unroll
+          for (int n = 0; n < NH; ++n) {
+            const float2 sv = tf32::ld2(sp + srow + 8 * n * PT);
+            tf32::mma_3xtf32(off[n], ac, tf32::FragB(sv.x, sv.y));
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        float* yn = yacc[NH * half + n];
+        yn[0] += e0 * off[n][0];
+        yn[1] += e0 * off[n][1];
+        yn[2] += e8 * off[n][2];
+        yn[3] += e8 * off[n][3];
+      }
+    }
+  }
+  // rows z < Lc, columns p < P
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int z = z0 + g8 + 8 * i;
+    if (z >= Lc) continue;
+    float* yrow =
+        p.y + ((static_cast<long long>(b) * p.l + pos0 + z) * p.H + h) * p.P;
+#pragma unroll
+    for (int n = 0; n < NP; ++n) {
+      const int col = 8 * n + 2 * quad;
+      if (p.P % 2 == 0 && col + 1 < p.P) {
+        *reinterpret_cast<float2*>(yrow + col) =
+            make_float2(yacc[n][2 * i], yacc[n][2 * i + 1]);
+      } else {
+        if (col < p.P) yrow[col] = yacc[n][2 * i];
+        if (col + 1 < p.P) yrow[col + 1] = yacc[n][2 * i + 1];
       }
     }
   }
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_layout(p.L, p.N).total;
+template <typename T, int D>
+cudaError_t launch(const Params& p, int* flags, cudaStream_t stream) {
+  const int Lp = (p.L + 15) / 16 * 16;
+  const size_t smem = Smem<T, D>::bytes(Lp);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.P + kPT - 1) / kPT, p.H, p.batch);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  const long long bh = static_cast<long long>(p.batch) * p.H;
+  err = cudaMemsetAsync(flags, 0, (1 + bh) * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const long long blocks = bh * ((p.l + p.L - 1) / p.L);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ssd_scan_kernel_mma<T, D><<<static_cast<unsigned>(blocks), kThreads, smem,
+                              stream>>>(p, flags);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const Params& p, int* flags, cudaStream_t stream) {
+  const int d = p.P > p.N ? p.P : p.N;
+  if (d <= 32) return launch<T, 32>(p, flags, stream);
+  if (d <= 64) return launch<T, 64>(p, flags, stream);
+  return launch<T, 128>(p, flags, stream);
+}
+
+// whether every row of x, B and C starts on a 16-byte boundary and holds
+// whole 16-byte vectors: the base addresses, and each stride in bytes
+// (elements of `esize` bytes) of a dimension longer than 1, multiples of
+// 16, and P and N multiples of a vector's elements
+int rows_in_vectors(const Params& p, int esize) {
+  const int vec = 16 / esize;
+  if (p.P % vec || p.N % vec) return 0;
+  const long long ptrs[3] = {reinterpret_cast<long long>(p.x),
+                             reinterpret_cast<long long>(p.B),
+                             reinterpret_cast<long long>(p.C)};
+  const long long strides[9] = {p.x_sb, p.x_sl, p.x_sh, p.b_sb, p.b_sl,
+                                p.b_sg, p.c_sb, p.c_sl, p.c_sg};
+  const int sizes[9] = {p.batch, p.l, p.H, p.batch, p.l, p.G,
+                        p.batch, p.l, p.G};
+  for (long long ptr : ptrs) {
+    if (ptr % 16) return 0;
+  }
+  for (int i = 0; i < 9; ++i) {
+    if (sizes[i] > 1 && (esize * strides[i]) % 16) return 0;
+  }
+  return 1;
 }
 
 }  // namespace
@@ -389,8 +705,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // dimension; A (H,) contiguous.  y is written contiguous float32
 // (batch, l, H, P), state contiguous float32 (batch, H, P, N).  The scan
 // walks chunks of L positions, the last one ragged when L does not divide l.
-// Requires 1 ≤ P, N, L ≤ 128, H % G == 0, H ≤ 65535 and batch ≤ 65535.
-// Launches on `stream`, does not synchronise, allocates nothing, and returns
+// `flags`: int32 scratch of 1 + batch·H elements, zeroed here (a memset on
+// `stream`) and used by the kernel to chain the chunks.  Requires
+// 1 ≤ P, N, L ≤ 128, H % G == 0, and batch·H·⌈l / L⌉ < 2³¹.  Launches on
+// `stream`, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() after the launch (0 = success).
 extern "C" int ssd_scan_fwd(
     int dtype, const void* x, const float* dt, const float* A, const void* B,
@@ -398,17 +716,18 @@ extern "C" int ssd_scan_fwd(
     int G, int N, int L, long long x_sb, long long x_sl, long long x_sh,
     long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
     long long b_sl, long long b_sg, long long c_sb, long long c_sl,
-    long long c_sg, void* stream) {
-  if (batch <= 0 || batch > 65535 || l <= 0 || H <= 0 || H > 65535 ||
-      G <= 0 || H % G != 0 || P <= 0 || P > kMaxP || N <= 0 || N > kMaxN ||
-      L <= 0 || L > kMaxL) {
+    long long c_sg, int* flags, void* stream) {
+  if (batch <= 0 || l <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
+      P > kMaxDim || N <= 0 || N > kMaxDim || L <= 0 || L > kMaxL ||
+      flags == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p{x,    dt,   A,    B,    C,     y,     state, batch, l,    H,
            P,    G,    N,    L,    x_sb,  x_sl,  x_sh,  dt_sb, dt_sl, dt_sh,
-           b_sb, b_sl, b_sg, c_sb, c_sl,  c_sg};
+           b_sb, b_sl, b_sg, c_sb, c_sl,  c_sg,  0};
+  p.vec = rows_in_vectors(p, dtype == 0 ? 4 : 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(p, s));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, s));
+  if (dtype == 0) return static_cast<int>(launch_d<float>(p, flags, s));
+  if (dtype == 1) return static_cast<int>(launch_d<bf16>(p, flags, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,8 @@ float32 negative, B and C ``(b, l, g, n)`` with ``h % g == 0``.  Returns
 
 A CPU tensor takes the plain version (``ref.ssd_chunked``); a CUDA tensor
 launches the hand-written kernel (``csrc/ssd_scan.cu``) on the current
-stream, or raises — nothing falls back.  The kernel reads x, B and C in
+stream — a memset of its chunk chain's flags, then one kernel, every chunk
+a block — or raises: nothing falls back.  The kernel reads x, B and C in
 place through their strides (a slice of the convolution's output, the
 groups unrepeated), so nothing is copied before it.  It has no backward
 yet: under autograd a CUDA call raises ``NotImplementedError`` (ROADMAP B9)
@@ -24,7 +25,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import ref
 
 MAX_DIM = 128                     # the kernel's largest P, N and chunk
-MAX_GRID_DIM = 65535              # CUDA's limit on grid.y (h), grid.z (b)
 
 launches = {"ssd_scan": 0}
 
@@ -39,7 +39,7 @@ def _kernels() -> ctypes.CDLL:
     lib = _build.library("ssd_scan")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_fwd.argtypes = ([i32] + [ptr] * 7 + [i32] * 7 + [i64] * 12
-                                 + [ptr])
+                                 + [ptr, ptr])
     lib.ssd_scan_fwd.restype = ctypes.c_int
     return lib
 
@@ -113,16 +113,19 @@ def _launch(x, dt, A, B, C, L: int) -> tuple[torch.Tensor, torch.Tensor]:
     if p > MAX_DIM or n > MAX_DIM or L > MAX_DIM:
         raise ValueError(f"the kernel takes p, n and the chunk length "
                          f"≤ {MAX_DIM}, got p = {p}, n = {n}, L = {L}")
-    if b > MAX_GRID_DIM or h > MAX_GRID_DIM or l >= 2**31:
+    if b * h * (l // L) >= 2**31 or l >= 2**31:
         raise ValueError(f"shape out of the kernel's range: x "
                          f"{tuple(x.shape)}")
     y = torch.empty((b, l, h, p), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    # the kernel's chain: a ticket counter and one flag per (b, h), zeroed
+    # by the C entry before the launch
+    flags = torch.empty(1 + b * h, dtype=torch.int32, device=x.device)
     rc = _kernels().ssd_scan_fwd(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
         A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
         state.data_ptr(), b, l, h, p, g, n, L, *x.stride()[:3],
-        *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+        *dt.stride(), *B.stride()[:3], *C.stride()[:3], flags.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.raise_on_launch_error(rc, "ssd_scan")
     launches["ssd_scan"] += 1

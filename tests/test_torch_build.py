@@ -1,7 +1,7 @@
 """The port's kernel build (``repro_torch.kernels._build``): a library's
-file name hashes its source, the headers beside it and the flags, so an
-edited source or header is rebuilt and an old build never loads in its
-place.  Checked on copies of the sources, with nothing compiled.  The
+file name hashes its source, the headers beside it, the shared headers
+(``kernels/common/csrc``) and the flags, so an edited source or header is
+rebuilt and an old build never loads in its place.  Checked on copies of the sources, with nothing compiled.  The
 constants that Python code copies from the backward source are held
 against it here."""
 import importlib.util
@@ -15,20 +15,25 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ops_ssd  # noqa: E402
 
 ATTN = ("flash_attention", "flash_attention_bwd")
+SHARED = ("mma_tiles.cuh", "tf32_tiles.cuh")
 ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
 def csrc_copy(tmp_path, monkeypatch):
-    """The flash-attention sources and their shared header, copied under
-    ``tmp_path`` and put in place of the package's in ``_build.SOURCES``."""
+    """The flash-attention sources, copied under ``tmp_path`` and put in
+    place of the package's in ``_build.SOURCES``, and the shared headers,
+    copied to ``tmp_path / "common"`` in place of ``_build.COMMON_DIR``."""
     src_dir = _build.SOURCES["flash_attention"].parent
     dst = tmp_path / "csrc"
     shutil.copytree(src_dir, dst)
+    shutil.copytree(_build.COMMON_DIR, tmp_path / "common")
     monkeypatch.setattr(_build, "SOURCES", {
         name: dst / _build.SOURCES[name].name for name in ATTN})
+    monkeypatch.setattr(_build, "COMMON_DIR", tmp_path / "common")
     return dst
 
 
@@ -52,7 +57,7 @@ def test_editing_a_header_or_source_changes_library_path(csrc_copy,
                                                          monkeypatch, edit):
     before = {name: _build.library_path(name) for name in ATTN}
     if edit == "header":
-        header = csrc_copy / "mma_tiles.cuh"
+        header = csrc_copy.parent / "common" / "mma_tiles.cuh"
         header.write_bytes(header.read_bytes() + b"\n// edited\n")
         changed = set(ATTN)
     elif edit == "new_header":
@@ -70,6 +75,24 @@ def test_editing_a_header_or_source_changes_library_path(csrc_copy,
     for name in ATTN:
         assert (after[name] != before[name]) == (name in changed)
         assert after[name].parent == _build.BUILD_DIR
+
+
+@pytest.mark.parametrize("header", SHARED)
+def test_editing_a_shared_header_changes_attention_and_ssd_library_paths(
+        tmp_path, monkeypatch, header):
+    """Both attention libraries and the SSD scan's include the shared
+    headers: an edit to either changes all three library names, so a
+    stale SSD library never survives it."""
+    names = ATTN + ("ssd_scan",)
+    shutil.copytree(_build.COMMON_DIR, tmp_path / "common")
+    monkeypatch.setattr(_build, "COMMON_DIR", tmp_path / "common")
+    for name in names:
+        assert f'#include "{header}"' in _build.SOURCES[name].read_text()
+    before = {name: _build.library_path(name) for name in names}
+    edited = tmp_path / "common" / header
+    edited.write_bytes(edited.read_bytes() + b"\n// edited\n")
+    after = {name: _build.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in names)
 
 
 def _chip_smoke():
@@ -121,8 +144,7 @@ def test_python_copies_of_backward_constants_match_the_source(constant):
         assert re.search(r"kKvBK = 16 \* kMmaWarps;", src)
         assert ops.DKV_BLOCK_KEYS == 16 * warps
     elif constant == "tf32_terms":
-        header = (_build.SOURCES["flash_attention_bwd"].parent
-                  / "tf32_tiles.cuh").read_text()
+        header = (_build.COMMON_DIR / "tf32_tiles.cuh").read_text()
         (terms,) = re.findall(r"constexpr int kTerms = (\d+);", header)
         body = _body(header, "__device__ __forceinline__ void mma_3xtf32(")
         assert smoke.BWD_TF32_TERMS == int(terms)
@@ -135,3 +157,46 @@ def test_python_copies_of_backward_constants_match_the_source(constant):
         assert "kPasses = BwdCfg<D>::kPasses;" in cfg
         assert "kKvBK = 16 * kMmaWarps;" in cfg
         assert len(re.findall(r"kKvBK = 16 \* kMmaWarps;", src)) == 2
+
+
+@pytest.mark.parametrize("constant", ["fwd_block_rows", "fwd_block_keys",
+                                      "fwd_wide_head_dim", "ssd_buckets",
+                                      "ssd_row_tile"])
+def test_python_copies_of_forward_and_ssd_constants_match_the_source(
+        constant):
+    """chip_smoke.py counts the float32 forward's and the SSD kernel's
+    tensor-core work from copies of their sources' tile constants; each
+    copy equals the source's value."""
+    smoke = _chip_smoke()
+    fwd = _build.SOURCES["flash_attention"].read_text()
+    ssd = _build.SOURCES["ssd_scan"].read_text()
+    if constant == "fwd_block_rows":
+        (warps,) = re.findall(r"constexpr int kMmaWarps = (\d+);", fwd)
+        assert "constexpr int kMmaBQ = 16 * kMmaWarps;" in fwd
+        assert "load_tile<P, D, kMmaBQ, W, T>" in _body(
+            fwd, "    flash_fwd_kernel_tf32(Params p) {")
+        assert smoke.FWD_TF32_BLOCK_ROWS == 16 * int(warps)
+    elif constant == "fwd_block_keys":
+        cfg = _body(fwd, "struct Tf32Cfg {")
+        (cut, narrow, wide) = re.findall(
+            r"kBKv = D <= (\d+) \? (\d+) : (\d+);", cfg)[0]
+        assert smoke.FWD_TF32_BLOCK_KEYS == {
+            d: int(narrow) if d <= int(cut) else int(wide)
+            for d in smoke.BWD_HEAD_BUCKETS}
+    elif constant == "fwd_wide_head_dim":
+        (wide,) = re.findall(r"kHalves = D <= (\d+) \? 1 : 2;",
+                             _body(fwd, "struct Tf32Cfg {"))
+        assert smoke.FWD_TF32_WIDE_HEAD_DIM == int(wide)
+    elif constant == "ssd_buckets":
+        buckets = tuple(int(d) for d in re.findall(
+            r"if \(d <= (\d+)\) return launch<T, \1>",
+            _body(ssd, "cudaError_t launch_d(")))
+        (last,) = re.findall(r"return launch<T, (\d+)>\(p, flags, stream\);\n}",
+                             _body(ssd, "cudaError_t launch_d(") + "\n}")
+        (max_dim,) = re.findall(r"constexpr int kMaxDim = (\d+);", ssd)
+        assert smoke.SSD_BUCKETS == buckets + (int(last),)
+        assert smoke.SSD_BUCKETS[-1] == int(max_dim) == ops_ssd.MAX_DIM
+    else:
+        assert "const int Lp = (p.L + 15) / 16 * 16;" in ssd
+        assert "const int z0 = 16 * rt;" in ssd
+        assert smoke.SSD_ROW_TILE == 16

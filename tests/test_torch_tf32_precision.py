@@ -1,23 +1,35 @@
-"""Why the float32 backward kernels take three TF32 products a product.
+"""Why the float32 tensor-core kernels take three TF32 products a product.
 
 The float32 instances of the attention backward (``dq_kernel_tf32`` and
-``dkv_kernel_tf32`` in ``csrc/flash_attention_bwd.cu``) run every product
-on the tensor cores in TF32, whose operands keep 10 of float32's 23
-mantissa bits.  Each float32 operand x is split into x_hi = rna(x) and
-x_lo = rna(x − x_hi), rna rounding to nearest with ties away from zero on
-the 13 low mantissa bits, and a·b is taken as a_lo·b_hi + a_hi·b_lo +
-a_hi·b_hi (``csrc/tf32_tiles.cuh``).  The kernels cannot run here, so this
-file emulates their rounding on the CPU: the plain backward's formulas
-(those of ``ref.attention_bwd``: the scores, dP, dq, dk and dv products),
-each product taken on TF32-rounded operands in float32 (a product of two
-TF32 values is exact in float32), with three products and with one.
+``dkv_kernel_tf32`` in ``csrc/flash_attention_bwd.cu``), of the attention
+forward (``flash_fwd_kernel_tf32`` in ``csrc/flash_attention.cu``) and the
+SSD scan (``ssd_scan_kernel_mma`` in ``ssd_scan/csrc/ssd_scan.cu``) run
+their products on the tensor cores in TF32, whose operands keep 10 of
+float32's 23 mantissa bits.  Each float32 operand x is split into
+x_hi = rna(x) and x_lo = rna(x − x_hi), rna rounding to nearest with ties
+away from zero on the 13 low mantissa bits, and a·b is taken as
+a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (``kernels/common/csrc/tf32_tiles.cuh``).
+The kernels cannot run here, so this file emulates their rounding on the
+CPU: the plain versions' formulas, each product taken on TF32-rounded
+operands in float32 (a product of two TF32 values is exact in float32),
+with three products and with one — the forward's P·V summed a kv tile at a
+time into the rescaled O, as the kernel sums each tile in a fresh
+fragment; the SSD's C·Bᵀ exact for bfloat16 inputs (the kernel's bf16
+product), its other products in TF32 terms, a bfloat16 x, B or C being
+exactly TF32 (no lo half).
 
-Held to ``ATTN_BWD_TOL`` of ``chip_smoke.py`` — the tolerance the card's
-check holds the kernels to, 2e-5 of each gradient's largest entry — against
-the float32 plain version: three products stay within it, one does not.
-Shapes: the training path's (gemma-2b: 8 heads, 1 kv head, head dim 256,
-S 128) cut to one batch row, the ``--small`` model's local step (head dim
-32) and a windowed GQA shape at zamba2's head dim 80.
+Held to the tolerances the card's checks hold the kernels to
+(``chip_smoke.py``): the backward's ``ATTN_BWD_TOL``, 2e-5 of each
+gradient's largest entry; the forward's ``ATTN_TOL``, 1e-5·(1 + |o|) for o
+and 1e-5·(1 + |lse|) for lse; the SSD's ``SSD_TOL``, 2e-4 of the largest
+entry of y and of the state — against the float32 plain versions: three
+products stay within each, one does not (with bfloat16 SSD inputs, whose
+exact operands leave one side unrounded, at two of three shapes).
+Attention shapes: the training
+path's (gemma-2b: 8 heads, 1 kv head, head dim 256, S 128) cut to one
+batch row, the ``--small`` model's local step (head dim 32) and a windowed
+GQA shape at zamba2's head dim 80; SSD shapes: the small cases of
+``chip_smoke.SSD_SHAPES`` in both input types.
 """
 import importlib.util
 from pathlib import Path
@@ -28,6 +40,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [
@@ -38,12 +51,16 @@ SHAPES = [
 ]
 
 
-def _attn_bwd_tol() -> float:
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", ROOT / "chip_smoke.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.ATTN_BWD_TOL
+    return module
+
+
+def _attn_bwd_tol() -> float:
+    return _chip_smoke().ATTN_BWD_TOL
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -130,3 +147,168 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert torch.equal(tf32(x), want)
     lo = tf32(x - tf32(x))
     assert torch.equal(tf32(lo), lo)          # the residue is TF32 too
+
+
+# ---------------------------------------------------------------------------
+# the forward
+# ---------------------------------------------------------------------------
+
+def emulated_fwd(q, k, v, window, terms, block_keys):
+    """The plain forward's formulas as the float32 kernel orders them: q
+    scaled first (one float32 rounding), s = (q·scale)·kᵀ in TF32 terms,
+    hidden keys at −∞ with the row max starting at NEG_INF, then an online
+    softmax over kv tiles of ``block_keys`` keys, each tile's P·V (TF32
+    terms) added to the rescaled O."""
+    B, S, H, D = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
+    g = H // Hkv
+    qf = (q * D ** -0.5).reshape(B, S, Hkv, g, D)
+    s = product("bqhgd,bkhd->bhgqk", qf, k, terms)
+    s = torch.where(ref.visible(S, S, True, window), s, -torch.inf)
+    m = torch.full((B, Hkv, g, S), ref.NEG_INF)
+    l = torch.zeros(B, Hkv, g, S)
+    o = torch.zeros(B, Hkv, g, S, Dv)
+    for k0 in range(0, S, block_keys):
+        st = s[..., k0:k0 + block_keys]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        o = alpha[..., None] * o + product(
+            "bhgqk,bkhd->bhgqd", p, v[:, k0:k0 + block_keys], terms)
+        m = m_new
+    l = torch.clamp_min(l, 1e-30)
+    o = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv)
+    return o, (m + torch.log(l)).reshape(B, H, S)
+
+
+def _fwd_misses(shape, terms):
+    """(o, lse): the largest |emulated − plain| over its ATTN_TOL[float32]
+    allowance, 1e-5·(1 + |plain|)."""
+    smoke = _chip_smoke()
+    tol = smoke.ATTN_TOL[torch.float32]
+    B, S, H, Hkv, D, window = shape
+    rng = np.random.default_rng(S + D + H + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32))
+               for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want_o, want_lse = ref.attention_fwd(q, k, v, causal=True,
+                                         window=window)
+    bucket = min(b for b in smoke.BWD_HEAD_BUCKETS if b >= D)
+    got_o, got_lse = emulated_fwd(q, k, v, window, terms,
+                                  smoke.FWD_TF32_BLOCK_KEYS[bucket])
+    return [float(((g - w).abs() / (tol * (1 + w.abs()))).max())
+            for g, w in ((got_o, want_o), (got_lse, want_lse))]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["train", "small", "gqa80"])
+def test_three_tf32_products_hold_the_forward_tolerance(shape):
+    misses = _fwd_misses(shape, terms=3)
+    assert max(misses) <= 1.0, dict(zip(("o", "lse"), misses))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["train", "small", "gqa80"])
+def test_one_tf32_product_misses_the_forward_tolerance(shape):
+    misses = _fwd_misses(shape, terms=1)
+    assert min(misses) > 1.0, dict(zip(("o", "lse"), misses))
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan
+# ---------------------------------------------------------------------------
+
+def emulated_ssd(x, dt, A, B, C, chunk, terms):
+    """``ssd_ref.ssd_chunked``'s formulas with the kernel's products: C·Bᵀ
+    exact in float32 for bfloat16 inputs (one bf16 product), else in TF32
+    terms; y's diagonal term W·xdt and ΔS = xdtᵀ·(w ∘ B) in TF32 terms —
+    for bfloat16 inputs as (W ∘ dt)·x and (x ∘ dt·w)ᵀ·B, x and B exactly
+    TF32 — and C·S_{c−1}ᵀ; exp(cum) applied after C·S_{c−1}ᵀ, the
+    recurrence over the chunks in float32."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    L = min(chunk, l)
+    c = l // L
+    rep = h // g
+    xb = (x.float() * dt[..., None]).reshape(b, c, L, h, p)
+    dA = (dt * A[None, None, :]).reshape(b, c, L, h).permute(0, 1, 3, 2)
+    Bc = B.reshape(b, c, L, g, n).repeat_interleave(rep, dim=3).float()
+    Cc = C.reshape(b, c, L, g, n).repeat_interleave(rep, dim=3).float()
+    cum = torch.cumsum(dA, dim=-1)                            # (b,c,h,L)
+    lmat = torch.exp(ssd_ref._segsum(dA))
+    w = torch.exp(cum[..., -1:] - cum).permute(0, 1, 3, 2)    # (b,c,L,h)
+    if x.dtype == torch.bfloat16:
+        xr = x.float().reshape(b, c, L, h, p)
+        dtc = dt.reshape(b, c, L, h)
+        cb = torch.einsum("bczhn,bcshn->bchzs", Cc, Bc)
+        wdt = cb * lmat * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+        y = product("bchzs,bcshp->bczhp", wdt, xr, terms)
+        s_chunk = product("bcshp,bcshn->bchpn", xr * (dtc * w)[..., None],
+                          Bc, terms)
+    else:
+        cb = product("bczhn,bcshn->bchzs", Cc, Bc, terms)
+        y = product("bchzs,bcshp->bczhp", cb * lmat, xb, terms)
+        s_chunk = product("bcshp,bcshn->bchpn", xb, Bc * w[..., None],
+                          terms)
+    decay = torch.exp(cum[..., -1])
+    S = torch.zeros(b, h, p, n)
+    for ci in range(c):
+        if ci:
+            off = product("bzhn,bhpn->bzhp", Cc[:, ci], S, terms)
+            y[:, ci] += torch.exp(cum[:, ci]).permute(0, 2, 1)[..., None] * off
+        S = s_chunk[:, ci] + decay[:, ci, :, None, None] * S
+    return y.reshape(b, l, h, p), S
+
+
+SSD_SMALL = [(2, 64, 4, 16, 2, 8, 16), (1, 77, 4, 16, 2, 8, 128),
+             (1, 256, 4, 128, 1, 128, 128)]
+
+
+def _ssd_errors(shape, dtype, terms):
+    """y's and the state's largest |emulated − plain| over their largest
+    |plain| entry (chip_smoke's phase 9 measure)."""
+    b, l, h, p, g, n, chunk = shape
+    rng = np.random.default_rng(l + p + n)
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)))
+    A = -torch.exp(0.5 * torch.from_numpy(rng.standard_normal(h, np.float32)))
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, g, n), np.float32))
+            .to(dtype) for _ in range(2))
+    x = x.to(dtype)
+    want = ssd_ref.ssd_chunked(x, dt, A, B, C, chunk)
+    got = emulated_ssd(x, dt, A, B, C, chunk, terms)
+    return [float((gt - w).abs().max() / w.abs().max())
+            for gt, w in zip(got, want)]
+
+
+def test_ssd_small_shapes_are_chip_smokes():
+    assert all(shape in _chip_smoke().SSD_SHAPES for shape in SSD_SMALL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SMALL, ids=["chunks4", "ragged77",
+                                                  "pn128"])
+def test_three_tf32_products_hold_the_ssd_tolerance(shape, dtype):
+    errors = _ssd_errors(shape, dtype, terms=3)
+    assert max(errors) <= _chip_smoke().SSD_TOL, dict(zip(("y", "state"),
+                                                          errors))
+
+
+@pytest.mark.parametrize("shape", SSD_SMALL, ids=["chunks4", "ragged77",
+                                                  "pn128"])
+def test_one_tf32_product_misses_the_ssd_tolerance(shape):
+    errors = _ssd_errors(shape, torch.float32, terms=1)
+    assert max(errors) > _chip_smoke().SSD_TOL, dict(zip(("y", "state"),
+                                                         errors))
+
+
+def test_one_tf32_product_misses_the_ssd_tolerance_with_bf16_inputs():
+    """With bfloat16 inputs one operand of every product is exact (x, B
+    or C), so a single TF32 product rounds only the other: it still misses
+    SSD_TOL at two of the three shapes (and lands at ~0.95 of it at the
+    ragged 77), where three stay ~1000× inside."""
+    tol = _chip_smoke().SSD_TOL
+    one = {shape: max(_ssd_errors(shape, torch.bfloat16, terms=1))
+           for shape in SSD_SMALL}
+    assert sum(err > tol for err in one.values()) >= 2, one
+    assert min(one.values()) > 0.5 * tol, one
