@@ -210,10 +210,8 @@ class ModelConfig:
 
 
 # Names of the registries the port has not brought over yet; FedConfig
-# checks against these copies until the registries come (ROADMAP A6, A8,
+# checks against these copies until the registries come (ROADMAP A8,
 # A10).  Each mirrors the reference registry named beside it.
-SAMPLERS = ("all", "availability", "round_robin", "uniform",
-            "weighted")                        # repro.fed.population.SAMPLERS
 SCENARIOS = ("baseline", "diurnal", "dropout", "flaky", "garbage",
              "inf_inject", "nan_inject", "scale_attack", "sign_flip",
              "spike", "trace")                 # repro.fed.scenarios.SCENARIOS
@@ -244,7 +242,7 @@ class FedConfig:
     speed_dist: Literal["fixed", "uniform", "lognormal", "bimodal"] = "lognormal"
     speed_sigma: float = 0.5
     comm_latency: float = 0.0
-    # -- partial participation (not ported: ROADMAP A6) ---------------------
+    # -- partial participation (fed/population.py; synchronous rounds) ----
     cohort_size: int = 0
     cohort_sampler: Literal["all", "uniform", "weighted", "availability",
                             "round_robin"] = "all"
@@ -287,6 +285,7 @@ class FedConfig:
         from repro_torch.core.compress import COMPRESSORS
         from repro_torch.core.fedopt import ALGORITHMS
         from repro_torch.core.stages import SERVER_OPTIMIZERS
+        from repro_torch.fed.population import SAMPLERS
 
         def _check(field: str, value, valid) -> None:
             if value not in valid:

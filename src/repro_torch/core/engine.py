@@ -1,5 +1,6 @@
 """Chunked execution (``repro.core.engine`` counterpart): R rounds per host
-sync.  The reference fuses the chunk into one jitted ``lax.scan``; PyTorch
+sync, for full participation (``make_round_chunk``) and for cohort rounds
+(``make_population_chunk``).  The reference fuses the chunk into one jitted ``lax.scan``; PyTorch
 runs eagerly, so the chunk is a Python loop over the unmodified round that
 never reads a device value, and the host waits for the device only where
 the caller reads the metrics.  (Capturing the chunk in a CUDA graph is a
@@ -44,6 +45,52 @@ def make_round_chunk(round_fn: Callable, r: int,
                 state, metrics = round_fn(
                     state, {key: v[j] for key, v in batches.items()},
                     k_steps[j], weights[j], lam[j])
+                per_round.append(metrics)
+        except BaseException:
+            if donate:
+                given.update(state)
+            raise
+        return state, {key: torch.stack([mt[key] for mt in per_round])
+                       for key in per_round[0]}
+
+    return chunk_fn
+
+
+def make_population_chunk(round_fn: Callable, r: int,
+                          donate: bool = False) -> Callable:
+    """``chunk_fn(state, batches, cohorts, k_steps, cweights, lam) ->
+    (state, metrics)`` running ``r`` cohort rounds
+    (``flat.make_flat_cohort_round``) on cohorts drawn on the host.
+
+    Every input is stacked per round: ``batches`` holds ``(r, C, k_max,
+    …)`` tensors, ``cohorts`` is ``(r, C)`` int64, ``k_steps`` ``(r, C)``,
+    ``cweights`` ``(r, C)`` and ``lam`` a sequence of ``r`` host floats;
+    each metric comes back as an ``(r,)`` device tensor.  A chunk of r
+    rounds is the same computation as r ``round_fn`` calls.
+
+    ``donate=True`` hands the state over as ``make_round_chunk``'s does
+    (the given dict is emptied, and refilled with the last finished
+    round's state if a round raises), and each round then updates the
+    population-sized ν⁽ⁱ⁾ store in place.  (The reference's device mode,
+    cohorts and batches drawn inside the chunk, needs a device batcher:
+    ROADMAP A5.)"""
+    def chunk_fn(state: dict, batches: dict, cohorts: torch.Tensor,
+                 k_steps: torch.Tensor, cweights: torch.Tensor,
+                 lam: Sequence[float]):
+        if cohorts.shape[0] != r:
+            raise ValueError(f"chunk built for {r} rounds, got "
+                             f"{cohorts.shape[0]}")
+        given = state
+        if donate:
+            state = dict(given)
+            given.clear()
+        per_round = []
+        try:
+            for j in range(r):
+                state, metrics = round_fn(
+                    state, {key: v[j] for key, v in batches.items()},
+                    cohorts[j], k_steps[j], cweights[j], lam[j],
+                    donate=donate)
                 per_round.append(metrics)
         except BaseException:
             if donate:

@@ -320,3 +320,79 @@ def make_flat_round(spec: FlatSpec,
         return new_state, metrics
 
     return round_fn
+
+
+# ---------------------------------------------------------------------------
+# composition: the flat cohort round (partial participation)
+# ---------------------------------------------------------------------------
+
+def make_flat_cohort_round(spec: FlatSpec,
+                           loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                           algo: Algorithm, *, lr: float, k_max: int,
+                           nu_decay: float = 0.0, compression=None,
+                           robust=None, attack=None):
+    """``round_fn(state, batches, cohort, k_steps, cweights, lam=None, *,
+    donate=False) -> (state, metrics)``: one round of a sampled cohort of
+    C clients over population-sized state (``nu_i`` is ``(M, P)``).
+
+    ``batches`` holds ``(C, k_max, B, …)`` tensors, ``cohort`` the ``(C,)``
+    int64 client ids, ``k_steps`` ``(C,)`` integer and ``cweights`` the
+    ``(C,)`` float32 renormalized weights w̃ (fed/population.py), all on
+    the state's device.  The round gathers the cohort's ν⁽ⁱ⁾ rows into a
+    fresh ``(C, P)`` correction, runs the local steps on the ``(C, P)``
+    rows (one calibrated-update launch per step), aggregates in
+    pseudo-delta form with w̃, takes the server step, mass-mixes ν with
+    ρ = min(Σw̃, 1), and writes the cohort's fresh rows back into the
+    store (the rest decay toward ν at ``nu_decay``).
+
+    ``donate=True``: the caller hands the state over (a chunk that owns
+    it, or a simulation replacing its own), and the ν⁽ⁱ⁾ store is updated
+    in place instead of copied whole.  Compression, robust aggregation and
+    payload attacks on the cohort round raise ``NotImplementedError``."""
+    for given, what in ((compression, "wire compression on the cohort "
+                                      "round (ROADMAP A9)"),
+                        (robust, "robust aggregation (ROADMAP A10)"),
+                        (attack, "payload attacks (ROADMAP A8)")):
+        if given is not None:
+            raise NotImplementedError(f"the PyTorch port does not run {what}"
+                                      f" yet")
+    client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
+                                            k_max=k_max)
+    aggregate = stages.BUFFERED_AGGREGATORS[algo.aggregator]
+
+    def round_fn(state: dict, batches: dict, cohort: torch.Tensor,
+                 k_steps: torch.Tensor, cweights: torch.Tensor,
+                 lam: Optional[float] = None, *, donate: bool = False):
+        if lam is None:
+            lam = algo.lam
+        params0 = state["params"]                          # (P,)
+        kf = k_steps.float()
+        mass = cweights.sum()
+        kbar = torch.dot(cweights, kf) / mass
+        new_state = dict(state)
+
+        # a fresh contiguous (C, P) correction, never a view of the store
+        c_all = (state["nu"][None] - state["nu_i"].index_select(0, cohort)
+                 if algo.uses_nu else None)
+        x_i, g0_i, loss0 = client_update(params0, c_all, batches, k_steps,
+                                         lam)
+        agg = aggregate(params0, params0[None], x_i, kf, cweights, kbar)
+        new_state["params"] = stages.server_update(algo, state, params0, agg,
+                                                   new_state)
+        new_state["round"] = state["round"] + 1
+
+        if algo.uses_nu:
+            transmit, avg_g = stages.orientation_transmit(
+                algo, params0, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            new_nu = stages.nu_mass_mix(state["nu"],
+                                        tree_wsum(cweights, transmit), mass)
+            new_state["nu"] = new_nu
+            new_state["nu_i"] = stages.scatter_nu_rows(
+                state["nu_i"], new_nu, avg_g, cohort, nu_decay,
+                in_place=donate)
+
+        metrics = {"loss": torch.dot(cweights, loss0) / mass, "kbar": kbar,
+                   "mass": mass}
+        return new_state, metrics
+
+    return round_fn

@@ -43,6 +43,71 @@ AGGREGATORS: dict[str, Callable] = {
 }
 
 
+def buffered_mean(params: torch.Tensor, anchor_i: torch.Tensor,
+                  x_i: torch.Tensor, kf: torch.Tensor,
+                  sweights: torch.Tensor, kbar: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pseudo-delta average  x + Σ_i w̃_i (x⁽ⁱ⁾ − anchorᵢ)  over ``(C, P)``
+    rows (``anchor_i`` ``(C, P)`` or ``(1, P)``).  The weights are not
+    renormalized: with Σ w̃ = 1 this is the synchronous weighted
+    average."""
+    deltas = x_i.float() - anchor_i.float()
+    return (params.float() + torch.tensordot(sweights, deltas, dims=1)
+            ).to(params.dtype)
+
+
+def buffered_fednova(params: torch.Tensor, anchor_i: torch.Tensor,
+                     x_i: torch.Tensor, kf: torch.Tensor,
+                     sweights: torch.Tensor, kbar: torch.Tensor
+                     ) -> torch.Tensor:
+    """Pseudo-delta FedNova:  x + K̄ Σ_i w̃_i (x⁽ⁱ⁾ − anchorᵢ)/K_i."""
+    deltas = (x_i.float() - anchor_i.float()) / expand(kf, x_i)
+    return (params.float() + kbar * torch.tensordot(sweights, deltas,
+                                                    dims=1)
+            ).to(params.dtype)
+
+
+BUFFERED_AGGREGATORS: dict[str, Callable] = {
+    "mean": buffered_mean,
+    "fednova": buffered_fednova,
+}
+
+
+def nu_mass_mix(nu: torch.Tensor, contrib: torch.Tensor,
+                mass: torch.Tensor) -> torch.Tensor:
+    """ν ← (1 − ρ) ν + (ρ/Σw̃)·Σ w̃ transmitᵢ with ρ = min(Σw̃, 1): keep ρ of
+    the new signal, renormalized, so the mix stays convex when duplicate
+    ids or Horvitz–Thompson weights push Σw̃ past 1; at Σw̃ = 1 it is the
+    synchronous ν."""
+    rho = torch.clamp(mass, max=1.0)
+    return ((1.0 - rho) * nu.float() + (rho / mass) * contrib.float()
+            ).to(nu.dtype)
+
+
+def scatter_nu_rows(nu_i: torch.Tensor, new_nu: torch.Tensor,
+                    avg_g: torch.Tensor, ids: torch.Tensor,
+                    nu_decay: float = 0.0, *,
+                    in_place: bool = False) -> torch.Tensor:
+    """Write the participants' fresh ν̄⁽ⁱ⁾ rows into the population-sized
+    ``(M, P)`` store; the other rows first decay toward the new ν at
+    ``nu_decay`` per round (their correction ν − ν⁽ⁱ⁾ → 0; 0 keeps them
+    frozen).  ``ids`` is an int64 index tensor; a repeated id carries the
+    same row each time, so the write order does not matter.
+
+    ``in_place=True`` updates ``nu_i`` itself (``lerp_`` only when
+    ``nu_decay > 0``, then ``index_copy_`` of the C rows) and returns it:
+    for a caller that owns the state, whose store would otherwise be
+    copied whole every round."""
+    rows = avg_g.to(nu_i.dtype)
+    if in_place:
+        if nu_decay:
+            nu_i.lerp_(new_nu.to(nu_i.dtype), nu_decay)
+        return nu_i.index_copy_(0, ids, rows)
+    out = (torch.lerp(nu_i, new_nu.to(nu_i.dtype), nu_decay) if nu_decay
+           else nu_i.clone())
+    return out.index_copy_(0, ids, rows)
+
+
 # ---------------------------------------------------------------------------
 # orientation (transmit selection)
 # ---------------------------------------------------------------------------

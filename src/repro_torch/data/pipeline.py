@@ -6,10 +6,14 @@ numpy stream ``default_rng((seed, t))`` — the same stream as
 ``repro.data.pipeline.FederatedBatcher``, so round ``t``'s batches are
 bit-identical in both packages.  Rows are gathered on the host and moved to
 the device once per round (``round_batches``) or once per chunk of rounds
-(``chunk_batches``).  ``LMFederatedBatcher`` does the same over per-client
-token streams (``repro.data.pipeline.LMFederatedBatcher``, bit-identical
-given the same streams).  The cohort methods wait for partial
-participation (ROADMAP A6) and the device-side samplers for A5.
+(``chunk_batches``).  Under partial participation each client draws from
+its own stream ``default_rng((seed, t, i))`` (``client_indices``), so its
+batches are the same whichever cohort it lands in, and only the cohort's
+rows are gathered (``cohort_batches``, ``chunk_cohort_batches``).
+``LMFederatedBatcher`` does the same over per-client token streams
+(``repro.data.pipeline.LMFederatedBatcher``, bit-identical given the same
+streams).  The device-side samplers (``DeviceBatcher``) wait for ROADMAP
+A5.
 """
 from __future__ import annotations
 
@@ -61,6 +65,37 @@ class FederatedBatcher:
         bit-identical to ``round_batches(t, k_max)``."""
         return self._gather(np.stack([self.round_indices(t0 + j, k_max)
                                       for j in range(r)]))
+
+    # -- cohort-indexed sampling (partial participation) ---------------------
+
+    def client_indices(self, t: int, i: int, k_max: int) -> np.ndarray:
+        """(k_max, B) dataset rows for client ``i``'s round-``t`` draw from
+        its own ``(seed, t, i)`` stream."""
+        rng = np.random.default_rng((self.seed, t, i))
+        part = self.parts[i]
+        return part[rng.integers(0, len(part), (k_max, self.batch_size))]
+
+    def cohort_indices(self, t: int, cohort: np.ndarray,
+                       k_max: int) -> np.ndarray:
+        """(C, k_max, B) rows for the sampled cohort only — O(C), not
+        O(M)."""
+        return np.stack([self.client_indices(t, int(i), k_max)
+                         for i in cohort])
+
+    def cohort_batches(self, t: int, cohort: np.ndarray, k_max: int
+                       ) -> dict:
+        """(C, k_max, B, …) feature/label tensors of round ``t``'s
+        cohort."""
+        return self._gather(self.cohort_indices(t, cohort, k_max))
+
+    def chunk_cohort_batches(self, t0: int, cohorts: np.ndarray,
+                             k_max: int) -> dict:
+        """(R, C, k_max, B, …) stacked cohort rounds; ``cohorts`` is the
+        (R, C) id matrix of rounds ``t0 … t0+R-1``.  One gather and one
+        host→device transfer per chunk."""
+        return self._gather(np.stack(
+            [self.cohort_indices(t0 + j, cohorts[j], k_max)
+             for j in range(cohorts.shape[0])]))
 
 
 class LMFederatedBatcher:

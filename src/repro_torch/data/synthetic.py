@@ -6,6 +6,13 @@ numpy, so fed the same integer seed it gives the same bits as
 ``repro.data.synthetic.fedprox_synthetic`` — which derives that integer from
 a ``jax.random`` key; here the caller passes it directly.
 
+``quadratic_clients`` draws the per-client quadratics of the Theorem-1/3
+checks with numpy from an integer seed, bit for bit as the reference does
+from the integer it takes from its key.  ``gaussian_classification`` and
+``image_classification`` (the a9a / Fashion-MNIST stand-ins) draw from an
+explicit ``torch.Generator``: they follow the reference's law, not its
+``jax.random`` stream, so parity tests pass the reference's arrays in.
+
 ``token_stream`` / ``lm_sequences`` are the federated LM task's Zipf token
 streams with a per-client topic band, the reference's law drawn from a
 numpy seed: ``jax.random.choice`` has no numpy or torch twin, so the
@@ -69,6 +76,54 @@ def fedprox_synthetic(seed: int, m: int, alpha: float = 1.0,
     data = Dataset(x=torch.from_numpy(np.concatenate(xs)),
                    y=torch.from_numpy(np.concatenate(ys)))
     return data, parts
+
+
+def gaussian_classification(generator: torch.Generator, n: int,
+                            d: int = 32, n_classes: int = 10,
+                            sep: float = 2.0, noise: float = 1.0
+                            ) -> Dataset:
+    """Gaussian blobs: class c centred at sep·μ_c, unit covariance.  Drawn
+    on the generator's device; the dataset is returned on the host."""
+    dev = generator.device
+    mus = torch.randn(n_classes, d, generator=generator, device=dev) * sep
+    y = torch.randint(0, n_classes, (n,), generator=generator, device=dev)
+    x = mus[y] + torch.randn(n, d, generator=generator, device=dev) * noise
+    return Dataset(x=x.cpu(), y=y.to(torch.int32).cpu())
+
+
+def image_classification(generator: torch.Generator, n: int,
+                         n_classes: int = 10, side: int = 28,
+                         noise: float = 0.35) -> Dataset:
+    """Class-templated grey-scale images ``(n, side, side, 1)`` (NHWC, as
+    the reference's), templates in (0, 1).  Drawn on the generator's
+    device; the dataset is returned on the host."""
+    dev = generator.device
+    templates = torch.sigmoid(2.0 * torch.randn(
+        n_classes, side, side, 1, generator=generator, device=dev))
+    y = torch.randint(0, n_classes, (n,), generator=generator, device=dev)
+    x = templates[y] + torch.randn(n, side, side, 1, generator=generator,
+                                   device=dev) * noise
+    return Dataset(x=x.cpu(), y=y.to(torch.int32).cpu())
+
+
+def quadratic_clients(seed: int, m: int, d: int = 16, hetero: float = 1.0,
+                      cond: float = 4.0):
+    """Per-client F_i(x) = ½‖A_i x − b_i‖².
+
+    ``hetero`` scales the spread of the per-client optima x*_i (0 ⇒ IID:
+    identical b_i); ``cond`` the condition-number spread of A_i.  Returns
+    (As (m, d, d), bs (m, d)) float32 numpy arrays for core/theory.py."""
+    rng = np.random.default_rng(seed)
+    As, bs = [], []
+    b_common = rng.normal(size=d)
+    for _ in range(m):
+        q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+        eig = np.exp(rng.uniform(0.0, np.log(cond), size=d))
+        A = q * np.sqrt(eig)                       # AᵀA = QΛQᵀ
+        b = b_common + hetero * rng.normal(size=d)
+        As.append(A.astype(np.float32))
+        bs.append(b.astype(np.float32))
+    return np.stack(As), np.stack(bs)
 
 
 def token_probs(vocab: int, skew_topic: Optional[int] = None,

@@ -8,12 +8,21 @@ eval cadence sets the default chunk size, and ``chunk_rounds=1`` is the
 per-round path.  A chunk computes exactly what the same rounds computed one
 by one.
 
-The port runs full participation on the flat layout with no scenario or
-defense, with or without wire compression (core/compress.py); a config
-asking for anything else raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.  Every run records the wire bytes per round
-(``History.bytes_up`` / ``bytes_down``), at the fp32 cost when compression
-is off.
+Partial participation (fed/population.py): with ``cohort_size < M`` each
+round runs a cohort of C clients drawn on the host from ``(seed, t)``
+(``make_flat_cohort_round``), its batches gathered for the cohort only,
+while the ν⁽ⁱ⁾ store stays population-sized on the device; the run owns its
+state, so rounds update that store in place.  A chunk of cohort rounds
+(``engine.make_population_chunk``) computes exactly what its rounds
+computed one by one.
+
+The port runs the flat layout with no scenario or defense; full
+participation with or without wire compression (core/compress.py), cohort
+rounds without.  A config asking for anything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  Every run
+records the wire bytes per round (``History.bytes_up`` / ``bytes_down``) at
+the number of clients that report, at the fp32 cost when compression is
+off.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.core import compress, engine, flat, rounds
 from repro_torch.core.fedopt import get_algorithm
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
+from repro_torch.fed.population import ClientPopulation
 
 PyTree = Any
 
@@ -50,9 +60,6 @@ def _check_supported(fed: FedConfig) -> None:
         (fed.param_layout != "flat",
          f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
          f"tree layout is ROADMAP A2)"),
-        (fed.cohort_sampler != "all"
-         or fed.cohort_size not in (0, fed.n_clients),
-         "partial participation (cohort_size/cohort_sampler, ROADMAP A6)"),
         (fed.buffer_size > 0,
          "buffered asynchronous rounds (buffer_size, ROADMAP A7)"),
         (fed.scenario != "baseline",
@@ -79,6 +86,8 @@ class History:
     # fp32 cost when compression is off, so runs compare directly
     bytes_up: list[float] = dataclasses.field(default_factory=list)
     bytes_down: list[float] = dataclasses.field(default_factory=list)
+    # cohort rounds: the cohort's weight mass Σ w̃ per round
+    mass: list[float] = dataclasses.field(default_factory=list)
 
     def rounds_to_target(self, target: float, higher_is_better=True
                          ) -> Optional[int]:
@@ -104,7 +113,8 @@ class FederatedSimulation:
 
     ``params`` is the model tree (dicts and lists of tensors: a paper
     model's dict or an LM's ``{"segments": [...], …}``); ``batcher`` a
-    ``FederatedBatcher`` or ``LMFederatedBatcher`` on the same device."""
+    ``FederatedBatcher`` or ``LMFederatedBatcher`` on the same device
+    (cohort rounds need the former's cohort methods)."""
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  params: PyTree, fed: FedConfig, batcher,
@@ -146,6 +156,20 @@ class FederatedSimulation:
         self._loss_fn = loss_fn
         self._round: Optional[Callable] = None
         self._chunks: dict[int, Callable] = {}
+        # partial participation: sampler "all" (or no population) stays on
+        # the full-participation round
+        self.population = ClientPopulation.from_config(
+            fed, m=fed.n_clients, weights=self.weights.cpu().numpy())
+        self._partial = (self.population is not None
+                         and not self.population.full_participation)
+        if self._partial and self.compression is not None:
+            raise NotImplementedError(
+                "the PyTorch port does not run wire compression on the "
+                "cohort round (compressor/broadcast_compressor with "
+                "cohort_size, ROADMAP A9) yet")
+        if self._partial and not hasattr(batcher, "cohort_batches"):
+            raise ValueError("cohort rounds need a batcher with cohort "
+                             "methods (FederatedBatcher)")
 
     def _build_round(self) -> Callable:
         return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
@@ -166,13 +190,29 @@ class FederatedSimulation:
                                                       donate=True)
         return self._chunks[r]
 
+    def _pop_round_fn(self) -> Callable:
+        if self._round is None:
+            self._round = flat.make_flat_cohort_round(
+                self._spec, self._loss_fn, self.algo, lr=self.fed.lr,
+                k_max=self.k_max, nu_decay=self.fed.cohort_nu_decay)
+        return self._round
+
+    def _pop_chunk_fn(self, r: int) -> Callable:
+        if r not in self._chunks:
+            self._chunks[r] = engine.make_population_chunk(
+                self._pop_round_fn(), r, donate=True)
+        return self._chunks[r]
+
     def _lam(self, t: int) -> float:
         return (float(self.lam_schedule(t)) if self.lam_schedule
                 else self.algo.lam)
 
+    def _sched_row(self, t: int) -> np.ndarray:
+        return np.asarray(self.k_schedule[t % len(self.k_schedule)])
+
     def _k_row(self, t: int) -> torch.Tensor:
-        return torch.as_tensor(self.k_schedule[t % len(self.k_schedule)],
-                               dtype=torch.int32, device=self.device)
+        return torch.as_tensor(self._sched_row(t), dtype=torch.int32,
+                               device=self.device)
 
     def _sync(self) -> None:
         """End of a timed region: wait for the device's work (the
@@ -180,11 +220,13 @@ class FederatedSimulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _record_bytes(self, hist: History, r: int) -> None:
-        """Wire traffic of r rounds with every client reporting."""
-        m = self.fed.n_clients
-        hist.bytes_up.extend([m * self._wire["uplink_per_client"]] * r)
-        hist.bytes_down.extend([m * self._wire["downlink_per_client"]] * r)
+    def _record_bytes(self, hist: History, r: int, participants: int
+                      ) -> None:
+        """Wire traffic of r rounds of ``participants`` reports each."""
+        hist.bytes_up.extend(
+            [participants * self._wire["uplink_per_client"]] * r)
+        hist.bytes_down.extend(
+            [participants * self._wire["downlink_per_client"]] * r)
 
     def _run_round(self, t: int, hist: History) -> None:
         """The chunk_rounds=1 path: one round, one host sync."""
@@ -199,7 +241,7 @@ class FederatedSimulation:
         hist.wall.append(time.perf_counter() - t0)
         hist.loss.append(float(metrics["loss"]))
         hist.kbar.append(float(metrics["kbar"]))
-        self._record_bytes(hist, 1)
+        self._record_bytes(hist, 1, self.fed.n_clients)
 
     def _run_chunk(self, t0: int, r: int, hist: History) -> None:
         chunk_fn = self._chunk_fn(r)
@@ -215,7 +257,55 @@ class FederatedSimulation:
         hist.loss.extend(metrics["loss"].double().tolist())
         hist.kbar.extend(metrics["kbar"].double().tolist())
         hist.wall.extend([dt / r] * r)
-        self._record_bytes(hist, r)
+        self._record_bytes(hist, r, self.fed.n_clients)
+
+    # -- partial participation ------------------------------------------------
+
+    def _on_device(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            dtype=dtype, device=self.device)
+
+    def _run_pop_round(self, t: int, hist: History) -> None:
+        """The chunk_rounds=1 cohort path: one round, one host sync."""
+        lam = self._lam(t)
+        round_fn = self._pop_round_fn()
+        ids, cw = self.population.host_cohort(t)
+        k_c = self._sched_row(t)[ids]
+        batches = self.batcher.cohort_batches(t, ids, self.k_max)
+        t0 = time.perf_counter()
+        # the run owns its state: the ν⁽ⁱ⁾ store is updated in place
+        self.state, metrics = round_fn(
+            self.state, batches, self._on_device(ids, torch.int64),
+            self._on_device(k_c, torch.int32),
+            self._on_device(cw, torch.float32), lam, donate=True)
+        self._sync()
+        hist.wall.append(time.perf_counter() - t0)
+        hist.loss.append(float(metrics["loss"]))
+        hist.kbar.append(float(metrics["kbar"]))
+        hist.mass.append(float(metrics["mass"]))
+        self._record_bytes(hist, 1, self.population.cohort_size)
+
+    def _run_pop_chunk(self, t0: int, r: int, hist: History) -> None:
+        chunk_fn = self._pop_chunk_fn(r)
+        drawn = [self.population.host_cohort(t0 + j) for j in range(r)]
+        cohorts = np.stack([ids for ids, _ in drawn])
+        cws = np.stack([w for _, w in drawn])
+        ks = np.stack([self._sched_row(t0 + j)[cohorts[j]]
+                       for j in range(r)])
+        batches = self.batcher.chunk_cohort_batches(t0, cohorts, self.k_max)
+        lams = [self._lam(t0 + j) for j in range(r)]
+        tic = time.perf_counter()
+        self.state, metrics = chunk_fn(
+            self.state, batches, self._on_device(cohorts, torch.int64),
+            self._on_device(ks, torch.int32),
+            self._on_device(cws, torch.float32), lams)
+        self._sync()
+        dt = time.perf_counter() - tic
+        hist.loss.extend(metrics["loss"].double().tolist())
+        hist.kbar.extend(metrics["kbar"].double().tolist())
+        hist.mass.extend(metrics["mass"].double().tolist())
+        hist.wall.extend([dt / r] * r)
+        self._record_bytes(hist, r, self.population.cohort_size)
 
     def run(self, t_rounds: int, eval_every: int = 1,
             verbose: bool = False,
@@ -238,7 +328,11 @@ class FederatedSimulation:
             r = min(chunk, t_rounds - t)
             if self.eval_fn is not None:
                 r = min(r, eval_every - t % eval_every)
-            if r == 1:
+            if self._partial and r == 1:
+                self._run_pop_round(t, hist)
+            elif self._partial:
+                self._run_pop_chunk(t, r, hist)
+            elif r == 1:
                 self._run_round(t, hist)
             else:
                 self._run_chunk(t, r, hist)

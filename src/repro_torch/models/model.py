@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree_util import tree_map
+from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (apply_block, init_block,
                                        init_block_cache)
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
@@ -110,8 +111,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: Union[str, torch.dtype, None] = None,
                 device=None) -> list:
+    """Empty caches on ``device`` (``None``: the card; it raises where
+    there is none)."""
     check_supported(cfg)
     dt = _dtype(cfg, dtype)
+    device = resolve_device(device)
     segments, n_groups = group_spec(cfg)
     return [init_block_cache(kind, cfg, batch, max_len, dt, device,
                              lead=(n_groups, count))

@@ -9,7 +9,15 @@ one more round per algorithm with ``torch.profiler`` and prints one JSON
 line each: the round's host wall time, the device's busy time (the union
 of kernel intervals) and idle share, kernel launches per local step, the
 calibrated-update kernels' device time, and the kernels by device time.
-Needs a CUDA device.
+
+    PYTHONPATH=src python -m repro_torch.roofline.round_profile \
+        --population 100000
+
+profiles a chunk of cohort rounds instead: FedaGrac on a population of
+that many clients, a uniform cohort of 8 a round, K 4, batch 16, the same
+mlp over Gaussian-blob data at 2 samples a client (the population bench's
+setting, chip_smoke.py phase 11), one warm chunk of 12 rounds, then one
+profiled chunk; the line reports per round.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -68,6 +76,12 @@ def profile_round(algorithm: str, top: int = 8) -> dict:
         round_fn(state, batches[1], k_t, weights, 1.0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - tic) * 1e6
+    return {"algorithm": algorithm,
+            **_breakdown(prof, wall_us, K_MAX, 1, top)}
+
+
+def _breakdown(prof, wall_us: float, steps: int, rounds_: int,
+               top: int) -> dict:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name: dict[str, list] = defaultdict(lambda: [0, 0.0])
     for e in kernels:
@@ -75,25 +89,80 @@ def profile_round(algorithm: str, top: int = 8) -> dict:
         by_name[e.name][1] += e.time_range.end - e.time_range.start
     busy = _busy_us([(e.time_range.start, e.time_range.end)
                      for e in kernels])
-    return {"algorithm": algorithm, "device": torch.cuda.get_device_name(0),
-            "round_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"device": torch.cuda.get_device_name(0),
+            "round_wall_ms": wall_us / 1e3 / rounds_,
+            "device_busy_ms": busy / 1e3 / rounds_,
             "device_idle_share": 1.0 - busy / wall_us,
-            "kernel_launches": len(kernels),
-            "launches_per_local_step": len(kernels) / K_MAX,
+            "kernel_launches_per_round": len(kernels) / rounds_,
+            "launches_per_local_step": len(kernels) / steps,
             "calibrated_update_ms": sum(
                 t for name, (_, t) in by_name.items()
-                if "calibrated_update" in name) / 1e3,
+                if "calibrated_update" in name) / 1e3 / rounds_,
             "top_kernels": [
                 {"name": name[:80], "launches": n, "ms": t / 1e3}
                 for name, (n, t) in sorted(by_name.items(),
                                            key=lambda kv: -kv[1][1])[:top]]}
 
 
+# benchmarks/population_bench.py's setting, on the mlp
+POPULATION = {"cohort": 8, "k": 4, "batch": 16, "d": 60, "classes": 10,
+              "n_data": 4096, "lr": 0.05, "lam": 0.5, "sampler": "uniform",
+              "chunk": 12}
+
+
+def population_simulation(m: int, pop: dict = POPULATION,
+                          device: str = "cuda"):
+    """FedaGrac on ``m`` clients, a cohort of ``pop["cohort"]`` a round,
+    on the mlp ``d``-64-``classes`` over Gaussian blobs at 2 samples a
+    client (at least ``n_data``), IID parts, one K row."""
+    from repro_torch.data import gaussian_classification, iid_partition
+    from repro_torch.fed import FederatedSimulation
+    data = gaussian_classification(torch.Generator().manual_seed(0),
+                                   max(pop["n_data"], 2 * m), d=pop["d"],
+                                   n_classes=pop["classes"])
+    batcher = FederatedBatcher(data, iid_partition(len(data), m, seed=0),
+                               batch_size=pop["batch"], seed=0,
+                               device=device)
+    fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
+                    lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
+                    cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],
+                    param_layout="flat")
+    params = mlp_init(torch.Generator().manual_seed(0), pop["d"], 64,
+                      pop["classes"])
+    # one K row: the default schedule (gaussian_k_schedule) is (10k, M)
+    return FederatedSimulation(mlp_loss, params, fed, batcher,
+                               k_schedule=np.full((1, m), pop["k"],
+                                                  np.int32),
+                               device=device)
+
+
+def profile_population(m: int, top: int = 8) -> dict:
+    chunk = POPULATION["chunk"]
+    sim = population_simulation(m)
+    sim.run(chunk, chunk_rounds=chunk)                      # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        sim.run(chunk, chunk_rounds=chunk)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    return {"population": m, "cohort": POPULATION["cohort"],
+            "k": POPULATION["k"], "rounds": chunk,
+            **_breakdown(prof, wall_us, chunk * POPULATION["k"], chunk,
+                         top)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--algorithms", default="fedavg,fedprox,fednova,fedagrac")
+    ap.add_argument("--population", type=int, default=0,
+                    help="profile cohort rounds on this many clients")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.population:
+        print(json.dumps(profile_population(args.population)), flush=True)
+        return
     for algo in args.algorithms.split(","):
         print(json.dumps(profile_round(algo)), flush=True)
 

@@ -1,15 +1,16 @@
 """The port's ``FedConfig`` refuses, at construction, every value that the
 reference's ``FedConfig`` refuses, with the same ``ValueError`` message,
 and constructs every valid setting the reference constructs.  The port
-keeps copies of the sampler, scenario and defense names until it has
-those registries; these tests hold each copy to the reference's
-registry."""
+keeps copies of the scenario and defense names until it has those
+registries; these tests hold each copy, and the port's sampler registry,
+to the reference's registry."""
 import pytest
 
 pytest.importorskip("torch")
 
 import repro.configs.base as jcfg  # noqa: E402
 import repro_torch.configs.base as tcfg  # noqa: E402
+import repro_torch.fed.population as tpopulation  # noqa: E402
 from repro.core.robust import DEFENSES  # noqa: E402
 from repro.fed.population import SAMPLERS  # noqa: E402
 from repro.fed.scenarios import SCENARIOS  # noqa: E402
@@ -74,7 +75,7 @@ def test_valid_settings_construct_in_both(kw):
 
 
 @pytest.mark.parametrize("copy,registry", [
-    (tcfg.SAMPLERS, SAMPLERS), (tcfg.SCENARIOS, SCENARIOS),
+    (tpopulation.SAMPLERS, SAMPLERS), (tcfg.SCENARIOS, SCENARIOS),
     (tcfg.DEFENSES, DEFENSES)], ids=["samplers", "scenarios", "defenses"])
 def test_name_copies_mirror_the_reference_registries(copy, registry):
     assert sorted(copy) == sorted(registry)

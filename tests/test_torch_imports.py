@@ -24,12 +24,13 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
-    the Mamba2 slice's included."""
+    the Mamba2 and population slices' included."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
                 "kernels/flash_attention/ops.py", "serving/engine.py",
                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
-                "models/mamba2.py"):
+                "models/mamba2.py", "fed/population.py", "core/theory.py",
+                "examples/partial_participation.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -74,7 +75,7 @@ def test_entry_points_without_device_raise_where_no_cuda():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("param_layout", "tree", "A2"), ("cohort_size", 1, "A6"),
+    ("param_layout", "tree", "A2"), ("cohort_size", 1, "A9"),
     ("buffer_size", 1, "A7"), ("scenario", "dropout", "A8"),
     ("quarantine_window", 1, "A10"), ("defense", "median", "A10"),
     ("master_dtype", "float32", "A3")])
@@ -82,10 +83,35 @@ def test_unported_config_fields_raise(field, value, item):
     data, parts = _small_task()
     batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
     kw = {"param_layout": "flat", field: value}
+    if field == "cohort_size":
+        # cohorts run; compression on the cohort round is still refused
+        kw["compressor"] = "int8"
     fed = FedConfig(algorithm="fedavg", n_clients=2, **kw)
     params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
     with pytest.raises(NotImplementedError, match=item):
         FederatedSimulation(lr_loss, params, fed, batcher, device="cpu")
+
+
+@pytest.mark.parametrize("sampler", ["all", "uniform", "weighted",
+                                     "availability", "round_robin"])
+def test_cohort_config_constructs_and_runs_a_round(sampler):
+    """``cohort_size < n_clients`` runs the cohort round on the CPU with
+    each sampler ("all" with C < M resolves to "uniform")."""
+    data, parts = _small_task()
+    batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
+    fed = FedConfig(algorithm="fedagrac", n_clients=2, param_layout="flat",
+                    cohort_size=1, cohort_sampler=sampler)
+    params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
+    sim = FederatedSimulation(lr_loss, params, fed, batcher, device="cpu",
+                              k_schedule=np.ones((1, 2), np.int32))
+    assert sim._partial
+    assert sim.population.sampler == ("uniform" if sampler == "all"
+                                      else sampler)
+    hist = sim.run(1)
+    assert len(hist.loss) == len(hist.mass) == 1
+    assert np.isfinite(hist.loss[0])
+    assert hist.bytes_up == [sim._wire["uplink_per_client"]]
+    assert sim.state["nu_i"].shape == (2, sim._spec.p)
 
 
 def test_config_validates_registry_fields():
@@ -120,6 +146,21 @@ def test_serve_engine_without_device_raises_where_no_cuda():
     eng = ServeEngine(cfg, params, slots=1, max_len=16, prefill_buckets=(8,),
                       device="cpu")
     assert eng.caches[0]["k"].device.type == "cpu"
+
+
+def test_init_caches_without_device_raises_where_no_cuda():
+    """``init_caches`` resolves ``device=None`` to the card like every
+    other entry point, instead of building the caches on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs on it")
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.model import init_caches
+    cfg = reduced(get_arch("llama3-8b"), n_layers=1, d_model=64, vocab=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_caches(cfg, 1, 16)
+    caches = init_caches(cfg, 1, 16, device="cpu")
+    assert caches[0]["k"].device.type == "cpu"
 
 
 def test_lm_training_entry_points_without_device_raise_where_no_cuda():
