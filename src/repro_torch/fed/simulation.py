@@ -2,9 +2,10 @@
 
 Drives the flat synchronous round (core/flat.py) over T rounds: samples the
 K_i schedule, assembles per-round microbatches, and records loss and eval
-metrics.  ``run`` executes blocks of ``chunk_rounds`` rounds
-(core/engine.py) and waits for the device only at chunk boundaries; the
-eval cadence sets the default chunk size, and ``chunk_rounds=1`` is the
+metrics (per client too, through ``eval_per_client``, which
+``History.fairness`` reads).  ``run`` executes blocks of ``chunk_rounds``
+rounds (core/engine.py) and waits for the device only at chunk boundaries;
+the eval cadence sets the default chunk size, and ``chunk_rounds=1`` is the
 per-round path.  A chunk computes exactly what the same rounds computed one
 by one.
 
@@ -81,6 +82,8 @@ class History:
     metric: list[float] = dataclasses.field(default_factory=list)
     kbar: list[float] = dataclasses.field(default_factory=list)
     wall: list[float] = dataclasses.field(default_factory=list)
+    # ``eval_per_client``'s values at each eval boundary, one per client
+    per_client: list[list[float]] = dataclasses.field(default_factory=list)
     # wire bytes per round under the configured compressors
     # (compress.wire_cost × participants), recorded on every run, at the
     # fp32 cost when compression is off, so runs compare directly
@@ -88,6 +91,15 @@ class History:
     bytes_down: list[float] = dataclasses.field(default_factory=list)
     # cohort rounds: the cohort's weight mass Σ w̃ per round
     mass: list[float] = dataclasses.field(default_factory=list)
+
+    def fairness(self) -> Optional[dict]:
+        """FL fairness of the final round: worst-client metric and the
+        across-client std (Li et al. q-FFL reporting convention)."""
+        if not self.per_client:
+            return None
+        last = self.per_client[-1]
+        return {"worst": min(last), "best": max(last),
+                "std": float(np.std(last))}
 
     def rounds_to_target(self, target: float, higher_is_better=True
                          ) -> Optional[int]:
@@ -119,6 +131,8 @@ class FederatedSimulation:
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  params: PyTree, fed: FedConfig, batcher,
                  eval_fn: Optional[Callable[[PyTree], float]] = None,
+                 eval_per_client: Optional[Callable[[PyTree],
+                                                    list]] = None,
                  k_schedule: Optional[np.ndarray] = None,
                  lam_schedule: Optional[Callable[[int], float]] = None,
                  t_max: int = 10_000,
@@ -132,6 +146,7 @@ class FederatedSimulation:
         self.algo = get_algorithm(fed.algorithm, fed)
         self.batcher = batcher
         self.eval_fn = eval_fn
+        self.eval_per_client = eval_per_client
         self.lam_schedule = lam_schedule
         if k_schedule is None:
             k_schedule = gaussian_k_schedule(
@@ -313,11 +328,12 @@ class FederatedSimulation:
         """``chunk_rounds=None`` chunks at the eval cadence (``eval_every``);
         ``1`` forces the per-round loop.  Chunks never cross an eval
         boundary, so an explicit ``chunk_rounds`` larger than ``eval_every``
-        is clamped when there is an ``eval_fn``."""
+        is clamped when there is an ``eval_fn`` or ``eval_per_client``."""
+        evaluates = (self.eval_fn is not None
+                     or self.eval_per_client is not None)
         chunk = max(int(chunk_rounds if chunk_rounds is not None
                         else eval_every), 1)
-        if (chunk_rounds is not None and chunk > eval_every
-                and self.eval_fn is not None):
+        if chunk_rounds is not None and chunk > eval_every and evaluates:
             warnings.warn(
                 f"chunk_rounds={chunk_rounds} is clamped to the eval "
                 f"cadence (eval_every={eval_every}): the host must sync at "
@@ -326,7 +342,7 @@ class FederatedSimulation:
         t = 0
         while t < t_rounds:
             r = min(chunk, t_rounds - t)
-            if self.eval_fn is not None:
+            if evaluates:
                 r = min(r, eval_every - t % eval_every)
             if self._partial and r == 1:
                 self._run_pop_round(t, hist)
@@ -337,10 +353,15 @@ class FederatedSimulation:
             else:
                 self._run_chunk(t, r, hist)
             t += r
-            if t % eval_every == 0 and self.eval_fn is not None:
-                value = float(self.eval_fn(self.params))
-                _check_finite_metric(value, t)
-                hist.metric.append(value)
+            if t % eval_every == 0:
+                if self.eval_fn is not None:
+                    value = float(self.eval_fn(self.params))
+                    _check_finite_metric(value, t)
+                    hist.metric.append(value)
+                if self.eval_per_client is not None:
+                    hist.per_client.append(
+                        [float(v) for v in
+                         self.eval_per_client(self.params)])
             if verbose and (t % 10 < r or t == t_rounds):
                 m = hist.metric[-1] if hist.metric else float("nan")
                 print(f"  round {t - 1:4d}  loss={hist.loss[-1]:.4f}  "

@@ -19,6 +19,15 @@ import torch.nn.functional as F
 from repro_torch.models.model import cross_entropy
 
 
+def _fraction_correct(correct: torch.Tensor) -> torch.Tensor:
+    """The mean of a 0/1 vector as ``jnp.mean`` rounds it: one exact
+    float32 sum of at most 2²⁴ ones, times float32 1/n (``sum / n`` is
+    another rounding, one ulp off at about half of the counts)."""
+    inv_n = torch.tensor(1.0 / correct.numel(), dtype=torch.float32,
+                         device=correct.device)
+    return correct.sum(dtype=torch.float32) * inv_n
+
+
 # -- logistic regression ----------------------------------------------------
 
 def lr_init(generator: torch.Generator, n_features: int, n_classes: int
@@ -36,7 +45,7 @@ def lr_loss(params: dict, batch: dict) -> torch.Tensor:
 
 def lr_accuracy(params: dict, batch: dict) -> torch.Tensor:
     logits = batch["x"] @ params["w"] + params["b"]
-    return (logits.argmax(-1) == batch["y"]).float().mean()
+    return _fraction_correct(logits.argmax(-1) == batch["y"])
 
 
 # -- MLP ---------------------------------------------------------------------
@@ -66,7 +75,7 @@ def mlp_loss(params: dict, batch: dict) -> torch.Tensor:
 
 def mlp_accuracy(params: dict, batch: dict) -> torch.Tensor:
     logits = _mlp_logits(params, batch["x"])
-    return (logits.argmax(-1) == batch["y"]).float().mean()
+    return _fraction_correct(logits.argmax(-1) == batch["y"])
 
 
 # -- 2-layer CNN (paper Table 3, adapted to 28x28x1 synthetic images) ---------
@@ -111,7 +120,7 @@ def cnn_loss(params: dict, batch: dict) -> torch.Tensor:
 
 def cnn_accuracy(params: dict, batch: dict) -> torch.Tensor:
     logits = _cnn_logits(params, batch["x"])
-    return (logits.argmax(-1) == batch["y"]).float().mean()
+    return _fraction_correct(logits.argmax(-1) == batch["y"])
 
 
 # -- client quadratics (Theorem 1 / 3 closed forms) ---------------------------

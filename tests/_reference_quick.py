@@ -1,0 +1,74 @@
+"""The reference's ``--quick`` rows of the paper experiments, as committed
+in ``src/repro_torch/benchmarks/reference_quick.json``.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/_reference_quick.py
+
+regenerates the file from the JAX modules (``benchmarks/``, about a minute
+on the CPU); tests/test_torch_benchmarks.py regenerates part of it and
+holds it equal to the committed file.  Each module's rows are kept as its
+``main(quick=True)`` prints them (a header, then one row a line, each cell
+a string).  Rows that report rounds to a target also keep
+``target_margin``: the least |accuracy − target| over the rounds up to the
+crossing round (every round where the target is never reached), so a
+check of the port's rounds knows where the reference sat within rounding
+of the target.  The card has no JAX: this file is how ``chip_smoke.py``
+holds the card to the reference.
+"""
+from __future__ import annotations
+
+import contextlib
+import importlib
+import io
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "src" / "repro_torch" / "benchmarks" / "reference_quick.json"
+MODULES = {"thm1": "thm1_quadratic", "table1": "table1_deterioration",
+           "table2": "table2_utilization", "fig2": "fig2_lambda",
+           "fig3": "fig3_orientation", "fig4": "fig4_grid",
+           "fairness": "fairness", "server_opt": "server_opt"}
+COMMAND = ("PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.run "
+           "--quick --only " + ",".join(MODULES))
+
+
+def module_rows(name: str) -> dict:
+    """One reference module's quick rows as it prints them."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    mod = importlib.import_module(f"benchmarks.{MODULES[name]}")
+    margins = []
+    rounds_to = getattr(mod, "rounds_to", None)
+
+    def recording_rounds_to(hist, target):
+        r = hist.rounds_to_target(target)
+        seen = hist.metric[:r] if r is not None else hist.metric
+        margins.append(min(abs(v - target) for v in seen))
+        return rounds_to(hist, target)
+
+    buf = io.StringIO()
+    try:
+        if rounds_to is not None:
+            mod.rounds_to = recording_rounds_to
+        with contextlib.redirect_stdout(buf):
+            mod.main(quick=True)
+    finally:
+        if rounds_to is not None:
+            mod.rounds_to = rounds_to
+    header, *rows = [line.split(",") for line in
+                     buf.getvalue().strip().splitlines()]
+    out = {"header": header, "rows": rows}
+    if margins:
+        out["target_margin"] = margins
+    return out
+
+
+def generate(names=tuple(MODULES)) -> dict:
+    return {"command": COMMAND,
+            "modules": {name: module_rows(name) for name in names}}
+
+
+if __name__ == "__main__":
+    OUT.write_text(json.dumps(generate(), indent=1) + "\n")
+    print(f"wrote {OUT}")

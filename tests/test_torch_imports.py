@@ -24,13 +24,15 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
-    the Mamba2 and population slices' included."""
+    the Mamba2, population and paper-twin slices' included."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
                 "kernels/flash_attention/ops.py", "serving/engine.py",
                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
                 "models/mamba2.py", "fed/population.py", "core/theory.py",
-                "examples/partial_participation.py"):
+                "examples/partial_participation.py", "benchmarks/common.py",
+                "benchmarks/run.py", "optim/schedules.py",
+                "examples/continuous_batching.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 

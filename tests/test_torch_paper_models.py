@@ -9,6 +9,8 @@ against the JAX package on the CPU, from the same numpy-made inputs.
   float32 rounding only.
 * ``quad_loss`` / ``quad_global_opt``: rtol 1e-5 (a 12-term dot; a 12×12
   solve in float32).
+* ``lr_accuracy`` / ``mlp_accuracy`` / ``cnn_accuracy`` bit-equal at
+  every count of correct samples (``jnp.mean``'s float32 sum × 1/n);
 * ``lr_init`` equal; ``dirichlet_partition``, ``shard_partition`` and
   ``quadratic_clients`` bit-equal (numpy only, the same draws); every
   ``core/theory.py`` function equal to the last bit (the same numpy float64
@@ -71,6 +73,63 @@ def test_cnn_logits_loss_and_accuracy_match_jax(seed):
                                **CNN_TOL)
     assert float(simple.cnn_accuracy(tp, tbatch)) == float(
         jsimple.cnn_accuracy(jp, batch))
+
+
+ACC_COUNTS_N = (3, 7, 610, 1000, 4000, 6000)
+ACC_CHUNK = 2048                     # label rows per vmapped call
+
+
+def _all_count_labels(n: int):
+    """Label rows with c leading zeros and ones after them, for every
+    c = 0 … n, in chunks of one shape (the last padded with c = n): against
+    logits whose argmax is class 0 for every sample, a row has exactly c
+    correct."""
+    rows = min(n + 1, ACC_CHUNK)
+    counts = np.arange(-(-(n + 1) // rows) * rows).clip(max=n)
+    for c in counts.reshape(-1, rows):
+        yield (np.arange(n)[None, :] >= c[:, None]).astype(np.int32)
+
+
+def _argmax_zero_models(n: int):
+    """(name, port accuracy, JAX accuracy, numpy params, x): each model's
+    logits put class 0 first at every one of the n samples."""
+    x2 = np.tile(np.float32([[1.0, 0.0]]), (n, 1))
+    eye = np.eye(2, dtype=np.float32)
+    zeros2 = np.zeros(2, np.float32)
+    cnn = {k: np.zeros(s, np.float32) for k, s in CNN_SHAPES.items()}
+    cnn["b2"][0] = 1.0
+    return [("lr", simple.lr_accuracy, jsimple.lr_accuracy,
+             {"w": eye, "b": zeros2}, x2),
+            ("mlp", simple.mlp_accuracy, jsimple.mlp_accuracy,
+             {"w1": eye, "b1": zeros2, "w2": eye, "b2": zeros2}, x2),
+            ("cnn", simple.cnn_accuracy, jsimple.cnn_accuracy, cnn,
+             np.zeros((n, 28, 28, 1), np.float32))]
+
+
+@pytest.mark.parametrize("n", ACC_COUNTS_N)
+def test_accuracies_bit_equal_to_jax_at_every_count(n):
+    """The port's accuracies round as ``jnp.mean`` does (its float32 sum
+    times float32 1/n), not as ``sum / n``, which is one ulp off at about
+    half of the counts (the Table 1 lr non-IID row crosses 0.78 on it)."""
+    for name, port_acc, jax_acc, params, x in _argmax_zero_models(n):
+        tp = convert.params_from_numpy(params, "cpu")
+        jp = jax.tree.map(jnp.asarray, params)
+        tx = torch.from_numpy(x)
+        port = torch.vmap(lambda y: port_acc(tp, {"x": tx, "y": y}))
+        ref = jax.jit(jax.vmap(lambda y: jax_acc(jp, {"x": x, "y": y})))
+        for ys in _all_count_labels(n):
+            got = port(torch.from_numpy(ys)).numpy()
+            want = np.asarray(ref(ys))
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32), err_msg=name)
+        # the eager calls the benchmarks make, at a count that splits the
+        # two roundings (n = 4000: 3120 correct)
+        c = n * 39 // 50
+        y = (np.arange(n) >= c).astype(np.int32)
+        got = np.float32(port_acc(tp, {"x": tx, "y": torch.from_numpy(y)}))
+        want = np.float32(jax_acc(jp, {"x": x, "y": y}))
+        assert got.view(np.int32) == want.view(np.int32), name
 
 
 def test_cnn_params_keep_the_reference_flat_layout():
