@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twelve phases, each printing JSON lines; any failure exits non-zero.
+Thirteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -151,6 +151,28 @@ Twelve phases, each printing JSON lines; any failure exits non-zero.
    calibrated-update launch a local step of every round (k_max × rounds
    of each run), the prox kernel's for fedprox runs, and the attention
    kernel once a layer in each of the serving twin's prefills.
+13. buffered asynchrony — ``BufferedAsyncSimulation`` (fed/async_engine.py)
+   and compression on the cohort and buffered rounds.  (a) the
+   ``table_async`` twin's ``main(quick=True)`` on the card: its rows (all
+   lr) against the reference's quick rows by phase 12's rule, its buffer =
+   M run at fixed speeds against its own synchronous FedaGrac run by phase
+   3's rule (the spread from a rerun of that run on the card with reversed
+   rows), one B1 launch a local step of every run.  (b) the table's fleet
+   (10 clients, lognormal speeds σ = 1, K = 40) on benchmarks/common.py's
+   lr and mlp tasks at full width: buffered FedaGrac (λ 0.5, buffer 8,
+   hinge), FedBuff (fedavg, buffer 5), FedaGrac's buffer with an int8
+   uplink and broadcast and with a top-k uplink, 10 updates each, on the
+   card against the CPU by phase 3's rule (the mlp's ReLU branches
+   sampled by relabelled reruns as in phase 12), exact B1 / B3-B5
+   launches and wire bytes, every buffer with a client reporting twice;
+   the int8 run twice on the card, equal to the last bit.  (c) phase 11's
+   population setting on the buffered engine (8 clients in flight, a
+   buffer of 8, K 4, 48 updates in chunks of 12) at M = 100,000 and 1024,
+   ms per update at both; an int8 uplink at 100,000; then the compressed
+   cohort round (int8) at 100,000: exact launches, every reporter's ν⁽ⁱ⁾
+   row written and no other, peak device memory under 1.5 × the (M, P)
+   stores (ν⁽ⁱ⁾, the anchor buffers `A` and `N`, the error-feedback rows)
+   + 256 MB, so that no update copies one.
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -176,12 +198,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 LR, LAM, MU = 0.03, 0.7, 0.1
 MAIN_SHAPES = {"lr": (10, 640), "mlp": (10, 4608)}
-CHECK_SHAPES = [(10, 640), (10, 4608), (3, 128), (1000, 384), (65536, 1024)]
-TIMED_SHAPES = [(10, 640), (10, 4608), (65536, 1024)]
+# (8, P): phase 13's buffers of 8 reports (and phase 11's cohort of 8)
+CHECK_SHAPES = [(10, 640), (10, 4608), (8, 640), (8, 4608), (3, 128),
+                (1000, 384), (65536, 1024)]
+TIMED_SHAPES = [(10, 640), (10, 4608), (8, 640), (8, 4608), (65536, 1024)]
 # the quantize kernels' shapes: the broadcast (1, P) and client (10, P) rows
-# of the lr and mlp tasks, ragged row counts, and one large shape
-WIRE_SHAPES = [(1, 640), (10, 640), (10, 4608), (3, 128), (1000, 384),
-               (65536, 1024)]
+# of the lr and mlp tasks, phase 13's buffer rows (8, P), ragged row
+# counts, and one large shape
+WIRE_SHAPES = [(1, 640), (10, 640), (10, 4608), (8, 640), (8, 4608),
+               (3, 128), (1000, 384), (65536, 1024)]
 WIRE_MAIN_SHAPE = (10, 640)          # the compressed path's client rows
 PAD = 30                             # true columns n = cols − PAD
 TIE_SCALE = 0.125                    # a power of two: x / s is exact
@@ -2231,18 +2256,18 @@ def population_settings(path: Path = POPULATION_BENCH) -> dict:
             "sampler": local["cohort_sampler"]}
 
 
-def _population_run(pop: dict, m: int) -> dict:
+def _population_run(pop: dict, m: int, **fed_kw) -> dict:
     """FedaGrac on a population of m clients, C a round, on the card
-    (``roofline.round_profile.population_simulation``): ``pop["chunk"]``
-    warm-up rounds, then the counted run of ``pop["rounds"]`` rounds in
-    chunks."""
+    (``roofline.round_profile.population_simulation``, ``fed_kw`` adding
+    config fields): ``pop["chunk"]`` warm-up rounds, then the counted run
+    of ``pop["rounds"]`` rounds in chunks."""
     from repro_torch.kernels.calibrated_update import ops
     from repro_torch.roofline.round_profile import population_simulation
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    sim = population_simulation(m, pop, DEVICE)
+    sim = population_simulation(m, pop, DEVICE, **fed_kw)
     _require(sim._partial, f"M = {m}: the population path is not engaged")
     drawn = set()
     host_cohort = sim.population.host_cohort
@@ -2253,19 +2278,21 @@ def _population_run(pop: dict, m: int) -> dict:
         return ids, w
     sim.population.host_cohort = recorded
     sim.run(pop["chunk"], chunk_rounds=pop["chunk"])          # warm-up
-    _reset_all_launches()
+    before, before_all = dict(ops.launches), _all_launches()
     hist = sim.run(pop["rounds"], chunk_rounds=pop["chunk"])
-    launches = dict(ops.launches)
+    launches = {k: n - before[k] for k, n in ops.launches.items()}
+    all_launches = _launch_delta(before_all)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     nu_i = sim.state["nu_i"]
     written = int((torch.count_nonzero(nu_i, dim=1) > 0).sum())
-    out = {"m": m, "launches": launches,
+    out = {"m": m, "launches": launches, "all_launches": all_launches,
            "loss": np.array(hist.loss), "mass": np.array(hist.mass),
            "ms_per_round": 1e3 * float(np.mean(hist.wall)),
            "state_bytes": sum(t.numel() * t.element_size()
                               for t in sim.state.values()),
            "nu_i_bytes": nu_i.numel() * nu_i.element_size(),
+           "stores_bytes": _stores_bytes(*sim.state.values()),
            "nu_i_on": str(nu_i.device), "p": sim._spec.p,
            "peak_memory_bytes": peak,
            "rows_written": written, "clients_drawn": len(drawn),
@@ -2600,12 +2627,13 @@ TWINS_ON_CPU = ("table1", "fig2")
 
 
 class _RecordedRuns:
-    """While active, records every ``FederatedSimulation.run``: the
-    simulation, its initial weights, the run's arguments and history."""
+    """While active, records every ``FederatedSimulation.run`` (or every
+    ``run`` of ``cls``, the buffered engine's): the simulation, its initial
+    weights, the run's arguments and history."""
 
-    def __init__(self):
+    def __init__(self, cls=None):
         from repro_torch.fed import simulation
-        self.cls = simulation.FederatedSimulation
+        self.cls = cls or simulation.FederatedSimulation
         self.runs: list = []
 
     def __enter__(self):
@@ -2638,16 +2666,18 @@ def _relabelled(params: dict, features: torch.Tensor,
 
 
 def _cpu_rerun(rec: dict, order: Optional[torch.Tensor] = None,
-               relabel_seed: Optional[int] = None) -> dict:
-    """A recorded run again on the CPU: the same config, K and λ
-    schedules, data, partitions, batcher seed and initial weights.  Given
-    ``order``, every microbatch's rows in that order; given
-    ``relabel_seed``, the mlp's input features and hidden units relabelled
-    by seeded permutations, and its final weights mapped back (both the
-    same computation, other float32 roundings)."""
+               relabel_seed: Optional[int] = None,
+               device: str = "cpu") -> dict:
+    """A recorded run again on the CPU (or ``device``): the same config, K
+    and λ schedules (and clock, for the buffered engine), data,
+    partitions, batcher seed and initial weights.  Given ``order``, every
+    microbatch's rows in that order; given ``relabel_seed``, the mlp's
+    input features and hidden units relabelled by seeded permutations, and
+    its final weights mapped back (both the same computation, other
+    float32 roundings)."""
     from repro_torch.core import flat
     from repro_torch.data import Dataset, FederatedBatcher
-    from repro_torch.fed import FederatedSimulation
+    from repro_torch.fed import BufferedAsyncSimulation, FederatedSimulation
     from repro_torch.models import simple
     sim, b = rec["sim"], rec["sim"].batcher
     data, params0 = b.data, rec["params0"]
@@ -2658,33 +2688,33 @@ def _cpu_rerun(rec: dict, order: Optional[torch.Tensor] = None,
         data = Dataset(x=data.x[:, features].contiguous(), y=data.y)
         params0 = _relabelled(params0, features, hidden)
 
-    def reorder(batches):
-        if order is None:
-            return batches
-        rows = batches["y"].dim() - 1
-        return {k: v.index_select(rows, order) for k, v in batches.items()}
-
     class Batcher(FederatedBatcher):
-        def round_batches(self, t, k_max):
-            return reorder(super().round_batches(t, k_max))
-
-        def chunk_batches(self, t0, r, k_max):
-            return reorder(super().chunk_batches(t0, r, k_max))
+        # both engines draw their rows through round_indices: (…, B) with
+        # a microbatch's rows on the last axis
+        def round_indices(self, t, k_max):
+            idx = super().round_indices(t, k_max)
+            return idx if order is None else idx[..., order.numpy()]
 
     accuracy = {simple.lr_loss: simple.lr_accuracy,
                 simple.mlp_loss: simple.mlp_accuracy}[sim._loss_fn]
-    eval_set = {"x": data.x, "y": data.y}
-    cpu = FederatedSimulation(
-        sim._loss_fn, params0, sim.fed,
-        Batcher(data, b.parts, b.batch_size, seed=b.seed, device="cpu"),
-        eval_fn=lambda p: float(accuracy(p, eval_set)),
-        k_schedule=sim.k_schedule, lam_schedule=sim.lam_schedule,
-        device="cpu")
-    hist = cpu.run(rec["rounds"], *rec["args"], **rec["kwargs"])
-    params = cpu.state["params"]
+    eval_set = {"x": data.x.to(device), "y": data.y.to(device)}
+    kw = dict(eval_fn=lambda p: float(accuracy(p, eval_set)),
+              k_schedule=sim.k_schedule, lam_schedule=sim.lam_schedule,
+              device=device)
+    batcher = Batcher(data, b.parts, b.batch_size, seed=b.seed,
+                      device=device)
+    if isinstance(sim, BufferedAsyncSimulation):
+        rerun = BufferedAsyncSimulation(sim._loss_fn, params0, sim.fed,
+                                        batcher, clock=sim.clock, **kw)
+    else:
+        rerun = FederatedSimulation(sim._loss_fn, params0, sim.fed, batcher,
+                                    **kw)
+    hist = rerun.run(rec["rounds"], *rec["args"], **rec["kwargs"])
+    params = rerun.state["params"].cpu()
     if relabel_seed is not None:
         params = flat.ravel(sim._spec, _relabelled(
-            cpu.params, torch.argsort(features), torch.argsort(hidden)))
+            {k: v.cpu() for k, v in rerun.params.items()},
+            torch.argsort(features), torch.argsort(hidden)))
     return {"loss": np.array(hist.loss), "metric": np.array(hist.metric),
             "params": params}
 
@@ -2902,6 +2932,369 @@ def phase_twins() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: buffered semi-asynchronous rounds
+# ---------------------------------------------------------------------------
+
+# part (b): the table_async fleet (10 clients, lognormal speeds σ = 1 from
+# seed 7, K = 40 for every task) on benchmarks/common.py's tasks at full
+# width; each run ``updates`` buffered updates, evaluated at the end
+FLEET = {"k": 40, "sigma": 1.0, "clock_seed": 7, "updates": 10}
+# (algorithm, λ, buffer, staleness, uplink, broadcast): buffered FedaGrac
+# (the table's tempered row), FedBuff, and FedaGrac's buffer with an int8
+# uplink and broadcast, and with a top-k uplink
+FLEET_RUNS = (("fedagrac", 0.5, 8, "hinge", "none", "none"),
+              ("fedavg", 1.0, 5, "constant", "none", "none"),
+              ("fedagrac", 0.5, 8, "hinge", "int8", "int8"),
+              ("fedagrac", 0.5, 8, "hinge", "topk", "none"))
+# part (c): phase 11's population setting on the buffered engine, its
+# cohort of 8 as the clients in flight and the buffer
+ASYNC_POP_UPDATES = 48
+
+
+def _launch_delta(before: dict) -> dict:
+    now = _all_launches()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _check_table_async_rows(got: dict, ref: dict) -> None:
+    """table_async's rows (all on the lr task) against the reference's
+    quick rows by phase 12's rule: the settings equal, updates to target
+    equal unless the reference sat within PATH_SAMPLES samples of the
+    target (then the simulated seconds too), the accuracy at the budget
+    within PATH_SAMPLES samples, the mean staleness (host) equal."""
+    acc_tol = PATH_SAMPLES / TWIN_EVAL + TWIN_PRINT_SLACK
+    _require(got["header"] == ref["header"]
+             and len(got["rows"]) == len(ref["rows"]),
+             f"table_async: {got['header']} / {len(got['rows'])} rows "
+             f"against {ref['header']} / {len(ref['rows'])}")
+    for i, (row, want) in enumerate(zip(got["rows"], ref["rows"])):
+        ok = (row[:4] == want[:4] and row[7] == want[7]
+              and _rounds_agree(row[4], want[4], ref["target_margin"][i])
+              and (row[4] != want[4] or row[5] == want[5])
+              and _close(row[6], want[6], acc_tol))
+        _require(ok, f"table_async: the card's row {row} is not the "
+                     f"reference's {want} by phase 12's rule")
+        _emit({"phase": "async", "part": "table_async", "row": row,
+               "reference": want})
+
+
+def _table_async_on_card(reference: dict) -> None:
+    """Part (a): the table_async twin's ``main(quick=True)`` on the card;
+    its rows against the reference's, its buffer = M run against its own
+    synchronous FedaGrac run by phase 3's rule (the spread a rerun of that
+    run on the card with reversed rows), one B1 launch a local step."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import table_async
+    from repro_torch.fed import BufferedAsyncSimulation
+    buf = io.StringIO()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    with _RecordedRuns() as sync_runs, \
+            _RecordedRuns(BufferedAsyncSimulation) as async_runs, \
+            contextlib.redirect_stdout(buf):
+        table_async.main(quick=True, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    lines = text.strip().splitlines()
+    header, *rows = [ln.split(",") for ln in lines if not ln.startswith("#")]
+    _check_table_async_rows({"header": header, "rows": rows}, reference)
+    want = sum(rec["rounds"] * rec["sim"].k_max
+               for rec in sync_runs + async_runs)
+    _require(launches == {"calibrated_update": want},
+             f"table_async: launches {launches}, expected {want} of "
+             f"calibrated_update (k_max × rounds or updates of each run)")
+    sync = next(r for r in sync_runs if r["sim"].fed.algorithm == "fedagrac")
+    full = next(r for r in async_runs
+                if r["sim"].buffer == r["sim"].fed.n_clients)
+    g, c = _trajectory(full), _trajectory(sync)
+    _require(np.isfinite(g["loss"]).all() and np.isfinite(g["metric"]).all(),
+             "table_async async_full: non-finite loss or metric")
+    rev = torch.arange(sync["sim"].batcher.batch_size - 1, -1, -1)
+    p = _cpu_rerun(sync, rev, device=DEVICE)
+    vs = _vs_cpu("table_async async_full vs sync", g, c, p)
+    _require(any("(OK)" in ln for ln in lines if ln.startswith("# buffer")),
+             f"table_async: the drift check did not pass: {lines[-1]}")
+    walls = [w for rec in async_runs for w in rec["hist"].wall]
+    _emit({"phase": "async", "part": "table_async", "s": seconds,
+           "runs": len(sync_runs) + len(async_runs),
+           "updates": sum(r["rounds"] for r in async_runs),
+           "wall_per_update_s": float(np.mean(walls)),
+           "launches": launches, "notes": [ln for ln in lines
+                                           if ln.startswith("#")],
+           "async_full_vs_sync": {k: float(np.max(d))
+                                  for k, (d, _) in vs.items()},
+           "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+
+
+def _fleet_run(kind: str, run: tuple, device: str) -> dict:
+    """One FLEET_RUNS entry on ``device``: the recorded run, its launches
+    and wire model."""
+    from repro_torch.benchmarks.common import make_task
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import compress
+    from repro_torch.fed import BufferedAsyncSimulation
+    from repro_torch.fed.clock import make_clock
+    algorithm, lam, buffer, staleness, up, down = run
+    task = make_task(kind, noniid=True, device=device)
+    m, t = task.batcher.m, FLEET["updates"]
+    fed = FedConfig(algorithm=algorithm, n_clients=m, lr=task.lr,
+                    calibration_rate=lam, weights="data",
+                    buffer_size=buffer, staleness=staleness,
+                    staleness_a=0.5, staleness_b=2, compressor=up,
+                    broadcast_compressor=down, param_layout="flat")
+    sim = BufferedAsyncSimulation(
+        task.loss_fn, task.params, fed, task.batcher, eval_fn=task.eval_fn,
+        k_schedule=np.full((t * m + 1, m), FLEET["k"], np.int32),
+        clock=make_clock(m, dist="lognormal", sigma=FLEET["sigma"],
+                         seed=FLEET["clock_seed"]), device=device)
+    params0 = {k: v.cpu() for k, v in sim.params.items()}
+    before = _all_launches()
+    hist = sim.run(t, eval_every=t)
+    return {"sim": sim, "params0": params0, "rounds": t, "args": (),
+            "kwargs": {"eval_every": t}, "hist": hist,
+            "params": sim.state["params"].cpu(),
+            "launches": _launch_delta(before),
+            "wire": compress.wire_cost(sim._spec.n, sim.algo.uses_nu,
+                                       sim.compression)}
+
+
+def _fleet_launches(run: tuple, sim) -> dict:
+    """B1 once a local step; each codec once a quantity (delta, and ν's
+    transmit for ν algorithms) an update, and the broadcast's once more at
+    t = 0."""
+    _, _, _, _, up, down = run
+    t, q = FLEET["updates"], 2 if sim.algo.uses_nu else 1
+    want = {"calibrated_update": t * FLEET["k"]}
+    for name in ("quantize_2d", "dequantize_2d", "topk_mask_2d"):
+        n = (t * q * (CODEC_LAUNCHES[up].get(name, 0)
+                      + CODEC_LAUNCHES[down].get(name, 0))
+             + q * CODEC_LAUNCHES[down].get(name, 0))
+        if n:
+            want[name] = n
+    return want
+
+
+def _fleet_vs_cpu() -> None:
+    """Part (b): each FLEET_RUNS entry on lr and mlp, card against CPU by
+    phase 3's rule (the mlp's ReLU branches sampled by relabelled reruns,
+    as phase 12 does), exact launches and wire bytes; one compressed run
+    twice on the card, bit for bit (the repeated reporters' scatters are
+    resolved on the host: no write races)."""
+    rev = torch.arange(19, -1, -1)                     # batch 20
+    for kind in ("lr", "mlp"):
+        for run in FLEET_RUNS:
+            g = _fleet_run(kind, run, DEVICE)
+            sim, hist = g["sim"], g["hist"]
+            name = f"{kind}/{run[0]} λ={run[1]} buffer={run[2]} " \
+                   f"{run[3]} up={run[4]} down={run[5]}"
+            want = _fleet_launches(run, sim)
+            _require(g["launches"] == want,
+                     f"{name}: launches {g['launches']}, expected {want}")
+            wire = g["wire"]
+            _require(hist.bytes_up == [run[2] * wire["uplink_per_client"]]
+                     * FLEET["updates"]
+                     and hist.bytes_down
+                     == [run[2] * wire["downlink_per_client"]]
+                     * FLEET["updates"],
+                     f"{name}: bytes {hist.bytes_up[0]} / "
+                     f"{hist.bytes_down[0]} an update, expected "
+                     f"{run[2]} × {wire}")
+            gt = _trajectory(g)
+            _require(np.isfinite(gt["loss"]).all()
+                     and np.isfinite(gt["metric"]).all(),
+                     f"{name}: non-finite loss or metric")
+            c = _cpu_rerun(g)
+            probes = [_cpu_rerun(g, rev)]
+            while (kind == "mlp"
+                   and not _vs_covered(_vs_cpu_margins(gt, c, probes))
+                   and len(probes) < TWIN_MAX_PROBES):
+                probes.append(_cpu_rerun(g, relabel_seed=len(probes)))
+            vs = _vs_cpu(name, gt, c, probes)
+            repeats = sum(len(set(r)) < len(r) for r in _timeline(sim).ids
+                          .tolist())
+            _emit({"phase": "async", "part": "fleet", "task": kind,
+                   "algorithm": run[0], "lam": run[1], "buffer": run[2],
+                   "staleness": run[3], "uplink": run[4],
+                   "broadcast": run[5], "updates": FLEET["updates"],
+                   "k": FLEET["k"], "p": sim._spec.p,
+                   "buffers_with_a_repeated_reporter": repeats,
+                   "loss": gt["loss"].tolist(),
+                   "metric": gt["metric"].tolist(),
+                   "sim_time": hist.sim_time[-1],
+                   "mean_staleness": float(np.mean(hist.staleness)),
+                   "wall_per_update_s": float(np.mean(hist.wall)),
+                   "launches": g["launches"],
+                   "bytes_up_per_update": hist.bytes_up[0],
+                   "bytes_down_per_update": hist.bytes_down[0],
+                   "params_digest": _digest(g["params"]),
+                   "probes": len(probes),
+                   "vs_cpu": {k: float(np.max(d))
+                              for k, (d, _) in vs.items()},
+                   "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+            _require(repeats > 0, f"{name}: no buffer repeats a reporter")
+    # the same compressed run twice on the card: equal to the last bit
+    runs = [_fleet_run("lr", FLEET_RUNS[2], DEVICE) for _ in range(2)]
+    a, b = (r["sim"].state for r in runs)
+    # the anchor buffers' rows 0…M-1 (row M is the scratch row that takes
+    # a repeated client's earlier re-dispatches, in any order)
+    anchors = [(r["sim"]._anchors[:-1], r["sim"]._nu_anchors[:-1])
+               for r in runs]
+    _require(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                            for k in a)
+             and runs[0]["hist"].loss == runs[1]["hist"].loss
+             and all(torch.equal(x, y) for x, y in zip(*anchors)),
+             "lr/fedagrac int8: two runs on the card differ")
+    _emit({"phase": "async", "part": "determinism",
+           "run": "lr/fedagrac buffer=8 up=int8 down=int8",
+           "state_digests": {k: _digest(v) for k, v in sorted(a.items())}})
+
+
+def _timeline(sim):
+    from repro_torch.fed.clock import simulate_timeline
+    return simulate_timeline(sim.k_schedule, sim.clock, sim.buffer,
+                             FLEET["updates"], population=sim.population)
+
+
+def _stores_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None and t.dim() == 2)
+
+
+def _async_population_run(pop: dict, m: int, **fed_kw) -> dict:
+    """The buffered engine on phase 11's setting at m clients, C = 8 in
+    flight and a buffer of 8: a warm-up chunk, then ASYNC_POP_UPDATES
+    updates in chunks; peak memory from before the simulation is built."""
+    from repro_torch.fed.clock import simulate_timeline
+    from repro_torch.roofline.round_profile import \
+        population_async_simulation
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sim = population_async_simulation(m, pop, DEVICE, **fed_kw)
+    _require(not sim.population.full_participation
+             and sim.buffer == pop["cohort"],
+             f"M = {m}: the buffered population path is not engaged")
+    sim.run(pop["chunk"], chunk_updates=pop["chunk"])          # warm-up
+    before = _all_launches()
+    hist = sim.run(ASYNC_POP_UPDATES, chunk_updates=pop["chunk"])
+    launches = _launch_delta(before)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    nu_i = sim.state["nu_i"]
+    tl = simulate_timeline(sim.k_schedule, sim.clock, sim.buffer,
+                           ASYNC_POP_UPDATES, population=sim.population)
+    out = {"m": m, "launches": launches, "loss": np.array(hist.loss),
+           "mass": np.array(hist.mass),
+           "ms_per_update": 1e3 * float(np.mean(hist.wall)),
+           "stores_bytes": _stores_bytes(*sim.state.values(), sim._anchors,
+                                         sim._nu_anchors),
+           "peak_memory_bytes": peak, "p": sim._spec.p,
+           "rows_written": int((torch.count_nonzero(nu_i, dim=1) > 0).sum()),
+           "reporters": len(set(tl.ids.ravel().tolist())),
+           "anchors_on": str(sim._anchors.device),
+           "params_finite": bool(torch.isfinite(sim.state["params"]).all()),
+           "mean_staleness": float(np.mean(hist.staleness)),
+           "params_digest": _digest(sim.state["params"])}
+    del sim, nu_i
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_population_memory(what: str, r: dict) -> float:
+    bound = 1.5 * r["stores_bytes"] + POP_MEMORY_SLACK
+    _require(r["peak_memory_bytes"] < bound,
+             f"{what}: peak {r['peak_memory_bytes']} bytes over {bound}: "
+             f"an update copies an (M, P) store")
+    return bound
+
+
+def _async_population_scale(pop: dict) -> None:
+    """Part (c): M = 100k and M = 1024, then an int8 uplink at 100k, on the
+    buffered engine; then the compressed cohort round at 100k.  Exact
+    launches, peak memory under 1.5 × the stores + 256 MB, every
+    reporter's ν⁽ⁱ⁾ row written and no other."""
+    k, t = pop["k"], ASYNC_POP_UPDATES
+    runs = {}
+    for m, comp in ((pop["m_small"], "none"), (pop["m"], "none"),
+                    (pop["m"], "int8")):
+        r = _async_population_run(pop, m, compressor=comp)
+        runs[(m, comp)] = r
+        want = {"calibrated_update": k * t}
+        if comp == "int8":
+            want.update(quantize_2d=2 * t, dequantize_2d=2 * t)
+        _require(r["launches"] == want,
+                 f"async M = {m} {comp}: launches {r['launches']}, "
+                 f"expected {want}")
+        _require(np.isfinite(r["loss"]).all() and r["params_finite"],
+                 f"async M = {m} {comp}: non-finite loss or params")
+        _require(r["anchors_on"].startswith(DEVICE),
+                 f"async M = {m}: the anchor buffers are on "
+                 f"{r['anchors_on']}")
+        _require(r["rows_written"] == r["reporters"],
+                 f"async M = {m} {comp}: {r['rows_written']} ν⁽ⁱ⁾ rows "
+                 f"written for {r['reporters']} reporting clients")
+        bound = _check_population_memory(f"async M = {m} {comp}", r)
+        _emit({"phase": "async", "part": "population", "engine": "buffered",
+               "m": m, "cohort": pop["cohort"], "buffer": pop["cohort"],
+               "k": k, "updates": t, "chunk": pop["chunk"],
+               "uplink": comp, "p": r["p"],
+               "ms_per_update": r["ms_per_update"],
+               "stores_bytes": r["stores_bytes"],
+               "peak_memory_bytes": r["peak_memory_bytes"],
+               "peak_memory_bound": bound, "launches": r["launches"],
+               "rows_written": r["rows_written"],
+               "mean_staleness": r["mean_staleness"],
+               "params_digest": r["params_digest"],
+               "loss": r["loss"][[0, -1]].tolist()})
+    small, big = runs[(pop["m_small"], "none")], runs[(pop["m"], "none")]
+    _emit({"phase": "async", "part": "flat_in_m",
+           "ms_per_update": {str(pop["m_small"]): small["ms_per_update"],
+                             str(pop["m"]): big["ms_per_update"]},
+           "ratio": big["ms_per_update"] / small["ms_per_update"]})
+    r = _population_run(pop, pop["m"], compressor="int8")
+    want = {"calibrated_update": k * pop["rounds"], "quantize_2d":
+            2 * pop["rounds"], "dequantize_2d": 2 * pop["rounds"]}
+    got = r["all_launches"]
+    _require(got == want, f"compressed cohort round M = {pop['m']}: "
+                          f"launches {got}, expected {want}")
+    _require(np.isfinite(r["loss"]).all() and r["params_finite"]
+             and r["rows_written"] == r["clients_drawn"],
+             f"compressed cohort round M = {pop['m']}: non-finite, or "
+             f"{r['rows_written']} rows for {r['clients_drawn']} clients")
+    bound = _check_population_memory(
+        f"compressed cohort round M = {pop['m']}", r)
+    _emit({"phase": "async", "part": "population", "engine": "cohort_round",
+           "m": pop["m"], "cohort": pop["cohort"], "k": k,
+           "rounds": pop["rounds"], "uplink": "int8",
+           "ms_per_round": r["ms_per_round"],
+           "stores_bytes": r["stores_bytes"],
+           "peak_memory_bytes": r["peak_memory_bytes"],
+           "peak_memory_bound": bound, "launches": got,
+           "bytes_up_per_round": r["bytes_up_per_round"]})
+
+
+def phase_async(pop: Optional[dict] = None) -> dict:
+    """Phase 13.  Returns the launches of its runs on the card."""
+    reference = json.loads(REFERENCE_QUICK.read_text())["modules"]
+    _reset_all_launches()
+    _table_async_on_card(reference["table_async"])
+    _fleet_vs_cpu()
+    _async_population_scale(pop or population_settings())
+    launches = _all_launches()
+    _emit({"phase": "async", "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2932,6 +3325,8 @@ def main() -> int:
     launches["ssd_scan"] = timed("hybrid", phase_hybrid)["ssd_scan"]
     timed("population", phase_population)
     for name, n in timed("twins", phase_twins).items():
+        launches[name] += n
+    for name, n in timed("async", phase_async).items():
         launches[name] += n
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"

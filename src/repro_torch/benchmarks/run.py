@@ -15,10 +15,11 @@ import argparse
 import time
 import traceback
 
-from repro_torch.benchmarks import (engine_bench, fairness, fig2_lambda,
-                                    fig3_orientation, fig4_grid, fig5_curves,
-                                    server_opt, table1_deterioration,
-                                    table2_utilization, table6_rounds,
+from repro_torch.benchmarks import (compression_bench, engine_bench,
+                                    fairness, fig2_lambda, fig3_orientation,
+                                    fig4_grid, fig5_curves, server_opt,
+                                    table1_deterioration, table2_utilization,
+                                    table6_rounds, table_async,
                                     thm1_quadratic)
 
 MODULES = {
@@ -29,7 +30,9 @@ MODULES = {
     "fig3": fig3_orientation,
     "fig4": fig4_grid,
     "table6": table6_rounds,
+    "table_async": table_async,
     "fig5": fig5_curves,
+    "compression": compression_bench,
     "fairness": fairness,
     "server_opt": server_opt,
     "engine": engine_bench,
@@ -39,10 +42,14 @@ MODULES = {
 def parse_only(only: str | None) -> list[str]:
     """Validate ``--only``: whitespace-tolerant, order-preserving dedup, and
     a fail-fast error naming every valid module for any unknown (or empty)
-    selection — never a silent no-op run."""
+    selection — never a silent no-op run.  A module's file name
+    (``compression_bench``) selects it too."""
     if only is None:
         return list(MODULES)
-    names = [n.strip() for n in only.split(",") if n.strip()]
+    by_file = {mod.__name__.rsplit(".", 1)[1]: key
+               for key, mod in MODULES.items()}
+    names = [by_file.get(n.strip(), n.strip()) for n in only.split(",")
+             if n.strip()]
     names = list(dict.fromkeys(names))
     unknown = [n for n in names if n not in MODULES]
     if unknown or not names:

@@ -13,15 +13,16 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from repro_torch.core.compress import EF_KEYS
+from repro_torch.core import compress
 from repro_torch.core.tree_util import tree_map
 
 Device = Union[str, torch.device]
 
 # the flat round state the port runs: (P,) server vectors, (M, P) ν⁽ⁱ⁾,
-# and the error-feedback accumulators of the compression stage
+# the error-feedback accumulators of the compression stage and the
+# buffered-async engine's broadcast carry
 FLAT_STATE_KEYS = ("params", "round", "nu", "nu_i", "server_m",
-                   "server_v") + EF_KEYS
+                   "server_v") + compress.FLAT_STATE_KEYS
 
 
 def tensor_from_numpy(a: Any, device: Device) -> torch.Tensor:
@@ -43,9 +44,10 @@ def params_from_numpy(tree: Any, device: Device) -> Any:
 def flat_state_from_numpy(state: dict, device: Device) -> dict:
     """A JAX flat round state (``param_layout="flat"``) as numpy arrays →
     the port's state: ``params``/``nu``/``server_m``/``server_v`` ``(P,)``,
-    ``nu_i`` ``(M, P)``, the compression stage's ``ef_*`` accumulators and
-    ``round`` an int32 scalar.  Raises on the keys of features this port
-    does not run yet (robust aggregation, the async broadcast carry)."""
+    ``nu_i`` ``(M, P)``, the compression stage's ``ef_*`` accumulators, the
+    async engine's ``bc_*`` broadcast carry and ``round`` an int32 scalar.
+    Raises on the keys of features this port does not run yet (robust
+    aggregation)."""
     unknown = sorted(set(state) - set(FLAT_STATE_KEYS))
     if unknown:
         raise NotImplementedError(

@@ -177,22 +177,34 @@ def make_codec(name: str, n: int, *, topk_frac: float = 0.05) -> Callable:
 def make_rows_stage(codec: Callable, error_feedback: bool,
                     key: str) -> Callable:
     """Uplink stage over per-client rows.  ``apply(rows, state, new_state,
-    ids=None)`` compresses ``rows`` ``(B, P)`` with each reporting client's
-    own accumulator — gathered at ``ids``, or the full ``(M, P)`` block when
-    ids is None — and writes the new residuals back to THOSE rows only, so
-    a client that did not report keeps its accumulator untouched."""
-    def apply(rows, state, new_state, ids=None):
+    ids=None, *, last=None, in_place=False)`` compresses ``rows`` ``(B,
+    P)`` with each reporting client's own accumulator — gathered at
+    ``ids``, or the full ``(M, P)`` block when ids is None — and writes the
+    new residuals back to THOSE rows only, so a client that did not report
+    keeps its accumulator untouched.
+
+    Where an id repeats (a client reporting twice into one buffer), each
+    occurrence compresses with the accumulator it read, and the residual
+    kept is the last occurrence's, as in the reference: ``last``
+    (``stages.last_occurrence`` of the host ids, on the device) makes
+    every occurrence write that one, so the write does not depend on the
+    order the device makes it in.  ``in_place=True`` writes the rows into
+    ``state[key]`` itself, for a caller that owns the state (the store is
+    ``(M, P)``: a copy a round would cost its whole size)."""
+    def apply(rows, state, new_state, ids=None, *, last=None,
+              in_place=False):
         if error_feedback:
             ef = state[key]
-            tgt = rows + (ef if ids is None else ef[ids])
+            tgt = rows + (ef if ids is None else ef.index_select(0, ids))
             out = codec(tgt)
             resid = (tgt - out).to(ef.dtype)
             if ids is None:
                 new_state[key] = resid
             else:
-                new_ef = ef.clone()
-                new_ef[ids] = resid
-                new_state[key] = new_ef
+                if last is not None:
+                    resid = resid.index_select(0, last)
+                store = ef if in_place else ef.clone()
+                new_state[key] = store.index_copy_(0, ids, resid)
             return out
         return codec(rows)
     return apply
@@ -278,6 +290,11 @@ def build_stages(compression: Optional[CompressionConfig], spec,
 
 
 EF_KEYS = ("ef_up", "ef_nu", "ef_down", "ef_down_nu")
+# the buffered-async engine's broadcast carry (fed/async_engine.py): the
+# last compressed server broadcast, kept in the state so that chunk
+# boundaries and resumes see the anchors the clients were dispatched with
+BC_KEYS = ("bc_params", "bc_nu")
+FLAT_STATE_KEYS = EF_KEYS + BC_KEYS
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +318,29 @@ def wire_cost(n: int, uses_nu: bool,
     return {"uplink_per_client": up, "downlink_per_client": down,
             "uplink_fp32_per_client": q * 4.0 * n,
             "downlink_fp32_per_client": q * 4.0 * n}
+
+
+def bytes_on_the_wire(n_params: int, *, uses_nu: bool = True,
+                      compressor: str = "none",
+                      broadcast_compressor: str = "none",
+                      topk_frac: float = 0.05,
+                      participants: int = 1, rounds: int = 1) -> dict:
+    """The analytic wire-traffic model of a federated run: ``wire_cost``'s
+    per-client payloads, totals over ``participants`` reports × ``rounds``,
+    and the reduction factors against fp32 (the measured
+    ``History.bytes_up`` / ``bytes_down`` series are pinned against it)."""
+    comp = (None if compressor == "none" and broadcast_compressor == "none"
+            else CompressionConfig(uplink=compressor,
+                                   downlink=broadcast_compressor,
+                                   topk_frac=topk_frac))
+    per = wire_cost(n_params, uses_nu, comp)
+    scale = float(participants) * float(rounds)
+    return {
+        **per,
+        "uplink_total": scale * per["uplink_per_client"],
+        "downlink_total": scale * per["downlink_per_client"],
+        "uplink_reduction": (per["uplink_fp32_per_client"]
+                             / per["uplink_per_client"]),
+        "downlink_reduction": (per["downlink_fp32_per_client"]
+                               / per["downlink_per_client"]),
+    }

@@ -7,7 +7,7 @@ the caller reads the metrics.  (Capturing the chunk in a CUDA graph is a
 later step.)"""
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -58,25 +58,27 @@ def make_round_chunk(round_fn: Callable, r: int,
 
 def make_population_chunk(round_fn: Callable, r: int,
                           donate: bool = False) -> Callable:
-    """``chunk_fn(state, batches, cohorts, k_steps, cweights, lam) ->
-    (state, metrics)`` running ``r`` cohort rounds
+    """``chunk_fn(state, batches, cohorts, k_steps, cweights, lam,
+    lasts=None) -> (state, metrics)`` running ``r`` cohort rounds
     (``flat.make_flat_cohort_round``) on cohorts drawn on the host.
 
     Every input is stacked per round: ``batches`` holds ``(r, C, k_max,
     …)`` tensors, ``cohorts`` is ``(r, C)`` int64, ``k_steps`` ``(r, C)``,
-    ``cweights`` ``(r, C)`` and ``lam`` a sequence of ``r`` host floats;
-    each metric comes back as an ``(r,)`` device tensor.  A chunk of r
-    rounds is the same computation as r ``round_fn`` calls.
+    ``cweights`` ``(r, C)``, ``lam`` a sequence of ``r`` host floats and
+    ``lasts`` None (no id repeats within a cohort) or each cohort's
+    ``stages.last_occurrence``, ``(r, C)`` int64; each metric comes back as
+    an ``(r,)`` device tensor.  A chunk of r rounds is the same computation
+    as r ``round_fn`` calls.
 
     ``donate=True`` hands the state over as ``make_round_chunk``'s does
     (the given dict is emptied, and refilled with the last finished
     round's state if a round raises), and each round then updates the
-    population-sized ν⁽ⁱ⁾ store in place.  (The reference's device mode,
-    cohorts and batches drawn inside the chunk, needs a device batcher:
-    ROADMAP A5.)"""
+    population-sized ν⁽ⁱ⁾ and error-feedback stores in place.  (The
+    reference's device mode, cohorts and batches drawn inside the chunk,
+    needs a device batcher: ROADMAP A5.)"""
     def chunk_fn(state: dict, batches: dict, cohorts: torch.Tensor,
                  k_steps: torch.Tensor, cweights: torch.Tensor,
-                 lam: Sequence[float]):
+                 lam: Sequence[float], lasts: Optional[torch.Tensor] = None):
         if cohorts.shape[0] != r:
             raise ValueError(f"chunk built for {r} rounds, got "
                              f"{cohorts.shape[0]}")
@@ -90,7 +92,7 @@ def make_population_chunk(round_fn: Callable, r: int,
                 state, metrics = round_fn(
                     state, {key: v[j] for key, v in batches.items()},
                     cohorts[j], k_steps[j], cweights[j], lam[j],
-                    donate=donate)
+                    donate=donate, last=None if lasts is None else lasts[j])
                 per_round.append(metrics)
         except BaseException:
             if donate:

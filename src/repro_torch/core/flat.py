@@ -192,7 +192,8 @@ def flat_value_and_grad(spec: FlatSpec,
 
 def make_flat_client_update(spec: FlatSpec,
                             loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
-                            algo: Algorithm, *, lr: float, k_max: int):
+                            algo: Algorithm, *, lr: float, k_max: int,
+                            per_client_anchor: bool = False):
     """``f(anchor, c_all, batches, k_steps, lam) -> (x_i, g0_i, loss0)`` on
     (M, P) rows; ``c_all`` is ignored by algorithms without ν and ``g0_i``
     is None unless the selector reads the first gradient.
@@ -200,7 +201,10 @@ def make_flat_client_update(spec: FlatSpec,
     Every client runs ``k_max`` steps; client *i* applies updates only for
     ``k < K_i`` through its per-row η, and each step is ONE calibrated-update
     kernel launch on the whole matrix (the prox variant for FedProx-style
-    algorithms)."""
+    algorithms).  ``anchor`` is the ``(P,)`` model every client starts
+    from, or with ``per_client_anchor=True`` the contiguous ``(M, P)`` rows
+    each client starts from (the buffered-async path's dispatch-time
+    models), which are then also the prox term's x₀."""
     needs_first = algo.selector in ("fedagrac", "first", "reverse")
     uses_nu = algo.uses_nu
     # fusing the prox term into the kernel is valid only when nothing
@@ -212,7 +216,10 @@ def make_flat_client_update(spec: FlatSpec,
     def run(anchor: torch.Tensor, c_all: Optional[torch.Tensor],
             batches: dict, k_steps: torch.Tensor, lam: float):
         m = k_steps.shape[0]
-        x = anchor[None].expand(m, spec.p).contiguous()
+        # the kernels return new tensors: per-client anchor rows are read,
+        # never written
+        x = (anchor if per_client_anchor
+             else anchor[None].expand(m, spec.p).contiguous())
         # the prox term reads the (M, P) anchors at every step; without it
         # the starting rows are freed after the first update
         anchors = x if algo.prox_mu else None
@@ -329,11 +336,14 @@ def make_flat_round(spec: FlatSpec,
 def make_flat_cohort_round(spec: FlatSpec,
                            loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                            algo: Algorithm, *, lr: float, k_max: int,
-                           nu_decay: float = 0.0, compression=None,
+                           nu_decay: float = 0.0,
+                           compression: Optional[
+                               compress.CompressionConfig] = None,
                            robust=None, attack=None):
     """``round_fn(state, batches, cohort, k_steps, cweights, lam=None, *,
-    donate=False) -> (state, metrics)``: one round of a sampled cohort of
-    C clients over population-sized state (``nu_i`` is ``(M, P)``).
+    donate=False, last=None) -> (state, metrics)``: one round of a sampled
+    cohort of C clients over population-sized state (``nu_i`` is ``(M,
+    P)``).
 
     ``batches`` holds ``(C, k_max, B, …)`` tensors, ``cohort`` the ``(C,)``
     int64 client ids, ``k_steps`` ``(C,)`` integer and ``cweights`` the
@@ -343,15 +353,25 @@ def make_flat_cohort_round(spec: FlatSpec,
     rows (one calibrated-update launch per step), aggregates in
     pseudo-delta form with w̃, takes the server step, mass-mixes ν with
     ρ = min(Σw̃, 1), and writes the cohort's fresh rows back into the
-    store (the rest decay toward ν at ``nu_decay``).
+    store (the rest decay toward ν at ``nu_decay``).  Where an id repeats
+    (the ``weighted`` sampler draws with replacement), ``last``
+    (``stages.last_occurrence`` of the host cohort, on the device) makes
+    every row written the last occurrence's, as the reference keeps.
+
+    ``compression`` adds the wire stage as the reference's cohort round
+    does: the broadcast codec gives the anchor x̂ and ν̂ the cohort starts
+    from, the uplink codecs compress each client's delta x⁽ⁱ⁾ − x̂ and ν
+    transmit with its own error-feedback rows, gathered and written back
+    at the cohort's ids; the pseudo-delta aggregate is taken around x̂
+    and added to the true params, so broadcast error never builds up in
+    the server state.
 
     ``donate=True``: the caller hands the state over (a chunk that owns
-    it, or a simulation replacing its own), and the ν⁽ⁱ⁾ store is updated
-    in place instead of copied whole.  Compression, robust aggregation and
-    payload attacks on the cohort round raise ``NotImplementedError``."""
-    for given, what in ((compression, "wire compression on the cohort "
-                                      "round (ROADMAP A9)"),
-                        (robust, "robust aggregation (ROADMAP A10)"),
+    it, or a simulation replacing its own), and the ν⁽ⁱ⁾ and
+    error-feedback stores are updated in place instead of copied whole.
+    Robust aggregation and payload attacks raise
+    ``NotImplementedError``."""
+    for given, what in ((robust, "robust aggregation (ROADMAP A10)"),
                         (attack, "payload attacks (ROADMAP A8)")):
         if given is not None:
             raise NotImplementedError(f"the PyTorch port does not run {what}"
@@ -359,10 +379,14 @@ def make_flat_cohort_round(spec: FlatSpec,
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
                                             k_max=k_max)
     aggregate = stages.BUFFERED_AGGREGATORS[algo.aggregator]
+    cs = compress.build_stages(compression, spec, algo.uses_nu)
+    down_on = cs is not None and cs.down is not None
+    up_on = cs is not None and cs.up is not None
 
     def round_fn(state: dict, batches: dict, cohort: torch.Tensor,
                  k_steps: torch.Tensor, cweights: torch.Tensor,
-                 lam: Optional[float] = None, *, donate: bool = False):
+                 lam: Optional[float] = None, *, donate: bool = False,
+                 last: Optional[torch.Tensor] = None):
         if lam is None:
             lam = algo.lam
         params0 = state["params"]                          # (P,)
@@ -371,25 +395,46 @@ def make_flat_cohort_round(spec: FlatSpec,
         kbar = torch.dot(cweights, kf) / mass
         new_state = dict(state)
 
+        if down_on:
+            anchor = cs.down(params0, state, new_state)
+            nu_bc = (cs.down_nu(state["nu"], state, new_state)
+                     if algo.uses_nu else None)
+        else:
+            anchor = params0
+            nu_bc = state["nu"] if algo.uses_nu else None
+
         # a fresh contiguous (C, P) correction, never a view of the store
-        c_all = (state["nu"][None] - state["nu_i"].index_select(0, cohort)
+        c_all = (nu_bc[None] - state["nu_i"].index_select(0, cohort)
                  if algo.uses_nu else None)
-        x_i, g0_i, loss0 = client_update(params0, c_all, batches, k_steps,
+        x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
                                          lam)
-        agg = aggregate(params0, params0[None], x_i, kf, cweights, kbar)
+        if cs is not None:
+            d = x_i - anchor[None]
+            if up_on:
+                d = cs.up(d, state, new_state, ids=cohort, last=last,
+                          in_place=donate)
+            x_srv = anchor[None] + d
+        else:
+            x_srv = x_i
+        # the deltas are taken around the broadcast x̂ and added to the
+        # true params: no re-base is needed
+        agg = aggregate(params0, anchor[None], x_srv, kf, cweights, kbar)
         new_state["params"] = stages.server_update(algo, state, params0, agg,
                                                    new_state)
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
             transmit, avg_g = stages.orientation_transmit(
-                algo, params0, x_i, g0_i, c_all, kf, kbar, lr, lam)
+                algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            if up_on:
+                transmit = cs.up_nu(transmit, state, new_state, ids=cohort,
+                                    last=last, in_place=donate)
             new_nu = stages.nu_mass_mix(state["nu"],
                                         tree_wsum(cweights, transmit), mass)
             new_state["nu"] = new_nu
             new_state["nu_i"] = stages.scatter_nu_rows(
                 state["nu_i"], new_nu, avg_g, cohort, nu_decay,
-                in_place=donate)
+                in_place=donate, last=last)
 
         metrics = {"loss": torch.dot(cweights, loss0) / mass, "kbar": kbar,
                    "mass": mass}

@@ -8,7 +8,8 @@ from repro_torch.core.fedopt import Algorithm
 
 
 def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
-               compression=None, spec=None) -> dict:
+               compression=None, spec=None,
+               broadcast_carry: bool = False) -> dict:
     """Server + client state around the ``(P,)`` flat ``params``.  ν/ν⁽ⁱ⁾
     start at zero: the first round runs plain (uncalibrated) local SGD, as
     in the paper, where ν⁽ⁱ⁾ = ∇f_i(x₁) is unknown before any gradient.
@@ -17,7 +18,10 @@ def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
     With an active ``compression`` (core/compress.py) the error-feedback
     accumulators are added: ``(M, P)`` rows per uplink quantity, ``(P,)``
     per broadcast quantity; ``spec`` (a ``FlatSpec``) gives P and the
-    dtype."""
+    dtype.  ``broadcast_carry=True`` (the buffered-async engine) also adds,
+    under downlink compression, the broadcast carry ``compress.BC_KEYS``:
+    ``bc_params`` and (ν algorithms) ``bc_nu``, the last compressed
+    broadcast, which each run fills with its t = 0 broadcast."""
     state = {"params": params,
              "round": torch.zeros((), dtype=torch.int32,
                                   device=params.device)}
@@ -34,4 +38,8 @@ def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
             raise ValueError("compression requires a FlatSpec")
         compress.init_compression_state(state, compression, n_clients,
                                         spec.p, spec.dtype, algo.uses_nu)
+        if broadcast_carry and compression.down_active:
+            state["bc_params"] = params.clone()
+            if algo.uses_nu:
+                state["bc_nu"] = torch.zeros_like(params)
     return state

@@ -9,8 +9,9 @@ returns tensors in the state's dtype; λ arrives as a host float.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.fedopt import Algorithm
@@ -84,21 +85,41 @@ def nu_mass_mix(nu: torch.Tensor, contrib: torch.Tensor,
             ).to(nu.dtype)
 
 
+def last_occurrence(ids) -> "np.ndarray":
+    """(B,) int64: for each position j of the host id array ``ids``, the
+    position of the LAST occurrence of ``ids[j]`` — the occurrence the
+    reference's scatter keeps when an id repeats (a fast client reporting
+    twice into one buffer, a weighted cohort drawing a client twice).
+    Rows taken at these positions carry, for a repeated id, the same row
+    at every occurrence, so a device scatter of them writes one value
+    whatever order its writes land in."""
+    ids = np.asarray(ids)
+    last = np.arange(len(ids), dtype=np.int64)
+    seen: dict = {}
+    for j in range(len(ids) - 1, -1, -1):
+        last[j] = seen.setdefault(int(ids[j]), j)
+    return last
+
+
 def scatter_nu_rows(nu_i: torch.Tensor, new_nu: torch.Tensor,
                     avg_g: torch.Tensor, ids: torch.Tensor,
-                    nu_decay: float = 0.0, *,
-                    in_place: bool = False) -> torch.Tensor:
+                    nu_decay: float = 0.0, *, in_place: bool = False,
+                    last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Write the participants' fresh ν̄⁽ⁱ⁾ rows into the population-sized
     ``(M, P)`` store; the other rows first decay toward the new ν at
     ``nu_decay`` per round (their correction ν − ν⁽ⁱ⁾ → 0; 0 keeps them
-    frozen).  ``ids`` is an int64 index tensor; a repeated id carries the
-    same row each time, so the write order does not matter.
+    frozen).  ``ids`` is an int64 index tensor; where an id repeats,
+    ``last`` (``last_occurrence`` of the host ids, on the device) makes
+    every occurrence carry the last one's row, the one the reference
+    keeps, so the write is the same whatever order the device makes it
+    in.
 
     ``in_place=True`` updates ``nu_i`` itself (``lerp_`` only when
     ``nu_decay > 0``, then ``index_copy_`` of the C rows) and returns it:
     for a caller that owns the state, whose store would otherwise be
     copied whole every round."""
-    rows = avg_g.to(nu_i.dtype)
+    rows = (avg_g if last is None else avg_g.index_select(0, last)
+            ).to(nu_i.dtype)
     if in_place:
         if nu_decay:
             nu_i.lerp_(new_nu.to(nu_i.dtype), nu_decay)
@@ -146,20 +167,26 @@ def fast_mask(kf: torch.Tensor, kbar: torch.Tensor) -> torch.Tensor:
 
 def recover_avg_grad(params0: torch.Tensor, x_i: torch.Tensor,
                      c_all: torch.Tensor, kf: torch.Tensor, lr: float,
-                     lam: float) -> torch.Tensor:
+                     lam: float, anchor_i: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Delta recovery of the averaged local gradient (paper §4.2):
-    ν̄⁽ⁱ⁾ = (x̃ − x⁽ⁱ⁾_{K_i}) / (η K_i) − λ c⁽ⁱ⁾."""
-    return ((params0[None].float() - x_i.float()) / (lr * expand(kf, x_i))
-            - lam * c_all.float()).to(params0.dtype)
+    ν̄⁽ⁱ⁾ = (x̃ − x⁽ⁱ⁾_{K_i}) / (η K_i) − λ c⁽ⁱ⁾.  ``anchor_i`` (``(B, P)``
+    rows, each client's dispatch-time model) replaces the shared x̃ on the
+    buffered-async path."""
+    x0 = params0[None] if anchor_i is None else anchor_i
+    return ((x0.float() - x_i.float()) / (lr * expand(kf, x_i))
+            - lam * c_all.float()).to(x0.dtype)
 
 
 def orientation_transmit(algo: Algorithm, params0: torch.Tensor,
                          x_i: torch.Tensor, g0_i: torch.Tensor,
                          c_all: torch.Tensor, kf: torch.Tensor,
-                         kbar: torch.Tensor, lr: float, lam: float):
+                         kbar: torch.Tensor, lr: float, lam: float,
+                         anchor_i: Optional[torch.Tensor] = None):
     """Per-client (transmit, avg_g): what flows into the next global ν, and
-    the local reference ν⁽ⁱ⁾ (Alg. 1 line 11 — always the averaged grad)."""
-    avg_g = recover_avg_grad(params0, x_i, c_all, kf, lr, lam)
+    the local reference ν⁽ⁱ⁾ (Alg. 1 line 11 — always the averaged grad).
+    ``anchor_i`` as in ``recover_avg_grad``."""
+    avg_g = recover_avg_grad(params0, x_i, c_all, kf, lr, lam, anchor_i)
     transmit = SELECTORS[algo.selector](g0_i, avg_g, fast_mask(kf, kbar))
     return transmit, avg_g
 

@@ -1,5 +1,5 @@
 """Client population: partial participation and cohort sampling
-(``repro.fed.population`` counterpart, its synchronous part).
+(``repro.fed.population`` counterpart).
 
 The server keeps per-client metadata (data mass ω_i, availability) for the
 whole population of M clients while each round runs only a sampled
@@ -28,8 +28,14 @@ direction Σ ω_i (x⁽ⁱ⁾ − x) without bias:
     availability  w̃_i = ω_i / Σ_{j∈S} ω_j   (self-normalized; biased toward
                                              available clients by design)
 
-The asynchronous dispatch hooks (``report_weights``, ``initial_dispatch``,
-``pick_dispatch``) come with the buffered engine (ROADMAP A7).
+The buffered-async engine (fed/async_engine.py) reads the population
+through its dispatch hooks, the reference's own, numpy for numpy: the
+timeline (fed/clock.py) draws ``initial_dispatch`` and every
+``pick_dispatch`` from one ``default_rng((seed, 0x5eed))`` stream, so the
+same seed gives the reference's picks bit for bit; ``report_weights`` are
+the per-report base weights and ``step_rate`` scales the clock's speeds.
+A time-varying availability hook (``availability_fn``, set by a failure
+scenario) is ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -140,13 +146,14 @@ class ClientPopulation:
     """Per-client metadata + the cohort draw for a population of M clients.
 
     ``weights`` is the data mass ω (normalized to sum 1, float32 as in the
-    reference), ``availability`` the per-client up-probability the
-    ``availability`` sampler uses.  Scalars broadcast to (M,).  Draws and
-    weights are numpy arrays on the host."""
+    reference), ``step_rate`` the relative local-step speed profile (the
+    async clock's speeds are multiplied by it), ``availability`` the
+    per-client up-probability the ``availability`` sampler uses.  Scalars
+    broadcast to (M,).  Draws and weights are numpy arrays on the host."""
 
     def __init__(self, m: int, *, cohort_size: Optional[int] = None,
                  sampler: str = "uniform", seed: int = 0, weights=None,
-                 availability=1.0):
+                 step_rate=None, availability=1.0):
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}; available: "
                              f"{sorted(SAMPLERS)}")
@@ -167,8 +174,16 @@ class ClientPopulation:
         self.weights = (w / w.sum()).astype(np.float32)
         # the weighted draw's probabilities, in float64 as numpy asks
         self._p = w / w.sum()
+        self.step_rate = np.broadcast_to(
+            np.asarray(1.0 if step_rate is None else step_rate, np.float64),
+            (self.m,)).copy()
         self.availability = np.broadcast_to(
             np.asarray(availability, np.float32), (self.m,)).copy()
+        self._rr_next = 0             # round-robin dispatch pointer (async)
+        self._cdf = None              # lazily-built dispatch-profile CDF
+        # a time-varying availability multiplier ``t -> (M,)`` that a
+        # failure scenario attaches (ROADMAP A8); None = the static profile
+        self.availability_fn = None
 
     @property
     def full_participation(self) -> bool:
@@ -221,3 +236,88 @@ class ClientPopulation:
         """The cohort and its weights for round ``t`` (the port draws every
         cohort on the host: the reference's name for that draw)."""
         return self.cohort_and_weights(t)
+
+    # -- async-engine hooks (host-side event loop, fed/clock.py) -------------
+
+    def report_weights(self) -> np.ndarray:
+        """(M,) float32 base per-REPORT aggregation weights for the
+        buffered-async engine (the staleness discount multiplies on top):
+        ``cohort_weights``'s renormalization with the buffer in the
+        cohort's place (availability has no per-buffer normalizer on the
+        host and shares the Horvitz–Thompson rule)."""
+        w = np.asarray(self.weights, np.float64)
+        if self.sampler == "all":
+            return w.astype(np.float32)
+        if self.sampler == "weighted":
+            return np.full((self.m,), 1.0 / self.cohort_size, np.float32)
+        return (w * (self.m / self.cohort_size)).astype(np.float32)
+
+    def initial_dispatch(self, rng: np.random.Generator) -> np.ndarray:
+        """The C distinct clients in flight at t = 0."""
+        if self.sampler == "all":
+            return np.arange(self.m)
+        if self.sampler == "round_robin":
+            self._rr_next = self.cohort_size % self.m
+            return np.arange(self.cohort_size) % self.m
+        p = self._dispatch_profile()
+        if np.count_nonzero(p) < self.cohort_size:
+            # fewer ever-available clients than slots: pad the profile so a
+            # distinct draw exists (the cohort sampler's fill rule)
+            p = (p + 1.0 / self.m) / (p.sum() + 1.0)
+        return rng.choice(self.m, self.cohort_size, replace=False, p=p)
+
+    def pick_dispatch(self, rng: np.random.Generator, busy: np.ndarray,
+                      freed: int, phase: int = 0) -> int:
+        """The next client to dispatch among idle (``~busy``) clients — the
+        buffered-async analogue of the cohort draw (one slot frees per
+        report, so concurrency stays capped at C).
+
+        O(1) expected per event: stochastic samplers draw from the profile
+        CDF and reject busy clients (busy mass ≈ C/M), falling back to an
+        O(M) scan only after 64 rejections; ``all`` re-dispatches the
+        reporter with no draw and ``round_robin`` walks its cyclic pointer
+        past busy clients.  ``phase`` (the server update index) matters only
+        with an ``availability_fn`` (ROADMAP A8)."""
+        if self.sampler == "all":
+            return int(freed)                  # the only idle client
+        if self.sampler == "round_robin":
+            for _ in range(self.m):
+                i = self._rr_next
+                self._rr_next = (i + 1) % self.m
+                if not busy[i]:
+                    return i
+            raise RuntimeError("no idle client (caller must free one)")
+        cdf = self._profile_cdf(phase)
+        for _ in range(64):
+            i = min(int(np.searchsorted(cdf, rng.random(), side="right")),
+                    self.m - 1)
+            if not busy[i]:
+                return i
+        ids = np.flatnonzero(~busy)
+        p = self._dispatch_profile(phase)[ids]
+        if p.sum() <= 0:                 # every idle client unavailable:
+            p = np.ones(len(ids))        # fall back to a uniform pick
+        return int(rng.choice(ids, p=p / p.sum()))
+
+    def _avail_profile(self, phase: int) -> np.ndarray:
+        if self.availability_fn is not None:
+            raise NotImplementedError(
+                "the PyTorch port does not run a time-varying availability "
+                "(availability_fn, failure scenarios: ROADMAP A8) yet")
+        return np.asarray(self.availability, np.float64)
+
+    def _dispatch_profile(self, phase: int = 0) -> np.ndarray:
+        if self.sampler == "weighted":
+            p = np.asarray(self.weights, np.float64)
+        elif self.sampler == "availability":
+            p = self._avail_profile(phase)
+        else:                                   # all / uniform / round_robin
+            p = np.ones(self.m)
+        s = p.sum()
+        return p / s if s > 0 else np.full(self.m, 1.0 / self.m)
+
+    def _profile_cdf(self, phase: int = 0) -> np.ndarray:
+        if self._cdf is None:
+            self._cdf = np.cumsum(self._dispatch_profile())
+            self._cdf[-1] = 1.0
+        return self._cdf

@@ -17,13 +17,15 @@ state, so rounds update that store in place.  A chunk of cohort rounds
 (``engine.make_population_chunk``) computes exactly what its rounds
 computed one by one.
 
-The port runs the flat layout with no scenario or defense; full
-participation with or without wire compression (core/compress.py), cohort
-rounds without.  A config asking for anything else raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  Every run
-records the wire bytes per round (``History.bytes_up`` / ``bytes_down``) at
-the number of clients that report, at the fp32 cost when compression is
-off.
+The port runs the flat layout with no scenario or defense, full
+participation and cohort rounds alike with or without wire compression
+(core/compress.py).  A config asking for anything else raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  As in the
+reference, this engine runs its synchronous round whatever
+``buffer_size`` says: the buffered engine is
+``fed.async_engine.BufferedAsyncSimulation``.  Every run records the wire
+bytes per round (``History.bytes_up`` / ``bytes_down``) at the number of
+clients that report, at the fp32 cost when compression is off.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import compress, engine, flat, rounds
+from repro_torch.core import compress, engine, flat, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
@@ -61,8 +63,6 @@ def _check_supported(fed: FedConfig) -> None:
         (fed.param_layout != "flat",
          f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
          f"tree layout is ROADMAP A2)"),
-        (fed.buffer_size > 0,
-         "buffered asynchronous rounds (buffer_size, ROADMAP A7)"),
         (fed.scenario != "baseline",
          f"scenario={fed.scenario!r} (failure scenarios, ROADMAP A8)"),
         (fed.defense != "none" or fed.quarantine_window > 0,
@@ -89,8 +89,12 @@ class History:
     # fp32 cost when compression is off, so runs compare directly
     bytes_up: list[float] = dataclasses.field(default_factory=list)
     bytes_down: list[float] = dataclasses.field(default_factory=list)
-    # cohort rounds: the cohort's weight mass Σ w̃ per round
+    # cohort rounds and buffered updates: the weight mass Σ w̃ per round
     mass: list[float] = dataclasses.field(default_factory=list)
+    # buffered-async engine (fed/async_engine.py): simulated arrival time of
+    # each server update and the mean staleness of its buffer
+    sim_time: list[float] = dataclasses.field(default_factory=list)
+    staleness: list[float] = dataclasses.field(default_factory=list)
 
     def fairness(self) -> Optional[dict]:
         """FL fairness of the final round: worst-client metric and the
@@ -177,11 +181,6 @@ class FederatedSimulation:
             fed, m=fed.n_clients, weights=self.weights.cpu().numpy())
         self._partial = (self.population is not None
                          and not self.population.full_participation)
-        if self._partial and self.compression is not None:
-            raise NotImplementedError(
-                "the PyTorch port does not run wire compression on the "
-                "cohort round (compressor/broadcast_compressor with "
-                "cohort_size, ROADMAP A9) yet")
         if self._partial and not hasattr(batcher, "cohort_batches"):
             raise ValueError("cohort rounds need a batcher with cohort "
                              "methods (FederatedBatcher)")
@@ -209,7 +208,8 @@ class FederatedSimulation:
         if self._round is None:
             self._round = flat.make_flat_cohort_round(
                 self._spec, self._loss_fn, self.algo, lr=self.fed.lr,
-                k_max=self.k_max, nu_decay=self.fed.cohort_nu_decay)
+                k_max=self.k_max, nu_decay=self.fed.cohort_nu_decay,
+                compression=self.compression)
         return self._round
 
     def _pop_chunk_fn(self, r: int) -> Callable:
@@ -280,6 +280,15 @@ class FederatedSimulation:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             dtype=dtype, device=self.device)
 
+    def _lasts(self, cohorts: np.ndarray) -> Optional[torch.Tensor]:
+        """Each cohort's ``stages.last_occurrence`` on the device, ``(r,
+        C)``, or None where no cohort repeats an id."""
+        lasts = np.stack([stages.last_occurrence(ids) for ids in cohorts])
+        if np.array_equal(lasts, np.broadcast_to(
+                np.arange(cohorts.shape[1]), lasts.shape)):
+            return None
+        return self._on_device(lasts, torch.int64)
+
     def _run_pop_round(self, t: int, hist: History) -> None:
         """The chunk_rounds=1 cohort path: one round, one host sync."""
         lam = self._lam(t)
@@ -287,12 +296,14 @@ class FederatedSimulation:
         ids, cw = self.population.host_cohort(t)
         k_c = self._sched_row(t)[ids]
         batches = self.batcher.cohort_batches(t, ids, self.k_max)
+        last = self._lasts(ids[None])
         t0 = time.perf_counter()
         # the run owns its state: the ν⁽ⁱ⁾ store is updated in place
         self.state, metrics = round_fn(
             self.state, batches, self._on_device(ids, torch.int64),
             self._on_device(k_c, torch.int32),
-            self._on_device(cw, torch.float32), lam, donate=True)
+            self._on_device(cw, torch.float32), lam, donate=True,
+            last=None if last is None else last[0])
         self._sync()
         hist.wall.append(time.perf_counter() - t0)
         hist.loss.append(float(metrics["loss"]))
@@ -309,11 +320,12 @@ class FederatedSimulation:
                        for j in range(r)])
         batches = self.batcher.chunk_cohort_batches(t0, cohorts, self.k_max)
         lams = [self._lam(t0 + j) for j in range(r)]
+        lasts = self._lasts(cohorts)
         tic = time.perf_counter()
         self.state, metrics = chunk_fn(
             self.state, batches, self._on_device(cohorts, torch.int64),
             self._on_device(ks, torch.int32),
-            self._on_device(cws, torch.float32), lams)
+            self._on_device(cws, torch.float32), lams, lasts)
         self._sync()
         dt = time.perf_counter() - tic
         hist.loss.extend(metrics["loss"].double().tolist())

@@ -17,7 +17,10 @@ profiles a chunk of cohort rounds instead: FedaGrac on a population of
 that many clients, a uniform cohort of 8 a round, K 4, batch 16, the same
 mlp over Gaussian-blob data at 2 samples a client (the population bench's
 setting, chip_smoke.py phase 11), one warm chunk of 12 rounds, then one
-profiled chunk; the line reports per round.  Needs a CUDA device.
+profiled chunk; the line reports per round.  With ``--buffered`` the
+same setting runs on the buffered-async engine (8 clients in flight, a
+buffer of 8, hinge staleness, a lognormal σ = 1 fleet) and the line
+reports per update.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -110,45 +113,75 @@ POPULATION = {"cohort": 8, "k": 4, "batch": 16, "d": 60, "classes": 10,
               "chunk": 12}
 
 
-def population_simulation(m: int, pop: dict = POPULATION,
-                          device: str = "cuda"):
-    """FedaGrac on ``m`` clients, a cohort of ``pop["cohort"]`` a round,
-    on the mlp ``d``-64-``classes`` over Gaussian blobs at 2 samples a
-    client (at least ``n_data``), IID parts, one K row."""
+def _population_parts(m: int, pop: dict, device: str):
+    """(batcher, initial mlp, K schedule) of the population setting:
+    Gaussian blobs at 2 samples a client (at least ``n_data``), IID parts,
+    one K row (the default schedule would be (10k, M))."""
     from repro_torch.data import gaussian_classification, iid_partition
-    from repro_torch.fed import FederatedSimulation
     data = gaussian_classification(torch.Generator().manual_seed(0),
                                    max(pop["n_data"], 2 * m), d=pop["d"],
                                    n_classes=pop["classes"])
     batcher = FederatedBatcher(data, iid_partition(len(data), m, seed=0),
                                batch_size=pop["batch"], seed=0,
                                device=device)
+    params = mlp_init(torch.Generator().manual_seed(0), pop["d"], 64,
+                      pop["classes"])
+    return batcher, params, np.full((1, m), pop["k"], np.int32)
+
+
+def population_simulation(m: int, pop: dict = POPULATION,
+                          device: str = "cuda", **fed_kw):
+    """FedaGrac on ``m`` clients, a cohort of ``pop["cohort"]`` a round,
+    on the mlp ``d``-64-``classes`` over Gaussian blobs at 2 samples a
+    client (at least ``n_data``), IID parts, one K row; ``fed_kw`` adds
+    config fields (a compressor)."""
+    from repro_torch.fed import FederatedSimulation
+    batcher, params, ks = _population_parts(m, pop, device)
     fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
                     lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
                     cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],
-                    param_layout="flat")
-    params = mlp_init(torch.Generator().manual_seed(0), pop["d"], 64,
-                      pop["classes"])
-    # one K row: the default schedule (gaussian_k_schedule) is (10k, M)
+                    param_layout="flat", **fed_kw)
     return FederatedSimulation(mlp_loss, params, fed, batcher,
-                               k_schedule=np.full((1, m), pop["k"],
-                                                  np.int32),
-                               device=device)
+                               k_schedule=ks, device=device)
 
 
-def profile_population(m: int, top: int = 8) -> dict:
+def population_async_simulation(m: int, pop: dict = POPULATION,
+                                device: str = "cuda", **fed_kw):
+    """The same setting on the buffered-async engine: ``pop["cohort"]``
+    clients in flight, a buffer of as many reports, hinge staleness, the
+    lognormal σ = 1 fleet; ``fed_kw`` adds config fields."""
+    from repro_torch.fed import BufferedAsyncSimulation
+    batcher, params, ks = _population_parts(m, pop, device)
+    fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
+                    lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
+                    cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],
+                    buffer_size=pop["cohort"], staleness="hinge",
+                    speed_dist="lognormal", speed_sigma=1.0,
+                    param_layout="flat", **fed_kw)
+    return BufferedAsyncSimulation(mlp_loss, params, fed, batcher,
+                                   k_schedule=ks, device=device)
+
+
+def profile_population(m: int, top: int = 8, buffered: bool = False
+                       ) -> dict:
     chunk = POPULATION["chunk"]
-    sim = population_simulation(m)
-    sim.run(chunk, chunk_rounds=chunk)                      # warm
+    if buffered:
+        sim = population_async_simulation(m)
+        kw = {"chunk_updates": chunk}
+    else:
+        sim = population_simulation(m)
+        kw = {"chunk_rounds": chunk}
+    sim.run(chunk, **kw)                                    # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tic = time.perf_counter()
-        sim.run(chunk, chunk_rounds=chunk)
+        sim.run(chunk, **kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - tic) * 1e6
     return {"population": m, "cohort": POPULATION["cohort"],
             "k": POPULATION["k"], "rounds": chunk,
+            "engine": "buffered_async" if buffered else "cohort_round",
             **_breakdown(prof, wall_us, chunk * POPULATION["k"], chunk,
                          top)}
 
@@ -158,10 +191,15 @@ def main() -> None:
     ap.add_argument("--algorithms", default="fedavg,fedprox,fednova,fedagrac")
     ap.add_argument("--population", type=int, default=0,
                     help="profile cohort rounds on this many clients")
+    ap.add_argument("--buffered", action="store_true",
+                    help="with --population: buffered-async updates "
+                         "instead of cohort rounds")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.population:
-        print(json.dumps(profile_population(args.population)), flush=True)
+        print(json.dumps(profile_population(args.population,
+                                            buffered=args.buffered)),
+              flush=True)
         return
     for algo in args.algorithms.split(","):
         print(json.dumps(profile_round(algo)), flush=True)

@@ -7,12 +7,16 @@ regenerates the file from the JAX modules (``benchmarks/``, about a minute
 on the CPU); tests/test_torch_benchmarks.py regenerates part of it and
 holds it equal to the committed file.  Each module's rows are kept as its
 ``main(quick=True)`` prints them (a header, then one row a line, each cell
-a string).  Rows that report rounds to a target also keep
-``target_margin``: the least |accuracy − target| over the rounds up to the
-crossing round (every round where the target is never reached), so a
-check of the port's rounds knows where the reference sat within rounding
-of the target.  The card has no JAX: this file is how ``chip_smoke.py``
-holds the card to the reference.
+a string).  Lines that start with ``#`` (a module's closing notes, such as
+table_async's drift check) are kept apart under ``notes``.  Rows that
+report rounds (or updates) to a target also keep ``target_margin``: the
+least |accuracy − target| over the evaluations up to the crossing (every
+one where the target is never reached), so a check of the port's rounds
+knows where the reference sat within rounding of the target.  The
+compression module runs with its JSON report written to a temporary
+directory, not over the repository's ``BENCH_compression.json``.  The
+card has no JAX: this file is how ``chip_smoke.py`` holds the card to the
+reference.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import importlib
 import io
 import json
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -28,7 +33,8 @@ OUT = ROOT / "src" / "repro_torch" / "benchmarks" / "reference_quick.json"
 MODULES = {"thm1": "thm1_quadratic", "table1": "table1_deterioration",
            "table2": "table2_utilization", "fig2": "fig2_lambda",
            "fig3": "fig3_orientation", "fig4": "fig4_grid",
-           "fairness": "fairness", "server_opt": "server_opt"}
+           "fairness": "fairness", "server_opt": "server_opt",
+           "table_async": "table_async", "compression": "compression_bench"}
 COMMAND = ("PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.run "
            "--quick --only " + ",".join(MODULES))
 
@@ -39,26 +45,42 @@ def module_rows(name: str) -> dict:
         sys.path.insert(0, str(ROOT))
     mod = importlib.import_module(f"benchmarks.{MODULES[name]}")
     margins = []
-    rounds_to = getattr(mod, "rounds_to", None)
+    # the module's rounds-to-target helper: ``rounds_to(hist, target)``,
+    # or table_async's ``_to_target(hist, sim_times)``
+    hook = next((h for h in ("rounds_to", "_to_target") if hasattr(mod, h)),
+                None)
+    helper = getattr(mod, hook) if hook else None
 
-    def recording_rounds_to(hist, target):
+    def recording(hist, *args):
+        target = args[0] if hook == "rounds_to" else mod.TARGET
         r = hist.rounds_to_target(target)
         seen = hist.metric[:r] if r is not None else hist.metric
         margins.append(min(abs(v - target) for v in seen))
-        return rounds_to(hist, target)
+        return helper(hist, *args)
 
     buf = io.StringIO()
-    try:
-        if rounds_to is not None:
-            mod.rounds_to = recording_rounds_to
-        with contextlib.redirect_stdout(buf):
-            mod.main(quick=True)
-    finally:
-        if rounds_to is not None:
-            mod.rounds_to = rounds_to
-    header, *rows = [line.split(",") for line in
-                     buf.getvalue().strip().splitlines()]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = getattr(mod, "ROOT", None)
+        try:
+            if hook:
+                setattr(mod, hook, recording)
+            if root is not None:
+                mod.ROOT = Path(tmp)
+            with contextlib.redirect_stdout(buf):
+                mod.main(quick=True)
+        finally:
+            if hook:
+                setattr(mod, hook, helper)
+            if root is not None:
+                mod.ROOT = root
+    lines = buf.getvalue().strip().splitlines()
+    header, *rows = [line.split(",") for line in lines
+                     if not line.startswith("#")]
     out = {"header": header, "rows": rows}
+    notes = [line for line in lines if line.startswith("#")
+             and not line.startswith("# wrote")]
+    if notes:
+        out["notes"] = notes
     if margins:
         out["target_margin"] = margins
     return out

@@ -13,9 +13,10 @@ the reference's ``benchmarks/`` on the CPU.
   as in the reference: it sits at 0.78000003 there, one ulp above the
   0.77999997 that ``sum / n`` gave.
 * ``run.parse_only`` on the cases of tests/test_benchmarks_cli.py; every
-  twin's ``main(quick=True)`` on the CPU with its rounds cut to 2, its
-  rows lined up with the reference's quick rows; a failing module makes
-  ``run`` exit non-zero.
+  twin's ``main(quick=True)`` on the CPU with its rounds cut to 2 (the
+  buffered-async and compression twins' included), its rows lined up with
+  the reference's quick rows; a failing module makes ``run`` exit
+  non-zero.
 * ``reference_quick.json``'s thm1, table1 and server_opt rows regenerated
   from the JAX modules, equal to the committed file.
 * The ``continuous_batching`` twin on the CPU.
@@ -191,6 +192,7 @@ def test_table1_lr_non_iid_quick_row_crosses_at_round_24():
     (None, list(trun.MODULES)),
     ("engine,thm1,engine", ["engine", "thm1"]),
     (" engine , fairness ", ["engine", "fairness"]),
+    ("table_async,compression_bench", ["table_async", "compression"]),
     ("engine,typo_bench", "typo_bench"),
     (" , ,", "selects nothing"),
 ])
@@ -236,24 +238,34 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
     mod = trun.MODULES[name]
     _cut_rounds(mod, monkeypatch)
     mod.main(quick=True, device="cpu")
-    lines = capsys.readouterr().out.strip().splitlines()
+    # a module's closing notes (``#`` lines) are not rows
+    lines = [ln for ln in capsys.readouterr().out.strip().splitlines()
+             if not ln.startswith("#")]
     if name == "engine":
         header = lines[0].split(",")
-        rows = [ln.split(",") for ln in lines[1:3]]
-        report = json.loads("\n".join(lines[3:]))
+        rows = [ln.split(",") for ln in lines[1:5]]
+        report = json.loads("\n".join(lines[5:]))
         assert [r[:4] for r in rows] == [["lr", "sync", "host_loop", "1"],
-                                         ["lr", "sync", "chunked_host", "2"]]
+                                         ["lr", "sync", "chunked_host", "2"],
+                                         ["lr", "async", "per_update", "1"],
+                                         ["lr", "async", "chunked_host",
+                                          "2"]]
         rates = report["sync"]["lr"]
         assert rates["host_loop_rounds_per_s"] > 0
         assert rates["chunked_host_rounds_per_s"] > 0
+        rates = report["async"]["lr"]
+        assert rates["per_update_updates_per_s"] > 0
+        assert rates["chunked_host_updates_per_s"] > 0
         assert report["meta"]["device_name"] == "cpu"
-        assert set(report["meta"]["not_run"]) == {"chunked_device", "async",
-                                                  "layout"}
+        assert set(report["meta"]["not_run"]) == {"chunked_device", "layout"}
         assert header[0] == "task"
         return
     header, *rows = [ln.split(",") for ln in lines]
-    assert rows and all(r[0] == name.split("_")[0] or r[0] == name
-                        for r in rows)
+    # table_async's rows start with the algorithm, compression's with the
+    # mode, as the reference's do
+    assert rows and (name in ("table_async", "compression")
+                     or all(r[0] == name.split("_")[0] or r[0] == name
+                            for r in rows))
     ref = REFERENCE["modules"].get(name)
     if ref is None:
         assert all(len(r) == len(header) for r in rows)
@@ -262,11 +274,12 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
     assert len(rows) == len(ref["rows"])
     # the settings columns line up; numbers are the run's own at 2 rounds
     n_key = {"thm1": 2, "table1": 3, "table2": 3, "fig2": 3, "fig3": 3,
-             "fig4": 4, "fairness": 2, "server_opt": 4}[name]
+             "fig4": 4, "fairness": 2, "server_opt": 4, "table_async": 4,
+             "compression": 3}[name]
     assert [r[:n_key] for r in rows] == [r[:n_key] for r in ref["rows"]]
     for r in rows:
         assert all(np.isfinite(float(v)) for v in r[n_key:]
-                   if not v.startswith(">"))
+                   if v and v != "-" and not v.startswith(">"))
 
 
 def test_reference_quick_rows_are_current():

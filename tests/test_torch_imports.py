@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
-    the Mamba2, population and paper-twin slices' included."""
+    the Mamba2, population, paper-twin and buffered-async slices'
+    included."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
                 "kernels/flash_attention/ops.py", "serving/engine.py",
@@ -32,7 +33,10 @@ def test_scan_covers_every_slice():
                 "models/mamba2.py", "fed/population.py", "core/theory.py",
                 "examples/partial_participation.py", "benchmarks/common.py",
                 "benchmarks/run.py", "optim/schedules.py",
-                "examples/continuous_batching.py"):
+                "examples/continuous_batching.py", "fed/clock.py",
+                "fed/async_engine.py", "benchmarks/table_async.py",
+                "benchmarks/compression_bench.py",
+                "examples/buffered_async.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -76,22 +80,88 @@ def test_entry_points_without_device_raise_where_no_cuda():
     assert sim.state["params"].device.type == "cpu"
 
 
+# the fields whose features the port has since brought: buffer_size (the
+# synchronous engine runs its round whatever it says, as the reference's
+# does; the buffered engine is BufferedAsyncSimulation) and compression on
+# the cohort round (A9)
+PORTED = {("cohort_size", "A9"), ("buffer_size", "A7")}
+
+
+def _reference_round(fed_kw, sim, cohort=None):
+    """The reference's round on the port simulation's first round: its
+    initial params, batches and K row (and cohort, drawn by the port)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs.base import FedConfig as JFedConfig
+    from repro.core import compress as jcompress
+    from repro.core import flat as jflat
+    from repro.core import rounds as jrounds
+    from repro.core.fedopt import get_algorithm as j_get_algorithm
+    from repro.models.simple import lr_loss as j_lr_loss
+    jfed = JFedConfig(**fed_kw)
+    algo = j_get_algorithm(jfed.algorithm, jfed)
+    params = {"w": jnp.zeros((4, 3)), "b": jnp.zeros(3)}
+    spec = jflat.make_flat_spec(params)
+    comp = jcompress.CompressionConfig.from_fed(jfed)
+    state = jrounds.init_state(jflat.ravel(spec, params), 2, algo,
+                               compression=comp, spec=spec)
+    ks = np.ones(2, np.int32)
+    if cohort is None:
+        batches = sim.batcher.round_batches(0, 1)
+        fn = jflat.make_flat_round(spec, j_lr_loss, algo, lr=jfed.lr,
+                                   k_max=1, compression=comp)
+        state, _ = fn(state, jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                          batches),
+                      jnp.asarray(ks), jnp.asarray(
+                          sim.weights.numpy()), jnp.float32(algo.lam))
+    else:
+        ids, cw = cohort
+        batches = sim.batcher.cohort_batches(0, ids, 1)
+        fn = jflat.make_flat_cohort_round(spec, j_lr_loss, algo, lr=jfed.lr,
+                                          k_max=1, compression=comp)
+        state, _ = fn(state, jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                          batches),
+                      jnp.asarray(ids), jnp.asarray(ks[ids]),
+                      jnp.asarray(cw), jnp.float32(algo.lam))
+    return np.asarray(state["params"])
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("param_layout", "tree", "A2"), ("cohort_size", 1, "A9"),
     ("buffer_size", 1, "A7"), ("scenario", "dropout", "A8"),
     ("quarantine_window", 1, "A10"), ("defense", "median", "A10"),
     ("master_dtype", "float32", "A3")])
 def test_unported_config_fields_raise(field, value, item):
+    """A field whose feature the port does not run raises, naming its
+    ROADMAP item; the two it has since brought (``PORTED``) run, and their
+    first round matches the reference's."""
     data, parts = _small_task()
     batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
     kw = {"param_layout": "flat", field: value}
     if field == "cohort_size":
-        # cohorts run; compression on the cohort round is still refused
+        # cohorts run, and since A9 compression on the cohort round too
         kw["compressor"] = "int8"
     fed = FedConfig(algorithm="fedavg", n_clients=2, **kw)
     params = {"w": torch.zeros(4, 3), "b": torch.zeros(3)}
-    with pytest.raises(NotImplementedError, match=item):
-        FederatedSimulation(lr_loss, params, fed, batcher, device="cpu")
+    if (field, item) not in PORTED:
+        with pytest.raises(NotImplementedError, match=item):
+            FederatedSimulation(lr_loss, params, fed, batcher, device="cpu")
+        return
+    sim = FederatedSimulation(lr_loss, params, fed, batcher, device="cpu",
+                              k_schedule=np.ones((1, 2), np.int32))
+    drawn = []
+    if sim._partial:
+        host_cohort = sim.population.host_cohort
+
+        def recorded(t):
+            drawn.append(host_cohort(t))
+            return drawn[-1]
+        sim.population.host_cohort = recorded
+    sim.run(1)
+    want = _reference_round(dict(algorithm="fedavg", n_clients=2, **kw),
+                            sim, drawn[0] if drawn else None)
+    np.testing.assert_allclose(sim.state["params"].numpy(), want,
+                               rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("sampler", ["all", "uniform", "weighted",

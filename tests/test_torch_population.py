@@ -363,15 +363,21 @@ def test_cohort_round_leaves_a_kept_state_alone_and_donated_one_in_place():
 
 
 def test_cohort_round_refuses_unported_stages():
+    """Robust aggregation (A10) and payload attacks (A8) are refused;
+    compression on the cohort round (A9) is ported and builds (its parity
+    is tests/test_torch_async_compression.py's)."""
+    from repro_torch.core.compress import CompressionConfig
     _, fed = _configs("fedagrac", 0.0)
     algo = get_algorithm("fedagrac", fed)
     spec = flat.make_flat_spec({"w": torch.zeros(D, N_CLASSES)})
-    for kw, item in ((dict(compression=object()), "A9"),
-                     (dict(robust=object()), "A10"),
+    for kw, item in ((dict(robust=object()), "A10"),
                      (dict(attack=object()), "A8")):
         with pytest.raises(NotImplementedError, match=item):
             flat.make_flat_cohort_round(spec, simple.lr_loss, algo, lr=LR,
                                         k_max=K_MAX, **kw)
+    assert callable(flat.make_flat_cohort_round(
+        spec, simple.lr_loss, algo, lr=LR, k_max=K_MAX,
+        compression=CompressionConfig(uplink="int8")))
 
 
 def test_population_chunk_equals_its_rounds():
