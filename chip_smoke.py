@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each printing JSON lines; any failure exits non-zero.
+Fourteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -173,6 +173,29 @@ Thirteen phases, each printing JSON lines; any failure exits non-zero.
    row written and no other, peak device memory under 1.5 × the (M, P)
    stores (ν⁽ⁱ⁾, the anchor buffers `A` and `N`, the error-feedback rows)
    + 256 MB, so that no update copies one.
+14. failure scenarios and robust aggregation (fed/scenarios.py,
+   core/robust.py).  (a) the ``scenario`` and ``robust`` twins'
+   ``main(quick=True)`` on the card, side by side (both are host-bound:
+   the robust twin runs in a worker process) — the buffered engine under
+   dropout, spikes, flaky networks and diurnal availability; the
+   synchronous engine under NaN injection, scale and sign-flip attacks,
+   undefended and with a median or trimmed-mean defense and a
+   quarantine: every row
+   (lr) against the reference's quick row by phase 12's rule, the abort
+   fractions, survival and quarantine counts equal, one B1 launch a local
+   step of every run.  (b) ``dropout``, ``spike``, ``flaky`` and
+   ``diurnal`` (with the ``availability`` sampler) on the mlp, each on
+   the synchronous and the buffered engine (the lognormal fleet, K 40),
+   card against CPU by phase 3's rule with relabelled reruns,
+   ``History.dropped`` and the simulated times equal to the CPU's.  (c)
+   phase 11's population setting under a scale attack on the int8 wire,
+   defended by a trimmed mean with a quarantine, at M = 100,000 and 1024:
+   exact launches, ms per round flat in M, peak memory under 1.5 × the
+   (M, P) stores + 256 MB (no round copies ν⁽ⁱ⁾, the error-feedback rows
+   or the health vectors); then each defense against none at M = 100,000,
+   wall per round, the aten ops and the implicit host syncs a round
+   issues.  Before (a): the attack and every defense's stages issue no
+   implicit host sync on the card (``set_sync_debug_mode("error")``).
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -497,11 +520,16 @@ HMMA_REQUIRED = {
 }
 
 
-def phase_env() -> dict:
-    smi = subprocess.run(
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def phase_env() -> dict:
+    smi = _card_line()
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2256,11 +2284,35 @@ def population_settings(path: Path = POPULATION_BENCH) -> dict:
             "sampler": local["cohort_sampler"]}
 
 
-def _population_run(pop: dict, m: int, **fed_kw) -> dict:
+class _OpCounter:
+    """Counts the aten operations issued while active (each one host issue
+    of at least one kernel on the card)."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n = 0
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        return False
+
+
+def _population_run(pop: dict, m: int, count_ops: bool = False,
+                    **fed_kw) -> dict:
     """FedaGrac on a population of m clients, C a round, on the card
     (``roofline.round_profile.population_simulation``, ``fed_kw`` adding
     config fields): ``pop["chunk"]`` warm-up rounds, then the counted run
-    of ``pop["rounds"]`` rounds in chunks."""
+    of ``pop["rounds"]`` rounds in chunks.  ``count_ops``: then 2 more
+    rounds under ``_OpCounter``, for the aten ops a round issues."""
     from repro_torch.kernels.calibrated_update import ops
     from repro_torch.roofline.round_profile import population_simulation
     torch.cuda.synchronize()
@@ -2297,7 +2349,24 @@ def _population_run(pop: dict, m: int, **fed_kw) -> dict:
            "peak_memory_bytes": peak,
            "rows_written": written, "clients_drawn": len(drawn),
            "params_finite": bool(torch.isfinite(sim.state["params"]).all()),
-           "bytes_up_per_round": hist.bytes_up[0]}
+           "bytes_up_per_round": hist.bytes_up[0],
+           "quarantined": float(np.sum(hist.quarantined))}
+    if count_ops:
+        with _OpCounter() as ops_count:
+            sim.run(2, chunk_rounds=2)
+            torch.cuda.synchronize()
+        out["host_ops_per_round"] = ops_count.n / 2
+        # the implicit host syncs of 2 more rounds (the chunk's own end
+        # synchronises explicitly, which is not counted)
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sim.run(2, chunk_rounds=2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        out["implicit_syncs_per_round"] = len(caught) / 2
     del sim, nu_i
     torch.cuda.empty_cache()
     return out
@@ -2716,7 +2785,8 @@ def _cpu_rerun(rec: dict, order: Optional[torch.Tensor] = None,
             {k: v.cpu() for k, v in rerun.params.items()},
             torch.argsort(features), torch.argsort(hidden)))
     return {"loss": np.array(hist.loss), "metric": np.array(hist.metric),
-            "params": params}
+            "params": params, "dropped": hist.dropped,
+            "sim_time": hist.sim_time, "staleness": hist.staleness}
 
 
 def _trajectory(rec: dict) -> dict:
@@ -3295,6 +3365,348 @@ def phase_async(pop: Optional[dict] = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: failure scenarios and robust aggregation
+# ---------------------------------------------------------------------------
+
+# the two twins phase 14 (a) drives at their --quick size
+FAULT_TWINS = ("scenario", "robust")
+# part (b): the timing scenarios on the mlp, each on the synchronous and
+# the buffered engine (the table's lognormal fleet, K 40): name -> config
+# knobs (scenario_bench's, diurnal with its availability sampler)
+TIMING_SCENARIOS = {
+    "dropout": {"dropout_rate": 0.3, "rejoin_delay": 2.0},
+    "spike": {"scenario_rate": 0.4, "scenario_magnitude": 8.0},
+    "flaky": {"scenario_rate": 0.3, "scenario_magnitude": 5.0},
+    "diurnal": {"scenario_period": 16.0, "cohort_size": 8,
+                "cohort_sampler": "availability"},
+}
+FAULT_SYNC_ROUNDS, FAULT_UPDATES = 5, 10
+# part (c): phase 11's population setting under a scale attack (10 % of
+# the clients, ×25) on the int8 wire, defended by each DEFENSES entry with
+# a quarantine of 4 rounds, against no defense at all
+FAULT_POP = {"scenario": "scale_attack", "scenario_rate": 0.1,
+             "scenario_magnitude": 25.0, "compressor": "int8"}
+FAULT_POP_DEFENSE = "trimmed_mean"
+
+
+def _check_scenario_rows(got: dict, ref: dict) -> None:
+    """scenario_bench's rows (lr) against the reference's quick rows: the
+    settings, the abort fraction (host) equal; updates to target by
+    phase 12's rule, the simulated seconds equal where the updates are;
+    the final accuracy within PATH_SAMPLES samples."""
+    acc_tol = PATH_SAMPLES / TWIN_EVAL + TWIN_PRINT_SLACK
+    for i, (row, want) in enumerate(zip(got["rows"], ref["rows"])):
+        ok = (row[:3] == want[:3] and row[6] == want[6]
+              and _rounds_agree(row[4], want[4], ref["target_margin"][i])
+              and (row[4] != want[4] or row[5] == want[5])
+              and _close(row[3], want[3], acc_tol))
+        _require(ok, f"scenario: the card's row {row} is not the "
+                     f"reference's {want} by phase 12's rule")
+        _emit({"phase": "faults", "part": "scenario", "row": row,
+               "reference": want})
+
+
+def _check_robust_rows(got: dict, ref: dict) -> None:
+    """robust_bench's rows (lr) against the reference's quick rows: the
+    settings, survival and quarantined-client rounds equal; the final
+    accuracy (a mean of 5 evaluations) within PATH_SAMPLES samples, rounds
+    to target by phase 12's rule."""
+    acc_tol = PATH_SAMPLES / TWIN_EVAL + TWIN_PRINT_SLACK
+    for i, (row, want) in enumerate(zip(got["rows"], ref["rows"])):
+        ok = (row[:3] == want[:3] and row[5] == want[5]
+              and (row[3] == want[3] == "-"
+                   or ("-" not in (row[3], want[3])
+                       and _close(row[3], want[3], acc_tol)))
+              and _rounds_agree(row[4], want[4], ref["target_margin"][i]))
+        _require(ok, f"robust: the card's row {row} is not the "
+                     f"reference's {want} by phase 12's rule")
+        _emit({"phase": "faults", "part": "robust", "row": row,
+               "reference": want})
+
+
+def _fault_twin_run(name: str, device: str) -> dict:
+    """One fault twin's ``main(quick=True)`` on ``device``, in this process
+    or a worker's: its printed text and seconds, the kernel launches its
+    runs made and the B1 launches they must make (one a local step of
+    every round or update), the walls of its rounds."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks.run import MODULES
+    from repro_torch.fed import BufferedAsyncSimulation
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    buf = io.StringIO()
+    before = _all_launches()
+    t0 = time.perf_counter()
+    with _RecordedRuns() as sync_runs, \
+            _RecordedRuns(BufferedAsyncSimulation) as async_runs, \
+            contextlib.redirect_stdout(buf):
+        MODULES[name].main(quick=True, device=device)
+    runs = sync_runs + async_runs
+    return {"text": buf.getvalue(), "s": time.perf_counter() - t0,
+            "launches": _launch_delta(before),
+            "want": sum(rec["rounds"] * rec["sim"].k_max for rec in runs),
+            "runs": len(runs),
+            "walls": [w for rec in runs for w in rec["hist"].wall]}
+
+
+def _fault_twins_on_card(reference: dict) -> dict:
+    """Part (a): the scenario and robust twins' ``main(quick=True)`` on the
+    card, their rows against the reference's; one B1 launch a local step
+    of every run.  Both are host-bound, so the robust twin runs in a
+    worker process (on another core of the card's host) while this one
+    runs the scenario twin.  Returns the worker's launches."""
+    import multiprocessing
+    first, second = FAULT_TWINS
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        worker = pool.apply_async(_fault_twin_run, (second, DEVICE))
+        got = {first: _fault_twin_run(first, DEVICE)}
+        got[second] = worker.get()
+    for name in FAULT_TWINS:
+        g = got[name]
+        print(g["text"], end="", flush=True)
+        lines = g["text"].strip().splitlines()
+        header, *rows = [ln.split(",") for ln in lines
+                         if not ln.startswith("#")]
+        ref = reference[name]
+        _require(header == ref["header"] and len(rows) == len(ref["rows"]),
+                 f"{name}: {header} / {len(rows)} rows against "
+                 f"{ref['header']} / {len(ref['rows'])}")
+        (_check_scenario_rows if name == "scenario"
+         else _check_robust_rows)({"header": header, "rows": rows}, ref)
+        _require(g["launches"] == {"calibrated_update": g["want"]},
+                 f"{name}: launches {g['launches']}, expected {g['want']} "
+                 f"of calibrated_update (k_max × rounds or updates of each "
+                 f"run)")
+        _emit({"phase": "faults", "part": name, "s": g["s"],
+               "runs": g["runs"], "launches": g["launches"],
+               "wall_per_round_s": float(np.mean(g["walls"])),
+               "worker": name == second,
+               "notes": [ln for ln in lines if ln.startswith("#")]})
+    return got[second]["launches"]
+
+
+def _timing_run(engine: str, name: str, device: str) -> dict:
+    """One TIMING_SCENARIOS entry on the mlp (benchmarks/common.py's task,
+    the lognormal fleet, K 40) on ``engine`` ("sync" or "buffered"): the
+    recorded run and its launches."""
+    from repro_torch.benchmarks.common import make_task
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fed import BufferedAsyncSimulation, FederatedSimulation
+    from repro_torch.fed.clock import make_clock
+    task = make_task("mlp", noniid=True, device=device)
+    m = task.batcher.m
+    knobs = dict(TIMING_SCENARIOS[name])
+    t = FAULT_SYNC_ROUNDS if engine == "sync" else FAULT_UPDATES
+    kw = dict(algorithm="fedagrac", n_clients=m, lr=task.lr,
+              calibration_rate=0.5, weights="data", param_layout="flat",
+              scenario=name, **knobs)
+    ks = np.full((t * m + 1, m), FLEET["k"], np.int32)
+    if engine == "sync":
+        sim = FederatedSimulation(task.loss_fn, task.params,
+                                  FedConfig(**kw), task.batcher,
+                                  eval_fn=task.eval_fn, k_schedule=ks,
+                                  device=device)
+    else:
+        kw.update(buffer_size=min(m // 2, knobs.get("cohort_size", m)),
+                  staleness="poly", staleness_a=0.5, staleness_b=2)
+        sim = BufferedAsyncSimulation(
+            task.loss_fn, task.params, FedConfig(**kw), task.batcher,
+            eval_fn=task.eval_fn, k_schedule=ks,
+            clock=make_clock(m, dist="lognormal", sigma=FLEET["sigma"],
+                             seed=FLEET["clock_seed"]), device=device)
+    params0 = {k: v.cpu() for k, v in sim.params.items()}
+    before = _all_launches()
+    hist = sim.run(t, eval_every=t)
+    return {"sim": sim, "params0": params0, "rounds": t, "args": (),
+            "kwargs": {"eval_every": t}, "hist": hist,
+            "params": sim.state["params"].cpu(),
+            "launches": _launch_delta(before)}
+
+
+def _timing_vs_cpu() -> None:
+    """Part (b): each timing scenario on the mlp, synchronous and buffered,
+    card against CPU by phase 3's rule (relabelled reruns for the ReLU
+    branches, ROADMAP C14); ``History.dropped`` and the timeline's
+    simulated times and staleness equal to the CPU's exactly (host draws:
+    the reference's keyed streams); one B1 launch a local step."""
+    rev = torch.arange(19, -1, -1)                     # batch 20
+    for engine in ("sync", "buffered"):
+        for name in TIMING_SCENARIOS:
+            g = _timing_run(engine, name, DEVICE)
+            sim, hist = g["sim"], g["hist"]
+            label = f"mlp/{engine}/{name}"
+            want = {"calibrated_update": g["rounds"] * sim.k_max}
+            _require(g["launches"] == want,
+                     f"{label}: launches {g['launches']}, expected {want}")
+            gt = _trajectory(g)
+            _require(np.isfinite(gt["loss"]).all()
+                     and np.isfinite(gt["metric"]).all(),
+                     f"{label}: non-finite loss or metric")
+            c = _cpu_rerun(g)
+            _require(hist.dropped == c["dropped"]
+                     and hist.sim_time == c["sim_time"]
+                     and hist.staleness == c["staleness"],
+                     f"{label}: dropped / sim_time / staleness differ from "
+                     f"the CPU's: {hist.dropped} vs {c['dropped']}")
+            probes = [_cpu_rerun(g, rev)]
+            while (not _vs_covered(_vs_cpu_margins(gt, c, probes))
+                   and len(probes) < TWIN_MAX_PROBES):
+                probes.append(_cpu_rerun(g, relabel_seed=len(probes)))
+            vs = _vs_cpu(label, gt, c, probes)
+            _emit({"phase": "faults", "part": "timing", "engine": engine,
+                   "scenario": name, "rounds": g["rounds"],
+                   "k": FLEET["k"], "dropped": hist.dropped,
+                   "mass": hist.mass, "sim_time": hist.sim_time[-1:]
+                   if hist.sim_time else [],
+                   "loss": gt["loss"].tolist(),
+                   "metric": gt["metric"].tolist(),
+                   "wall_per_round_s": float(np.mean(hist.wall)),
+                   "launches": g["launches"], "probes": len(probes),
+                   "vs_cpu": {k: float(np.max(d))
+                              for k, (d, _) in vs.items()},
+                   "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+            if name in ("dropout", "spike"):
+                _require(any(d > 0 for d in hist.dropped),
+                         f"{label}: no client dropped")
+
+
+def _defended_population_scale(pop: dict) -> None:
+    """Part (c): the attacked, defended int8 cohort round (FAULT_POP,
+    trimmed mean, a quarantine of 4) at M = 100,000 and 1024: exact
+    launches, ms per round flat in M, peak memory under 1.5 × the (M, P)
+    stores + 256 MB (no round copies ν⁽ⁱ⁾, the error-feedback rows or the
+    health vectors), the params finite, every drawn client's ν⁽ⁱ⁾ row
+    written; then each defense against none at M = 100,000: wall and
+    launches per round (the defenses are host-issued torch ops on a
+    host-bound round)."""
+    from repro_torch.fed.scenarios import _corrupt_set
+    k, rounds = pop["k"], pop["rounds"]
+    _require(_corrupt_set(pop["m"], 0, FAULT_POP["scenario_rate"]).any(),
+             "the population's corrupt set is empty")
+    defended = dict(FAULT_POP, defense=FAULT_POP_DEFENSE,
+                    quarantine_window=4)
+    runs = {}
+    for m in (pop["m_small"], pop["m"]):
+        r = _population_run(pop, m, count_ops=m == pop["m"], **defended)
+        runs[m] = r
+        want = {"calibrated_update": k * rounds, "quantize_2d": 2 * rounds,
+                "dequantize_2d": 2 * rounds}
+        _require(r["all_launches"] == want,
+                 f"defended cohort round M = {m}: launches "
+                 f"{r['all_launches']}, expected {want}")
+        _require(np.isfinite(r["loss"]).all() and r["params_finite"]
+                 and r["rows_written"] == r["clients_drawn"],
+                 f"defended cohort round M = {m}: non-finite, or "
+                 f"{r['rows_written']} rows for {r['clients_drawn']} "
+                 f"clients")
+        bound = _check_population_memory(
+            f"defended cohort round M = {m}", r)
+        _emit({"phase": "faults", "part": "population", "m": m,
+               "cohort": pop["cohort"], "k": k, "rounds": rounds,
+               **defended, "p": r["p"], "ms_per_round": r["ms_per_round"],
+               "stores_bytes": r["stores_bytes"],
+               "peak_memory_bytes": r["peak_memory_bytes"],
+               "peak_memory_bound": bound, "launches": r["all_launches"],
+               "quarantined": r["quarantined"],
+               "loss": r["loss"][[0, -1]].tolist()})
+    small, big = runs[pop["m_small"]], runs[pop["m"]]
+    _emit({"phase": "faults", "part": "flat_in_m",
+           "ms_per_round": {str(pop["m_small"]): small["ms_per_round"],
+                            str(pop["m"]): big["ms_per_round"]},
+           "ratio": big["ms_per_round"] / small["ms_per_round"]})
+    from repro_torch.core.robust import DEFENSES
+    walls = {}
+    for defense in ("none",) + tuple(d for d in DEFENSES if d != "none"):
+        if defense == FAULT_POP_DEFENSE:
+            r = big
+        else:
+            kw = dict(FAULT_POP, defense=defense,
+                      quarantine_window=0 if defense == "none" else 4)
+            r = _population_run(pop, pop["m"], count_ops=True, **kw)
+            _require(np.isfinite(r["loss"]).all(),
+                     f"M = {pop['m']} {defense}: non-finite loss")
+        walls[defense] = r["ms_per_round"]
+        _emit({"phase": "faults", "part": "defense_cost", "m": pop["m"],
+               "defense": defense, "ms_per_round": r["ms_per_round"],
+               "launches_per_round": {
+                   name: n / rounds for name, n in
+                   r["all_launches"].items()},
+               "host_ops_per_round": r["host_ops_per_round"],
+               "implicit_syncs_per_round": r["implicit_syncs_per_round"],
+               "quarantined": r["quarantined"]})
+    _emit({"phase": "faults", "part": "defense_cost_vs_none",
+           "ms_per_round_over_none": {d: w - walls["none"]
+                                      for d, w in walls.items()}})
+
+
+def _robust_stage_syncs() -> None:
+    """Part (c), first: the attack and every defense's stages (the
+    defense alone; the model and ν stages, with and without a
+    quarantine) on the card at the population's (8, 4608) rows issue no
+    implicit host sync (``torch.cuda.set_sync_debug_mode("error")``)."""
+    from repro_torch.core import robust
+    from repro_torch.fed import scenarios
+    b, p, n = 8, 4608, 4554
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = torch.randn(b, p, device=DEVICE, generator=gen)
+    rows[:, n:] = 0
+    w = torch.full((b,), 1.0 / b, device=DEVICE)
+    ids = torch.arange(b, device=DEVICE) * 7
+    r = torch.zeros((), dtype=torch.int32, device=DEVICE)
+    atk = scenarios.scale_attack_scenario(100, rate=0.3, magnitude=25.0)
+    atk.corrupt_delta(r, rows, n, ids=ids)      # the per-device corrupt set
+    spec = dataclasses.make_dataclass("Spec", ["n"])(n)
+
+    def no_sync(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            raise RuntimeError(f"{label}: an implicit host sync: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    no_sync("scale_attack", lambda: atk.corrupt_delta(r, rows, n, ids=ids))
+    checked = 0
+    for name in robust.DEFENSES:
+        for window in (0, 4):
+            cfg = robust.RobustConfig(defense=name, quarantine_window=window)
+            rb = robust.build_round_robust(cfg, spec, True)
+            state = {k: torch.zeros(100, dtype=dt, device=DEVICE)
+                     for k, dt in zip(robust.ROBUST_STATE_KEYS,
+                                      (torch.int32, torch.float32,
+                                       torch.float32, torch.int32,
+                                       torch.int32))}
+            quar = rb.quarantined(state, r, ids)
+            mask = torch.ones(b, dtype=torch.bool, device=DEVICE)
+            no_sync(name, lambda: robust.DEFENSES[name](cfg, n)(rows, mask))
+            no_sync(f"{name} model, window {window}", lambda: rb.model(
+                rows, w, state, dict(state), r, ids, quar, in_place=True))
+            no_sync(f"{name} nu, window {window}",
+                    lambda: rb.nu(rows, w, quar))
+            checked += 3
+    _emit({"phase": "faults", "part": "robust_stage_syncs",
+           "stages_checked": checked + 1, "implicit_syncs": 0})
+
+
+def phase_faults(pop: Optional[dict] = None) -> dict:
+    """Phase 14.  Returns the launches of its runs on the card."""
+    reference = json.loads(REFERENCE_QUICK.read_text())["modules"]
+    _reset_all_launches()
+    _robust_stage_syncs()
+    in_worker = _fault_twins_on_card(reference)
+    _timing_vs_cpu()
+    _defended_population_scale(pop or population_settings())
+    launches = _all_launches()
+    for name, n in in_worker.items():
+        launches[name] += n
+    _emit({"phase": "faults", "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3328,7 +3740,11 @@ def main() -> int:
         launches[name] += n
     for name, n in timed("async", phase_async).items():
         launches[name] += n
+    for name, n in timed("faults", phase_faults).items():
+        launches[name] += n
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
+    # again at the end, so that the tail of a long log names the card
+    print(_card_line(), flush=True)
     quantize_src = "src/repro_torch/kernels/quantize/csrc/quantize.cu"
     bwd_src = ("src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention_bwd.cu")

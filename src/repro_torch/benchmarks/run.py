@@ -17,7 +17,8 @@ import traceback
 
 from repro_torch.benchmarks import (compression_bench, engine_bench,
                                     fairness, fig2_lambda, fig3_orientation,
-                                    fig4_grid, fig5_curves, server_opt,
+                                    fig4_grid, fig5_curves, robust_bench,
+                                    scenario_bench, server_opt,
                                     table1_deterioration, table2_utilization,
                                     table6_rounds, table_async,
                                     thm1_quadratic)
@@ -33,6 +34,8 @@ MODULES = {
     "table_async": table_async,
     "fig5": fig5_curves,
     "compression": compression_bench,
+    "scenario": scenario_bench,
+    "robust": robust_bench,
     "fairness": fairness,
     "server_opt": server_opt,
     "engine": engine_bench,

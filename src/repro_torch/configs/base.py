@@ -209,14 +209,17 @@ class ModelConfig:
         return dense_like + self.n_layers * (m.top_k + m.n_shared_experts) * per
 
 
-# Names of the registries the port has not brought over yet; FedConfig
-# checks against these copies until the registries come (ROADMAP A8,
-# A10).  Each mirrors the reference registry named beside it.
-SCENARIOS = ("baseline", "diurnal", "dropout", "flaky", "garbage",
-             "inf_inject", "nan_inject", "scale_attack", "sign_flip",
-             "spike", "trace")                 # repro.fed.scenarios.SCENARIOS
-DEFENSES = ("clip", "krum", "median", "none",
-            "trimmed_mean")                    # repro.core.robust.DEFENSES
+def __getattr__(name: str):
+    """``SCENARIOS`` and ``DEFENSES``: the registries themselves
+    (fed/scenarios.py, core/robust.py), imported on first use — they live
+    downstream of this module."""
+    if name == "SCENARIOS":
+        from repro_torch.fed.scenarios import SCENARIOS
+        return SCENARIOS
+    if name == "DEFENSES":
+        from repro_torch.core.robust import DEFENSES
+        return DEFENSES
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +254,7 @@ class FedConfig:
     # -- parameter layout: the port runs "flat" only (tree: ROADMAP A2) -----
     param_layout: Literal["tree", "flat"] = "tree"
     master_dtype: Literal["", "float32", "bfloat16", "float16"] = ""
-    # -- failure scenarios (not ported: ROADMAP A8) -------------------------
+    # -- failure scenarios (fed/scenarios.py) -------------------------------
     scenario: str = "baseline"
     dropout_rate: float = 0.1
     scenario_rate: float = 0.1
@@ -264,7 +267,7 @@ class FedConfig:
     error_feedback: bool = True
     topk_frac: float = 0.05
     quantize_transmit: bool = False
-    # -- Byzantine-robust aggregation (not ported: ROADMAP A10) -------------
+    # -- Byzantine-robust aggregation (core/robust.py) ----------------------
     defense: str = "none"
     defense_clip: float = 0.0
     trim_frac: float = 0.2
@@ -284,8 +287,10 @@ class FedConfig:
 
         from repro_torch.core.compress import COMPRESSORS
         from repro_torch.core.fedopt import ALGORITHMS
+        from repro_torch.core.robust import DEFENSES
         from repro_torch.core.stages import SERVER_OPTIMIZERS
         from repro_torch.fed.population import SAMPLERS
+        from repro_torch.fed.scenarios import SCENARIOS
 
         def _check(field: str, value, valid) -> None:
             if value not in valid:

@@ -13,16 +13,18 @@ from typing import Any, Union
 import numpy as np
 import torch
 
-from repro_torch.core import compress
+from repro_torch.core import compress, robust
 from repro_torch.core.tree_util import tree_map
 
 Device = Union[str, torch.device]
 
 # the flat round state the port runs: (P,) server vectors, (M, P) ν⁽ⁱ⁾,
-# the error-feedback accumulators of the compression stage and the
-# buffered-async engine's broadcast carry
+# the error-feedback accumulators of the compression stage, the
+# buffered-async engine's broadcast carry and the quarantine's (M,) health
+# vectors
 FLAT_STATE_KEYS = ("params", "round", "nu", "nu_i", "server_m",
-                   "server_v") + compress.FLAT_STATE_KEYS
+                   "server_v") + compress.FLAT_STATE_KEYS \
+    + robust.ROBUST_STATE_KEYS
 
 
 def tensor_from_numpy(a: Any, device: Device) -> torch.Tensor:
@@ -45,9 +47,9 @@ def flat_state_from_numpy(state: dict, device: Device) -> dict:
     """A JAX flat round state (``param_layout="flat"``) as numpy arrays →
     the port's state: ``params``/``nu``/``server_m``/``server_v`` ``(P,)``,
     ``nu_i`` ``(M, P)``, the compression stage's ``ef_*`` accumulators, the
-    async engine's ``bc_*`` broadcast carry and ``round`` an int32 scalar.
-    Raises on the keys of features this port does not run yet (robust
-    aggregation)."""
+    async engine's ``bc_*`` broadcast carry, the quarantine's ``hz_*``
+    health vectors and ``round`` an int32 scalar.  Raises on a key the
+    port does not know."""
     unknown = sorted(set(state) - set(FLAT_STATE_KEYS))
     if unknown:
         raise NotImplementedError(

@@ -25,6 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import compress, stages
+from repro_torch.core import robust as robust_mod
 from repro_torch.core.fedopt import Algorithm
 from repro_torch.core.tree_util import tree_wsum
 from repro_torch.kernels.calibrated_update import ops as cu_ops
@@ -257,9 +258,12 @@ def make_flat_client_update(spec: FlatSpec,
 def make_flat_round(spec: FlatSpec,
                     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                     algo: Algorithm, *, lr: float, k_max: int,
-                    compression: Optional[compress.CompressionConfig] = None):
-    """``round_fn(state, batches, k_steps, weights, lam=None) -> (state,
-    metrics)`` on flat state (core/rounds.py ``init_state``).  ``batches``
+                    compression: Optional[compress.CompressionConfig] = None,
+                    robust: Optional[robust_mod.RobustConfig] = None,
+                    attack=None):
+    """``round_fn(state, batches, k_steps, weights, lam=None, *,
+    noise=None) -> (state, metrics)`` on flat state (core/rounds.py
+    ``init_state``).  ``batches``
     holds ``(M, k_max, B, …)`` tensors, ``k_steps`` is ``(M,)`` integer and
     ``weights`` ``(M,)`` float32, all on the state's device; ``lam`` is a
     host float (default ``algo.lam``).  The round never waits for the
@@ -271,16 +275,32 @@ def make_flat_round(spec: FlatSpec,
     compresses each client's delta x⁽ⁱ⁾ − x̂ and ν transmit, and with the
     broadcast on the aggregate is re-based onto the true params,
     x⁺ = x + (agg − x̂), so broadcast error never builds up in the server
-    state.  ``None`` (or all "none") runs the unchanged round."""
+    state.  ``None`` (or all "none") runs the unchanged round.
+
+    ``attack`` (a payload-corrupting ``fed.scenarios.Scenario``) and
+    ``robust`` (core/robust.py) bracket the same wire, as in the
+    reference: each client's delta is corrupted, then goes through the
+    uplink codec, then the defense (sanitize, quarantine, defend,
+    renormalize the weights); the ν transmit likewise; and the guard keeps
+    the old params, ν and ν⁽ⁱ⁾ wherever the new ones are non-finite.  The
+    metrics then hold ``quarantined``, the count of quarantined reporters.
+    ``noise`` holds the ``(2, M, P)`` device noise rows (delta, ν) of an
+    attack that draws them (``Scenario.payload_noise``); without them the
+    attack draws them on the host from the round counter."""
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
                                             k_max=k_max)
     aggregate = stages.AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
+    rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
+    atk = attack if (attack is not None
+                     and attack.corrupts_payload) else None
+    wire = cs is not None or rb is not None or atk is not None
     down_on = cs is not None and cs.down is not None
     up_on = cs is not None and cs.up is not None
 
     def round_fn(state: dict, batches: dict, k_steps: torch.Tensor,
-                 weights: torch.Tensor, lam: Optional[float] = None):
+                 weights: torch.Tensor, lam: Optional[float] = None, *,
+                 noise: Optional[torch.Tensor] = None):
         if lam is None:
             lam = algo.lam
         params0 = state["params"]                          # (P,)
@@ -300,14 +320,27 @@ def make_flat_round(spec: FlatSpec,
                  if algo.uses_nu else None)                # (M, P)
         x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
                                          lam)
-        if cs is not None:
+        r = state["round"]
+        ids = quar = None
+        if rb is not None:
+            ids = torch.arange(x_i.shape[0], device=x_i.device)
+            quar = rb.quarantined(state, r, ids)
+        w_agg = weights
+        if wire:
             d = x_i - anchor[None]
+            if atk is not None:
+                d = atk.corrupt_delta(r, d, spec.n,
+                                      noise=None if noise is None
+                                      else noise[0])
             if up_on:
                 d = cs.up(d, state, new_state)
+            if rb is not None:
+                d, w_agg, qcount = rb.model(d, weights, state, new_state, r,
+                                            ids, quar)
             x_srv = anchor[None] + d
         else:
             x_srv = x_i
-        agg = aggregate(anchor, x_srv, kf, weights, kbar)
+        agg = aggregate(anchor, x_srv, kf, w_agg, kbar)
         if down_on:
             agg = (params0.float() + agg.float() - anchor.float()
                    ).to(spec.dtype)
@@ -318,12 +351,28 @@ def make_flat_round(spec: FlatSpec,
         if algo.uses_nu:
             transmit, avg_g = stages.orientation_transmit(
                 algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            w_nu = weights
+            if atk is not None:
+                transmit = atk.corrupt_nu(r, transmit, spec.n,
+                                          noise=None if noise is None
+                                          else noise[1])
             if up_on:
                 transmit = cs.up_nu(transmit, state, new_state)
-            new_state["nu"] = tree_wsum(weights, transmit)
+            if rb is not None:
+                transmit, w_nu = rb.nu(transmit, weights, quar)
+            new_state["nu"] = tree_wsum(w_nu, transmit)
             new_state["nu_i"] = avg_g
 
+        if rb is not None:
+            new_state["params"] = rb.guard(new_state["params"], params0)
+            if algo.uses_nu:
+                new_state["nu"] = rb.guard(new_state["nu"], state["nu"])
+                new_state["nu_i"] = rb.guard(new_state["nu_i"],
+                                             state["nu_i"])
+
         metrics = {"loss": torch.dot(weights, loss0), "kbar": kbar}
+        if rb is not None:
+            metrics["quarantined"] = qcount
         return new_state, metrics
 
     return round_fn
@@ -339,9 +388,10 @@ def make_flat_cohort_round(spec: FlatSpec,
                            nu_decay: float = 0.0,
                            compression: Optional[
                                compress.CompressionConfig] = None,
-                           robust=None, attack=None):
+                           robust: Optional[robust_mod.RobustConfig] = None,
+                           attack=None):
     """``round_fn(state, batches, cohort, k_steps, cweights, lam=None, *,
-    donate=False, last=None) -> (state, metrics)``: one round of a sampled
+    donate=False, last=None, noise=None) -> (state, metrics)``: one round of a sampled
     cohort of C clients over population-sized state (``nu_i`` is ``(M,
     P)``).
 
@@ -366,27 +416,32 @@ def make_flat_cohort_round(spec: FlatSpec,
     and added to the true params, so broadcast error never builds up in
     the server state.
 
+    ``attack`` and ``robust`` bracket the wire as in ``make_flat_round``,
+    at the cohort's ids: the quarantine reads and the health vectors are
+    written at those ids (the repeated-id rule of core/robust.py), and the
+    guard keeps the old ν⁽ⁱ⁾ elements wherever the cohort's fresh rows are
+    non-finite.  ``noise`` holds the ``(2, C, P)`` noise rows of an attack
+    that draws them.
+
     ``donate=True``: the caller hands the state over (a chunk that owns
-    it, or a simulation replacing its own), and the ν⁽ⁱ⁾ and
-    error-feedback stores are updated in place instead of copied whole.
-    Robust aggregation and payload attacks raise
-    ``NotImplementedError``."""
-    for given, what in ((robust, "robust aggregation (ROADMAP A10)"),
-                        (attack, "payload attacks (ROADMAP A8)")):
-        if given is not None:
-            raise NotImplementedError(f"the PyTorch port does not run {what}"
-                                      f" yet")
+    it, or a simulation replacing its own), and the ν⁽ⁱ⁾, error-feedback
+    and health stores are updated in place instead of copied whole."""
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
                                             k_max=k_max)
     aggregate = stages.BUFFERED_AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
+    rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
+    atk = attack if (attack is not None
+                     and attack.corrupts_payload) else None
+    wire = cs is not None or rb is not None or atk is not None
     down_on = cs is not None and cs.down is not None
     up_on = cs is not None and cs.up is not None
 
     def round_fn(state: dict, batches: dict, cohort: torch.Tensor,
                  k_steps: torch.Tensor, cweights: torch.Tensor,
                  lam: Optional[float] = None, *, donate: bool = False,
-                 last: Optional[torch.Tensor] = None):
+                 last: Optional[torch.Tensor] = None,
+                 noise: Optional[torch.Tensor] = None):
         if lam is None:
             lam = algo.lam
         params0 = state["params"]                          # (P,)
@@ -408,29 +463,55 @@ def make_flat_cohort_round(spec: FlatSpec,
                  if algo.uses_nu else None)
         x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
                                          lam)
-        if cs is not None:
+        r = state["round"]
+        quar = rb.quarantined(state, r, cohort) if rb is not None else None
+        w_agg = cweights
+        if wire:
             d = x_i - anchor[None]
+            if atk is not None:
+                d = atk.corrupt_delta(r, d, spec.n, ids=cohort,
+                                      noise=None if noise is None
+                                      else noise[0])
             if up_on:
                 d = cs.up(d, state, new_state, ids=cohort, last=last,
                           in_place=donate)
+            if rb is not None:
+                d, w_agg, qcount = rb.model(d, cweights, state, new_state, r,
+                                            cohort, quar, last=last,
+                                            in_place=donate)
             x_srv = anchor[None] + d
         else:
             x_srv = x_i
         # the deltas are taken around the broadcast x̂ and added to the
         # true params: no re-base is needed
-        agg = aggregate(params0, anchor[None], x_srv, kf, cweights, kbar)
-        new_state["params"] = stages.server_update(algo, state, params0, agg,
-                                                   new_state)
+        agg = aggregate(params0, anchor[None], x_srv, kf, w_agg, kbar)
+        new_params = stages.server_update(algo, state, params0, agg,
+                                          new_state)
+        if rb is not None:
+            new_params = rb.guard(new_params, params0)
+        new_state["params"] = new_params
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
             transmit, avg_g = stages.orientation_transmit(
                 algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            w_nu = cweights
+            if atk is not None:
+                transmit = atk.corrupt_nu(r, transmit, spec.n, ids=cohort,
+                                          noise=None if noise is None
+                                          else noise[1])
             if up_on:
                 transmit = cs.up_nu(transmit, state, new_state, ids=cohort,
                                     last=last, in_place=donate)
+            if rb is not None:
+                transmit, w_nu = rb.nu(transmit, cweights, quar)
             new_nu = stages.nu_mass_mix(state["nu"],
-                                        tree_wsum(cweights, transmit), mass)
+                                        tree_wsum(w_nu, transmit), mass)
+            if rb is not None:
+                # the guard, on ν and on the rows written into the store
+                # (the decayed rows mix two finite rows)
+                new_nu = rb.guard(new_nu, state["nu"])
+                avg_g = robust_mod.guarded_rows(avg_g, state["nu_i"], cohort)
             new_state["nu"] = new_nu
             new_state["nu_i"] = stages.scatter_nu_rows(
                 state["nu_i"], new_nu, avg_g, cohort, nu_decay,
@@ -438,6 +519,8 @@ def make_flat_cohort_round(spec: FlatSpec,
 
         metrics = {"loss": torch.dot(cweights, loss0) / mass, "kbar": kbar,
                    "mass": mass}
+        if rb is not None:
+            metrics["quarantined"] = qcount
         return new_state, metrics
 
     return round_fn

@@ -3,13 +3,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import compress
+from repro_torch.core import compress, robust as robust_mod
 from repro_torch.core.fedopt import Algorithm
 
 
 def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
                compression=None, spec=None,
-               broadcast_carry: bool = False) -> dict:
+               broadcast_carry: bool = False, robust=None) -> dict:
     """Server + client state around the ``(P,)`` flat ``params``.  ν/ν⁽ⁱ⁾
     start at zero: the first round runs plain (uncalibrated) local SGD, as
     in the paper, where ν⁽ⁱ⁾ = ∇f_i(x₁) is unknown before any gradient.
@@ -21,7 +21,9 @@ def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
     dtype.  ``broadcast_carry=True`` (the buffered-async engine) also adds,
     under downlink compression, the broadcast carry ``compress.BC_KEYS``:
     ``bc_params`` and (ν algorithms) ``bc_nu``, the last compressed
-    broadcast, which each run fills with its t = 0 broadcast."""
+    broadcast, which each run fills with its t = 0 broadcast.  An active
+    ``robust`` config with quarantine on (core/robust.py) adds the five
+    ``(M,)`` health vectors."""
     state = {"params": params,
              "round": torch.zeros((), dtype=torch.int32,
                                   device=params.device)}
@@ -42,4 +44,5 @@ def init_state(params: torch.Tensor, n_clients: int, algo: Algorithm,
             state["bc_params"] = params.clone()
             if algo.uses_nu:
                 state["bc_nu"] = torch.zeros_like(params)
+    robust_mod.init_robust_state(state, robust, n_clients)
     return state

@@ -74,6 +74,18 @@ BUFFERED_AGGREGATORS: dict[str, Callable] = {
 }
 
 
+def delivered_weights(weights, k_eff, k_sched) -> np.ndarray:
+    """Partial-work recovery weight rule (fed/scenarios.py): a mid-round
+    dropout delivering k′ < K completed steps keeps its (FedNova-normalized)
+    per-step direction but carries only the mass it earned, w̃ ← w̃ · k′/K
+    — NOT renormalized, so lost work is lost mass.  float32 numpy: the
+    host tables of a chunk (the reference's host mirror)."""
+    frac = (np.asarray(k_eff).astype(np.float32)
+            / np.maximum(np.asarray(k_sched).astype(np.float32),
+                         np.float32(1.0)))
+    return np.asarray(weights, np.float32) * frac
+
+
 def nu_mass_mix(nu: torch.Tensor, contrib: torch.Tensor,
                 mass: torch.Tensor) -> torch.Tensor:
     """ν ← (1 − ρ) ν + (ρ/Σw̃)·Σ w̃ transmitᵢ with ρ = min(Σw̃, 1): keep ρ of

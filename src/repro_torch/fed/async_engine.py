@@ -47,9 +47,20 @@ state), anchors reset to it, the uplink codec on the reporting clients'
 deltas and ν transmits with their own error-feedback rows, and one
 broadcast event per update whose result the re-dispatched anchors get.
 
-The port runs the flat layout with the host batcher and no scenario or
-defense: the tree layout (ROADMAP A2), failure scenarios (A8), robust
-aggregation (A10), a mixed-precision master (A3) and a device sampler (A5)
+Failure scenarios (fed/scenarios.py) perturb the timeline (k′ aborts,
+slowdowns, latency bursts, rejoin downtime) with the reference's keyed
+draws, and each report's weight is scaled by its delivered fraction
+k′/K.  A payload attack corrupts the reporters' deltas and ν transmits at
+their ids, keyed by the update index, and the robust stage
+(core/robust.py) screens them before the buffered aggregator; the final
+guard keeps the old model, ν and ν⁽ⁱ⁾ wherever the new ones are
+non-finite, before the broadcast and the re-dispatched anchors read them.
+The health vectors are updated in place; a reporter repeated in one
+buffer adds to its counters once per report and keeps its last report's
+EWMA and quarantine rows.
+
+The port runs the flat layout with the host batcher: the tree layout
+(ROADMAP A2), a mixed-precision master (A3) and a device sampler (A5)
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -62,7 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import compress, flat, rounds, stages
+from repro_torch.core import compress, flat, robust, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
 from repro_torch.core.tree_util import tree_wsum
 from repro_torch.data.partition import gaussian_k_schedule
@@ -70,6 +81,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.clock import ClientClock, Timeline, make_clock, \
     simulate_timeline
 from repro_torch.fed.population import ClientPopulation
+from repro_torch.fed.scenarios import Scenario, make_scenario
 from repro_torch.fed.simulation import History, _check_finite_metric, \
     _check_supported
 
@@ -123,14 +135,10 @@ class BufferedAsyncSimulation:
                  lam_schedule: Optional[Callable[[int], float]] = None,
                  clock: Optional[ClientClock] = None,
                  population: Optional[ClientPopulation] = None,
-                 scenario=None, t_max: int = 10_000,
+                 scenario: Optional[Scenario] = None, t_max: int = 10_000,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         _check_supported(fed)
-        if scenario is not None:
-            raise NotImplementedError(
-                "the PyTorch port does not run failure scenarios (scenario, "
-                "ROADMAP A8) yet")
         if callable(getattr(batcher, "sample_row", None)):
             raise NotImplementedError(
                 "the PyTorch port does not run a device sampler "
@@ -188,7 +196,29 @@ class BufferedAsyncSimulation:
                 self.clock = ClientClock(
                     speeds=self.clock.speeds * self.population.step_rate,
                     latency=self.clock.latency)
+        # failure scenario: perturbs the timeline and scales report weights
+        # by the delivered fraction k′/K; None ("baseline") leaves the
+        # whole pipeline untouched
+        self.scenario = (scenario if scenario is not None
+                         else make_scenario(fed))
+        if self.scenario is not None:
+            if self.scenario.m != m:
+                raise ValueError(
+                    f"scenario for {self.scenario.m} clients does not "
+                    f"match fed.n_clients={m}")
+            if (self.scenario.availability_fn is not None
+                    and self.population is not None):
+                self.population.availability_fn = \
+                    self.scenario.availability_fn
+        # payload corruption brackets the same wire as compression; the
+        # defense and quarantine sit just before the buffered aggregator
+        self._attack = (self.scenario
+                        if self.scenario is not None
+                        and self.scenario.corrupts_payload else None)
+        self.robust = robust.RobustConfig.from_fed(fed)
         self._spec = flat.make_flat_spec(params)
+        self._rb = robust.build_round_robust(self.robust, self._spec,
+                                             self.algo.uses_nu)
         self.compression = compress.CompressionConfig.from_fed(fed)
         self._wire = compress.wire_cost(self._spec.n, self.algo.uses_nu,
                                         self.compression)
@@ -199,7 +229,7 @@ class BufferedAsyncSimulation:
         self.state = rounds.init_state(
             flat.ravel(self._spec, params).to(self.device), m, self.algo,
             compression=self.compression, spec=self._spec,
-            broadcast_carry=True)
+            broadcast_carry=True, robust=self.robust)
         self.version = 0
         self._loss_fn = loss_fn
         self._client_update = flat.make_flat_client_update(
@@ -253,11 +283,14 @@ class BufferedAsyncSimulation:
     # -- one buffered server update ------------------------------------------
 
     def _update(self, state: dict, t: dict, sw: torch.Tensor, lam: float,
-                batches: dict) -> tuple[dict, dict]:
+                batches: dict, noise: Optional[torch.Tensor] = None
+                ) -> tuple[dict, dict]:
         """Update ``state`` on one buffer (``t``: its rows of the chunk's
         integer table on the device; ``last`` None where no reporter
-        repeats); ``A`` and ``N`` are written in place."""
+        repeats; ``noise`` the attack's ``(2, B, P)`` noise rows, if it
+        draws any); ``A`` and ``N`` are written in place."""
         algo, cs, lr = self.algo, self._cs, self.fed.lr
+        rb, atk = self._rb, self._attack
         uses_nu = algo.uses_nu
         A, N = self._anchors, self._nu_anchors
         ids, cur, fresh, wids, last = (t["ids"], t["cur"], t["fresh"],
@@ -291,20 +324,37 @@ class BufferedAsyncSimulation:
         x_b, g0_b, loss0 = self._client_update(anchor_i, c_b, batches,
                                                t["k"], lam)
 
-        if cs is not None:
+        r = state["round"]
+        quar = rb.quarantined(state, r, ids) if rb is not None else None
+        sw_eff = sw
+        if cs is not None or rb is not None or atk is not None:
             # the uplink at the REPORTING ids, each reporter's own
             # error-feedback rows (a repeated reporter keeps its last
-            # occurrence's residual, as the reference does)
+            # occurrence's residual, as the reference does); the attack
+            # lands on the rows the codec sees, and the defense screens
+            # what reaches the buffered aggregator
             d = x_b - anchor_i
+            if atk is not None:
+                d = atk.corrupt_delta(r, d, self._spec.n, ids=ids,
+                                      noise=None if noise is None
+                                      else noise[0])
             if self._up_on:
                 d = cs.up(d, state, new_state, ids=ids, last=last,
                           in_place=True)
+            if rb is not None:
+                d, sw_eff, qcount = rb.model(d, sw, state, new_state, r,
+                                             ids, quar, last=last,
+                                             in_place=True)
             x_srv = anchor_i + d
         else:
             x_srv = x_b
-        agg = self._aggregate(params, anchor_i, x_srv, kf, sw, kbar)
+        agg = self._aggregate(params, anchor_i, x_srv, kf, sw_eff, kbar)
         new_params = stages.server_update(algo, state, params, agg,
                                           new_state)
+        if rb is not None:
+            # guarded BEFORE the broadcast and the re-dispatched anchors
+            # read the new model
+            new_params = rb.guard(new_params, params)
         new_state["params"] = new_params
         new_state["round"] = state["round"] + 1
 
@@ -312,13 +362,25 @@ class BufferedAsyncSimulation:
             transmit, avg_g = stages.orientation_transmit(
                 algo, params, x_b, g0_b, c_b, kf, kbar, lr, lam,
                 anchor_i=anchor_i)
+            w_nu = sw
+            if atk is not None:
+                transmit = atk.corrupt_nu(r, transmit, self._spec.n,
+                                          ids=ids,
+                                          noise=None if noise is None
+                                          else noise[1])
             if self._up_on:
                 transmit = cs.up_nu(transmit, state, new_state, ids=ids,
                                     last=last, in_place=True)
-            new_state["nu"] = stages.nu_mass_mix(
-                state["nu"], tree_wsum(sw, transmit), mass)
+            if rb is not None:
+                transmit, w_nu = rb.nu(transmit, sw, quar)
+            new_nu = stages.nu_mass_mix(state["nu"],
+                                        tree_wsum(w_nu, transmit), mass)
+            if rb is not None:
+                new_nu = rb.guard(new_nu, state["nu"])
+                avg_g = robust.guarded_rows(avg_g, state["nu_i"], ids)
+            new_state["nu"] = new_nu
             new_state["nu_i"] = stages.scatter_nu_rows(
-                state["nu_i"], new_state["nu"], avg_g, ids, self._nu_decay,
+                state["nu_i"], new_nu, avg_g, ids, self._nu_decay,
                 in_place=True, last=last)
 
         # this update's broadcast: ONE compression event through the
@@ -350,6 +412,8 @@ class BufferedAsyncSimulation:
 
         metrics = {"loss": torch.dot(sw, loss0) / mass, "kbar": kbar,
                    "mass": mass}
+        if rb is not None:
+            metrics["quarantined"] = qcount
         return new_state, metrics
 
     # -- host-sampler batch assembly ------------------------------------------
@@ -394,7 +458,8 @@ class BufferedAsyncSimulation:
         hist = History()
         fed = self.fed
         tl = simulate_timeline(self.k_schedule, self.clock, self.buffer,
-                               t_updates, population=self.population)
+                               t_updates, population=self.population,
+                               scenario=self.scenario)
         tau = tl.staleness
         s = staleness_weight(tau, fed.staleness, fed.staleness_a,
                              fed.staleness_b)
@@ -405,7 +470,12 @@ class BufferedAsyncSimulation:
                   if self.population is None
                   or self.population.full_participation
                   else self.population.report_weights())
-        sw_all = (base_w[tl.ids] * s).astype(np.float32)
+        sw = base_w[tl.ids] * s
+        if self.scenario is not None:
+            # partial-work recovery: an aborted report keeps only the mass
+            # it earned, w̃ · k′/K, in the aggregate and the ν mass-mix
+            sw = sw * (tl.k_steps / np.maximum(tl.k_sched, 1))
+        sw_all = sw.astype(np.float32)
         last = np.array([stages.last_occurrence(row) for row in tl.ids]
                         ).reshape(tl.ids.shape)
         table = np.stack([
@@ -440,6 +510,13 @@ class BufferedAsyncSimulation:
             tables = torch.from_numpy(table[sl]).to(self.device)
             sws = torch.from_numpy(sw_all[sl]).to(self.device)
             batches = self._host_batches(tl, u, r)
+            noise = None
+            if self._attack is not None and self._attack.needs_noise:
+                # keyed by the state's update counter, as in the reference
+                noise = torch.from_numpy(np.stack([
+                    self._attack.payload_noise(self.version + u + a,
+                                               tl.ids[u + a], self._spec.p)
+                    for a in range(r)])).to(self.device)
             tic = time.perf_counter()
             per_update = []
             for a in range(r):
@@ -450,13 +527,15 @@ class BufferedAsyncSimulation:
                     rows["last"] = None
                 self.state, metrics = self._update(
                     self.state, rows, sws[a], float(lam_all[u + a]),
-                    {key: v[a] for key, v in batches.items()})
+                    {key: v[a] for key, v in batches.items()},
+                    None if noise is None else noise[a])
                 per_update.append(metrics)
             self._sync()
             dt = time.perf_counter() - tic
-            for key in ("loss", "kbar", "mass"):
-                getattr(hist, key).extend(torch.stack(
-                    [mt[key] for mt in per_update]).double().tolist())
+            for key in ("loss", "kbar", "mass", "quarantined"):
+                if key in per_update[0]:
+                    getattr(hist, key).extend(torch.stack(
+                        [mt[key] for mt in per_update]).double().tolist())
             hist.wall.extend([dt / r] * r)
             hist.sim_time.extend(tl.arrival_t[sl, -1].tolist())
             hist.staleness.extend(tau[sl].mean(axis=1).tolist())
@@ -466,6 +545,8 @@ class BufferedAsyncSimulation:
                 [self.buffer * self._wire["uplink_per_client"]] * r)
             hist.bytes_down.extend(
                 [self.buffer * self._wire["downlink_per_client"]] * r)
+            if self.scenario is not None:
+                hist.dropped.extend(tl.aborted[sl].mean(axis=1).tolist())
             u += r
             if self.eval_fn is not None and u % eval_every == 0:
                 value = float(self.eval_fn(self.params))

@@ -19,8 +19,9 @@ execution order is fully determined by ``(k_schedule, clock, buffer_size)``
 simulation is precomputed here in one host pass and the engine
 (fed/async_engine.py) executes the resulting arrays in chunks.  The code is
 numpy only, with the reference's ``default_rng`` streams, so every array of
-a ``Timeline`` equals the reference's.  Failure scenarios (the
-``scenario`` argument) are ROADMAP A8.
+a ``Timeline`` equals the reference's; a failure scenario's per-wave k′,
+speed and latency rows (fed/scenarios.py) are the reference's keyed
+draws, so they do too.
 """
 from __future__ import annotations
 
@@ -76,10 +77,10 @@ class Timeline:
       (fed/population.py) the freed slot goes to a sampler-chosen client, so
       the concurrency cap C becomes a population property.
     * ``k_sched``    (T, B) int — the SCHEDULED K_i of each report; equals
-      ``k_steps`` (a failure scenario, which would cut it short, is
-      ROADMAP A8).
+      ``k_steps`` except under a failure scenario, where ``k_steps``
+      carries the effective k′ ≤ K_i actually completed.
     * ``aborted``    (T, B) bool — the report is a mid-round dropout
-      (k′ < K_i): never, without a scenario.
+      (k′ < K_i); its partial delta still enters the buffer.
     """
     ids: np.ndarray
     versions: np.ndarray
@@ -123,31 +124,66 @@ def simulate_timeline(k_schedule: np.ndarray, clock: ClientClock,
     re-filled by ``population.pick_dispatch`` (the sampler choosing among
     idle clients); ``sampler="all"`` (C = M) leaves the reporter as the
     only idle client, reproducing the full-participation stream bit for
-    bit.  A failure ``scenario`` raises (ROADMAP A8): without one every
-    report runs its scheduled K, so ``k_sched`` equals ``k_steps`` and no
-    report is ``aborted``.
+    bit.
+
+    With a ``scenario`` (fed/scenarios.py) each dispatch is perturbed by
+    the scenario's per-(wave, client) draws: the task runs only k′ ≤ K
+    steps (a mid-round dropout — an **abort event** whose partial work is
+    still delivered), its duration is ``k′ / (speed · factor) + latency +
+    extra``, and an aborted client **rejoins** only after
+    ``scenario.rejoin_delay`` simulated seconds of downtime (its next task
+    starts late by the remaining downtime).  ``scenario=None`` leaves every
+    code path and float untouched.
     """
-    if scenario is not None:
-        raise NotImplementedError(
-            "the PyTorch port does not run failure scenarios on the "
-            "timeline (scenario, ROADMAP A8) yet")
     m = clock.m
     k_schedule = np.asarray(k_schedule)
     heap: list[tuple[float, int, int]] = []
-    # client -> (version, K, wave, t_dispatch)
-    inflight: dict[int, tuple[int, int, int, float]] = {}
+    # client -> (version, K_eff, wave, t_dispatch, K_sched)
+    inflight: dict[int, tuple[int, int, int, float, int]] = {}
     wave_ctr = np.zeros(m, np.int64)
     busy = np.zeros(m, bool)
+    down_until = np.zeros(m, np.float64)   # abort rejoin gates (scenario)
     seq = 0
+
+    # per-wave scenario rows (k′ / speed factor / latency extra), drawn
+    # once per wave and LRU-cached: clients reach the same wave at very
+    # different simulated times under speed skew, so an evicted wave is
+    # drawn again
+    scn_cache: dict[int, tuple] = {}
+
+    def scn_rows(d: int) -> tuple:
+        rows = scn_cache.pop(d, None)
+        if rows is None:
+            base = np.asarray(k_schedule[d % len(k_schedule)])
+            rows = (scenario.host_k_eff(d, base),
+                    scenario.host_speed_factor(d),
+                    scenario.host_latency_extra(d))
+        scn_cache[d] = rows
+        while len(scn_cache) > 128:
+            scn_cache.pop(next(iter(scn_cache)))
+        return rows
 
     def dispatch(i: int, t_now: float, version: int) -> None:
         nonlocal seq
         d = int(wave_ctr[i])
-        k = int(k_schedule[d % len(k_schedule), i])
-        inflight[i] = (version, k, d, t_now)
+        k_s = int(k_schedule[d % len(k_schedule), i])
+        if scenario is None:
+            k = k_s
+            dur = clock.duration(i, k)
+        else:
+            keff, f, lx = scn_rows(d)
+            k = int(keff[i])
+            dur = float(k / (clock.speeds[i] * f[i])
+                        + clock.latency[i] + lx[i])
+            wait = down_until[i] - t_now
+            if wait > 0:                   # still offline after an abort
+                dur += wait
+            if k < k_s and scenario.rejoin_delay > 0:
+                down_until[i] = t_now + dur + scenario.rejoin_delay
+        inflight[i] = (version, k, d, t_now, k_s)
         wave_ctr[i] += 1
         busy[i] = True
-        heapq.heappush(heap, (t_now + clock.duration(i, k), seq, i))
+        heapq.heappush(heap, (t_now + dur, seq, i))
         seq += 1
 
     if population is None:
@@ -168,6 +204,7 @@ def simulate_timeline(k_schedule: np.ndarray, clock: ClientClock,
     versions = np.zeros(shape, np.int64)
     waves = np.zeros(shape, np.int64)
     k_steps = np.zeros(shape, np.int64)
+    k_sched = np.zeros(shape, np.int64)
     arrival_t = np.zeros(shape, np.float64)
     fresh = np.zeros(shape, bool)
 
@@ -182,20 +219,21 @@ def simulate_timeline(k_schedule: np.ndarray, clock: ClientClock,
             pending.append((t_arr, i, nxt, task))
             dispatch(nxt, t_arr, u)
         now = pending[-1][0]
-        for j, (t_arr, i, nxt, (v, k, d, _)) in enumerate(pending):
+        for j, (t_arr, i, nxt, (v, k, d, _, k_s)) in enumerate(pending):
             ids[u, j] = i
             dispatch_ids[u, j] = nxt
             versions[u, j] = v
             waves[u, j] = d
             k_steps[u, j] = k
+            k_sched[u, j] = k_s
             arrival_t[u, j] = t_arr
         # tie upgrade (see docstring); idempotent for duplicate dispatches —
         # the check always lands on the client's NEWEST in-flight task
         for t_arr, _, nxt, _ in pending:
             if t_arr == now and nxt in inflight:
-                ver, k, d, t_disp = inflight[nxt]
+                ver, k, d, t_disp, k_s = inflight[nxt]
                 if ver == u and t_disp == t_arr:
-                    inflight[nxt] = (u + 1, k, d, t_disp)
+                    inflight[nxt] = (u + 1, k, d, t_disp, k_s)
         # a dispatched task already consumed within this same buffer (and
         # whose client was not re-dispatched) has no in-flight entry: its
         # anchor row is rewritten before it is ever read again
@@ -206,8 +244,8 @@ def simulate_timeline(k_schedule: np.ndarray, clock: ClientClock,
     return Timeline(ids=ids, versions=versions, waves=waves,
                     k_steps=k_steps, staleness=staleness,
                     arrival_t=arrival_t, fresh=fresh,
-                    dispatch_ids=dispatch_ids, k_sched=k_steps.copy(),
-                    aborted=np.zeros(shape, bool))
+                    dispatch_ids=dispatch_ids, k_sched=k_sched,
+                    aborted=k_steps < k_sched)
 
 
 def make_clock(m: int, *, dist: str = "lognormal", sigma: float = 0.5,

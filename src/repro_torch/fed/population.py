@@ -35,7 +35,8 @@ timeline (fed/clock.py) draws ``initial_dispatch`` and every
 same seed gives the reference's picks bit for bit; ``report_weights`` are
 the per-report base weights and ``step_rate`` scales the clock's speeds.
 A time-varying availability hook (``availability_fn``, set by a failure
-scenario) is ROADMAP A8.
+scenario such as ``diurnal``) multiplies the static profile, in the cohort
+draw and in the dispatch profile alike.
 """
 from __future__ import annotations
 
@@ -117,9 +118,13 @@ def _sample_availability(pop: "ClientPopulation", rng: np.random.Generator,
                          t: int) -> np.ndarray:
     """Client i is up this round w.p. availability_i; the cohort is a
     uniform draw among available clients, by Gumbel scores, largest first.
-    Unavailable clients fill the cohort only when fewer than C are up:
+    A scenario's availability hook multiplies the static profile by its
+    row for round t.  Unavailable clients fill the cohort only when fewer than C are up:
     their scores are pushed below every available client's."""
-    up = rng.random(pop.m) < pop.availability
+    p = pop.availability
+    if pop.availability_fn is not None:
+        p = p * np.asarray(pop.availability_fn(t), np.float32)
+    up = rng.random(pop.m) < p
     score = rng.gumbel(size=pop.m) + np.where(up, 0.0, -1e9)
     top = np.argpartition(-score, pop.cohort_size - 1)[:pop.cohort_size]
     return top[np.argsort(-score[top], kind="stable")].astype(np.int32)
@@ -181,9 +186,10 @@ class ClientPopulation:
             np.asarray(availability, np.float32), (self.m,)).copy()
         self._rr_next = 0             # round-robin dispatch pointer (async)
         self._cdf = None              # lazily-built dispatch-profile CDF
-        # a time-varying availability multiplier ``t -> (M,)`` that a
-        # failure scenario attaches (ROADMAP A8); None = the static profile
+        # a time-varying availability multiplier ``t -> (M,)`` (host numpy)
+        # that a failure scenario attaches; None = the static profile
         self.availability_fn = None
+        self._cdf_cache: dict[int, np.ndarray] = {}
 
     @property
     def full_participation(self) -> bool:
@@ -277,7 +283,9 @@ class ClientPopulation:
         O(M) scan only after 64 rejections; ``all`` re-dispatches the
         reporter with no draw and ``round_robin`` walks its cyclic pointer
         past busy clients.  ``phase`` (the server update index) matters only
-        with an ``availability_fn`` (ROADMAP A8)."""
+        with an ``availability_fn``: the dispatch profile then follows the
+        time-varying availability (diurnal clients stop being dispatched
+        at night)."""
         if self.sampler == "all":
             return int(freed)                  # the only idle client
         if self.sampler == "round_robin":
@@ -300,11 +308,10 @@ class ClientPopulation:
         return int(rng.choice(ids, p=p / p.sum()))
 
     def _avail_profile(self, phase: int) -> np.ndarray:
+        p = np.asarray(self.availability, np.float64)
         if self.availability_fn is not None:
-            raise NotImplementedError(
-                "the PyTorch port does not run a time-varying availability "
-                "(availability_fn, failure scenarios: ROADMAP A8) yet")
-        return np.asarray(self.availability, np.float64)
+            p = p * np.asarray(self.availability_fn(phase), np.float64)
+        return p
 
     def _dispatch_profile(self, phase: int = 0) -> np.ndarray:
         if self.sampler == "weighted":
@@ -317,7 +324,17 @@ class ClientPopulation:
         return p / s if s > 0 else np.full(self.m, 1.0 / self.m)
 
     def _profile_cdf(self, phase: int = 0) -> np.ndarray:
-        if self._cdf is None:
-            self._cdf = np.cumsum(self._dispatch_profile())
-            self._cdf[-1] = 1.0
-        return self._cdf
+        if self.availability_fn is None or self.sampler != "availability":
+            if self._cdf is None:
+                self._cdf = np.cumsum(self._dispatch_profile())
+                self._cdf[-1] = 1.0
+            return self._cdf
+        # one CDF per phase, LRU-capped as in the reference
+        cdf = self._cdf_cache.pop(phase, None)
+        if cdf is None:
+            cdf = np.cumsum(self._dispatch_profile(phase))
+            cdf[-1] = 1.0
+        self._cdf_cache[phase] = cdf
+        while len(self._cdf_cache) > 32:
+            self._cdf_cache.pop(next(iter(self._cdf_cache)))
+        return cdf

@@ -17,9 +17,19 @@ state, so rounds update that store in place.  A chunk of cohort rounds
 (``engine.make_population_chunk``) computes exactly what its rounds
 computed one by one.
 
-The port runs the flat layout with no scenario or defense, full
-participation and cohort rounds alike with or without wire compression
-(core/compress.py).  A config asking for anything else raises
+Failure scenarios (fed/scenarios.py) perturb each round on the host with
+the reference's keyed draws: a k′ row replaces the K row (the round runs
+the k′-step prefix), cohort weights are scaled by the delivered fraction
+k′/K, ``History.dropped`` records the abort fraction, and a payload attack
+corrupts the wire inside the round, where the robust-aggregation stage
+(core/robust.py, ``FedConfig.defense`` / ``quarantine_window``) screens
+it; ``History.quarantined`` records the quarantined reporters.  An
+attack's noise rows (``garbage``) are drawn on the host before a chunk and
+go to the device with its inputs.
+
+The port runs the flat layout, full participation and cohort rounds alike,
+with or without wire compression (core/compress.py), a scenario or a
+defense.  A config asking for anything else raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.  As in the
 reference, this engine runs its synchronous round whatever
 ``buffer_size`` says: the buffered engine is
@@ -38,11 +48,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import compress, engine, flat, rounds, stages
+from repro_torch.core import compress, engine, flat, robust, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
 from repro_torch.fed.population import ClientPopulation
+from repro_torch.fed.scenarios import Scenario, make_scenario
 
 PyTree = Any
 
@@ -53,7 +64,8 @@ def _check_finite_metric(value: float, t: int) -> None:
     if not np.isfinite(value):
         raise FloatingPointError(
             f"evaluation metric is non-finite ({value}) after round {t}: "
-            f"the run has diverged or been poisoned")
+            f"the run has diverged or been poisoned; configure a defense "
+            f"(FedConfig.defense / quarantine_window, core/robust.py)")
 
 
 def _check_supported(fed: FedConfig) -> None:
@@ -63,10 +75,6 @@ def _check_supported(fed: FedConfig) -> None:
         (fed.param_layout != "flat",
          f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
          f"tree layout is ROADMAP A2)"),
-        (fed.scenario != "baseline",
-         f"scenario={fed.scenario!r} (failure scenarios, ROADMAP A8)"),
-        (fed.defense != "none" or fed.quarantine_window > 0,
-         "robust aggregation (defense/quarantine_window, ROADMAP A10)"),
         (fed.master_dtype != "",
          "a mixed-precision master buffer (master_dtype, ROADMAP A3)"),
     ]
@@ -95,6 +103,13 @@ class History:
     # each server update and the mean staleness of its buffer
     sim_time: list[float] = dataclasses.field(default_factory=list)
     staleness: list[float] = dataclasses.field(default_factory=list)
+    # failure scenarios (fed/scenarios.py): per-round/update fraction of
+    # mid-round dropouts (k′ < K_i) — population-level for the sync engine,
+    # buffer-level for the async engine; empty without a scenario
+    dropped: list[float] = dataclasses.field(default_factory=list)
+    # robust aggregation (core/robust.py): participants excluded by an
+    # active quarantine each round/update; empty without a defense
+    quarantined: list[float] = dataclasses.field(default_factory=list)
 
     def fairness(self) -> Optional[dict]:
         """FL fairness of the final round: worst-client metric and the
@@ -130,7 +145,9 @@ class FederatedSimulation:
     ``params`` is the model tree (dicts and lists of tensors: a paper
     model's dict or an LM's ``{"segments": [...], …}``); ``batcher`` a
     ``FederatedBatcher`` or ``LMFederatedBatcher`` on the same device
-    (cohort rounds need the former's cohort methods)."""
+    (cohort rounds need the former's cohort methods).  ``scenario``
+    overrides ``fed.scenario`` (a ``trace_scenario``, which a config
+    cannot carry)."""
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  params: PyTree, fed: FedConfig, batcher,
@@ -139,6 +156,7 @@ class FederatedSimulation:
                                                     list]] = None,
                  k_schedule: Optional[np.ndarray] = None,
                  lam_schedule: Optional[Callable[[int], float]] = None,
+                 scenario: Optional[Scenario] = None,
                  t_max: int = 10_000,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
@@ -164,6 +182,20 @@ class FederatedSimulation:
                                         dtype=torch.float32,
                                         device=self.device))
         self._spec = flat.make_flat_spec(params)
+        # failure scenario: None for "baseline", and every run path then
+        # takes its unperturbed round
+        self.scenario = (scenario if scenario is not None
+                         else make_scenario(fed))
+        if self.scenario is not None and self.scenario.m != fed.n_clients:
+            raise ValueError(
+                f"scenario for {self.scenario.m} clients does not "
+                f"match fed.n_clients={fed.n_clients}")
+        self._attack = (self.scenario
+                        if self.scenario is not None
+                        and self.scenario.corrupts_payload else None)
+        # robust aggregation: None when defense="none" and quarantine is
+        # off, and the rounds are then the unchanged ones
+        self.robust = robust.RobustConfig.from_fed(fed)
         # wire compression: None when the config asks for none, and the
         # round is then the unchanged one
         self.compression = compress.CompressionConfig.from_fed(fed)
@@ -171,7 +203,11 @@ class FederatedSimulation:
                                         self.compression)
         self.state = rounds.init_state(
             flat.ravel(self._spec, params).to(self.device), fed.n_clients,
-            self.algo, compression=self.compression, spec=self._spec)
+            self.algo, compression=self.compression, spec=self._spec,
+            robust=self.robust)
+        # rounds run on this state so far: the state's round counter, which
+        # keys an attack's draws (``run`` restarts its own t at 0)
+        self._rounds_done = 0
         self._loss_fn = loss_fn
         self._round: Optional[Callable] = None
         self._chunks: dict[int, Callable] = {}
@@ -184,11 +220,16 @@ class FederatedSimulation:
         if self._partial and not hasattr(batcher, "cohort_batches"):
             raise ValueError("cohort rounds need a batcher with cohort "
                              "methods (FederatedBatcher)")
+        if (self.scenario is not None
+                and self.scenario.availability_fn is not None
+                and self.population is not None):
+            self.population.availability_fn = self.scenario.availability_fn
 
     def _build_round(self) -> Callable:
         return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
                                     lr=self.fed.lr, k_max=self.k_max,
-                                    compression=self.compression)
+                                    compression=self.compression,
+                                    robust=self.robust, attack=self._attack)
 
     def _round_fn(self) -> Callable:
         if self._round is None:
@@ -209,7 +250,8 @@ class FederatedSimulation:
             self._round = flat.make_flat_cohort_round(
                 self._spec, self._loss_fn, self.algo, lr=self.fed.lr,
                 k_max=self.k_max, nu_decay=self.fed.cohort_nu_decay,
-                compression=self.compression)
+                compression=self.compression, robust=self.robust,
+                attack=self._attack)
         return self._round
 
     def _pop_chunk_fn(self, r: int) -> Callable:
@@ -225,9 +267,49 @@ class FederatedSimulation:
     def _sched_row(self, t: int) -> np.ndarray:
         return np.asarray(self.k_schedule[t % len(self.k_schedule)])
 
+    def _k_host(self, t: int) -> np.ndarray:
+        """Round t's effective K row: the schedule row, perturbed to k′ by
+        the scenario (the reference's keyed draws)."""
+        row = self._sched_row(t)
+        if self.scenario is None or not self.scenario.perturbs_k:
+            return row
+        return self.scenario.host_k_eff(t, row)
+
     def _k_row(self, t: int) -> torch.Tensor:
-        return torch.as_tensor(self._sched_row(t), dtype=torch.int32,
+        return torch.as_tensor(self._k_host(t), dtype=torch.int32,
                                device=self.device)
+
+    def _record_dropped(self, hist: History, t0: int, r: int) -> None:
+        """Population-level abort fraction per round (pure in (seed, t))."""
+        if self.scenario is None:
+            return
+        if not self.scenario.perturbs_k:
+            hist.dropped.extend([0.0] * r)
+            return
+        hist.dropped.extend(
+            float(np.mean(self._k_host(t0 + j) < self._sched_row(t0 + j)))
+            for j in range(r))
+
+    def _noise(self, r: int, cohorts: Optional[np.ndarray] = None
+               ) -> Optional[torch.Tensor]:
+        """(r, 2, B, P) noise rows of the next r rounds' payload attack on
+        the device (one transfer), or None when the attack draws none.
+        The draws are keyed by the state's round counter, as in the
+        reference's round."""
+        if self._attack is None or not self._attack.needs_noise:
+            return None
+        rows = [self._attack.payload_noise(
+            self._rounds_done + j,
+            None if cohorts is None else cohorts[j], self._spec.p)
+            for j in range(r)]
+        return self._on_device(np.stack(rows), torch.float32)
+
+    def _record_metrics(self, hist: History, metrics: dict, r: int) -> None:
+        for key in ("loss", "kbar", "mass", "quarantined"):
+            if key in metrics:
+                getattr(hist, key).extend(
+                    metrics[key].double().reshape(-1).tolist())
+        self._rounds_done += r
 
     def _sync(self) -> None:
         """End of a timed region: wait for the device's work (the
@@ -249,13 +331,15 @@ class FederatedSimulation:
         round_fn = self._round_fn()
         k_t = self._k_row(t)
         batches = self.batcher.round_batches(t, self.k_max)
+        noise = self._noise(1)
+        kw = {} if noise is None else {"noise": noise[0]}
         t0 = time.perf_counter()
         self.state, metrics = round_fn(self.state, batches, k_t,
-                                       self.weights, lam)
+                                       self.weights, lam, **kw)
         self._sync()
         hist.wall.append(time.perf_counter() - t0)
-        hist.loss.append(float(metrics["loss"]))
-        hist.kbar.append(float(metrics["kbar"]))
+        self._record_metrics(hist, metrics, 1)
+        self._record_dropped(hist, t, 1)
         self._record_bytes(hist, 1, self.fed.n_clients)
 
     def _run_chunk(self, t0: int, r: int, hist: History) -> None:
@@ -264,14 +348,15 @@ class FederatedSimulation:
         ks = torch.stack([self._k_row(t0 + j) for j in range(r)])
         weights = self.weights.expand(r, -1)
         lams = [self._lam(t0 + j) for j in range(r)]
+        noise = self._noise(r)
         tic = time.perf_counter()
         self.state, metrics = chunk_fn(self.state, batches, ks, weights,
-                                       lams)
+                                       lams, noise=noise)
         self._sync()
         dt = time.perf_counter() - tic
-        hist.loss.extend(metrics["loss"].double().tolist())
-        hist.kbar.extend(metrics["kbar"].double().tolist())
+        self._record_metrics(hist, metrics, r)
         hist.wall.extend([dt / r] * r)
+        self._record_dropped(hist, t0, r)
         self._record_bytes(hist, r, self.fed.n_clients)
 
     # -- partial participation ------------------------------------------------
@@ -289,49 +374,60 @@ class FederatedSimulation:
             return None
         return self._on_device(lasts, torch.int64)
 
+    def _cohort_k(self, t: int, ids: np.ndarray, cw: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+        """The cohort's K (k′ under a scenario) and weights, scaled by the
+        delivered fraction k′/K (``stages.delivered_weights``)."""
+        k_c = self._sched_row(t)[ids]
+        if self.scenario is None or not self.scenario.perturbs_k:
+            return k_c, cw
+        k_eff = self._k_host(t)[ids]
+        return k_eff, stages.delivered_weights(cw, k_eff, k_c)
+
     def _run_pop_round(self, t: int, hist: History) -> None:
         """The chunk_rounds=1 cohort path: one round, one host sync."""
         lam = self._lam(t)
         round_fn = self._pop_round_fn()
         ids, cw = self.population.host_cohort(t)
-        k_c = self._sched_row(t)[ids]
+        k_c, cw = self._cohort_k(t, ids, cw)
         batches = self.batcher.cohort_batches(t, ids, self.k_max)
         last = self._lasts(ids[None])
+        noise = self._noise(1, ids[None])
         t0 = time.perf_counter()
         # the run owns its state: the ν⁽ⁱ⁾ store is updated in place
         self.state, metrics = round_fn(
             self.state, batches, self._on_device(ids, torch.int64),
             self._on_device(k_c, torch.int32),
             self._on_device(cw, torch.float32), lam, donate=True,
-            last=None if last is None else last[0])
+            last=None if last is None else last[0],
+            noise=None if noise is None else noise[0])
         self._sync()
         hist.wall.append(time.perf_counter() - t0)
-        hist.loss.append(float(metrics["loss"]))
-        hist.kbar.append(float(metrics["kbar"]))
-        hist.mass.append(float(metrics["mass"]))
+        self._record_metrics(hist, metrics, 1)
+        self._record_dropped(hist, t, 1)
         self._record_bytes(hist, 1, self.population.cohort_size)
 
     def _run_pop_chunk(self, t0: int, r: int, hist: History) -> None:
         chunk_fn = self._pop_chunk_fn(r)
         drawn = [self.population.host_cohort(t0 + j) for j in range(r)]
         cohorts = np.stack([ids for ids, _ in drawn])
-        cws = np.stack([w for _, w in drawn])
-        ks = np.stack([self._sched_row(t0 + j)[cohorts[j]]
-                       for j in range(r)])
+        ks, cws = zip(*(self._cohort_k(t0 + j, ids, w)
+                        for j, (ids, w) in enumerate(drawn)))
+        ks, cws = np.stack(ks), np.stack(cws)
         batches = self.batcher.chunk_cohort_batches(t0, cohorts, self.k_max)
         lams = [self._lam(t0 + j) for j in range(r)]
         lasts = self._lasts(cohorts)
+        noise = self._noise(r, cohorts)
         tic = time.perf_counter()
         self.state, metrics = chunk_fn(
             self.state, batches, self._on_device(cohorts, torch.int64),
             self._on_device(ks, torch.int32),
-            self._on_device(cws, torch.float32), lams, lasts)
+            self._on_device(cws, torch.float32), lams, lasts, noise=noise)
         self._sync()
         dt = time.perf_counter() - tic
-        hist.loss.extend(metrics["loss"].double().tolist())
-        hist.kbar.extend(metrics["kbar"].double().tolist())
-        hist.mass.extend(metrics["mass"].double().tolist())
+        self._record_metrics(hist, metrics, r)
         hist.wall.extend([dt / r] * r)
+        self._record_dropped(hist, t0, r)
         self._record_bytes(hist, r, self.population.cohort_size)
 
     def run(self, t_rounds: int, eval_every: int = 1,

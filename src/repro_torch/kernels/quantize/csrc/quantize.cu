@@ -26,8 +26,14 @@
 //   - the mask keeps ties (|x| == t) and writes +0.0 where it masks; a NaN
 //     compares false and becomes 0, as jnp.where does.
 // The file is compiled without --use_fast_math.  A NaN input to
-// quantize_2d gives −qmax (fmaxf drops the NaN); the reference's int8
-// cast of a NaN is platform-defined, so no caller relies on either.
+// quantize_2d gives −qmax (fmaxf drops the NaN), where the reference's
+// int8 cast of a NaN is platform-defined: no caller reads such a code.  A
+// NaN or Inf payload (fed/scenarios.py's nan_inject / inf_inject) comes
+// with a non-finite row scale, since the scale is the row's amax (which
+// propagates NaN) over qmax, so its dequantized row q · s is non-finite at
+// every element whatever the codes, as the reference's is: the robust
+// stage (core/robust.py) drops the row, and the sender's error-feedback
+// row stays non-finite.
 //
 // Bound on the card: bytes.  A handful of float32 operations per element
 // against 4 + 1 bytes (quantize, float32 in), 1 + 4 bytes (dequantize,

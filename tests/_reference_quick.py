@@ -12,9 +12,11 @@ table_async's drift check) are kept apart under ``notes``.  Rows that
 report rounds (or updates) to a target also keep ``target_margin``: the
 least |accuracy − target| over the evaluations up to the crossing (every
 one where the target is never reached), so a check of the port's rounds
-knows where the reference sat within rounding of the target.  The
-compression module runs with its JSON report written to a temporary
-directory, not over the repository's ``BENCH_compression.json``.  The
+knows where the reference sat within rounding of the target (the scenario
+and robust modules have no such helper: their ``History.rounds_to_target``
+calls are recorded, one a run, the ν-ablation runs after the rows).  The
+compression, scenario and robust modules run with its JSON report written to a temporary
+directory, not over the repository's ``BENCH_*.json``.  The
 card has no JAX: this file is how ``chip_smoke.py`` holds the card to the
 reference.
 """
@@ -34,7 +36,11 @@ MODULES = {"thm1": "thm1_quadratic", "table1": "table1_deterioration",
            "table2": "table2_utilization", "fig2": "fig2_lambda",
            "fig3": "fig3_orientation", "fig4": "fig4_grid",
            "fairness": "fairness", "server_opt": "server_opt",
-           "table_async": "table_async", "compression": "compression_bench"}
+           "table_async": "table_async", "compression": "compression_bench",
+           "scenario": "scenario_bench", "robust": "robust_bench"}
+# modules without a rounds-to-target helper whose runs' History calls are
+# recorded instead
+RECORD_HISTORY = ("scenario", "robust")
 COMMAND = ("PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.run "
            "--quick --only " + ",".join(MODULES))
 
@@ -58,12 +64,25 @@ def module_rows(name: str) -> dict:
         margins.append(min(abs(v - target) for v in seen))
         return helper(hist, *args)
 
+    # without a module helper, the History method itself records
+    # (RECORD_HISTORY's modules)
+    from repro.fed.simulation import History
+    to_target = History.rounds_to_target
+
+    def recording_method(hist, target, *args, **kw):
+        r = to_target(hist, target, *args, **kw)
+        seen = hist.metric[:r] if r is not None else hist.metric
+        margins.append(min(abs(v - target) for v in seen))
+        return r
+
     buf = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
         root = getattr(mod, "ROOT", None)
         try:
             if hook:
                 setattr(mod, hook, recording)
+            elif name in RECORD_HISTORY:
+                History.rounds_to_target = recording_method
             if root is not None:
                 mod.ROOT = Path(tmp)
             with contextlib.redirect_stdout(buf):
@@ -71,6 +90,7 @@ def module_rows(name: str) -> dict:
         finally:
             if hook:
                 setattr(mod, hook, helper)
+            History.rounds_to_target = to_target
             if root is not None:
                 mod.ROOT = root
     lines = buf.getvalue().strip().splitlines()

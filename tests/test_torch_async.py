@@ -7,7 +7,8 @@ package on the CPU.
   the five samplers: equal to the reference's, array for array (both are
   numpy with the same ``default_rng`` streams).
 * ``report_weights``, ``initial_dispatch`` and ``pick_dispatch``: the
-  reference's picks from the same generator, bit for bit.
+  reference's picks from the same generator, bit for bit, a time-varying
+  availability hook included.
 * The per-client-anchor client update against the reference's
   ``make_flat_client_update(per_client_anchor=True)``.
 * ``BufferedAsyncSimulation.run`` against the reference's on the flat
@@ -21,8 +22,8 @@ package on the CPU.
 * Buffer = M at fixed speeds computes the port's synchronous round; a
   chunked run equals its per-update run bit for bit; a repeated id keeps
   its last occurrence's ν⁽ⁱ⁾ row, as the reference's scatter does.
-* What the engine refuses, naming the ROADMAP item; the example at 2
-  rounds.
+* What the engine refuses (the tree layout, a mixed-precision master, a
+  device sampler), naming the ROADMAP item; the example at 2 rounds.
 """
 import pytest
 
@@ -207,13 +208,23 @@ def test_pick_dispatch_scan_fallback_bit_equal():
 
 
 def test_availability_hook_is_refused():
-    tp, _ = _populations("availability")
-    tp.availability_fn = lambda t: np.ones(POP_M)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tp.initial_dispatch(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="A8"):
-        clock.simulate_timeline(_k_schedule(), clock.make_clock(M), 2, 1,
-                                scenario=object())
+    """The time-varying availability hook the port refused before failure
+    scenarios came (ROADMAP A8) now drives the dispatch profile: the
+    initial dispatch and the picks at several phases equal the
+    reference's under the same hook."""
+    tp, jp = _populations("availability")
+    hook = (lambda t: np.where(np.arange(POP_M) % 3 == t % 3, 0.05, 1.0)
+            .astype(np.float32))
+    tp.availability_fn = hook
+    jp.availability_fn = lambda t: jnp.where(
+        jnp.arange(POP_M) % 3 == t % 3, 0.05, 1.0).astype(jnp.float32)
+    g_rng, w_rng = (np.random.default_rng(5) for _ in range(2))
+    assert np.array_equal(tp.initial_dispatch(g_rng),
+                          jp.initial_dispatch(w_rng))
+    busy = np.zeros(POP_M, bool)
+    for phase in range(6):
+        assert tp.pick_dispatch(g_rng, busy, 0, phase=phase) == \
+            jp.pick_dispatch(w_rng, busy, 0, phase=phase)
 
 
 # ---------------------------------------------------------------------------
@@ -471,9 +482,7 @@ def test_history_records_and_rerun_restarts_the_timeline():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(param_layout="tree"), "A2"), (dict(scenario="dropout"), "A8"),
-    (dict(defense="median"), "A10"), (dict(quarantine_window=2), "A10"),
-    (dict(master_dtype="float32"), "A3"), ("scenario", "A8"),
+    (dict(param_layout="tree"), "A2"), (dict(master_dtype="float32"), "A3"),
     ("sampler", "A5")])
 def test_async_refusals_name_the_roadmap_item(kw, item):
     x, y, parts, params, ks = _task()
@@ -481,9 +490,7 @@ def test_async_refusals_name_the_roadmap_item(kw, item):
                                        torch.from_numpy(y).long()), parts,
                                batch_size=BATCH, device="cpu")
     extra = {}
-    if kw == "scenario":
-        kw, extra = {}, {"scenario": object()}
-    elif kw == "sampler":
+    if kw == "sampler":
         kw = {}
         batcher.sample_row = lambda d, i, k: None
     fed = FedConfig(**dict(dict(algorithm="fedavg", n_clients=M,

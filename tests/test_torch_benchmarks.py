@@ -14,9 +14,10 @@ the reference's ``benchmarks/`` on the CPU.
   0.77999997 that ``sum / n`` gave.
 * ``run.parse_only`` on the cases of tests/test_benchmarks_cli.py; every
   twin's ``main(quick=True)`` on the CPU with its rounds cut to 2 (the
-  buffered-async and compression twins' included), its rows lined up with
-  the reference's quick rows; a failing module makes ``run`` exit
-  non-zero.
+  buffered-async, compression, scenario and robust twins' included), its
+  rows lined up with the reference's quick rows; a failing module makes
+  ``run`` exit non-zero.  (The scenario and robust twins' full quick rows
+  are tests/test_torch_scenario_twin.py and test_torch_robust_twin.py's.)
 * ``reference_quick.json``'s thm1, table1 and server_opt rows regenerated
   from the JAX modules, equal to the committed file.
 * The ``continuous_batching`` twin on the CPU.
@@ -261,9 +262,11 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
         assert header[0] == "task"
         return
     header, *rows = [ln.split(",") for ln in lines]
-    # table_async's rows start with the algorithm, compression's with the
-    # mode, as the reference's do
-    assert rows and (name in ("table_async", "compression")
+    # table_async's and scenario's rows start with the algorithm,
+    # compression's with the mode, robust's with the attack, as the
+    # reference's do
+    assert rows and (name in ("table_async", "compression", "scenario",
+                              "robust")
                      or all(r[0] == name.split("_")[0] or r[0] == name
                             for r in rows))
     ref = REFERENCE["modules"].get(name)
@@ -275,11 +278,13 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
     # the settings columns line up; numbers are the run's own at 2 rounds
     n_key = {"thm1": 2, "table1": 3, "table2": 3, "fig2": 3, "fig3": 3,
              "fig4": 4, "fairness": 2, "server_opt": 4, "table_async": 4,
-             "compression": 3}[name]
+             "compression": 3, "scenario": 3, "robust": 2}[name]
     assert [r[:n_key] for r in rows] == [r[:n_key] for r in ref["rows"]]
     for r in rows:
+        # robust's survival column is a word
         assert all(np.isfinite(float(v)) for v in r[n_key:]
-                   if v and v != "-" and not v.startswith(">"))
+                   if v and v not in ("-", "yes", "DIVERGED")
+                   and not v.startswith(">"))
 
 
 def test_reference_quick_rows_are_current():

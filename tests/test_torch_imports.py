@@ -24,7 +24,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
-    the Mamba2, population, paper-twin and buffered-async slices'
+    the Mamba2, population, paper-twin, buffered-async and fault slices'
     included."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
@@ -36,7 +36,9 @@ def test_scan_covers_every_slice():
                 "examples/continuous_batching.py", "fed/clock.py",
                 "fed/async_engine.py", "benchmarks/table_async.py",
                 "benchmarks/compression_bench.py",
-                "examples/buffered_async.py"):
+                "examples/buffered_async.py", "fed/keyed.py",
+                "fed/scenarios.py", "core/robust.py",
+                "benchmarks/scenario_bench.py", "benchmarks/robust_bench.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -82,9 +84,10 @@ def test_entry_points_without_device_raise_where_no_cuda():
 
 # the fields whose features the port has since brought: buffer_size (the
 # synchronous engine runs its round whatever it says, as the reference's
-# does; the buffered engine is BufferedAsyncSimulation) and compression on
-# the cohort round (A9)
-PORTED = {("cohort_size", "A9"), ("buffer_size", "A7")}
+# does; the buffered engine is BufferedAsyncSimulation), compression on
+# the cohort round (A9), failure scenarios (A8) and robust aggregation (A10)
+PORTED = {("cohort_size", "A9"), ("buffer_size", "A7"), ("scenario", "A8"),
+          ("quarantine_window", "A10"), ("defense", "A10")}
 
 
 def _reference_round(fed_kw, sim, cohort=None):
@@ -95,21 +98,25 @@ def _reference_round(fed_kw, sim, cohort=None):
     from repro.configs.base import FedConfig as JFedConfig
     from repro.core import compress as jcompress
     from repro.core import flat as jflat
+    from repro.core import robust as jrobust
     from repro.core import rounds as jrounds
     from repro.core.fedopt import get_algorithm as j_get_algorithm
+    from repro.fed.scenarios import make_scenario as j_make_scenario
     from repro.models.simple import lr_loss as j_lr_loss
     jfed = JFedConfig(**fed_kw)
     algo = j_get_algorithm(jfed.algorithm, jfed)
     params = {"w": jnp.zeros((4, 3)), "b": jnp.zeros(3)}
     spec = jflat.make_flat_spec(params)
     comp = jcompress.CompressionConfig.from_fed(jfed)
+    rb = jrobust.RobustConfig.from_fed(jfed)
+    wire = dict(compression=comp, robust=rb, attack=j_make_scenario(jfed))
     state = jrounds.init_state(jflat.ravel(spec, params), 2, algo,
-                               compression=comp, spec=spec)
+                               compression=comp, spec=spec, robust=rb)
     ks = np.ones(2, np.int32)
     if cohort is None:
         batches = sim.batcher.round_batches(0, 1)
         fn = jflat.make_flat_round(spec, j_lr_loss, algo, lr=jfed.lr,
-                                   k_max=1, compression=comp)
+                                   k_max=1, **wire)
         state, _ = fn(state, jax.tree.map(lambda t: jnp.asarray(t.numpy()),
                                           batches),
                       jnp.asarray(ks), jnp.asarray(
@@ -118,7 +125,7 @@ def _reference_round(fed_kw, sim, cohort=None):
         ids, cw = cohort
         batches = sim.batcher.cohort_batches(0, ids, 1)
         fn = jflat.make_flat_cohort_round(spec, j_lr_loss, algo, lr=jfed.lr,
-                                          k_max=1, compression=comp)
+                                          k_max=1, **wire)
         state, _ = fn(state, jax.tree.map(lambda t: jnp.asarray(t.numpy()),
                                           batches),
                       jnp.asarray(ids), jnp.asarray(ks[ids]),

@@ -363,21 +363,26 @@ def test_cohort_round_leaves_a_kept_state_alone_and_donated_one_in_place():
 
 
 def test_cohort_round_refuses_unported_stages():
-    """Robust aggregation (A10) and payload attacks (A8) are refused;
-    compression on the cohort round (A9) is ported and builds (its parity
-    is tests/test_torch_async_compression.py's)."""
+    """Robust aggregation (A10), payload attacks (A8) and compression (A9)
+    on the cohort round are ported and build (their parity is
+    tests/test_torch_robust.py's and tests/test_torch_async_compression.
+    py's); the reference's in-scan scenario hook, which belongs to the
+    device sampler's chunk, is refused naming ROADMAP A5/A6."""
+    from repro_torch.core import engine, robust
     from repro_torch.core.compress import CompressionConfig
+    from repro_torch.fed import scenarios
     _, fed = _configs("fedagrac", 0.0)
     algo = get_algorithm("fedagrac", fed)
     spec = flat.make_flat_spec({"w": torch.zeros(D, N_CLASSES)})
-    for kw, item in ((dict(robust=object()), "A10"),
-                     (dict(attack=object()), "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            flat.make_flat_cohort_round(spec, simple.lr_loss, algo, lr=LR,
-                                        k_max=K_MAX, **kw)
-    assert callable(flat.make_flat_cohort_round(
+    fn = flat.make_flat_cohort_round(
         spec, simple.lr_loss, algo, lr=LR, k_max=K_MAX,
-        compression=CompressionConfig(uplink="int8")))
+        compression=CompressionConfig(uplink="int8"),
+        robust=robust.RobustConfig(defense="median", quarantine_window=2),
+        attack=scenarios.sign_flip_scenario(M, rate=0.3))
+    assert callable(fn)
+    with pytest.raises(NotImplementedError, match="A5/A6"):
+        engine.make_population_chunk(fn, 2,
+                                     scenario_fn=lambda t, k, ids: k)
 
 
 def test_population_chunk_equals_its_rounds():

@@ -171,7 +171,13 @@ def test_state_carried_from_jax_resumes(algorithm, server_opt):
 
 
 def test_carrying_unported_state_raises():
+    """The quarantine's health vectors carry across now that robust
+    aggregation is ported; a key the port does not know still raises."""
     state = {"params": np.zeros(128, np.float32), "round": np.int32(0),
-             "hz_until": np.zeros((M,), np.int32)}
-    with pytest.raises(NotImplementedError, match="hz_until"):
+             "hz_until": np.arange(M, dtype=np.int32)}
+    out = convert.flat_state_from_numpy(state, "cpu")
+    assert out["hz_until"].dtype == torch.int32
+    assert out["hz_until"].tolist() == list(range(M))
+    state["unknown_store"] = np.zeros((M,), np.int32)
+    with pytest.raises(NotImplementedError, match="unknown_store"):
         convert.flat_state_from_numpy(state, "cpu")
