@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, each printing JSON lines; any failure exits non-zero.
+Fifteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -22,7 +22,10 @@ Fourteen phases, each printing JSON lines; any failure exits non-zero.
    computes the same function, that call's (``library_ms``, back to back:
    ``torch.quantize_per_channel`` cannot be captured).  The
    calibrated-update kernels agree with their plain versions to an ulp; the
-   quantize kernels exactly (codes, values and masks).
+   quantize kernels exactly (codes, values and masks).  The card's
+   per-launch floor: an empty kernel (``EMPTY_KERNEL``, built here with
+   the kernels' nvcc flags), timed from CUDA-graph replay and back to
+   back, the least a launch of any kernel costs.
 3. main path — ``FederatedSimulation.run(5, eval_every=5)`` at the full
    width of the paper's non-convex task (mlp 60-64-10, batch 20, FedProx
    synthetic(1,1), 10 clients, the bimodal K schedule: nine clients at
@@ -128,7 +131,8 @@ Fourteen phases, each printing JSON lines; any failure exits non-zero.
    4) for fedagrac under ``uniform``, ``round_robin``, ``weighted`` and
    ``availability`` (0.7) and fednova under ``uniform`` with ν decay 0.3,
    5 rounds each, on the card against the CPU by phase 3's rule, the same
-   cohorts on both.  (c) the paper's CNN at full width (P = 21888) on
+   cohorts on both, and those the reference draws (``reference_quick.json``
+   ``cohorts``).  (c) the paper's CNN at full width (P = 21888) on
    ``image_classification`` data, 6000 images over 10 clients by DP1 (α
    0.3), nine clients at K = 2 and one at 20, fedagrac and fedavg for 3
    rounds against the CPU, exactly 20 launches a round; the
@@ -153,7 +157,9 @@ Fourteen phases, each printing JSON lines; any failure exits non-zero.
    kernel once a layer in each of the serving twin's prefills.
 13. buffered asynchrony — ``BufferedAsyncSimulation`` (fed/async_engine.py)
    and compression on the cohort and buffered rounds.  (a) the
-   ``table_async`` twin's ``main(quick=True)`` on the card: its rows (all
+   ``table_async`` twin's ``main(quick=True)`` on the card, in a worker
+   process started with phase 12 (both are host-bound and run side by
+   side; phase 13 collects it): its rows (all
    lr) against the reference's quick rows by phase 12's rule, its buffer =
    M run at fixed speeds against its own synchronous FedaGrac run by phase
    3's rule (the spread from a rerun of that run on the card with reversed
@@ -196,6 +202,25 @@ Fourteen phases, each printing JSON lines; any failure exits non-zero.
    wall per round, the aten ops and the implicit host syncs a round
    issues.  Before (a): the attack and every defense's stages issue no
    implicit host sync on the card (``set_sync_debug_mode("error")``).
+15. the device-sampled, checkpointed path (data.DeviceBatcher, the device
+   chunks of core/engine.py, checkpoint/).  (a) the card's
+   ``DeviceBatcher`` indices of 48 rounds of phase 11's uniform cohort of
+   8 at M = 100,000 equal ``fed/keyed.py``'s numpy indices element for
+   element, and the cohorts equal the reference's committed ones.  (b)
+   the device-mode population chunk (cohorts, batches and k′ drawn in the
+   chunk) at M = 100,000 and 1024, K 4, chunks of 8, 48 rounds: ms per
+   round at both beside phase 11's host-mode rounds, peak memory over the
+   ν⁽ⁱ⁾ store, exactly K B1 launches a round; then under ``dropout``
+   through the in-chunk ``scenario_fn``, ``History.dropped`` equal to the
+   CPU's.  (c) resume: 24 rounds on the int8 wire under a scale attack
+   whose corrupt set is not empty, defended by a trimmed mean with a
+   quarantine, at M = 1024, saved, loaded into a fresh simulation and run
+   24 more, equal to 48 rounds on one simulation bit for bit (B1, B3, B4
+   counted); then ``checkpoint.save`` / ``load`` of the M = 100,000 state
+   timed (bytes, seconds, GB/s), where the disk has the room.  (d) the
+   ``failure_scenarios`` example twin on the device batcher: its rows
+   against the reference's (``reference_quick.json`` ``examples``), the
+   abort fractions equal, one B1 launch a local step.
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -598,6 +623,49 @@ def _bound(inputs, out, ops_per_elem) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# phase 2's yardstick: a kernel that does nothing, launched as the port's
+# kernels are (a C entry point taking the stream)
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _launch_floor() -> dict:
+    """The card's per-launch floor: ``EMPTY_KERNEL`` built with the port's
+    nvcc flags into the build directory, its device time per launch from
+    CUDA-graph replay (``graph_ms``) and back to back (``stream_ms``)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "empty_kernel.cu"
+    lib_path = _build.BUILD_DIR / "libempty_kernel.so"
+    src.write_text(EMPTY_KERNEL)
+    t0 = time.perf_counter()
+    done = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(src)], capture_output=True,
+                          text=True)
+    _require(done.returncode == 0, f"the empty kernel did not build: "
+                                   f"{done.stdout}{done.stderr}")
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    lib.launch_empty.argtypes = [ctypes.c_void_p]
+    lib.launch_empty.restype = ctypes.c_int
+
+    def launch():
+        rc = lib.launch_empty(ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream))
+        _require(rc == 0, f"the empty kernel's launch failed ({rc})")
+    out = {"kernel": "empty", "graph_ms": _graph_ms(launch, 1000),
+           "stream_ms": _time_ms(launch, 1000), "build_s": build_s}
+    _emit({"phase": "kernels", "part": "launch_floor", **out})
+    return out
+
+
 def phase_kernels() -> dict:
     from repro_torch.kernels.calibrated_update import ops, ref
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -666,6 +734,7 @@ def phase_kernels() -> dict:
     _emit({"phase": "kernels", "checks": len(checks),
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
            "worst": max(checks, key=lambda ch: ch["max_abs_err"])})
+    _launch_floor()
     return result
 
 
@@ -2307,19 +2376,25 @@ class _OpCounter:
 
 
 def _population_run(pop: dict, m: int, count_ops: bool = False,
-                    **fed_kw) -> dict:
+                    sampler: str = "host", keep: bool = False,
+                    device: Optional[str] = None, **fed_kw) -> dict:
     """FedaGrac on a population of m clients, C a round, on the card
     (``roofline.round_profile.population_simulation``, ``fed_kw`` adding
-    config fields): ``pop["chunk"]`` warm-up rounds, then the counted run
-    of ``pop["rounds"]`` rounds in chunks.  ``count_ops``: then 2 more
-    rounds under ``_OpCounter``, for the aten ops a round issues."""
+    config fields, ``sampler`` its batcher): ``pop["chunk"]`` warm-up
+    rounds, then the counted run of ``pop["rounds"]`` rounds in chunks.
+    ``count_ops``: then 2 more rounds under ``_OpCounter``, for the aten
+    ops a round issues.  ``keep``: the simulation is returned as
+    ``"sim"``.  ``device="cpu"`` runs it on the CPU (no memory figures)."""
     from repro_torch.kernels.calibrated_update import ops
     from repro_torch.roofline.round_profile import population_simulation
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    sim = population_simulation(m, pop, DEVICE, **fed_kw)
+    device = device or DEVICE
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    sim = population_simulation(m, pop, device, sampler=sampler, **fed_kw)
     _require(sim._partial, f"M = {m}: the population path is not engaged")
     drawn = set()
     host_cohort = sim.population.host_cohort
@@ -2334,8 +2409,10 @@ def _population_run(pop: dict, m: int, count_ops: bool = False,
     hist = sim.run(pop["rounds"], chunk_rounds=pop["chunk"])
     launches = {k: n - before[k] for k, n in ops.launches.items()}
     all_launches = _launch_delta(before_all)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
+    peak = None
+    if on_card:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
     nu_i = sim.state["nu_i"]
     written = int((torch.count_nonzero(nu_i, dim=1) > 0).sum())
     out = {"m": m, "launches": launches, "all_launches": all_launches,
@@ -2350,7 +2427,8 @@ def _population_run(pop: dict, m: int, count_ops: bool = False,
            "rows_written": written, "clients_drawn": len(drawn),
            "params_finite": bool(torch.isfinite(sim.state["params"]).all()),
            "bytes_up_per_round": hist.bytes_up[0],
-           "quarantined": float(np.sum(hist.quarantined))}
+           "quarantined": float(np.sum(hist.quarantined)),
+           "dropped": list(hist.dropped), "cohorts": sorted(drawn)}
     if count_ops:
         with _OpCounter() as ops_count:
             sim.run(2, chunk_rounds=2)
@@ -2367,15 +2445,26 @@ def _population_run(pop: dict, m: int, count_ops: bool = False,
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         out["implicit_syncs_per_round"] = len(caught) / 2
+    if keep:
+        out["sim"] = sim
     del sim, nu_i
-    torch.cuda.empty_cache()
+    if on_card:
+        torch.cuda.empty_cache()
     return out
 
 
-def _population_scale(pop: dict) -> dict:
+def _reference_cohorts(setting: str, sampler: str) -> list:
+    """The reference's committed cohorts of a setting and sampler
+    (``reference_quick.json`` ``cohorts``), one list of ids a round."""
+    rows = json.loads(REFERENCE_QUICK.read_text())["cohorts"]
+    return next(r["ids"] for r in rows
+                if r["setting"] == setting and r["sampler"] == sampler)
+
+
+def _population_scale(pop: dict) -> tuple:
     """Part (a): M = 100k and M = 1024 at the same cohort; exact launches,
     the ν⁽ⁱ⁾ store on the card, and peak memory under the bound.  Returns
-    the M = 100k run's launches and P."""
+    the M = 100k run's launches and P, and the ms per round by M."""
     runs = {}
     for m in (pop["m_small"], pop["m"]):
         r = _population_run(pop, m)
@@ -2419,7 +2508,8 @@ def _population_scale(pop: dict) -> dict:
            "ms_per_round": {str(pop["m_small"]): small["ms_per_round"],
                             str(pop["m"]): big["ms_per_round"]},
            "ratio": big["ms_per_round"] / small["ms_per_round"]})
-    return big["launches"], big["p"]
+    return big["launches"], big["p"], {m: r["ms_per_round"]
+                                       for m, r in runs.items()}
 
 
 def _run_partial(device: str, algorithm: str, sampler: str, nu_decay: float,
@@ -2469,6 +2559,10 @@ def _partial_vs_cpu() -> None:
         _require(g["cohorts"] == c["cohorts"] == p["cohorts"],
                  f"{name}: the card saw cohorts {g['cohorts']}, the CPU "
                  f"{c['cohorts']}")
+        want_ids = _reference_cohorts("partial_participation", sampler)
+        _require(g["cohorts"] == want_ids[:PARTIAL_ROUNDS],
+                 f"{name}: cohorts {g['cohorts']}, the reference's "
+                 f"{want_ids[:PARTIAL_ROUNDS]}")
         want = PARTIAL_ROUNDS * ex.K_STEPS
         _require(g["launches"]["calibrated_update"] == want,
                  f"{name}: launches {g['launches']}, expected {want} of "
@@ -2646,13 +2740,14 @@ def phase_population(pop: Optional[dict] = None) -> dict:
     pop = pop or population_settings()
     _emit({"phase": "population_settings",
            "source": "benchmarks/population_bench.py", **pop})
-    launches, p = _population_scale(pop)
+    launches, p, host_ms = _population_scale(pop)
     _partial_vs_cpu()
     p_cnn = _cnn_vs_cpu()
     timing = _update_at_graph((pop["cohort"], p))
     _update_at_graph((CNN["clients"], p_cnn))
     _quadratics_on_card()
-    return {"launches": launches, "timing": timing}
+    return {"launches": launches, "timing": timing,
+            "host_mode_ms": host_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -3054,7 +3149,7 @@ def _check_table_async_rows(got: dict, ref: dict) -> None:
                "reference": want})
 
 
-def _table_async_on_card(reference: dict) -> None:
+def _table_async_on_card(reference: dict) -> dict:
     """Part (a): the table_async twin's ``main(quick=True)`` on the card;
     its rows against the reference's, its buffer = M run against its own
     synchronous FedaGrac run by phase 3's rule (the spread a rerun of that
@@ -3103,6 +3198,15 @@ def _table_async_on_card(reference: dict) -> None:
            "async_full_vs_sync": {k: float(np.max(d))
                                   for k, (d, _) in vs.items()},
            "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return launches
+
+
+def _table_async_run(reference: dict) -> dict:
+    """Part (a) in a worker process (started beside phase 12, whose twins
+    are as host-bound): returns the launches of its runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return _table_async_on_card(reference)
 
 
 def _fleet_run(kind: str, run: tuple, device: str) -> dict:
@@ -3353,14 +3457,20 @@ def _async_population_scale(pop: dict) -> None:
            "bytes_up_per_round": r["bytes_up_per_round"]})
 
 
-def phase_async(pop: Optional[dict] = None) -> dict:
-    """Phase 13.  Returns the launches of its runs on the card."""
+def phase_async(pop: Optional[dict] = None, table_async=None) -> dict:
+    """Phase 13.  Returns the launches of its runs on the card.
+    ``table_async``: part (a) already started in a worker (an
+    ``AsyncResult`` of ``_table_async_run``), collected here."""
     reference = json.loads(REFERENCE_QUICK.read_text())["modules"]
     _reset_all_launches()
-    _table_async_on_card(reference["table_async"])
+    if table_async is None:
+        _table_async_on_card(reference["table_async"])
     _fleet_vs_cpu()
     _async_population_scale(pop or population_settings())
     launches = _all_launches()
+    if table_async is not None:
+        for name, n in table_async.get().items():
+            launches[name] += n
     _emit({"phase": "async", "launches": launches})
     return launches
 
@@ -3707,6 +3817,254 @@ def phase_faults(pop: Optional[dict] = None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the device-sampled, checkpointed path
+# ---------------------------------------------------------------------------
+
+# (b): rounds a device-mode chunk runs, and the dropout the in-chunk
+# scenario hook applies
+DEVICE_CHUNK = 8
+DEVICE_DROPOUT = {"scenario": "dropout", "dropout_rate": 0.3}
+# (c): phase 14's attacked int8 wire, defended, resumed halfway
+RESUME = {"m": 1024, "rounds": 24, **FAULT_POP,
+          "defense": FAULT_POP_DEFENSE, "quarantine_window": 4}
+# (c): room the M = 100,000 checkpoint needs beyond its own bytes
+CKPT_DISK_SLACK = 1 << 30
+
+
+def _device_draw(pop: dict) -> None:
+    """Part (a): 48 rounds of phase 11's uniform cohort at M = 100,000 —
+    the cohorts against the reference's committed ones, the card's
+    ``DeviceBatcher`` row indices against ``fed/keyed.py``'s numpy draw,
+    element for element."""
+    from repro_torch.fed import ClientPopulation, keyed
+    from repro_torch.roofline.round_profile import _population_parts
+    m, rounds = pop["m"], pop["rounds"]
+    batcher, _, _ = _population_parts(m, pop, DEVICE, "device")
+    population = ClientPopulation(m, cohort_size=pop["cohort"],
+                                  sampler=pop["sampler"], seed=0)
+    cohorts = np.stack([population.cohort(t) for t in range(rounds)])
+    # the committed cohorts are population_bench's largest M's
+    checked = m == 100_000
+    if checked:
+        want_ids = _reference_cohorts("population_bench", pop["sampler"])
+        _require(cohorts.tolist() == want_ids[:rounds],
+                 f"device draw: cohorts at M = {m} are not the reference's")
+    ts = np.arange(rounds)
+    t0 = time.perf_counter()
+    card = batcher.rows(torch.from_numpy(ts)[:, None],
+                        torch.from_numpy(cohorts), pop["k"]).cpu().numpy()
+    card_s = time.perf_counter() - t0
+    keys = keyed.fold_in(keyed.fold_in(keyed.prng_key(0), ts[:, None]),
+                         cohorts)
+    sizes = np.array([len(p) for p in batcher.parts])
+    u = keyed.randint(keys, (pop["k"], pop["batch"]), sizes[cohorts])
+    parts = batcher.parts
+    host = np.array([[[[parts[i][v] for v in row] for row in u[j, c]]
+                      for c, i in enumerate(cohorts[j])]
+                     for j in range(rounds)])
+    _require(card.shape == host.shape and np.array_equal(card, host),
+             f"device draw: the card's indices differ from the keyed numpy "
+             f"draw at {int(np.sum(card != host))} of {host.size}")
+    _emit({"phase": "device_path", "part": "draw", "m": m,
+           "rounds": rounds, "cohort": pop["cohort"],
+           "indices": int(host.size), "card_draw_s": card_s,
+           "cohorts_equal_reference": checked})
+
+
+def _device_population_scale(pop: dict, host_ms: dict):
+    """Part (b): the device-mode population chunk at M = 100,000 and 1024,
+    beside phase 11's host-mode ms per round by M (``host_ms``); then the
+    same run at 1024 under dropout through the in-chunk hook, card against
+    CPU.  Returns the M = 100,000 simulation (for (c)'s timing)."""
+    dpop = dict(pop, chunk=DEVICE_CHUNK)
+    runs = {}
+    for m in (pop["m_small"], pop["m"]):
+        r = _population_run(dpop, m, sampler="device", keep=m == pop["m"])
+        runs[m] = r
+        want = pop["k"] * pop["rounds"]
+        _require(r["launches"] == {"calibrated_update": want,
+                                   "calibrated_update_prox": 0},
+                 f"device mode M = {m}: launches {r['launches']}, "
+                 f"expected {want} of calibrated_update")
+        _require(np.isfinite(r["loss"]).all() and r["params_finite"],
+                 f"device mode M = {m}: non-finite loss or params")
+        _require(r["rows_written"] == r["clients_drawn"],
+                 f"device mode M = {m}: {r['rows_written']} ν⁽ⁱ⁾ rows for "
+                 f"{r['clients_drawn']} clients")
+        bound = 1.5 * r["nu_i_bytes"] + POP_MEMORY_SLACK
+        peak = r["peak_memory_bytes"]
+        _require(peak is None or peak < bound,
+                 f"device mode M = {m}: peak {peak} over {bound}")
+        _emit({"phase": "device_path", "part": "population", "m": m,
+               "cohort": pop["cohort"], "k": pop["k"],
+               "rounds": pop["rounds"], "chunk": DEVICE_CHUNK,
+               "ms_per_round": r["ms_per_round"],
+               "host_mode_ms_per_round": host_ms.get(m),
+               "nu_i_bytes": r["nu_i_bytes"],
+               "peak_memory_bytes": r["peak_memory_bytes"],
+               "peak_over_store_bytes": None if peak is None
+               else peak - r["nu_i_bytes"], "launches": r["launches"],
+               "b1_per_round": r["launches"]["calibrated_update"]
+               / pop["rounds"]})
+    small, big = runs[pop["m_small"]], runs[pop["m"]]
+    _emit({"phase": "device_path", "part": "flat_in_m",
+           "ms_per_round": {str(pop["m_small"]): small["ms_per_round"],
+                            str(pop["m"]): big["ms_per_round"]},
+           "ratio": big["ms_per_round"] / small["ms_per_round"]})
+    card = _population_run(dpop, pop["m_small"], sampler="device",
+                           **DEVICE_DROPOUT)
+    cpu = _population_run(dpop, pop["m_small"], sampler="device",
+                          device="cpu", **DEVICE_DROPOUT)
+    _require(card["dropped"] == cpu["dropped"]
+             and any(d > 0 for d in card["dropped"]),
+             f"device-mode dropout: dropped {card['dropped']} on the card, "
+             f"{cpu['dropped']} on the CPU")
+    _require(card["cohorts"] == cpu["cohorts"],
+             "device-mode dropout: the card drew other cohorts")
+    _require(np.isfinite(card["loss"]).all(),
+             "device-mode dropout: non-finite loss")
+    _emit({"phase": "device_path", "part": "dropout", "m": pop["m_small"],
+           "rate": DEVICE_DROPOUT["dropout_rate"], "rounds": pop["rounds"],
+           "dropped": card["dropped"], "ms_per_round": card["ms_per_round"],
+           "launches": card["launches"],
+           "loss_vs_cpu": float(np.max(np.abs(card["loss"] - cpu["loss"])))})
+    return big["sim"]
+
+
+def _resume_on_card(pop: dict) -> None:
+    """Part (c), first: 24 + 24 rounds on one simulation against 24, a
+    checkpoint, a fresh simulation restored from it and 24 more — equal to
+    the last bit on the card."""
+    import tempfile
+    from repro_torch.checkpoint import serialize
+    from repro_torch.fed import scenarios
+    from repro_torch.roofline.round_profile import population_simulation
+    kw = {k: v for k, v in RESUME.items() if k not in ("m", "rounds")}
+    m, rounds = RESUME["m"], RESUME["rounds"]
+    _require(scenarios._corrupt_set(m, 0, RESUME["scenario_rate"]).any(),
+             "resume: the corrupt set is empty (ROADMAP C2)")
+    before = _all_launches()
+    whole = population_simulation(m, pop, DEVICE, sampler="device", **kw)
+    whole.run(rounds, chunk_rounds=DEVICE_CHUNK)
+    with tempfile.TemporaryDirectory(dir=str(Path(__file__).resolve()
+                                             .parent / "build")) as tmp:
+        path = str(Path(tmp) / "resume.msgpack")
+        serialize.save(path, whole.state)
+        h1 = whole.run(rounds, chunk_rounds=DEVICE_CHUNK)
+        resumed = population_simulation(m, pop, DEVICE, sampler="device",
+                                        **kw)
+        resumed.state = serialize.load(path, resumed.state)
+    h2 = resumed.run(rounds, chunk_rounds=DEVICE_CHUNK)
+    launches = _launch_delta(before)
+    torch.cuda.synchronize()
+    diff = [k for k in whole.state
+            if not torch.equal(whole.state[k], resumed.state[k])]
+    _require(not diff and h1.loss == h2.loss,
+             f"resume: the resumed state differs at {diff} (loss "
+             f"{h1.loss[-1]} against {h2.loss[-1]})")
+    hit = scenarios._corrupt_set(m, 0, RESUME["scenario_rate"])
+    drawn = [whole.population.cohort(t) for t in range(rounds)]
+    _require(any(hit[ids].any() for ids in drawn),
+             "resume: no corrupt client was drawn")
+    for name in ("calibrated_update", "quantize_2d", "dequantize_2d"):
+        _require(launches.get(name, 0) > 0,
+                 f"resume: {name} never launched ({launches})")
+    _emit({"phase": "device_path", "part": "resume", "m": m,
+           "rounds": [rounds, rounds], **kw, "bit_equal": True,
+           "state_keys": sorted(whole.state), "launches": launches,
+           "quarantined": float(np.sum(h2.quarantined)),
+           "loss": [h1.loss[-1], h2.loss[-1]]})
+
+
+def _checkpoint_timing(sim) -> None:
+    """Part (c), then: ``checkpoint.save`` and ``load`` of the M = 100,000
+    state (the ν⁽ⁱ⁾ store dominates), where the disk has the room; the
+    file goes to the build directory and is deleted."""
+    import shutil
+    from repro_torch.checkpoint import serialize
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    nbytes = sum(t.numel() * t.element_size() for t in sim.state.values())
+    free = shutil.disk_usage(str(build)).free
+    if free < nbytes + CKPT_DISK_SLACK:
+        _emit({"phase": "device_path", "part": "checkpoint_io",
+               "m": sim.fed.n_clients, "bytes": nbytes, "free_bytes": free,
+               "save_s": "not measured", "load_s": "not measured"})
+        return
+    path = build / "phase15_state.msgpack"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serialize.save(str(path), sim.state)
+        save_s = time.perf_counter() - t0
+        file_bytes = path.stat().st_size
+        t0 = time.perf_counter()
+        restored = serialize.load(str(path), sim.state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    same = all(torch.equal(restored[k], sim.state[k]) for k in sim.state)
+    _require(same, "checkpoint: the restored M = 100,000 state differs")
+    _emit({"phase": "device_path", "part": "checkpoint_io",
+           "m": sim.fed.n_clients, "bytes": nbytes, "file_bytes": file_bytes,
+           "free_bytes": free, "save_s": save_s, "load_s": load_s,
+           "save_gb_per_s": file_bytes / save_s / 1e9,
+           "load_gb_per_s": file_bytes / load_s / 1e9})
+
+
+def _failure_scenarios_on_card(reference: dict) -> None:
+    """Part (d): the ``failure_scenarios`` example twin on the card (device
+    batcher): every accuracy within PATH_SAMPLES samples of the
+    reference's row, the abort fraction equal, one B1 launch a local
+    step of every run."""
+    from repro_torch.examples import failure_scenarios as ex
+    before = _all_launches()
+    t0 = time.perf_counter()
+    with _RecordedRuns() as runs:
+        rows = ex.run(DEVICE)
+    seconds = time.perf_counter() - t0
+    launches = _launch_delta(before)
+    ref = reference["rows"]
+    tol = PATH_SAMPLES / (ex.M * 50) + TWIN_PRINT_SLACK
+    for row, want in zip(rows, ref):
+        _require(row[0] == want[0] and row[-1] == want[-1]
+                 and all(_close(a, b, tol)
+                         for a, b in zip(row[1:-1], want[1:-1])),
+                 f"failure_scenarios: the card's row {row} is not the "
+                 f"reference's {want}")
+        _emit({"phase": "device_path", "part": "failure_scenarios",
+               "row": row, "reference": want})
+    _require(len(rows) == len(ref), "failure_scenarios: rows missing")
+    want = sum(rec["rounds"] * rec["sim"].k_max for rec in runs)
+    _require(launches == {"calibrated_update": want},
+             f"failure_scenarios: launches {launches}, expected {want}")
+    _require(all(rec["sim"]._device_sampler for rec in runs),
+             "failure_scenarios: a run did not use the device batcher")
+    _emit({"phase": "device_path", "part": "failure_scenarios", "s": seconds,
+           "runs": len(runs), "launches": launches})
+
+
+def phase_device_path(pop: Optional[dict] = None,
+                      host_ms: Optional[dict] = None) -> dict:
+    """Phase 15.  ``host_ms``: phase 11's host-mode ms per round by M, in
+    the same call.  Returns the launches of its runs."""
+    pop = pop or population_settings()
+    reference = json.loads(REFERENCE_QUICK.read_text())
+    _reset_all_launches()
+    _device_draw(pop)
+    big = _device_population_scale(pop, host_ms or {})
+    _checkpoint_timing(big)
+    del big
+    torch.cuda.empty_cache()
+    _resume_on_card(pop)
+    _failure_scenarios_on_card(reference["examples"]["failure_scenarios"])
+    launches = _all_launches()
+    _emit({"phase": "device_path", "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3735,12 +4093,22 @@ def main() -> int:
             "flash_attention_bwd")})
     timings["ssd_scan"] = timed("ssd_kernel", phase_ssd_kernel)
     launches["ssd_scan"] = timed("hybrid", phase_hybrid)["ssd_scan"]
-    timed("population", phase_population)
-    for name, n in timed("twins", phase_twins).items():
-        launches[name] += n
-    for name, n in timed("async", phase_async).items():
-        launches[name] += n
+    host_ms = timed("population", phase_population)["host_mode_ms"]
+    import multiprocessing
+    reference = json.loads(REFERENCE_QUICK.read_text())["modules"]
+    # phase 13 (a) runs in a worker beside phase 12: both are host-bound
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        table_async = pool.apply_async(_table_async_run,
+                                       (reference["table_async"],))
+        for name, n in timed("twins", phase_twins).items():
+            launches[name] += n
+        for name, n in timed("async", lambda: phase_async(
+                table_async=table_async)).items():
+            launches[name] += n
     for name, n in timed("faults", phase_faults).items():
+        launches[name] += n
+    for name, n in timed("device_path", lambda: phase_device_path(
+            host_ms=host_ms)).items():
         launches[name] += n
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card

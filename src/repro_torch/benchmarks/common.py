@@ -14,8 +14,9 @@ package lines up with a row of the other:
   ``fedprox_synthetic`` draws the numpy seed 31327077; the port's takes
   that integer (``DATA_SEEDS``).  Any other seed needs its numpy
   ``data_seed`` given;
-* partitions, the batcher's draws and the K schedule come from numpy in
-  both packages, from the same integers;
+* partitions, the host batcher's draws and the K schedule come from numpy
+  in both packages, from the same integers; the device batcher's draws
+  are the reference's keyed ones (``fed/keyed.py``);
 * the lr model starts from zeros, the mlp from the reference's
   ``mlp_init(PRNGKey(0), 60, 64, 10)``, committed beside this module as
   ``mlp_init_key0.npz`` (4554 floats).
@@ -33,8 +34,9 @@ import torch
 
 from repro_torch import convert
 from repro_torch.configs.base import FedConfig
-from repro_torch.data import (FederatedBatcher, fedprox_synthetic,
-                              iid_partition, shard_partition)
+from repro_torch.data import (DeviceBatcher, FederatedBatcher,
+                              fedprox_synthetic, iid_partition,
+                              shard_partition)
 from repro_torch.device import resolve_device
 from repro_torch.fed import FederatedSimulation
 from repro_torch.models.simple import (lr_accuracy, lr_init, lr_loss,
@@ -60,7 +62,7 @@ class Task:
     name: str
     loss_fn: Callable
     params: dict
-    batcher: FederatedBatcher
+    batcher: Union[FederatedBatcher, DeviceBatcher]
     eval_fn: Callable
     lr: float
     device: torch.device
@@ -87,9 +89,11 @@ def _mlp_params(seed: int, device: torch.device) -> dict:
 
 
 def _task(kind: str, data, parts, batcher_seed: int, batch: int, seed: int,
-          device: torch.device) -> Task:
-    batcher = FederatedBatcher(data, parts, batch_size=batch,
-                               seed=batcher_seed, device=device)
+          device: torch.device, sampler: str = "host") -> Task:
+    batcher_cls = {"host": FederatedBatcher,
+                   "device": DeviceBatcher}[sampler]
+    batcher = batcher_cls(data, parts, batch_size=batch, seed=batcher_seed,
+                          device=device)
     # the eval set moves to the device once, not at each eval
     eval_set = {"x": data.x.to(device), "y": data.y.to(device)}
     if kind == "lr":
@@ -111,13 +115,9 @@ def make_task(kind: str, *, noniid: bool, seed: int = 0,
 
     The GLOBAL dataset is always the same synthetic(1,1) mixture;
     ``noniid`` only switches the PARTITION (client-generated shards vs an
-    IID shuffle) — the correct Table-1 contrast.  ``sampler`` "host" is the
-    numpy per-round gather; the reference's "device" sampler
-    (``DeviceBatcher``) waits for ROADMAP A5."""
-    if sampler != "host":
-        raise NotImplementedError(
-            f"sampler={sampler!r}: the PyTorch port has the host batcher "
-            f"only; the device batcher is ROADMAP A5")
+    IID shuffle) — the correct Table-1 contrast.  ``sampler`` picks the
+    batcher: "host" (the numpy per-round gather) or "device"
+    (``DeviceBatcher``, drawn on the device in the round chunk)."""
     device = resolve_device(device)
     data, parts = fedprox_synthetic(_numpy_data_seed(seed, data_seed), m,
                                     alpha=1.0, beta=1.0, d=D,
@@ -126,7 +126,7 @@ def make_task(kind: str, *, noniid: bool, seed: int = 0,
         parts = iid_partition(len(data), m, seed=seed)
     return _task(kind, data, parts,
                  seed if batcher_seed is None else batcher_seed, batch,
-                 seed, device)
+                 seed, device, sampler)
 
 
 def make_task_dp2(kind: str, seed: int = 0, m: int = M_CLIENTS,

@@ -1,16 +1,16 @@
 """Engine throughput: host-driven per-round loop vs chunked rounds.
 
-The twin of ``benchmarks/engine_bench.py``'s host-batcher parts
-(``_sync_rounds_per_s`` and ``_async_updates_per_s`` with sampler
-"host"): the per-round loop (one round, one host sync) against chunks of
-rounds fed by one host-stacked gather and transfer per chunk
-(``FederatedSimulation.run(chunk_rounds=)``, core/engine.py), and the
-buffered-async engine's per-update runs against its chunks
-(``BufferedAsyncSimulation.run(chunk_updates=)``).  This is the baseline
-that capturing the chunk in a CUDA graph (ROADMAP A4) is measured against.
-Not run here, and named in the report: the device-sampled chunks of both
-engines (the device batcher, ROADMAP A5) and the tree-vs-flat layout rows
-(the tree layout, ROADMAP A2).
+The twin of ``benchmarks/engine_bench.py``'s sync and async parts
+(``_sync_rounds_per_s`` and ``_async_updates_per_s``): the per-round loop
+(one round, one host sync) against chunks of rounds fed by one
+host-stacked gather and transfer per chunk
+(``FederatedSimulation.run(chunk_rounds=)``, core/engine.py) and against
+device-sampled chunks (``DeviceBatcher``: the chunk draws its batches on
+the device), and the buffered-async engine's per-update runs against its
+host and device chunks (``BufferedAsyncSimulation.run(chunk_updates=)``).
+This is the baseline that capturing the chunk in a CUDA graph (ROADMAP
+A4) is measured against.  Not run here, and named in the report: the
+tree-vs-flat layout rows (the tree layout, ROADMAP A2).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.engine_bench \\
         [--quick] [--device cpu] [--out PATH]
@@ -40,13 +40,14 @@ T_ROUNDS, T_ROUNDS_QUICK = 160, 80
 # K̄ = 4 is the FedConfig default round shape; the host loop is
 # dispatch/transfer-bound there — exactly the regime chunking targets
 K_MEAN, K_MEAN_QUICK = 8, 4
-NOT_RUN = {"chunked_device": "the device batcher, ROADMAP A5",
-           "layout": "the tree layout, ROADMAP A2"}
+NOT_RUN = {"layout": "the tree layout, ROADMAP A2"}
 
 
-def _sync_rounds_per_s(kind: str, chunk_rounds: int, t_rounds: int,
-                       k_mean: int, device, seed: int = 0) -> float:
-    task = make_task(kind, noniid=True, seed=seed, device=device)
+def _sync_rounds_per_s(kind: str, sampler: str, chunk_rounds: int,
+                       t_rounds: int, k_mean: int, device,
+                       seed: int = 0) -> float:
+    task = make_task(kind, noniid=True, seed=seed, sampler=sampler,
+                     device=device)
     fed = FedConfig(algorithm="fedagrac", n_clients=task.batcher.m,
                     k_mean=k_mean, lr=task.lr, calibration_rate=0.5,
                     weights="data", seed=seed, param_layout="flat")
@@ -62,9 +63,11 @@ def _sync_rounds_per_s(kind: str, chunk_rounds: int, t_rounds: int,
     return best
 
 
-def _async_updates_per_s(kind: str, chunk_updates: int, t_updates: int,
-                         k_mean: int, device, seed: int = 0) -> float:
-    task = make_task(kind, noniid=True, seed=seed, device=device)
+def _async_updates_per_s(kind: str, sampler: str, chunk_updates: int,
+                         t_updates: int, k_mean: int, device,
+                         seed: int = 0) -> float:
+    task = make_task(kind, noniid=True, seed=seed, sampler=sampler,
+                     device=device)
     m = task.batcher.m
     fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=k_mean,
                     lr=task.lr, calibration_rate=0.5, weights="data",
@@ -84,34 +87,49 @@ def _async_updates_per_s(kind: str, chunk_updates: int, t_updates: int,
 
 
 def report(quick: bool = False, device=None) -> tuple[list, dict]:
-    """(CSV rows, JSON report) of the host-batcher rows of both engines."""
+    """(CSV rows, JSON report) of both engines' rows."""
     device = resolve_device(device)
     t_rounds = T_ROUNDS_QUICK if quick else T_ROUNDS
     k_mean = K_MEAN_QUICK if quick else K_MEAN
     rows, out = [], {"sync": {}, "async": {}}
     for kind in (("lr",) if quick else ("lr", "mlp")):
-        host_loop = _sync_rounds_per_s(kind, 1, t_rounds, k_mean, device)
-        chunked = _sync_rounds_per_s(kind, CHUNK, t_rounds, k_mean, device)
+        host_loop = _sync_rounds_per_s(kind, "host", 1, t_rounds, k_mean,
+                                       device)
+        chunked = _sync_rounds_per_s(kind, "host", CHUNK, t_rounds, k_mean,
+                                     device)
+        chunked_dev = _sync_rounds_per_s(kind, "device", CHUNK, t_rounds,
+                                         k_mean, device)
         out["sync"][kind] = {
             "host_loop_rounds_per_s": host_loop,
             "chunked_host_rounds_per_s": chunked,
+            "chunked_device_rounds_per_s": chunked_dev,
             "speedup_chunked_host": chunked / host_loop,
+            "speedup_chunked_device": chunked_dev / host_loop,
         }
         rows += [(kind, "sync", "host_loop", 1, f"{host_loop:.1f}", "1.00"),
                  (kind, "sync", "chunked_host", CHUNK, f"{chunked:.1f}",
-                  f"{chunked / host_loop:.2f}")]
-        per_update = _async_updates_per_s(kind, 1, t_rounds, k_mean, device)
-        chunked_a = _async_updates_per_s(kind, CHUNK, t_rounds, k_mean,
-                                         device)
+                  f"{chunked / host_loop:.2f}"),
+                 (kind, "sync", "chunked_device", CHUNK,
+                  f"{chunked_dev:.1f}", f"{chunked_dev / host_loop:.2f}")]
+        per_update = _async_updates_per_s(kind, "host", 1, t_rounds, k_mean,
+                                          device)
+        chunked_a = _async_updates_per_s(kind, "host", CHUNK, t_rounds,
+                                         k_mean, device)
+        chunked_ad = _async_updates_per_s(kind, "device", CHUNK, t_rounds,
+                                          k_mean, device)
         out["async"][kind] = {
             "per_update_updates_per_s": per_update,
             "chunked_host_updates_per_s": chunked_a,
+            "chunked_device_updates_per_s": chunked_ad,
             "speedup_chunked_host": chunked_a / per_update,
+            "speedup_chunked_device": chunked_ad / per_update,
         }
         rows += [(kind, "async", "per_update", 1, f"{per_update:.1f}",
                   "1.00"),
                  (kind, "async", "chunked_host", CHUNK, f"{chunked_a:.1f}",
-                  f"{chunked_a / per_update:.2f}")]
+                  f"{chunked_a / per_update:.2f}"),
+                 (kind, "async", "chunked_device", CHUNK,
+                  f"{chunked_ad:.1f}", f"{chunked_ad / per_update:.2f}")]
     out["meta"] = {
         "quick": quick,
         "device": str(device),

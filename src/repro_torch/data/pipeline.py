@@ -12,8 +12,18 @@ batches are the same whichever cohort it lands in, and only the cohort's
 rows are gathered (``cohort_batches``, ``chunk_cohort_batches``).
 ``LMFederatedBatcher`` does the same over per-client token streams
 (``repro.data.pipeline.LMFederatedBatcher``, bit-identical given the same
-streams).  The device-side samplers (``DeviceBatcher``) wait for ROADMAP
-A5.
+streams).
+
+The device batchers (``DeviceBatcher``, ``DeviceLMBatcher``) keep the
+dataset and a padded ``(M, L)`` index table on their device and draw
+client i's round-t rows there: ``randint`` on the key ``fold_in(fold_in(
+PRNGKey(seed), t), i)``, the reference's own keyed draw.  The O(r·C)
+keys of a chunk's ``(round, client)`` pairs are folded on the host
+(``fed/keyed.py``), one small copy goes to the device, and the
+``(r, C, k_max, B)`` bits and indices are drawn there by ``keyed``'s
+tensor twin in one threefry pass.  So row i of every method equals
+``sample_row(t, i)`` and the reference's ``DeviceBatcher`` row, bit for
+bit, with no host gather and no batch transfer.
 """
 from __future__ import annotations
 
@@ -24,6 +34,7 @@ import torch
 
 from repro_torch.data.synthetic import Dataset
 from repro_torch.device import resolve_device
+from repro_torch.fed import keyed
 
 
 class FederatedBatcher:
@@ -142,3 +153,185 @@ class LMFederatedBatcher:
         bit-identical to ``round_batches(t, k_max)``."""
         return self._gather([self.round_indices(t0 + j, k_max)
                              for j in range(r)])
+
+
+def _host_ints(v) -> np.ndarray:
+    """Round indices or client ids as a host int64 array (a tensor is read
+    from its device)."""
+    if isinstance(v, torch.Tensor):
+        v = v.cpu().numpy()
+    return np.asarray(v, np.int64)
+
+
+class _KeyedRows:
+    """The device batchers' shared draw: per (round, client) keyed
+    ``randint`` rows of a padded ``(M, L)`` table of per-client row ids on
+    the device (pad slots are never drawn: ``idx < sizes[i]``)."""
+
+    def _init_rows(self, sizes: np.ndarray, seed: int) -> None:
+        self.seed = seed
+        self._sizes = torch.as_tensor(sizes, dtype=torch.int64,
+                                      device=self.device)
+        self._key = keyed.prng_key(seed)
+
+    def _as_index(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=torch.int64, device=self.device)
+
+    def draw(self, ts, ids, k_max: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The client ids broadcast to ``S`` on the device, and their
+        ``(*S, k_max, B)`` draws in ``[0, sizes[i])``, for round indices
+        ``ts`` and client ids ``ids`` (ints, arrays or tensors; read on the
+        host, where their keys are folded) broadcast to ``S``."""
+        ts, ids = np.broadcast_arrays(_host_ints(ts), _host_ints(ids))
+        split = keyed.split(keyed.fold_in(keyed.fold_in(self._key, ts), ids))
+        ids = self._as_index(ids)
+        return ids, keyed.t_randint(self._as_index(split.astype(np.int64)),
+                                    (k_max, self.batch_size),
+                                    self._sizes[ids])
+
+
+class DeviceBatcher(_KeyedRows):
+    """Device-resident keyed sampler (``repro.data.pipeline.DeviceBatcher``
+    counterpart): with replacement from each client's partition, keyed by
+    ``(seed, round, client)``, the reference's indices bit for bit.
+    Rounds and client ids may be ints or integer tensors."""
+
+    def __init__(self, data: Dataset, parts: list[np.ndarray],
+                 batch_size: int, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.data = data
+        self.parts = parts
+        self.m = len(parts)
+        self.batch_size = batch_size
+        sizes = np.array([len(p) for p in parts], np.int64)
+        self.weights = torch.tensor(sizes / sizes.sum(), dtype=torch.float32,
+                                    device=self.device)
+        padded = np.zeros((self.m, int(sizes.max())), np.int64)
+        for i, p in enumerate(parts):
+            padded[i, :len(p)] = p
+        self._table = torch.from_numpy(padded).to(self.device)
+        self._x = data.x.to(self.device)
+        self._y = data.y.to(self.device)
+        self._init_rows(sizes, seed)
+
+    def rows(self, ts, ids, k_max: int) -> torch.Tensor:
+        """``(*S, k_max, B)`` dataset rows for rounds ``ts`` and clients
+        ``ids`` broadcast to ``S``."""
+        ids, u = self.draw(ts, ids, k_max)
+        return self._table[ids[..., None, None], u]
+
+    def _gather(self, idx: torch.Tensor) -> dict:
+        return {"x": self._x[idx], "y": self._y[idx]}
+
+    def row_indices(self, t, i, k_max: int) -> torch.Tensor:
+        """(k_max, B) dataset rows for client ``i``'s round-``t`` draw."""
+        return self.rows(t, i, k_max)
+
+    def sample_row(self, t, i, k_max: int) -> dict:
+        """One client's (k_max, B, …) microbatches (wave ``t``, client
+        ``i``): the buffered engine's per-dispatch gather."""
+        return self._gather(self.rows(t, i, k_max))
+
+    def sample(self, t, k_max: int) -> dict:
+        """The full (M, k_max, B, …) wave of round ``t``; row ``i`` equals
+        ``sample_row(t, i)``."""
+        return self._gather(self.rows(t, np.arange(self.m), k_max))
+
+    def sample_cohort(self, t, cohort, k_max: int) -> dict:
+        """(C, k_max, B, …) microbatches of a cohort; row j equals
+        ``sample_row(t, cohort[j])`` whatever cohort the client is in."""
+        return self._gather(self.rows(t, cohort, k_max))
+
+    def sample_rows(self, ts, ids, k_max: int) -> dict:
+        """``(*S, k_max, B, …)`` batches of rounds (waves) ``ts`` and
+        clients ``ids`` broadcast to ``S``: one draw and one gather on the
+        device (the buffered engine's ``(r, B)`` reports of a chunk)."""
+        return self._gather(self.rows(ts, ids, k_max))
+
+    def sample_chunk(self, ts, cohorts=None, k_max: int = 1) -> dict:
+        """(r, C, k_max, B, …) batches of ``r`` rounds at once: round
+        indices ``ts`` ``(r,)`` and the ``(r, C)`` cohorts (None: every
+        client, C = M), one draw and one gather on the device."""
+        if cohorts is None:
+            cohorts = np.arange(self.m)[None]
+        return self.sample_rows(_host_ints(ts)[:, None], cohorts, k_max)
+
+    def round_batches(self, t: int, k_max: int) -> dict:
+        return self.sample(t, k_max)
+
+
+class DeviceLMBatcher(_KeyedRows):
+    """Device-resident token sampler (``repro.data.pipeline.DeviceLMBatcher``
+    counterpart): ``DeviceBatcher``'s keyed draw over per-client token
+    streams padded into one ``(M, N_max, S)`` tensor; a row draws sequence
+    indices ``idx < sizes[i]``, so pad rows are never read."""
+
+    def __init__(self, streams: list[dict], batch_size: int, seed: int = 0,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.device = resolve_device(device)
+        self.m = len(streams)
+        self.batch_size = batch_size
+        toks = [np.asarray(s["tokens"]) for s in streams]
+        labs = [np.asarray(s["labels"]) for s in streams]
+        sizes = np.array([t.shape[0] for t in toks], np.int64)
+        self.weights = torch.tensor(sizes / sizes.sum(), dtype=torch.float32,
+                                    device=self.device)
+        shape = (self.m, int(sizes.max()), toks[0].shape[1])
+        pt = np.zeros(shape, toks[0].dtype)
+        pl = np.zeros(shape, labs[0].dtype)
+        for i in range(self.m):
+            pt[i, :sizes[i]] = toks[i]
+            pl[i, :sizes[i]] = labs[i]
+        self._toks = torch.from_numpy(pt).to(self.device)
+        self._labs = torch.from_numpy(pl).to(self.device)
+        self._init_rows(sizes, seed)
+
+    def _sample(self, ts, ids, k_max: int) -> dict:
+        ids, idx = self.draw(ts, ids, k_max)
+        ids = ids[..., None, None]
+        return {"tokens": self._toks[ids, idx],
+                "labels": self._labs[ids, idx]}
+
+    def sample_row(self, t, i, k_max: int) -> dict:
+        """One client's (k_max, B, S) microbatches for wave ``t``."""
+        return self._sample(t, i, k_max)
+
+    def sample(self, t, k_max: int) -> dict:
+        """(M, k_max, B, S) full wave; row ``i`` equals ``sample_row(t,
+        i)``."""
+        return self._sample(t, np.arange(self.m), k_max)
+
+    def sample_cohort(self, t, cohort, k_max: int) -> dict:
+        """(C, k_max, B, S) for a cohort, independent of membership."""
+        return self._sample(t, cohort, k_max)
+
+    def sample_rows(self, ts, ids, k_max: int) -> dict:
+        """``(*S, k_max, B, S)`` batches of rounds ``ts`` and clients
+        ``ids`` broadcast to ``S``."""
+        return self._sample(ts, ids, k_max)
+
+    def sample_chunk(self, ts, cohorts=None, k_max: int = 1) -> dict:
+        """(r, C, k_max, B, S) batches of ``r`` rounds at once (None: every
+        client)."""
+        if cohorts is None:
+            cohorts = np.arange(self.m)[None]
+        return self._sample(_host_ints(ts)[:, None], cohorts, k_max)
+
+    def round_batches(self, t: int, k_max: int) -> dict:
+        return self.sample(t, k_max)
+
+
+def eval_metric(metric_fn, params, data: Dataset, batch: int = 1024
+                ) -> float:
+    """Mean of ``metric_fn(params, {"x", "y"})`` over the dataset, in the
+    reference's batch order: each batch's float32 value times its size,
+    summed as Python floats."""
+    n = len(data)
+    total, count = 0.0, 0
+    for s in range(0, n, batch):
+        b = {"x": data.x[s:s + batch], "y": data.y[s:s + batch]}
+        k = b["y"].shape[0]
+        total += float(metric_fn(params, b)) * k
+        count += k
+    return total / max(count, 1)

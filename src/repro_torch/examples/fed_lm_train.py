@@ -11,14 +11,17 @@ gemma-2b (MQA, GeGLU, tied embeddings) through ``FederatedSimulation`` on
 the flat layout: each local step is one vmapped forward and backward for
 all clients — attention through the flash-attention forward, dq and dk/dv
 kernels on the card — and one calibrated-update launch on the ``(M, P)``
-client matrix.  Batches come from the host sampler (``LMFederatedBatcher``).
-The token streams are drawn from numpy seeds, so they are not the
-reference's (``jax.random`` has no twin here).
+client matrix.  Batches come from the host sampler (``LMFederatedBatcher``)
+or, with ``--sampler device``, from ``DeviceLMBatcher``: the streams live
+on the device and each chunk of rounds draws its batches there.  The token
+streams are drawn from numpy seeds, so they are not the reference's
+(``jax.random.choice`` has no twin here).  At every eval boundary the
+global model is saved to ``--ckpt`` (a ``{round}`` format, the reference's
+checkpoint format; ``--ckpt ""`` saves nothing), as the reference does.
 
 Not ported yet, and refused by name: ``--bf16`` (the mixed-precision
-master buffer, ROADMAP A3), ``--sampler device`` (``DeviceLMBatcher``,
-ROADMAP A5), ``--layout tree`` (ROADMAP A2) and ``--ckpt`` (checkpoints,
-ROADMAP A11).  ``--small`` shrinks to a 2-layer d = 64 model.
+master buffer, ROADMAP A3) and ``--layout tree`` (ROADMAP A2).
+``--small`` shrinks to a 2-layer d = 64 model.
 """
 from __future__ import annotations
 
@@ -29,15 +32,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.configs.base import FedConfig, ModelConfig, reduced
 from repro_torch.configs.registry import get_arch
-from repro_torch.data import LMFederatedBatcher, lm_sequences
+from repro_torch.data import DeviceLMBatcher, LMFederatedBatcher, lm_sequences
 from repro_torch.device import resolve_device
 from repro_torch.fed import FederatedSimulation
 from repro_torch.models import model as M
 
 MCLIENTS = 4
 STREAM_SEQS, HELD_OUT_SEQS, HELD_OUT_SEED = 128, 8, 999
+# checkpoints at every eval boundary, under the gitignored build directory
+DEFAULT_CKPT = "build/fed_lm/fed_lm_{round}.msgpack"
 
 
 def build_config(small: bool) -> ModelConfig:
@@ -53,10 +59,7 @@ def refuse_unported(args: argparse.Namespace) -> None:
     unported = [
         (args.bf16, "--bf16 (the mixed-precision master buffer, "
                     "FedConfig.master_dtype: ROADMAP A3)"),
-        (args.sampler == "device", "--sampler device (DeviceLMBatcher: "
-                                   "ROADMAP A5)"),
-        (args.layout != "flat", "--layout tree (ROADMAP A2)"),
-        (args.ckpt is not None, "--ckpt (checkpoints: ROADMAP A11)")]
+        (args.layout != "flat", "--layout tree (ROADMAP A2)")]
     for hit, what in unported:
         if hit:
             raise NotImplementedError(f"the PyTorch port does not run {what}"
@@ -88,18 +91,20 @@ def make_eval(cfg: ModelConfig, seq: int, device: torch.device):
 def make_simulation(cfg: ModelConfig, fed: FedConfig, *, seq: int,
                     batch: int, rounds: int, device: torch.device,
                     generator: Optional[torch.Generator] = None,
-                    batcher: Optional[LMFederatedBatcher] = None
+                    batcher=None, sampler: str = "host"
                     ) -> FederatedSimulation:
     """The example's simulation: random weights from ``generator`` (seed 0
-    on ``device`` by default), the host LM batcher over ``make_streams``
-    (or ``batcher``), the held-out perplexity as the eval metric, K_i drawn
-    for ``rounds`` rounds."""
+    on ``device`` by default), the host (``sampler="host"``) or device LM
+    batcher over ``make_streams`` (or ``batcher``), the held-out perplexity
+    as the eval metric, K_i drawn for ``rounds`` rounds."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(generator, cfg, device=device)
     if batcher is None:
-        batcher = LMFederatedBatcher(make_streams(cfg, seq, fed.n_clients),
-                                     batch_size=batch, device=device)
+        batcher_cls = {"host": LMFederatedBatcher,
+                       "device": DeviceLMBatcher}[sampler]
+        batcher = batcher_cls(make_streams(cfg, seq, fed.n_clients),
+                              batch_size=batch, device=device)
     loss_fn = functools.partial(M.lm_loss, cfg=cfg)
     return FederatedSimulation(lambda p, b: loss_fn(p, b), params, fed,
                                batcher, eval_fn=make_eval(cfg, seq, device),
@@ -126,9 +131,10 @@ def main(argv: Optional[list] = None) -> float:
                     help="not ported yet (ROADMAP A3)")
     ap.add_argument("--sampler", choices=("device", "host"), default="host")
     ap.add_argument("--eval-every", type=int, default=5,
-                    help="eval cadence = round-chunk length")
-    ap.add_argument("--ckpt", default=None,
-                    help="not ported yet (ROADMAP A11)")
+                    help="eval/checkpoint cadence = round-chunk length")
+    ap.add_argument("--ckpt", default=DEFAULT_CKPT,
+                    help="checkpoint path format with {round}; '' saves "
+                         "none")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
@@ -143,13 +149,16 @@ def main(argv: Optional[list] = None) -> float:
           f"device={device}")
     sim = make_simulation(cfg, fed_config(args.algo), seq=seq,
                           batch=args.batch, rounds=args.rounds,
-                          device=device)
+                          device=device, sampler=args.sampler)
+    ckpt_cb = (checkpoint.save_every(args.ckpt, every=args.eval_every)
+               if args.ckpt else lambda t, tree: None)
     t0 = time.time()
     done = 0
     while done < args.rounds:
         r = min(args.eval_every, args.rounds - done)
         hist = sim.run(r, eval_every=r)
         done += r
+        ckpt_cb(done, sim.params)
         print(f"round {done:3d}  train loss {hist.loss[-1]:.4f}  "
               f"held-out ppl {hist.metric[-1]:.1f}  "
               f"({time.time() - t0:.0f}s)", flush=True)

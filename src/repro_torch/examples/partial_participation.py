@@ -14,11 +14,10 @@ state (ν, ν⁽ⁱ⁾) kept for the whole population across cohorts.  The
 comparison is at EQUAL CLIENT WORK (40 full rounds vs 1280 cohort rounds =
 10240 client·rounds each).
 
-Where the reference draws batches on the device (``DeviceBatcher``), this
-twin uses the host ``FederatedBatcher``: the port has no device batcher yet
-(ROADMAP A5).  Cohorts are the port's own draws (numpy, keyed by (seed,
-t)), not the reference's.  Runs on the card unless ``--device`` says
-otherwise.
+Batches come from ``DeviceBatcher``, as in the reference: its keyed
+indices, drawn on the device in each chunk of cohort rounds; the cohorts
+are the reference's keyed draws.  Runs on the card unless ``--device``
+says otherwise.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.data import FederatedBatcher, fedprox_synthetic
+from repro_torch.data import DeviceBatcher, fedprox_synthetic
 from repro_torch.device import resolve_device
 from repro_torch.fed import FederatedSimulation
 from repro_torch.models.simple import lr_accuracy, lr_init, lr_loss
@@ -79,7 +78,7 @@ def main(argv: Optional[list] = None) -> dict:
         sim = FederatedSimulation(
             lr_loss, lr_init(torch.Generator(device=device), 60, 10),
             fed_config(**cohort_kw),
-            FederatedBatcher(data, parts, batch_size=BATCH, device=device),
+            DeviceBatcher(data, parts, batch_size=BATCH, device=device),
             k_schedule=schedule(), device=device,
             eval_fn=lambda p: float(lr_accuracy(p, {"x": x_eval,
                                                     "y": y_eval})))

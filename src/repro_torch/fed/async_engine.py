@@ -59,9 +59,11 @@ The health vectors are updated in place; a reporter repeated in one
 buffer adds to its counters once per report and keeps its last report's
 EWMA and quarantine rows.
 
-The port runs the flat layout with the host batcher: the tree layout
-(ROADMAP A2), a mixed-precision master (A3) and a device sampler (A5)
-raise ``NotImplementedError``.
+The port runs the flat layout, with the host batcher or a device batcher
+(``DeviceBatcher``: each report's rows drawn on the device from its keyed
+(wave, client) indices, the reference's ``sample_row``); the tree layout
+(ROADMAP A2) and a mixed-precision master (A3) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -122,7 +124,8 @@ class BufferedAsyncSimulation:
     ``fed.speed_dist`` wall-clock model; ``k_schedule`` rows index
     per-client *dispatches* (client i's d-th task uses row d), so with
     buffer = M and identical speeds the data stream is the synchronous
-    engine's.  ``batcher`` is a ``FederatedBatcher`` on the same device.
+    engine's.  ``batcher`` is a ``FederatedBatcher`` or ``DeviceBatcher``
+    on the same device.
 
     Each ``run`` call simulates a fresh timeline from the CURRENT model
     (every client re-dispatched at simulated t = 0 on version 0, anchors
@@ -139,11 +142,6 @@ class BufferedAsyncSimulation:
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         _check_supported(fed)
-        if callable(getattr(batcher, "sample_row", None)):
-            raise NotImplementedError(
-                "the PyTorch port does not run a device sampler "
-                "(batcher.sample_row, ROADMAP A5) yet; use the host "
-                "FederatedBatcher")
         if batcher.device != self.device:
             raise ValueError(f"batcher is on {batcher.device}, the "
                              f"simulation on {self.device}")
@@ -251,6 +249,10 @@ class BufferedAsyncSimulation:
         # is regenerated)
         self._wave_cache: dict[int, np.ndarray] = {}
         self._wave_left: Optional[np.ndarray] = None
+        # a device batcher draws each report's rows on the device, keyed
+        # by its (wave, client): no wave cache, no host gather
+        self._device_sampler = callable(getattr(batcher, "sample_row",
+                                                None))
 
     # -- the device-resident anchor buffers ----------------------------------
 
@@ -490,8 +492,9 @@ class BufferedAsyncSimulation:
         if self._down_on:
             self._broadcast_init()
         self._reset_anchors()
-        self._wave_cache = {}
-        self._wave_left = np.bincount(tl.waves.ravel())
+        if not self._device_sampler:
+            self._wave_cache = {}
+            self._wave_left = np.bincount(tl.waves.ravel())
 
         chunk = max(int(chunk_updates if chunk_updates is not None
                         else eval_every), 1)
@@ -509,7 +512,10 @@ class BufferedAsyncSimulation:
             sl = slice(u, u + r)
             tables = torch.from_numpy(table[sl]).to(self.device)
             sws = torch.from_numpy(sw_all[sl]).to(self.device)
-            batches = self._host_batches(tl, u, r)
+            batches = (self.batcher.sample_rows(tl.waves[sl], tl.ids[sl],
+                                                self.k_max)
+                       if self._device_sampler
+                       else self._host_batches(tl, u, r))
             noise = None
             if self._attack is not None and self._attack.needs_noise:
                 # keyed by the state's update counter, as in the reference

@@ -6,15 +6,21 @@ whole population of M clients while each round runs only a sampled
 **cohort** of C ≤ M clients.  Samplers are pluggable through ``SAMPLERS``
 (name → draw function).
 
-The draws run on the host.  ``torch.Generator`` cannot reproduce
-``jax.random``, so each round's randomness comes from the numpy stream
-``default_rng((seed, t, COHORT_STREAM))``: a cohort is a pure function of
-``(seed, t)``, the same whatever device the round runs on, and a run on the
-card sees the cohorts of the same run on the CPU.  The uniform draw is the
-reference's O(C) keyed permutation (Feistel + cycle-walking) with its round
-keys taken from that stream; given the same round keys its arithmetic is
-the reference's, bit for bit, in numpy ``uint32`` (whose products wrap).
-The weighted and availability draws are O(M) host work per round.
+The draws run on the host and are the reference's own: round ``t``'s key
+is ``fold_in(PRNGKey(seed), t)``, computed in numpy by ``fed/keyed.py``.
+The uniform draw is the reference's O(C) keyed permutation (Feistel +
+cycle-walking) with its round keys ``random_bits(key_t, (4,))``, in
+numpy ``uint32`` (whose products wrap), bit for bit.  The weighted draw is
+``jax.random.choice``'s with replacement: a float32 cumulative sum of the
+weights in XLA's order (``keyed.cumsum``), ``r = cumsum[-1]·(1 − u)`` and
+a left ``searchsorted``, bit for bit.  The availability draw splits
+``key_t`` (``fold_in(key_t, 0)`` and ``fold_in(key_t, 1)``), marks client
+i up where its uniform is below its availability, and ranks Gumbel scores
+largest first, ties to the lower index, as ``lax.top_k`` does.  numpy's float32 ``log`` is within
+``GUMBEL_MAX_ULP`` of XLA's, not always equal, so an availability cohort
+is the reference's unless two of its candidates' scores lie that close
+(``tests/test_torch_population.py`` holds the rule on a grid).  The
+weighted and availability draws are O(M) host work per round.
 
 Weight renormalization (the unbiasedness rule): cohort aggregation runs in
 pseudo-delta form  x ← x + Σ_{i∈S} w̃_i (x⁽ⁱ⁾ − x), and ``cohort_weights``
@@ -44,16 +50,19 @@ from typing import Callable, Optional
 
 import numpy as np
 
-# the third word of a cohort draw's numpy key: client i's batch stream is
-# keyed (seed, t, i), and no client id reaches 2³² − 1
-COHORT_STREAM = 2 ** 32 - 1
+from repro_torch.fed import keyed
+
+# a Gumbel score against the reference's: within this many float32 ulp of
+# |score| + 1 (numpy's float32 log is not XLA's)
+GUMBEL_MAX_ULP = 4
 
 
 # ---------------------------------------------------------------------------
-# sampler registry — fn(pop, rng, t) -> (C,) int32 client ids
+# sampler registry — fn(pop, key, t) -> (C,) int32 client ids, ``key`` the
+# round's keyed-draw key (fed/keyed.py)
 # ---------------------------------------------------------------------------
 
-def _sample_all(pop: "ClientPopulation", rng: np.random.Generator,
+def _sample_all(pop: "ClientPopulation", key: np.ndarray,
                 t: int) -> np.ndarray:
     return np.arange(pop.m, dtype=np.int32)
 
@@ -96,41 +105,55 @@ def _permutation_points(round_keys: np.ndarray, m: int, points: np.ndarray
     return v.astype(np.int32)
 
 
-def _sample_uniform(pop: "ClientPopulation", rng: np.random.Generator,
+def _sample_uniform(pop: "ClientPopulation", key: np.ndarray,
                     t: int) -> np.ndarray:
     """Uniform WITHOUT replacement in O(C): a keyed pseudorandom
     permutation of [0, M) evaluated at points 0…C-1 — distinct by
     bijectivity, and never touching M elements."""
-    round_keys = rng.integers(0, 2 ** 32, 4, dtype=np.uint32)
-    return _permutation_points(round_keys, pop.m,
+    return _permutation_points(keyed.random_bits(key, (4,)), pop.m,
                                np.arange(pop.cohort_size, dtype=np.uint32))
 
 
-def _sample_weighted(pop: "ClientPopulation", rng: np.random.Generator,
+def _sample_weighted(pop: "ClientPopulation", key: np.ndarray,
                      t: int) -> np.ndarray:
     """Weight-proportional WITH replacement (p = ω): aggregate with uniform
     1/C weights.  An id can come out more than once."""
-    return rng.choice(pop.m, pop.cohort_size, replace=True,
-                      p=pop._p).astype(np.int32)
+    r = pop._cumw[-1] * (np.float32(1.0)
+                         - keyed.uniform(key, (pop.cohort_size,)))
+    ids = np.searchsorted(pop._cumw, r, side="left")
+    return np.minimum(ids, pop.m - 1).astype(np.int32)
 
 
-def _sample_availability(pop: "ClientPopulation", rng: np.random.Generator,
+def _top_k(score: np.ndarray, k: int) -> np.ndarray:
+    """``lax.top_k``'s indices in O(M): the k largest scores, largest
+    first, ties to the lower index."""
+    kth = np.partition(score, score.size - k)[score.size - k]
+    above = np.flatnonzero(score > kth)
+    tied = np.flatnonzero(score == kth)[:k - above.size]
+    top = np.concatenate([above, tied])
+    return top[np.lexsort((top, -score[top]))]
+
+
+def _sample_availability(pop: "ClientPopulation", key: np.ndarray,
                          t: int) -> np.ndarray:
     """Client i is up this round w.p. availability_i; the cohort is a
     uniform draw among available clients, by Gumbel scores, largest first.
     A scenario's availability hook multiplies the static profile by its
-    row for round t.  Unavailable clients fill the cohort only when fewer than C are up:
-    their scores are pushed below every available client's."""
+    row for round t.  Unavailable clients fill the cohort only when fewer
+    than C are up: their scores are pushed to −1e9, below every available
+    client's, where float32 rounding ties them, so the fill is the lowest
+    unavailable ids."""
+    k_up, k_pick = keyed.split(key)
     p = pop.availability
     if pop.availability_fn is not None:
         p = p * np.asarray(pop.availability_fn(t), np.float32)
-    up = rng.random(pop.m) < p
-    score = rng.gumbel(size=pop.m) + np.where(up, 0.0, -1e9)
-    top = np.argpartition(-score, pop.cohort_size - 1)[:pop.cohort_size]
-    return top[np.argsort(-score[top], kind="stable")].astype(np.int32)
+    up = keyed.uniform(k_up, (pop.m,)) < p
+    score = keyed.gumbel(k_pick, (pop.m,)) + np.where(
+        up, np.float32(0.0), np.float32(-1e9))
+    return _top_k(score, pop.cohort_size).astype(np.int32)
 
 
-def _sample_round_robin(pop: "ClientPopulation", rng: np.random.Generator,
+def _sample_round_robin(pop: "ClientPopulation", key: np.ndarray,
                         t: int) -> np.ndarray:
     """Deterministic cyclic blocks: round t runs clients [tC, tC + C) mod M
     — every client exactly once per M/C rounds when C divides M."""
@@ -177,8 +200,9 @@ class ClientPopulation:
         w = (np.full((self.m,), 1.0 / self.m) if weights is None
              else np.asarray(weights, np.float64))
         self.weights = (w / w.sum()).astype(np.float32)
-        # the weighted draw's probabilities, in float64 as numpy asks
-        self._p = w / w.sum()
+        # the weighted draw's float32 cumulative sum, in jnp.cumsum's order
+        self._cumw = keyed.cumsum(self.weights)
+        self._key = keyed.prng_key(self.seed)
         self.step_rate = np.broadcast_to(
             np.asarray(1.0 if step_rate is None else step_rate, np.float64),
             (self.m,)).copy()
@@ -215,9 +239,10 @@ class ClientPopulation:
                    weights=weights, availability=fed.availability)
 
     def cohort(self, t: int) -> np.ndarray:
-        """(C,) int32 cohort for round ``t`` — pure in ``(seed, t)``."""
-        rng = np.random.default_rng((self.seed, int(t), COHORT_STREAM))
-        return SAMPLERS[self.sampler](self, rng, int(t))
+        """(C,) int32 cohort for round ``t`` — pure in ``(seed, t)``: the
+        reference's draw from ``fold_in(PRNGKey(seed), t)``."""
+        key = keyed.fold_in(self._key, int(t))
+        return SAMPLERS[self.sampler](self, key, int(t))
 
     def cohort_weights(self, cohort: np.ndarray) -> np.ndarray:
         """(C,) float32 renormalized aggregation weights w̃ (module
@@ -239,8 +264,9 @@ class ClientPopulation:
         return ids, self.cohort_weights(ids)
 
     def host_cohort(self, t: int) -> tuple[np.ndarray, np.ndarray]:
-        """The cohort and its weights for round ``t`` (the port draws every
-        cohort on the host: the reference's name for that draw)."""
+        """The cohort and its weights for round ``t``: the reference's
+        keyed draw, evaluated on the host as every port engine draws it
+        (the cohort of ``repro``'s ``host_cohort(t)`` for the same seed)."""
         return self.cohort_and_weights(t)
 
     # -- async-engine hooks (host-side event loop, fed/clock.py) -------------

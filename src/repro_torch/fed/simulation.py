@@ -27,6 +27,18 @@ it; ``History.quarantined`` records the quarantined reporters.  An
 attack's noise rows (``garbage``) are drawn on the host before a chunk and
 go to the device with its inputs.
 
+With a device batcher (``data.DeviceBatcher``: a batcher with ``sample``)
+the chunks run in device mode (core/engine.py): a chunk draws its rounds'
+batches on the device from the reference's keyed indices, and a cohort
+chunk draws its cohorts and a scenario's k′ rows on the host in the chunk
+(the reference's in-scan ``scenario_fn``), so per-round and chunked runs
+stay bit-identical.  ``run(publish_fn=, publish_every=)`` publishes a
+serving snapshot (``publish_snapshot``) every ``publish_every`` rounds,
+chunks never crossing a publish boundary; a run's ``state`` saves with
+``checkpoint.save(path, sim.state)`` and restores with ``sim.state =
+checkpoint.load(path, sim.state)``, and a restored simulation's next
+``run`` continues as the saved one's would have.
+
 The port runs the flat layout, full participation and cohort rounds alike,
 with or without wire compression (core/compress.py), a scenario or a
 defense.  A config asking for anything else raises
@@ -47,6 +59,7 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import serialize
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import compress, engine, flat, robust, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
@@ -144,10 +157,12 @@ class FederatedSimulation:
 
     ``params`` is the model tree (dicts and lists of tensors: a paper
     model's dict or an LM's ``{"segments": [...], …}``); ``batcher`` a
-    ``FederatedBatcher`` or ``LMFederatedBatcher`` on the same device
-    (cohort rounds need the former's cohort methods).  ``scenario``
-    overrides ``fed.scenario`` (a ``trace_scenario``, which a config
-    cannot carry)."""
+    ``FederatedBatcher``, ``LMFederatedBatcher``, ``DeviceBatcher`` or
+    ``DeviceLMBatcher`` on the same device (cohort rounds need cohort
+    methods: the host ``FederatedBatcher``'s or a device batcher's).
+    ``population`` overrides the config's cohort fields (its M must be
+    ``fed.n_clients``), ``scenario`` overrides ``fed.scenario`` (a
+    ``trace_scenario``, which a config cannot carry)."""
 
     def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  params: PyTree, fed: FedConfig, batcher,
@@ -156,6 +171,7 @@ class FederatedSimulation:
                                                     list]] = None,
                  k_schedule: Optional[np.ndarray] = None,
                  lam_schedule: Optional[Callable[[int], float]] = None,
+                 population: Optional[ClientPopulation] = None,
                  scenario: Optional[Scenario] = None,
                  t_max: int = 10_000,
                  device: Optional[Union[str, torch.device]] = None):
@@ -205,21 +221,29 @@ class FederatedSimulation:
             flat.ravel(self._spec, params).to(self.device), fed.n_clients,
             self.algo, compression=self.compression, spec=self._spec,
             robust=self.robust)
-        # rounds run on this state so far: the state's round counter, which
-        # keys an attack's draws (``run`` restarts its own t at 0)
-        self._rounds_done = 0
         self._loss_fn = loss_fn
         self._round: Optional[Callable] = None
         self._chunks: dict[int, Callable] = {}
+        # a device batcher draws the batches on the device, in the chunk
+        self._device_sampler = callable(getattr(batcher, "sample", None))
         # partial participation: sampler "all" (or no population) stays on
         # the full-participation round
-        self.population = ClientPopulation.from_config(
-            fed, m=fed.n_clients, weights=self.weights.cpu().numpy())
+        self.population = (population if population is not None
+                           else ClientPopulation.from_config(
+                               fed, m=fed.n_clients,
+                               weights=self.weights.cpu().numpy()))
         self._partial = (self.population is not None
                          and not self.population.full_participation)
-        if self._partial and not hasattr(batcher, "cohort_batches"):
+        if (self.population is not None
+                and self.population.m != fed.n_clients):
+            raise ValueError(
+                f"population of {self.population.m} clients does not match "
+                f"fed.n_clients={fed.n_clients}")
+        if self._partial and not (
+                hasattr(batcher, "cohort_batches")
+                or hasattr(batcher, "sample_cohort")):
             raise ValueError("cohort rounds need a batcher with cohort "
-                             "methods (FederatedBatcher)")
+                             "methods (FederatedBatcher or DeviceBatcher)")
         if (self.scenario is not None
                 and self.scenario.availability_fn is not None
                 and self.population is not None):
@@ -241,8 +265,10 @@ class FederatedSimulation:
             # the chunk takes the state over (freeing the pre-chunk state
             # after round 1), and hands back the last finished round's
             # state if a round raises
-            self._chunks[r] = engine.make_round_chunk(self._round_fn(), r,
-                                                      donate=True)
+            sample = ((lambda ts: self.batcher.sample_chunk(
+                ts, None, self.k_max)) if self._device_sampler else None)
+            self._chunks[r] = engine.make_round_chunk(
+                self._round_fn(), r, donate=True, sample_fn=sample)
         return self._chunks[r]
 
     def _pop_round_fn(self) -> Callable:
@@ -256,8 +282,18 @@ class FederatedSimulation:
 
     def _pop_chunk_fn(self, r: int) -> Callable:
         if r not in self._chunks:
+            kw = {}
+            if self._device_sampler:
+                scn, k_max = self.scenario, self.k_max
+                kw = dict(
+                    cohort_fn=self.population.host_cohort,
+                    sample_fn=lambda ts, ids: self.batcher.sample_chunk(
+                        ts, ids, k_max),
+                    scenario_fn=(
+                        (lambda t, k_c, ids: scn.k_eff(t, k_c, ids=ids))
+                        if scn is not None and scn.perturbs_k else None))
             self._chunks[r] = engine.make_population_chunk(
-                self._pop_round_fn(), r, donate=True)
+                self._pop_round_fn(), r, donate=True, **kw)
         return self._chunks[r]
 
     def _lam(self, t: int) -> float:
@@ -295,11 +331,13 @@ class FederatedSimulation:
         """(r, 2, B, P) noise rows of the next r rounds' payload attack on
         the device (one transfer), or None when the attack draws none.
         The draws are keyed by the state's round counter, as in the
-        reference's round."""
+        reference's round (read from the device: a restored state keys
+        them as the saved one would have)."""
         if self._attack is None or not self._attack.needs_noise:
             return None
+        done = int(self.state["round"])
         rows = [self._attack.payload_noise(
-            self._rounds_done + j,
+            done + j,
             None if cohorts is None else cohorts[j], self._spec.p)
             for j in range(r)]
         return self._on_device(np.stack(rows), torch.float32)
@@ -309,7 +347,6 @@ class FederatedSimulation:
             if key in metrics:
                 getattr(hist, key).extend(
                     metrics[key].double().reshape(-1).tolist())
-        self._rounds_done += r
 
     def _sync(self) -> None:
         """End of a timed region: wait for the device's work (the
@@ -344,7 +381,8 @@ class FederatedSimulation:
 
     def _run_chunk(self, t0: int, r: int, hist: History) -> None:
         chunk_fn = self._chunk_fn(r)
-        batches = self.batcher.chunk_batches(t0, r, self.k_max)
+        batches = (list(range(t0, t0 + r)) if self._device_sampler
+                   else self.batcher.chunk_batches(t0, r, self.k_max))
         ks = torch.stack([self._k_row(t0 + j) for j in range(r)])
         weights = self.weights.expand(r, -1)
         lams = [self._lam(t0 + j) for j in range(r)]
@@ -365,15 +403,6 @@ class FederatedSimulation:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             dtype=dtype, device=self.device)
 
-    def _lasts(self, cohorts: np.ndarray) -> Optional[torch.Tensor]:
-        """Each cohort's ``stages.last_occurrence`` on the device, ``(r,
-        C)``, or None where no cohort repeats an id."""
-        lasts = np.stack([stages.last_occurrence(ids) for ids in cohorts])
-        if np.array_equal(lasts, np.broadcast_to(
-                np.arange(cohorts.shape[1]), lasts.shape)):
-            return None
-        return self._on_device(lasts, torch.int64)
-
     def _cohort_k(self, t: int, ids: np.ndarray, cw: np.ndarray
                   ) -> tuple[np.ndarray, np.ndarray]:
         """The cohort's K (k′ under a scenario) and weights, scaled by the
@@ -390,8 +419,10 @@ class FederatedSimulation:
         round_fn = self._pop_round_fn()
         ids, cw = self.population.host_cohort(t)
         k_c, cw = self._cohort_k(t, ids, cw)
-        batches = self.batcher.cohort_batches(t, ids, self.k_max)
-        last = self._lasts(ids[None])
+        batches = (self.batcher.sample_cohort(t, ids, self.k_max)
+                   if self._device_sampler
+                   else self.batcher.cohort_batches(t, ids, self.k_max))
+        last = engine.stacked_lasts(ids[None], self.device)
         noise = self._noise(1, ids[None])
         t0 = time.perf_counter()
         # the run owns its state: the ν⁽ⁱ⁾ store is updated in place
@@ -409,14 +440,25 @@ class FederatedSimulation:
 
     def _run_pop_chunk(self, t0: int, r: int, hist: History) -> None:
         chunk_fn = self._pop_chunk_fn(r)
+        lams = [self._lam(t0 + j) for j in range(r)]
+        if self._device_sampler:
+            # cohorts, k′ rows and batches are drawn in the chunk; the host
+            # hands over the round indices and the scheduled K rows
+            k_rows = np.stack([self._sched_row(t0 + j) for j in range(r)])
+            tic = time.perf_counter()
+            self.state, metrics = chunk_fn(
+                self.state, list(range(t0, t0 + r)), k_rows, lams,
+                noise_fn=lambda cohorts: self._noise(r, cohorts))
+            self._sync()
+            self._record_chunk(hist, metrics, t0, r, tic)
+            return
         drawn = [self.population.host_cohort(t0 + j) for j in range(r)]
         cohorts = np.stack([ids for ids, _ in drawn])
         ks, cws = zip(*(self._cohort_k(t0 + j, ids, w)
                         for j, (ids, w) in enumerate(drawn)))
         ks, cws = np.stack(ks), np.stack(cws)
         batches = self.batcher.chunk_cohort_batches(t0, cohorts, self.k_max)
-        lams = [self._lam(t0 + j) for j in range(r)]
-        lasts = self._lasts(cohorts)
+        lasts = engine.stacked_lasts(cohorts, self.device)
         noise = self._noise(r, cohorts)
         tic = time.perf_counter()
         self.state, metrics = chunk_fn(
@@ -424,6 +466,10 @@ class FederatedSimulation:
             self._on_device(ks, torch.int32),
             self._on_device(cws, torch.float32), lams, lasts, noise=noise)
         self._sync()
+        self._record_chunk(hist, metrics, t0, r, tic)
+
+    def _record_chunk(self, hist: History, metrics: dict, t0: int, r: int,
+                      tic: float) -> None:
         dt = time.perf_counter() - tic
         self._record_metrics(hist, metrics, r)
         hist.wall.extend([dt / r] * r)
@@ -432,11 +478,18 @@ class FederatedSimulation:
 
     def run(self, t_rounds: int, eval_every: int = 1,
             verbose: bool = False,
-            chunk_rounds: Optional[int] = None) -> History:
+            chunk_rounds: Optional[int] = None,
+            publish_fn: Optional[Callable[[dict], None]] = None,
+            publish_every: int = 0) -> History:
         """``chunk_rounds=None`` chunks at the eval cadence (``eval_every``);
         ``1`` forces the per-round loop.  Chunks never cross an eval
         boundary, so an explicit ``chunk_rounds`` larger than ``eval_every``
-        is clamped when there is an ``eval_fn`` or ``eval_per_client``."""
+        is clamped when there is an ``eval_fn`` or ``eval_per_client``.
+
+        ``publish_fn(snapshot)`` fires every ``publish_every`` rounds with
+        ``publish_snapshot()``; chunks never cross a publish boundary
+        either, so a publication sees the exact round state."""
+        publishes = publish_fn is not None and publish_every > 0
         evaluates = (self.eval_fn is not None
                      or self.eval_per_client is not None)
         chunk = max(int(chunk_rounds if chunk_rounds is not None
@@ -452,6 +505,8 @@ class FederatedSimulation:
             r = min(chunk, t_rounds - t)
             if evaluates:
                 r = min(r, eval_every - t % eval_every)
+            if publishes:
+                r = min(r, publish_every - t % publish_every)
             if self._partial and r == 1:
                 self._run_pop_round(t, hist)
             elif self._partial:
@@ -461,6 +516,8 @@ class FederatedSimulation:
             else:
                 self._run_chunk(t, r, hist)
             t += r
+            if publishes and t % publish_every == 0:
+                publish_fn(self.publish_snapshot())
             if t % eval_every == 0:
                 if self.eval_fn is not None:
                     value = float(self.eval_fn(self.params))
@@ -480,6 +537,30 @@ class FederatedSimulation:
     def params(self) -> PyTree:
         """Current global model as a tree of tensors that own their data."""
         return flat.unravel(self._spec, self.state["params"])
+
+    @property
+    def flat_spec(self) -> flat.FlatSpec:
+        """The ``FlatSpec`` of this model's ``(P,)`` layout."""
+        return self._spec
+
+    def publish_snapshot(self) -> dict:
+        """A versioned serving snapshot of the current training state: the
+        ``(P,)`` flat master and, for algorithms that keep one, the
+        calibration signal (ν and the ``(M, P)`` ν⁽ⁱ⁾ rows).  Version = the
+        state's round counter.  The snapshot owns its buffers: the next
+        rounds update the state's in place."""
+        snap = {"version": np.int32(int(self.state["round"])),
+                "flat_master": self.state["params"].clone()}
+        if self.algo.uses_nu and "nu" in self.state:
+            snap["nu"] = self.state["nu"].clone()
+            snap["nu_i"] = self.state["nu_i"].clone()
+        return snap
+
+    def save_snapshot(self, path: str) -> dict:
+        """Publish and write the snapshot to ``path`` (checkpoint format)."""
+        snap = self.publish_snapshot()
+        serialize.save(path, snap)
+        return snap
 
 
 def compare_algorithms(algorithms: list[str], make_sim: Callable[[str],

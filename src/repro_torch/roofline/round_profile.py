@@ -113,30 +113,35 @@ POPULATION = {"cohort": 8, "k": 4, "batch": 16, "d": 60, "classes": 10,
               "chunk": 12}
 
 
-def _population_parts(m: int, pop: dict, device: str):
+def _population_parts(m: int, pop: dict, device: str,
+                      sampler: str = "host"):
     """(batcher, initial mlp, K schedule) of the population setting:
     Gaussian blobs at 2 samples a client (at least ``n_data``), IID parts,
-    one K row (the default schedule would be (10k, M))."""
-    from repro_torch.data import gaussian_classification, iid_partition
+    one K row (the default schedule would be (10k, M)); ``sampler`` "host"
+    (``FederatedBatcher``) or "device" (``DeviceBatcher``)."""
+    from repro_torch.data import (DeviceBatcher, gaussian_classification,
+                                  iid_partition)
     data = gaussian_classification(torch.Generator().manual_seed(0),
                                    max(pop["n_data"], 2 * m), d=pop["d"],
                                    n_classes=pop["classes"])
-    batcher = FederatedBatcher(data, iid_partition(len(data), m, seed=0),
-                               batch_size=pop["batch"], seed=0,
-                               device=device)
+    batcher_cls = {"host": FederatedBatcher,
+                   "device": DeviceBatcher}[sampler]
+    batcher = batcher_cls(data, iid_partition(len(data), m, seed=0),
+                          batch_size=pop["batch"], seed=0, device=device)
     params = mlp_init(torch.Generator().manual_seed(0), pop["d"], 64,
                       pop["classes"])
     return batcher, params, np.full((1, m), pop["k"], np.int32)
 
 
 def population_simulation(m: int, pop: dict = POPULATION,
-                          device: str = "cuda", **fed_kw):
+                          device: str = "cuda", sampler: str = "host",
+                          **fed_kw):
     """FedaGrac on ``m`` clients, a cohort of ``pop["cohort"]`` a round,
     on the mlp ``d``-64-``classes`` over Gaussian blobs at 2 samples a
     client (at least ``n_data``), IID parts, one K row; ``fed_kw`` adds
-    config fields (a compressor)."""
+    config fields (a compressor), ``sampler`` picks the batcher."""
     from repro_torch.fed import FederatedSimulation
-    batcher, params, ks = _population_parts(m, pop, device)
+    batcher, params, ks = _population_parts(m, pop, device, sampler)
     fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
                     lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
                     cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],

@@ -18,7 +18,9 @@ calls are recorded, one a run, the ν-ablation runs after the rows).  The
 compression, scenario and robust modules run with its JSON report written to a temporary
 directory, not over the repository's ``BENCH_*.json``.  The
 card has no JAX: this file is how ``chip_smoke.py`` holds the card to the
-reference.
+reference.  ``examples`` carries the reference examples' tables
+(``EXAMPLES``) and ``cohorts`` the reference's cohorts of the settings the
+card draws (``COHORTS``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ import json
 import sys
 import tempfile
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "src" / "repro_torch" / "benchmarks" / "reference_quick.json"
@@ -106,9 +110,61 @@ def module_rows(name: str) -> dict:
     return out
 
 
+# the reference's examples the card is held to, and their rows' columns
+EXAMPLES = {"failure_scenarios": "examples/failure_scenarios.py"}
+# cohorts the card is held to: (name, M, C, sampler, seed, availability,
+# rounds); weights are the data mass of the setting's partition
+COHORTS = (
+    # chip_smoke phase 11 (b): the partial_participation example's task
+    ("partial_participation", 256, 8, "uniform", 0, 0.7, 5),
+    ("partial_participation", 256, 8, "round_robin", 0, 0.7, 5),
+    ("partial_participation", 256, 8, "weighted", 0, 0.7, 5),
+    ("partial_participation", 256, 8, "availability", 0, 0.7, 5),
+    # chip_smoke phase 15 (a): population_bench's largest M
+    ("population_bench", 100_000, 8, "uniform", 0, 1.0, 48))
+
+
+def example_rows(name: str) -> dict:
+    """A reference example's table as its ``main()`` prints it: the header
+    and the rows of the lines before its closing text, split on spaces."""
+    import runpy
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(str(ROOT / EXAMPLES[name]), run_name="__main__")
+    lines = buf.getvalue().split("\n\n")[0].strip().splitlines()
+    header, *rows = [line.split() for line in lines]
+    return {"header": header, "rows": rows}
+
+
+def cohort_rows() -> list:
+    """Each ``COHORTS`` setting's reference cohorts, one list a round."""
+    import jax
+    from repro.data import fedprox_synthetic
+    from repro.fed.population import ClientPopulation
+    out = []
+    weights_of = {}
+    for name, m, c, sampler, seed, avail, rounds in COHORTS:
+        if name == "partial_participation" and name not in weights_of:
+            _, parts = fedprox_synthetic(jax.random.PRNGKey(0), m,
+                                         alpha=1.0, beta=1.0,
+                                         n_per_client=50)
+            sizes = np.array([len(p) for p in parts], np.float64)
+            weights_of[name] = sizes / sizes.sum()
+        weights = weights_of.get(name)
+        pop = ClientPopulation(m, cohort_size=c, sampler=sampler, seed=seed,
+                               weights=weights, availability=avail)
+        out.append({"setting": name, "m": m, "cohort": c,
+                    "sampler": sampler, "seed": seed, "availability": avail,
+                    "ids": [np.asarray(pop.host_cohort(t)[0]).tolist()
+                            for t in range(rounds)]})
+    return out
+
+
 def generate(names=tuple(MODULES)) -> dict:
     return {"command": COMMAND,
-            "modules": {name: module_rows(name) for name in names}}
+            "modules": {name: module_rows(name) for name in names},
+            "examples": {name: example_rows(name) for name in EXAMPLES},
+            "cohorts": cohort_rows()}
 
 
 if __name__ == "__main__":

@@ -485,14 +485,25 @@ def test_history_records_and_rerun_restarts_the_timeline():
     (dict(param_layout="tree"), "A2"), (dict(master_dtype="float32"), "A3"),
     ("sampler", "A5")])
 def test_async_refusals_name_the_roadmap_item(kw, item):
+    """The tree layout (A2) and a mixed-precision master (A3) are refused by
+    name; the device sampler (A5) runs (its parity:
+    tests/test_torch_device_mode.py)."""
     x, y, parts, params, ks = _task()
-    batcher = FederatedBatcher(Dataset(torch.from_numpy(x),
-                                       torch.from_numpy(y).long()), parts,
-                               batch_size=BATCH, device="cpu")
+    data = Dataset(torch.from_numpy(x), torch.from_numpy(y).long())
+    batcher = FederatedBatcher(data, parts, batch_size=BATCH, device="cpu")
     extra = {}
     if kw == "sampler":
-        kw = {}
-        batcher.sample_row = lambda d, i, k: None
+        from repro_torch.data import DeviceBatcher
+        fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,
+                        param_layout="flat")
+        sim = BufferedAsyncSimulation(
+            simple.lr_loss,
+            {k: torch.from_numpy(v) for k, v in params.items()}, fed,
+            DeviceBatcher(data, parts, batch_size=BATCH, device="cpu"),
+            k_schedule=ks, device="cpu")
+        assert sim._device_sampler
+        assert np.isfinite(sim.run(2).loss).all()
+        return
     fed = FedConfig(**dict(dict(algorithm="fedavg", n_clients=M,
                                 buffer_size=2, param_layout="flat"), **kw))
     with pytest.raises(NotImplementedError, match=item):

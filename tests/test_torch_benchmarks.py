@@ -113,7 +113,8 @@ def test_committed_mlp_init_is_the_reference_key0_init():
 
 def test_make_task_refuses_unknown_seeds_and_the_device_sampler():
     """Other data seeds need their numpy seed; only seed 0's mlp weights
-    are carried across; the device sampler waits for ROADMAP A5."""
+    are carried across; the device sampler builds a ``DeviceBatcher``
+    (its runs: tests/test_torch_device_mode.py)."""
     with pytest.raises(ValueError, match="pass data_seed"):
         common.make_task("lr", noniid=True, seed=1, device="cpu")
     task = common.make_task("lr", noniid=True, seed=1, data_seed=5,
@@ -122,8 +123,11 @@ def test_make_task_refuses_unknown_seeds_and_the_device_sampler():
     with pytest.raises(ValueError, match="only seed 0's"):
         common.make_task("mlp", noniid=True, seed=1, data_seed=5,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        common.make_task("lr", noniid=True, sampler="device", device="cpu")
+    from repro_torch.data import DeviceBatcher
+    task = common.make_task("lr", noniid=True, sampler="device",
+                            device="cpu")
+    assert isinstance(task.batcher, DeviceBatcher)
+    assert task.batcher.seed == 0
 
 
 @pytest.mark.parametrize("kind,algo", [("lr", "fedagrac"), ("lr", "fedprox"),
@@ -244,21 +248,25 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
              if not ln.startswith("#")]
     if name == "engine":
         header = lines[0].split(",")
-        rows = [ln.split(",") for ln in lines[1:5]]
-        report = json.loads("\n".join(lines[5:]))
-        assert [r[:4] for r in rows] == [["lr", "sync", "host_loop", "1"],
-                                         ["lr", "sync", "chunked_host", "2"],
-                                         ["lr", "async", "per_update", "1"],
-                                         ["lr", "async", "chunked_host",
-                                          "2"]]
+        rows = [ln.split(",") for ln in lines[1:7]]
+        report = json.loads("\n".join(lines[7:]))
+        assert [r[:4] for r in rows] == [
+            ["lr", "sync", "host_loop", "1"],
+            ["lr", "sync", "chunked_host", "2"],
+            ["lr", "sync", "chunked_device", "2"],
+            ["lr", "async", "per_update", "1"],
+            ["lr", "async", "chunked_host", "2"],
+            ["lr", "async", "chunked_device", "2"]]
         rates = report["sync"]["lr"]
         assert rates["host_loop_rounds_per_s"] > 0
         assert rates["chunked_host_rounds_per_s"] > 0
+        assert rates["chunked_device_rounds_per_s"] > 0
         rates = report["async"]["lr"]
         assert rates["per_update_updates_per_s"] > 0
         assert rates["chunked_host_updates_per_s"] > 0
+        assert rates["chunked_device_updates_per_s"] > 0
         assert report["meta"]["device_name"] == "cpu"
-        assert set(report["meta"]["not_run"]) == {"chunked_device", "layout"}
+        assert set(report["meta"]["not_run"]) == {"layout"}
         assert header[0] == "task"
         return
     header, *rows = [ln.split(",") for ln in lines]

@@ -1,7 +1,8 @@
 """The port's package rules: it imports neither ``jax`` nor the JAX package
-``repro``; its entry points run on the card unless asked for the CPU and
-raise where there is no card; the kernel build raises where there is no
-``nvcc`` instead of handing back anything else."""
+``repro`` nor ``msgpack`` (its checkpoints write the format themselves);
+its entry points run on the card unless asked for the CPU and raise where
+there is no card; the kernel build raises where there is no ``nvcc``
+instead of handing back anything else."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -38,7 +39,10 @@ def test_scan_covers_every_slice():
                 "benchmarks/compression_bench.py",
                 "examples/buffered_async.py", "fed/keyed.py",
                 "fed/scenarios.py", "core/robust.py",
-                "benchmarks/scenario_bench.py", "benchmarks/robust_bench.py"):
+                "benchmarks/scenario_bench.py", "benchmarks/robust_bench.py",
+                "checkpoint/serialize.py", "checkpoint/_msgpack.py",
+                "data/pipeline.py", "benchmarks/population_bench.py",
+                "examples/failure_scenarios.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -57,7 +61,7 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_imports_neither_jax_nor_reference(path):
     assert path.is_file()
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")]
     assert not bad, f"{path.name} imports {bad}"
 
 

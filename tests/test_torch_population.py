@@ -8,10 +8,17 @@ JAX package on the CPU.
 * ``round_robin`` ids and every sampler's ``cohort_weights`` equal to the
   reference's for the same ids, to the last bit; ``from_config`` builds
   the same population.
-* Each sampler's own contract (the port's draws come from numpy streams
-  keyed by (seed, t), not ``jax.random``): C ids in range, distinct except
+* Each sampler's own contract: C ids in range, distinct except
   ``weighted``, reproducible, reading no torch RNG, unavailable clients
   only as fill.
+* Every sampler's cohort equals the reference's ``host_cohort`` on a grid
+  (M ∈ {37, 1000, 100000}, seeds 0 and 1, t = 0-9, availability 0.6 and
+  random weights): the keyed draws of ``fed/keyed.py`` (round keys,
+  ``jnp.cumsum``'s order, ``choice``'s ``searchsorted``, the fold-like
+  split, Gumbel scores and ``top_k``'s tie order).  numpy's float32
+  ``log`` may differ from XLA's by an ulp (``GUMBEL_MAX_ULP``), so an
+  availability cohort could differ where two candidates' scores lie that
+  close; on this grid none does.
 * ``make_flat_cohort_round`` against the reference's, fed the reference's
   ``host_cohort`` ids, the same batches, K rows and weights: fedagrac,
   fedavg, fednova and scaffold, ``nu_decay`` 0 and 0.3, and a ``weighted``
@@ -146,6 +153,69 @@ def test_population_checks_match_jax():
 
 
 # ---------------------------------------------------------------------------
+# the keyed cohort draws, against the reference's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [37, 1000, 100_000])
+@pytest.mark.parametrize("sampler", PARTIAL)
+def test_cohorts_equal_reference_on_grid(sampler, m):
+    c = 5 if m == 37 else 8
+    for seed in (0, 1):
+        w = np.random.default_rng(seed).uniform(0.5, 2.0, m)
+        kw = dict(cohort_size=c, sampler=sampler, seed=seed, weights=w,
+                  availability=0.6)
+        ref = jpop.ClientPopulation(m, **kw)
+        pop = tpop.ClientPopulation(m, **kw)
+        for t in range(10):
+            want_ids, want_w = ref.host_cohort(t)
+            ids, cw = pop.host_cohort(t)
+            np.testing.assert_array_equal(ids, np.asarray(want_ids))
+            np.testing.assert_array_equal(cw, np.asarray(want_w))
+
+
+def test_full_cohort_equals_reference():
+    """C = M under a partial sampler: the permutation of all M."""
+    for sampler in ("uniform", "availability"):
+        ref = jpop.ClientPopulation(37, cohort_size=37, sampler=sampler,
+                                    availability=0.5, seed=4)
+        pop = tpop.ClientPopulation(37, cohort_size=37, sampler=sampler,
+                                    availability=0.5, seed=4)
+        for t in range(3):
+            np.testing.assert_array_equal(pop.cohort(t),
+                                          np.asarray(ref.cohort(t)))
+
+
+@pytest.mark.parametrize("n", [5, 16, 17, 255, 4097, 100_000])
+def test_cumsum_in_xla_order(n):
+    w = np.random.default_rng(n).uniform(0.5, 2.0, n)
+    w = (w / w.sum()).astype(np.float32)
+    from repro_torch.fed import keyed
+    np.testing.assert_array_equal(keyed.cumsum(w),
+                                  np.asarray(jnp.cumsum(jnp.asarray(w))))
+
+
+def test_keyed_split_uniform_range_and_gumbel():
+    from repro_torch.fed import keyed
+    jkey = jax.random.PRNGKey(9)
+    key = keyed.prng_key(9)
+    np.testing.assert_array_equal(keyed.split(key),
+                                  np.asarray(jax.random.split(jkey)))
+    tiny = np.finfo(np.float32).tiny
+    for lo, hi in ((tiny, 1.0), (-2.0, 3.0), (0.0, 1.0)):
+        np.testing.assert_array_equal(
+            keyed.uniform(key, (1000,), minval=lo, maxval=hi),
+            np.asarray(jax.random.uniform(jkey, (1000,), minval=lo,
+                                          maxval=hi)))
+    want = np.asarray(jax.random.gumbel(jkey, (20_000,)))
+    got = keyed.gumbel(key, (20_000,))
+    ulp = np.abs(got.view(np.int32).astype(np.int64)
+                 - want.view(np.int32).astype(np.int64))
+    close = np.abs(got - want) <= tpop.GUMBEL_MAX_ULP * np.spacing(
+        np.abs(want).astype(np.float32) + np.float32(1.0))
+    assert close.all(), (ulp.max(), np.abs(got - want).max())
+
+
+# ---------------------------------------------------------------------------
 # each sampler's own contract
 # ---------------------------------------------------------------------------
 
@@ -227,12 +297,17 @@ def test_availability_takes_unavailable_clients_only_as_fill():
     avail[[5, 9]] = 1.0                    # two up, two seats to fill
     pop = tpop.ClientPopulation(12, cohort_size=4, sampler="availability",
                                 availability=avail, seed=2)
+    ref = jpop.ClientPopulation(12, cohort_size=4, sampler="availability",
+                                availability=avail, seed=2)
     fills = set()
     for t in range(10):
-        ids = set(pop.cohort(t).tolist())
-        assert {5, 9} <= ids and len(ids) == 4
-        fills |= ids - {5, 9}
-    assert len(fills) > 2                  # the fill is drawn, not fixed
+        ids = pop.cohort(t)
+        assert {5, 9} <= set(ids.tolist()) and len(set(ids.tolist())) == 4
+        fills |= set(ids.tolist()) - {5, 9}
+        np.testing.assert_array_equal(ids, np.asarray(ref.cohort(t)))
+    # the unavailable clients' scores round to the same −1e9 in float32,
+    # so, as in the reference's top_k, the fill is the lowest ids
+    assert fills == {0, 1}
 
 
 # ---------------------------------------------------------------------------
@@ -366,8 +441,10 @@ def test_cohort_round_refuses_unported_stages():
     """Robust aggregation (A10), payload attacks (A8) and compression (A9)
     on the cohort round are ported and build (their parity is
     tests/test_torch_robust.py's and tests/test_torch_async_compression.
-    py's); the reference's in-scan scenario hook, which belongs to the
-    device sampler's chunk, is refused naming ROADMAP A5/A6."""
+    py's); the in-chunk scenario hook belongs to the device-sampled
+    chunk: given without a device sampler it raises the reference's
+    message, and with one it builds (its parity is
+    tests/test_torch_device_mode.py's)."""
     from repro_torch.core import engine, robust
     from repro_torch.core.compress import CompressionConfig
     from repro_torch.fed import scenarios
@@ -380,9 +457,12 @@ def test_cohort_round_refuses_unported_stages():
         robust=robust.RobustConfig(defense="median", quarantine_window=2),
         attack=scenarios.sign_flip_scenario(M, rate=0.3))
     assert callable(fn)
-    with pytest.raises(NotImplementedError, match="A5/A6"):
+    with pytest.raises(ValueError, match="in-scan \\(device-mode\\) hook"):
         engine.make_population_chunk(fn, 2,
                                      scenario_fn=lambda t, k, ids: k)
+    assert callable(engine.make_population_chunk(
+        fn, 2, cohort_fn=lambda t: None, sample_fn=lambda ts, ids: None,
+        scenario_fn=lambda t, k, ids: k))
 
 
 def test_population_chunk_equals_its_rounds():

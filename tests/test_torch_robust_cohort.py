@@ -11,9 +11,10 @@ failure scenarios in the port, against the JAX package on the CPU.
   updated in place, and hold what the copying round computes.
 * ``FederatedSimulation`` under ``dropout``, ``spike``, ``flaky`` and
   ``diurnal`` (an ``availability`` cohort; full
-  participation and a uniform cohort — the port's cohorts, which the
-  reference is given — chunked and per round) and under a defended
-  ``nan_inject`` run: ``History.dropped``,
+  participation and a uniform cohort — each package drawing its own
+  cohorts, asserted equal — chunked and per round) and under a defended
+  ``nan_inject`` run (8 rounds: the cohorts of seed 2 first re-draw a
+  quarantined client in round 6): ``History.dropped``,
   ``History.quarantined``, K̄ and mass equal to the reference's, loss and
   params within tolerance; ``garbage``'s host noise rows shipped with a
   chunk give the per-round run, bit for bit.
@@ -159,9 +160,11 @@ def _sims(task, kw):
                          batch_size=B, device="cpu"),
         k_schedule=ks, device="cpu")
     if tsim._partial:
-        # the port draws its cohorts from numpy streams: the reference
-        # runs the port's cohorts
-        jsim.population.host_cohort = tsim.population.host_cohort
+        # the port draws the reference's keyed cohorts: nothing is fed
+        for t in range(8):
+            np.testing.assert_array_equal(
+                tsim.population.host_cohort(t)[0],
+                np.asarray(jsim.population.host_cohort(t)[0]))
     return jsim, tsim
 
 
@@ -197,9 +200,11 @@ def test_defended_sync_runs_record_quarantines_as_reference(cohort,
               defense="median", quarantine_window=2, seed=2)
     assert scenarios._corrupt_set(PM, 2, 0.3).any()
     jsim, tsim = _sims(sim_task, kw)
-    jh, th = jsim.run(6, eval_every=3), tsim.run(6, eval_every=3)
+    # 8 rounds: the reference's cohorts of seed 2 first re-draw a
+    # quarantined client in round 6
+    jh, th = jsim.run(8, eval_every=4), tsim.run(8, eval_every=4)
     assert th.quarantined == jh.quarantined and sum(th.quarantined) > 0
-    assert th.dropped == jh.dropped == [0.0] * 6
+    assert th.dropped == jh.dropped == [0.0] * 8
     np.testing.assert_allclose(th.loss, jh.loss, **PARAMS_TOL)
     _assert_states_close({k: v for k, v in tsim.state.items()},
                          jax.tree.map(np.asarray, jsim.state))
