@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing JSON lines; any failure exits non-zero.
+Sixteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -221,6 +221,34 @@ Fifteen phases, each printing JSON lines; any failure exits non-zero.
    ``failure_scenarios`` example twin on the device batcher: its rows
    against the reference's (``reference_quick.json`` ``examples``), the
    abort fractions equal, one B1 launch a local step.
+16. personalized serving fed by bf16 training over a float32 master
+   (``FedConfig.master_dtype``, serving/personalized.py).  (a) phase 8's
+   run (gemma-2b at full width, 2 of 18 layers, 2 clients, 3 rounds of
+   fedavg and fedagrac) in bfloat16 over the float32 master: the master
+   float32 and the views bfloat16, finite losses, exact launches (the
+   forward, dq and dk/dv kernels in bfloat16 once a layer a local step,
+   the forward once a layer an eval, B1 once a local step); fedagrac's
+   state published as a snapshot (v3), one more round, published again
+   (v4); the example's --small --bf16 model on the card against the CPU
+   by phase 3's rule (CPU reruns with reversed rows, then with the
+   master's weights moved by a bfloat16 ulp or two, until the card is
+   covered).  (b) ``PersonalizedServeEngine`` (4 slots) on the trained
+   model, for "none", "nu" and "lowrank" (rank 2, factored on the card;
+   the factors hold the ν rows within LOWRANK_TOL): a trace of requests
+   from both clients and a cold start, the swap to v4 while a long
+   request is in flight, against the same trace without the swap —
+   requests admitted before the swap keep their tokens, every completion
+   records its version; "none" bit-equal (tokens and logits) to the plain
+   ``ServeEngine``; the personalized slots' logits differ from the base's
+   (the scale sets the deltas' RMS to PERSONAL_DELTA_RMS of the base's,
+   printed); a row-path tick within ROW_TICK_ULPS of per-slot batch-1
+   decodes; each decode path's tick wall; the attention kernel once a
+   layer an admission; peak memory against its reckoning (60·P bytes).
+   (c) the ``personalized_serving`` example twin at --small on the card
+   against the CPU: the completions and versions equal, the card's logits
+   against the CPU's snapshot rows teacher-forced with the card's tokens
+   by phase 6's rule.  (d) the ``serving_bench`` twin's quick run:
+   requests/s at M = 32, 1,000 and 100,000 and its flatness check.
 
 Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -230,6 +258,7 @@ result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -301,8 +330,10 @@ ATTN_SHAPES = [(1, 256, 32, 8, 128, 0), (1, 200, 32, 8, 128, 0),
                (2, 77, 4, 4, 36, 0), (1, 64, 4, 2, 77, 0),
                (2, 64, 4, 2, 98, 0)]
 ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
+# the LM training step's shape (phases 8 and 16)
+ATTN_STEP_SHAPE = (4, 128, 8, 1, 256, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
-              (4, 128, 32, 32, 80, 0), (4, 128, 8, 1, 256, 0)]
+              (4, 128, 32, 32, 80, 0), ATTN_STEP_SHAPE]
 # The float32 forward's tiles, copied from csrc/flash_attention.cu
 # (tests/test_torch_build.py holds each against the source): q tiles of
 # FWD_TF32_BLOCK_ROWS rows, kv tiles of FWD_TF32_BLOCK_KEYS[bucket] keys;
@@ -1349,10 +1380,12 @@ def phase_attention_kernel() -> dict:
                             qt, kt, vt, is_causal=True, enable_gqa=True),
                         iters)}
                 _emit({"phase": "kernel_time", **timing})
+                keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")
                 if dtype == torch.bfloat16 and shape == ATTN_PATH_SHAPE:
-                    result.update({key: timing[key] for key in (
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")})
+                    result.update({key: timing[key] for key in keys})
+                if dtype == torch.bfloat16 and shape == ATTN_STEP_SHAPE:
+                    result["bf16_step"] = {key: timing[key] for key in keys}
             del q, k, v
             torch.cuda.empty_cache()
         for shape in ATTN_FUSED_SHAPES:
@@ -1381,6 +1414,9 @@ def phase_attention_kernel() -> dict:
     _emit({"phase": "attention_kernel", "checks": len(checks),
            "max_abs_err": result["max_abs_err"], "copy_widths": widths,
            "worst": max(checks, key=lambda ch: ch["max_abs_err_o"])})
+    result["bf16_step"]["max_abs_err"] = max(
+        ch["max_abs_err_o"] for ch in checks
+        if ch["dtype"] == str(torch.bfloat16))
     return result
 
 
@@ -1488,8 +1524,8 @@ def phase_attention_backward() -> dict:
     ATTN_BWD_SHAPES and ATTN_BWD_FUSED_SHAPES in float32 and bfloat16,
     then timed at ATTN_BWD_TIMED; the dk/dv kernel's group paths at
     ATTN_BWD_GROUP_SHAPES.  Returns each kernel's worst error and
-    its timing at the training path's shape in float32 (the path's
-    type)."""
+    its timing at the training path's shape in float32 (phase 8's type),
+    and under ``<name>_bf16`` the bfloat16 ones (phase 16's)."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     result = {name: {"max_abs_err": 0.0} for name in names}
@@ -1514,6 +1550,9 @@ def phase_attention_backward() -> dict:
                             gen)
     _time_group_paths(gen)
     bf16 = [ch for ch in checks if ch["dtype"] == str(torch.bfloat16)]
+    for name in names:
+        result[name + "_bf16"]["max_abs_err"] = max(
+            ch["max_abs_err"] for ch in bf16 if ch["kernel"] == name)
     f32 = [ch for ch in checks if ch["dtype"] == str(torch.float32)]
     _emit({"phase": "attention_backward", "checks": len(checks),
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
@@ -1632,9 +1671,11 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
                            "simt_bound_ms": simt_ms})
         timing["mma_tflops"] = ops_done / timing["ms"] / 1e9
         _emit({"phase": "kernel_time", **timing})
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         if dtype == torch.float32 and shape == ATTN_BWD_PATH_SHAPE:
-            result[name].update({key: timing[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            result[name].update({key: timing[key] for key in keys})
+        if dtype == torch.bfloat16 and shape == ATTN_BWD_PATH_SHAPE:
+            result[name + "_bf16"] = {key: timing[key] for key in keys}
 
 
 def _serve_requests(prompts, max_new, vocab: int, seed: int) -> list:
@@ -1873,19 +1914,27 @@ def _lm_batcher_class(flip_rows: bool):
 
 def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
                 batch: int, rounds: int, lr: Optional[float] = None,
-                generator=None, flip_rows: bool = False) -> dict:
+                generator=None, flip_rows: bool = False, bf16: bool = False,
+                moved: Optional[int] = None, keep: bool = False) -> dict:
     """The example's simulation (``repro_torch.examples.fed_lm_train``)
     for ``rounds`` rounds in one chunk; returns its history, final params,
-    the kernels' launches, wall and peak memory."""
+    the kernels' launches, wall and peak memory.  ``bf16``: the example's
+    ``--bf16`` (``cfg`` in bfloat16 over a float32 master); ``moved``: the
+    master's initial weights moved by a bfloat16 ulp or two at random
+    (``_bf16_moved``, seeded); ``keep``: the simulation is returned too,
+    under ``"sim"``."""
     from repro_torch.examples import fed_lm_train as ex
     batcher = _lm_batcher_class(flip_rows)(
         ex.make_streams(cfg, seq, clients), batch_size=batch, device=device)
-    fed = ex.fed_config(algo, n_clients=clients)
+    fed = ex.fed_config(algo, n_clients=clients, bf16=bf16)
     if lr is not None:
         fed = dataclasses.replace(fed, lr=lr)
     sim = ex.make_simulation(cfg, fed, seq=seq, batch=batch, rounds=rounds,
                              device=torch.device(device),
                              generator=generator, batcher=batcher)
+    if moved is not None:
+        sim.state["params"] = _bf16_moved(sim.state["params"], sim._spec.n,
+                                          moved)
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1897,13 +1946,48 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
            "round_wall_s": list(hist.wall), "wall_s": wall,
            "k_max": sim.k_max, "k": sim.k_schedule[0].tolist(),
            "params": sim.state["params"].cpu(), "n": sim._spec.n,
-           "p": sim._spec.p,
+           "p": sim._spec.p, "master_dtype": sim.state["params"].dtype,
+           "view_dtypes": sorted({str(d) for d in sim._spec.dtypes}),
            "launches": _all_launches(),
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if device != "cpu" else None)}
+    if keep:
+        out["sim"] = sim
     del sim
     if device != "cpu":
         torch.cuda.empty_cache()
+    return out
+
+
+def _lm_vs_cpu_margins(g: dict, c: dict, probes: list) -> dict:
+    """An LM run on the card ``g`` against the CPU's ``c``: {what: (diff,
+    tol)}, the tolerance PATH_SPREAD times the largest spread of the CPU
+    reruns ``probes`` (each changing only rounding) plus PATH_RTOL of the
+    CPU's values."""
+    def spread(key):
+        return np.max([np.abs(q[key] - c[key]) for q in probes], axis=0)
+
+    return {
+        "loss": (np.abs(g["loss"] - c["loss"]),
+                 PATH_SPREAD * spread("loss")
+                 + PATH_RTOL * np.abs(c["loss"])),
+        "perplexity": (np.abs(g["metric"] - c["metric"]),
+                       PATH_SPREAD * spread("metric")
+                       + PATH_RTOL * np.abs(c["metric"])),
+        "params": (float((g["params"] - c["params"]).abs().max()),
+                   PATH_SPREAD * max(float((q["params"] - c["params"])
+                                           .abs().max()) for q in probes)
+                   + PATH_RTOL * float(c["params"].abs().max()))}
+
+
+def _bf16_moved(master: torch.Tensor, n: int, seed: int) -> torch.Tensor:
+    """A float32 master whose first ``n`` entries are moved by 2⁻⁷ of
+    themselves, up or down at random, or left (a third each): a bfloat16
+    ulp or two of every view entry that moves."""
+    gen = torch.Generator().manual_seed(seed)
+    step = torch.randint(-1, 2, (n,), generator=gen).to(master.device)
+    out = master.clone()
+    out[:n] = (master[:n] * (1 + step * 2.0 ** -7)).bfloat16().float()
     return out
 
 
@@ -1974,16 +2058,7 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
         g, c, p = runs
         _require(g["launches"]["flash_attention_bwd_dq"] > 0,
                  f"{algo} --small: the card run launched no backward kernel")
-        vs = {"loss": (np.abs(g["loss"] - c["loss"]),
-                       PATH_SPREAD * np.abs(p["loss"] - c["loss"])
-                       + PATH_RTOL * np.abs(c["loss"])),
-              "perplexity": (np.abs(g["metric"] - c["metric"]),
-                             PATH_SPREAD * np.abs(p["metric"] - c["metric"])
-                             + PATH_RTOL * np.abs(c["metric"])),
-              "params": (float((g["params"] - c["params"]).abs().max()),
-                         PATH_SPREAD * float(
-                             (p["params"] - c["params"]).abs().max())
-                         + PATH_RTOL * float(c["params"].abs().max()))}
+        vs = _lm_vs_cpu_margins(g, c, [p])
         for what, (diff, tol) in vs.items():
             _require(bool(np.all(diff <= tol)),
                      f"{algo} --small: {what} differs from the CPU run by "
@@ -4065,6 +4140,520 @@ def phase_device_path(pop: Optional[dict] = None,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: personalized serving fed by bf16 training over a float32 master
+# ---------------------------------------------------------------------------
+
+# (a): phase 8's model and run (FED_LM) in bfloat16 over a float32 master,
+# then PERSONAL_LEG2_ROUNDS more fedagrac rounds: the second leg, whose
+# snapshot is swapped in.  The --small check's CPU reruns: reversed rows,
+# then the master's initial weights moved by a bfloat16 ulp or two
+# (``_bf16_moved``), drawn until the card is covered, at most
+# BF16_MAX_PROBES.
+PERSONAL_LEG2_ROUNDS = 1
+BF16_MAX_PROBES = 8
+# (b): the engine; the trace as (prompt length, new tokens, client), client
+# 999 a cold start (no ν⁽ⁱ⁾ row); the long request, in flight at the swap
+# after PERSONAL_SWAP_TICK ticks; the requests admitted after it
+PERSONAL = {"slots": 4, "max_len": 256, "prefill_buckets": (32, 64, 128)}
+PERSONAL_PRE = [(20, 10, 0), (45, 8, 1), (90, 12, 999)]
+PERSONAL_LONG = (30, 24, 0)
+PERSONAL_POST = [(12, 8, 1), (60, 6, 0), (25, 6, 999)]
+PERSONAL_SWAP_TICK = 4
+# the deltas' RMS as a share of the base's RMS: the scale is set so, and
+# printed.  A bfloat16 view keeps 2⁻⁸ of an entry, so a smaller share of
+# ν⁽ⁱ⁾ − ν (a gradient, ~10⁻³ of the weights here) would vanish in the cast
+PERSONAL_DELTA_RMS = 0.05
+# the factors at the serving rank (= M, so exact in exact arithmetic)
+# against the ν rows, within 2⁻¹⁴ of the largest row entry: their dot
+# products sum in float64, so what is left is float32 rounding of the
+# rows, the basis and the coefficients (summed in cuBLAS's float32 order
+# they were 7·10⁻⁴ off at P = 744.5 M)
+PERSONAL_RANK = 2
+LOWRANK_TOL = 2.0 ** -14
+# one row-path tick against per-slot batch-1 decodes on the summed rows:
+# bfloat16 ulps (2⁻⁸) of the largest logit (the batched GEMMs round
+# otherwise)
+ROW_TICK_ULPS = 8
+
+
+def _bf16_training(cfg) -> tuple:
+    """Part (a).  Returns the counted fedagrac run's launches, the flat
+    spec and the two legs' snapshots (on the card)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples import fed_lm_train as ex
+    run = {k: FED_LM[k] for k in ("clients", "seq", "batch", "rounds",
+                                  "lr")}
+    _emit({"phase": "personalized_cuts", "model": cfg.name,
+           "dtype": f"{cfg.dtype} over a float32 master",
+           "n_layers": f"{cfg.n_layers} of {get_arch(cfg.name).n_layers}",
+           "clients": f"{run['clients']} of {ex.MCLIENTS}",
+           "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab}})
+    small = ex.build_config(True, bf16=True)
+    # warm-up (bfloat16 cuBLAS handles) outside the counted runs
+    _run_fed_lm(small, "fedavg", DEVICE, clients=2, seq=32, batch=2,
+                rounds=1, bf16=True)
+    for algo in ("fedavg", "fedagrac"):          # fedagrac's sim is kept
+        g = _run_fed_lm(cfg, algo, DEVICE, bf16=True,
+                        keep=algo == "fedagrac", **run)
+        launches = g["launches"]
+        L, k_max, R = cfg.n_layers, g["k_max"], run["rounds"]
+        want = {"flash_attention_fwd": L * k_max * R + L,
+                "flash_attention_bwd_dq": L * k_max * R,
+                "flash_attention_bwd_dkv": L * k_max * R,
+                "calibrated_update": k_max * R}
+        got = {k: launches[k] for k in want}
+        _require(got == want and all(
+            n == 0 for k, n in launches.items() if k not in want),
+                 f"bf16 {algo}: launches {launches}, expected {want} and "
+                 f"no other")
+        _require(g["master_dtype"] == torch.float32
+                 and g["view_dtypes"] == [str(torch.bfloat16)],
+                 f"bf16 {algo}: master {g['master_dtype']}, views "
+                 f"{g['view_dtypes']}")
+        _require(np.isfinite(g["loss"]).all()
+                 and np.isfinite(g["metric"]).all(),
+                 f"bf16 {algo}: non-finite loss {g['loss']} or perplexity "
+                 f"{g['metric']}")
+        tokens = run["clients"] * k_max * run["batch"] * run["seq"]
+        wall = float(np.mean(g["round_wall_s"]))
+        _emit({"phase": "personalized", "part": "bf16_training",
+               "model": cfg.name, "algorithm": algo, "dtype": cfg.dtype,
+               "master_dtype": str(g["master_dtype"]),
+               "view_dtypes": g["view_dtypes"], **run, "params": g["n"],
+               "k": g["k"], "k_max": k_max, "loss": g["loss"].tolist(),
+               "perplexity": g["metric"].tolist(),
+               "wall_per_round_s": g["round_wall_s"],
+               "wall_per_local_step_s": wall / k_max,
+               "train_tokens_per_s": tokens / wall, "launches": got,
+               "peak_memory_bytes": g["peak_memory_bytes"]})
+    sim = g.pop("sim")
+    snaps = [sim.publish_snapshot()]
+    sim.run(PERSONAL_LEG2_ROUNDS, eval_every=PERSONAL_LEG2_ROUNDS)
+    snaps.append(sim.publish_snapshot())
+    spec = sim.flat_spec
+    _require(snaps[1]["flat_master"].dtype == torch.float32
+             and int(snaps[1]["version"]) == R + PERSONAL_LEG2_ROUNDS,
+             f"leg 2: snapshot v{int(snaps[1]['version'])}")
+    del sim, g
+    gc.collect()            # the simulation's closures may hold a cycle
+    torch.cuda.empty_cache()
+
+    srun = {"clients": ex.MCLIENTS, "seq": 32, "batch": 2, "rounds": 3}
+    for algo in FED_LM["algorithms"]:
+        def one(dev, **kw):
+            return _run_fed_lm(small, algo, dev, bf16=True,
+                               generator=torch.Generator().manual_seed(0),
+                               **srun, **kw)
+        g, c = one(DEVICE), one("cpu")
+        probes = [one("cpu", flip_rows=True)]
+        while (not _vs_covered(_lm_vs_cpu_margins(g, c, probes))
+               and len(probes) < BF16_MAX_PROBES):
+            probes.append(one("cpu", moved=len(probes)))
+        _require(g["launches"]["flash_attention_bwd_dq"] > 0,
+                 f"bf16 {algo} --small: the card run launched no backward "
+                 f"kernel")
+        vs = _lm_vs_cpu_margins(g, c, probes)
+        for what, (diff, tol) in vs.items():
+            _require(bool(np.all(diff <= tol)),
+                     f"bf16 {algo} --small: {what} differs from the CPU run"
+                     f" by {diff}, more than {tol}")
+        _emit({"phase": "personalized", "part": "bf16_vs_cpu",
+               "model": "gemma-2b --small --bf16", "algorithm": algo,
+               **srun, "k": g["k"], "loss": g["loss"].tolist(),
+               "perplexity": g["metric"].tolist(), "probes": len(probes),
+               "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+               "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return launches, spec, snaps
+
+
+def _personal_engine_class():
+    """``PersonalizedServeEngine`` recording each request's prompt and the
+    logits each of its tokens came from (by uid, and by completion in
+    ``done_records``, beside ``done``: a trace replayed twice repeats
+    uids), checking them finite, and timing each decode tick by the path
+    it took (a synchronise on each side)."""
+    from repro_torch.serving import PersonalizedServeEngine
+
+    class Recording(PersonalizedServeEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.logits: dict[int, list] = {}
+            self.prompts: dict[int, np.ndarray] = {}
+            self.path_s = {"shared": [], "grouped": [], "rows": []}
+            self.done_records: list[tuple] = []
+            self.admissions = 0
+            self._path = "shared"
+
+        def _tick(self):
+            n0 = len(self.done)
+            super()._tick()
+            self.done_records += [(self.prompts[c.uid], self.logits[c.uid])
+                                  for c in self.done[n0:]]
+
+        def _prefill_slot(self, s, req, toks, caches):
+            logits, single = super()._prefill_slot(s, req, toks, caches)
+            _require(bool(torch.isfinite(logits).all()),
+                     f"request {req.uid}: non-finite prefill logits")
+            self.admissions += 1
+            self.prompts[req.uid] = req.prompt
+            self.logits[req.uid] = [
+                logits[0, len(req.prompt) - 1].float().cpu()]
+            return logits, single
+
+        def _decode_rows(self, toks):
+            self._path = "rows"
+            return super()._decode_rows(toks)
+
+        def _decode_grouped(self, toks, live, versions):
+            self._path = "grouped"
+            return super()._decode_grouped(toks, live, versions)
+
+        def _decode_tick(self, toks, live):
+            self._path = "shared"
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = super()._decode_tick(toks, live)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.path_s[self._path].append(time.perf_counter() - t0)
+            _require(bool(torch.isfinite(logits).all()),
+                     "non-finite decode logits")
+            rows = logits.float().cpu()
+            for s in live:
+                self.logits[self.active[s].uid].append(rows[s])
+            return logits
+
+    return Recording
+
+
+def _personal_requests(vocab: int) -> tuple:
+    """(requests before the swap, the long one, requests after it)."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(16)
+
+    def make(uid, n, m, cid):
+        return Request(uid=uid, prompt=rng.integers(1, vocab, n).astype(
+            np.int32), max_new_tokens=m, client_id=cid)
+
+    pre = [make(i, *t) for i, t in enumerate(PERSONAL_PRE)]
+    long = make(len(pre), *PERSONAL_LONG)
+    post = [make(len(pre) + 1 + i, *t) for i, t in enumerate(PERSONAL_POST)]
+    return pre, long, post
+
+
+def _personal_serve(engine, snaps, vocab: int, swap: bool):
+    """The trace through ``engine``: the requests before the swap and the
+    long one, PERSONAL_SWAP_TICK ticks, the swap to the second leg's
+    snapshot (``swap``), the requests after it, then drained.  Returns
+    {uid: completion} and the swap's wall (s)."""
+    pre, long, post = _personal_requests(vocab)
+    for r in pre + [long]:
+        engine.submit(dataclasses.replace(r))
+    for _ in range(PERSONAL_SWAP_TICK):
+        engine.step()
+    _require(any(a is not None and a.uid == long.uid for a in engine.active),
+             "the long request is not in flight at the swap")
+    swap_s = None
+    if swap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.swap(snaps[1])
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+    for r in post:
+        engine.submit(dataclasses.replace(r))
+    engine.run()
+    done = {c.uid: c for c in engine.done}
+    _require(sorted(done) == [r.uid for r in pre + [long] + post]
+             and all(len(done[r.uid].tokens) == r.max_new_tokens
+                     for r in pre + [long] + post),
+             f"served {sorted(done)}: requests missing or cut")
+    return done, swap_s
+
+
+def _personal_scale(snap: dict, n: int) -> float:
+    """The scale that makes the ν deltas' RMS PERSONAL_DELTA_RMS of the
+    base's."""
+    base = snap["flat_master"][:n]
+    rows = snap["nu_i"][:, :n] - snap["nu"][None, :n]
+    return float(PERSONAL_DELTA_RMS * base.norm() / n ** 0.5
+                 / (rows.norm() / (rows.shape[0] * n) ** 0.5))
+
+
+def _row_tick_vs_plain(cfg, spec, snap: dict, scale: float) -> dict:
+    """One row-path tick (``personalized_decode`` on four summed rows: two
+    clients' and two bases) against a batch-1 ``serve_decode`` on each
+    row, within ROW_TICK_ULPS of the largest logit."""
+    from repro_torch.core import flat
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import make_personalizer, personalized_decode
+    resolve = make_personalizer("nu", snap, scale)
+    base = snap["flat_master"]
+    rows = torch.stack([base + resolve(0), base + resolve(1), base, base])
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(1, cfg.vocab, (4, 1), generator=gen).to(DEVICE)
+    offs = torch.zeros(4, dtype=torch.int32, device=DEVICE)
+    dtype = getattr(torch, cfg.dtype)
+    worst, ulp = 0.0, 0.0
+    with torch.inference_mode():
+        got, _ = personalized_decode(
+            spec, cfg, rows, toks,
+            model_lib.init_caches(cfg, 4, PERSONAL["max_len"], dtype,
+                                  DEVICE), offs)
+        for i in range(4):
+            want, _ = model_lib.serve_decode(
+                flat.view_tree(spec, rows[i]), {"tokens": toks[i][None]},
+                model_lib.init_caches(cfg, 1, PERSONAL["max_len"], dtype,
+                                      DEVICE), 0, cfg)
+            want = want[0, 0].float()
+            worst = max(worst, float((got[i].float() - want).abs().max()))
+            ulp = max(ulp, 2.0 ** -8 * float(want.abs().max()))
+    _require(worst <= ROW_TICK_ULPS * ulp,
+             f"row-path tick: {worst} from per-slot decodes, more than "
+             f"{ROW_TICK_ULPS} bfloat16 ulps of the largest logit ({ulp})")
+    del rows
+    return {"max_abs_err": worst, "ulps": worst / ulp,
+            "tol_ulps": ROW_TICK_ULPS}
+
+
+def _lowrank_snapshot(snap: dict, errs: list) -> dict:
+    """``snap``'s base with its ν rows factored at PERSONAL_RANK, the
+    factors held to the rows within LOWRANK_TOL (their relative error
+    appended to ``errs``)."""
+    from repro_torch.serving import lowrank_factors, make_snapshot
+    coeff, basis = lowrank_factors(snap["nu_i"], snap["nu"], PERSONAL_RANK)
+    err = top = 0.0
+    for j in range(snap["nu_i"].shape[0]):
+        row = snap["nu_i"][j] - snap["nu"]
+        top = max(top, float(row.abs().max()))
+        row -= coeff[j] @ basis
+        err = max(err, float(row.abs_().max()))
+        del row
+    _require(err <= LOWRANK_TOL * top,
+             f"lowrank_factors at rank {PERSONAL_RANK}: {err} from the ν "
+             f"rows (largest {top})")
+    errs.append(err / top)
+    return make_snapshot(int(snap["version"]), snap["flat_master"],
+                         coeff=coeff, basis=basis)
+
+
+def _personalized_serving(cfg, spec, snaps: list) -> dict:
+    """Part (b) on ``snaps``, the two legs' snapshots (replaced in place by
+    their low-rank forms for the "lowrank" kind).  Returns the B6 launches
+    of its prefills."""
+    from repro_torch.core import flat
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    p, n = spec.p, spec.n
+    v1, v2 = (int(s["version"]) for s in snaps)
+    scale = _personal_scale(snaps[0], n)
+    # reckoned before the run (bytes): the two snapshots (base, ν, ν⁽ⁱ⁾:
+    # 16·P each) and the largest of: an engine (its (slots, P) rows, 16·P,
+    # two versions' bf16 trees, 4·P, and an admission's delta with its
+    # ν⁽ⁱ⁾ − ν or a tick's bf16 casts of the rows, 8·P); the row tick's
+    # check (four summed rows, 16·P, their casts, 8·P, a slot's view,
+    # 2·P); the factoring (the ν rows, the basis and the first leg's
+    # basis, 24·P)
+    reckoned = (32 + 28) * p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the peak so far after each stage, to say which one sets it
+    stage_peaks = {"start": torch.cuda.memory_allocated()}
+    recording = _personal_engine_class()
+    before = fa_ops.launches["flash_attention_fwd"]
+    admissions = 0
+    factor_err = []
+    # the plain engine on the first leg's weights, for the "none" pin
+    plain = _timed_engine_class()(
+        cfg, flat.unravel(spec, snaps[0]["flat_master"]), device=DEVICE,
+        record=True, **PERSONAL)
+    plain_done, _ = _personal_serve(plain, snaps, cfg.vocab, swap=False)
+    admissions += plain.admissions
+    plain_logits = plain.logits
+    del plain
+    stage_peaks["plain"] = torch.cuda.max_memory_allocated()
+    for kind in ("none", "nu", "lowrank"):
+        if kind == "lowrank":
+            # each leg's ν rows factored at the serving rank (exact: M =
+            # 2); the list replaced in place, so the caller's lets the ν
+            # rows go too
+            snaps[:] = [_lowrank_snapshot(s, factor_err) for s in snaps]
+            torch.cuda.empty_cache()
+            stage_peaks["factors"] = torch.cuda.max_memory_allocated()
+        runs = {}
+        for swap in (False, True):
+            eng = recording(cfg, spec, snaps[0], personalizer=kind,
+                            scale=scale, device=DEVICE, **PERSONAL)
+            done, swap_s = _personal_serve(eng, snaps, cfg.vocab, swap)
+            admissions += eng.admissions
+            runs[swap] = {"done": done, "logits": eng.logits,
+                          "path_s": eng.path_s, "swap_s": swap_s}
+            del eng
+            torch.cuda.empty_cache()
+        pre, long, post = _personal_requests(cfg.vocab)
+        first = [r.uid for r in pre + [long]]
+        for swap, r in runs.items():
+            for uid, c in r["done"].items():
+                want = v2 if swap and uid not in first else v1
+                _require(c.version == want,
+                         f"{kind}: request {uid} served under v{c.version},"
+                         f" expected v{want}")
+        _require(all(runs[True]["done"][u].tokens
+                     == runs[False]["done"][u].tokens for u in first),
+                 f"{kind}: the swap changed an in-flight request's tokens")
+        if kind == "none":
+            same = all(
+                runs[False]["done"][u].tokens == plain_done[u].tokens
+                and all(torch.equal(a, b) for a, b in zip(
+                    runs[False]["logits"][u], plain_logits[u]))
+                for u in plain_done)
+            _require(same, "none: tokens or logits differ from the plain "
+                           "ServeEngine's")
+            base_logits = runs[False]["logits"]
+        else:
+            personal = [r.uid for r in pre + [long] if r.client_id < 2]
+            moved = [float((runs[False]["logits"][u][0]
+                            - base_logits[u][0]).abs().max())
+                     for u in personal]
+            _require(max(moved) > 0,
+                     f"{kind}: no personalized slot's logits differ from "
+                     f"the base's (scale {scale})")
+        ticks = {path: [len(r["path_s"][path]) for r in runs.values()]
+                 for path in ("shared", "grouped", "rows")}
+        _emit({"phase": "personalized", "part": "serving", "kind": kind,
+               "model": cfg.name, "dtype": cfg.dtype, "scale": scale,
+               "delta_rms_share": PERSONAL_DELTA_RMS, "versions": [v1, v2],
+               **PERSONAL, "ticks_by_path": ticks,
+               "tick_ms_by_path": {
+                   path: 1e3 * float(np.median(np.concatenate(
+                       [r["path_s"][path] for r in runs.values()])))
+                   for path in ticks if sum(ticks[path])},
+               "swap_ms": 1e3 * runs[True]["swap_s"],
+               "in_flight_tokens_kept": True,
+               **({} if kind == "none" else
+                  {"personal_logit_shift": moved}),
+               **({"factors_rel_err": factor_err} if kind == "lowrank"
+                  else {})})
+        stage_peaks[kind] = torch.cuda.max_memory_allocated()
+        if kind == "nu":
+            row_tick = _row_tick_vs_plain(cfg, spec, snaps[0], scale)
+            _emit({"phase": "personalized", "part": "row_tick",
+                   **row_tick})
+            stage_peaks["row_tick"] = torch.cuda.max_memory_allocated()
+    launches = fa_ops.launches["flash_attention_fwd"] - before
+    _require(launches == cfg.n_layers * admissions,
+             f"serving: {launches} attention launches, expected "
+             f"{cfg.n_layers} × {admissions} admissions")
+    peak = torch.cuda.max_memory_allocated()
+    _emit({"phase": "personalized", "part": "serving_memory",
+           "reckoned_bytes": reckoned, "peak_memory_bytes": peak,
+           "p": p, "peak_after": stage_peaks})
+    _require(peak <= 1.5 * reckoned + POP_MEMORY_SLACK,
+             f"serving: peak memory {peak} over 1.5 × the reckoned "
+             f"{reckoned} + {POP_MEMORY_SLACK}")
+    return {"flash_attention_fwd": launches}
+
+
+def _personalized_example_on_card() -> None:
+    """Part (c): the ``personalized_serving`` twin at ``--small`` on the
+    card and on the CPU: every completion's version the CPU's, and the
+    card's served logits against the CPU's own snapshot rows
+    teacher-forced with the card's tokens, phase 6's rule (LOGIT_TOL;
+    tokens the CPU's argmax wherever its top-2 margin exceeds twice
+    that)."""
+    from repro_torch.core import flat
+    from repro_torch.examples import personalized_serving as ex
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import make_personalizer
+    t0 = time.perf_counter()
+    card = ex.run(small=True, device=DEVICE,
+                  engine_cls=_personal_engine_class())
+    card_s = time.perf_counter() - t0
+    cpu = ex.run(small=True, device="cpu")
+    eng, spec, cfg = card["engine"], cpu["spec"], cpu["cfg"]
+    done, cpu_done = eng.done, cpu["engine"].done
+    _require([(c.uid, c.client_id, c.version) for c in done]
+             == [(c.uid, c.client_id, c.version) for c in cpu_done],
+             "personalized_serving: the card's completions and versions are"
+             " not the CPU's")
+    worst, clear_tokens, near_ties = 0.0, 0, 0
+    with torch.inference_mode():
+        for c, (prompt, logits) in zip(done, eng.done_records):
+            snap = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                    for k, v in cpu["snapshots"][c.version].items()}
+            delta = make_personalizer("nu", snap)(c.client_id)
+            row = snap["flat_master"] + (0 if delta is None else delta)
+            seq = np.concatenate([prompt, np.asarray(c.tokens[:-1],
+                                                     np.int32)])
+            ref = model_lib.forward(
+                flat.view_tree(spec, row),
+                {"tokens": torch.from_numpy(seq)[None].long()},
+                cfg)[0][0, len(prompt) - 1:]
+            got = torch.stack(logits)
+            err = float((got - ref).abs().max())
+            worst = max(worst, err)
+            _require(err <= LOGIT_TOL,
+                     f"personalized_serving request {c.uid}: card logits "
+                     f"differ from the CPU's by {err} > {LOGIT_TOL}")
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+            toks = torch.tensor(c.tokens)
+            _require(torch.equal(toks[clear], ref.argmax(-1)[clear]),
+                     f"personalized_serving request {c.uid}: a token "
+                     f"differs from the CPU's argmax where its margin "
+                     f"exceeds {2 * LOGIT_TOL}")
+            clear_tokens += int(clear.sum())
+            near_ties += int((~clear).sum())
+    _emit({"phase": "personalized", "part": "example_vs_cpu",
+           "example": "personalized_serving --small",
+           "completions": len(done), "max_abs_logit_err": worst,
+           "tol": LOGIT_TOL, "tokens_checked": clear_tokens,
+           "near_ties": near_ties, "card_s": card_s})
+
+
+def _serving_bench_on_card() -> None:
+    """Part (d): the ``serving_bench`` twin's quick run on the card —
+    requests/s at each population and the reference's flatness check."""
+    from repro_torch.benchmarks import serving_bench
+    t0 = time.perf_counter()
+    _, rep = serving_bench.report(quick=True, device=DEVICE)
+    for row in rep["population_sweep"] + rep["personalizer_kinds"]:
+        _emit({"phase": "personalized", "part": "serving_bench", **row})
+    _emit({"phase": "personalized", "part": "serving_bench",
+           "hot_swap": rep["hot_swap"],
+           "flat_in_population": rep["flat_in_population"],
+           "s": time.perf_counter() - t0})
+    _require(rep["flat_in_population"],
+             "serving_bench: requests/s at M = 100,000 under "
+             f"{serving_bench.FLAT_RATIO} × that at M = 32")
+
+
+def phase_personalized(cfg=None) -> dict:
+    """Phase 16.  Returns the launches of (a)'s counted bf16 run (its B6
+    and B7 under ``*_bf16``) and of (b)'s prefills."""
+    from repro_torch.configs.registry import get_arch
+    cfg = cfg or dataclasses.replace(get_arch("gemma-2b"),
+                                     n_layers=FED_LM["layers"],
+                                     dtype="bfloat16")
+    launches, spec, snaps = _bf16_training(cfg)
+    serving = _personalized_serving(cfg, spec, snaps)
+    del snaps
+    torch.cuda.empty_cache()
+    _personalized_example_on_card()
+    _serving_bench_on_card()
+    out = {"calibrated_update": launches["calibrated_update"]}
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        out[name + "_bf16"] = launches[name]
+    out["flash_attention_fwd_bf16"] += serving["flash_attention_fwd"]
+    _emit({"phase": "personalized", "launches": out})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4083,6 +4672,8 @@ def main() -> int:
     timings.update(timed("wire_kernels", phase_wire_kernels))
     timings["flash_attention_fwd"] = timed("attention_kernel",
                                            phase_attention_kernel)
+    timings["flash_attention_fwd_bf16"] = timings[
+        "flash_attention_fwd"].pop("bf16_step")
     launches = timed("main_path", phase_main_path)
     launches.update(timed("compressed_path", phase_compressed_path))
     launches["flash_attention_fwd"] = timed(
@@ -4110,6 +4701,8 @@ def main() -> int:
     for name, n in timed("device_path", lambda: phase_device_path(
             host_ms=host_ms)).items():
         launches[name] += n
+    for name, n in timed("personalized", phase_personalized).items():
+        launches[name] = launches.get(name, 0) + n
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -4134,6 +4727,13 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:113"),
         "flash_attention_bwd_dq": (bwd_src, bwd_rep + "150"),
         "flash_attention_bwd_dkv": (bwd_src, bwd_rep + "178"),
+        # the bfloat16 instances on phase 16's training path, timed at its
+        # step's shape
+        "flash_attention_fwd_bf16": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:113"),
+        "flash_attention_bwd_dq_bf16": (bwd_src, bwd_rep + "150"),
+        "flash_attention_bwd_dkv_bf16": (bwd_src, bwd_rep + "178"),
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:88")}
     _emit({"kernels": [

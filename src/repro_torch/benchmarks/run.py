@@ -19,7 +19,8 @@ from repro_torch.benchmarks import (compression_bench, engine_bench,
                                     fairness, fig2_lambda, fig3_orientation,
                                     fig4_grid, fig5_curves, robust_bench,
                                     scenario_bench, server_opt,
-                                    table1_deterioration, table2_utilization,
+                                    serving_bench, table1_deterioration,
+                                    table2_utilization,
                                     table6_rounds, table_async,
                                     thm1_quadratic)
 
@@ -39,6 +40,7 @@ MODULES = {
     "fairness": fairness,
     "server_opt": server_opt,
     "engine": engine_bench,
+    "serving": serving_bench,
 }
 
 

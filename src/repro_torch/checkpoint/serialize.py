@@ -54,7 +54,9 @@ def _record(leaf) -> dict:
         data = raw.numpy().reshape(-1)
         return {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
                 "data": memoryview(data).cast("B") if data.size else b""}
-    arr = np.ascontiguousarray(np.asarray(leaf))
+    # order="C", not ascontiguousarray: a 0-d leaf (a snapshot's version)
+    # keeps its shape () as in the reference's file
+    arr = np.asarray(leaf, order="C")
     return {"dtype": str(arr.dtype), "shape": list(arr.shape),
             "data": memoryview(arr.reshape(-1)).cast("B")
             if arr.size else b""}

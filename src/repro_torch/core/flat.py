@@ -14,13 +14,15 @@ Each local step runs the model on per-leaf views of the buffer
 gradient in one autograd pass, and applies the calibrated update with ONE
 kernel launch on the whole ``(M, P)`` matrix
 (``kernels/calibrated_update``).  The K_i mask is folded into the update as
-a per-row step size η_i ∈ {η, 0}.
+a per-row step size η_i ∈ {η, 0}.  With a ``master_dtype`` the buffer is
+float32 under bfloat16 leaves: the model computes in bfloat16 on views
+cast at the boundary, and the updates apply to the float32 master.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Union
 
 import torch
 
@@ -87,7 +89,9 @@ class FlatSpec:
     """Static description of the tree ↔ flat-buffer bijection.
 
     ``n`` true elements, padded to ``p`` (a multiple of 128); ``dtype`` is
-    the buffer dtype — the common leaf dtype, float32 for mixed leaves.
+    the buffer dtype — the common leaf dtype, float32 for mixed leaves, or
+    the explicit ``master_dtype`` (mixed precision: a float32 master
+    buffer under bfloat16 leaves).
     ``(paths, offsets, shapes, dtypes, sizes)`` form the view table: leaf
     *i* is ``flat[…, offsets[i] : offsets[i] + sizes[i]]`` viewed as
     ``shapes[i]`` in ``dtypes[i]``; ``paths`` names each leaf by its keys
@@ -103,7 +107,13 @@ class FlatSpec:
     dtype: torch.dtype
 
 
-def make_flat_spec(tree: PyTree) -> FlatSpec:
+def make_flat_spec(tree: PyTree,
+                   master_dtype: Union[str, torch.dtype, None] = None
+                   ) -> FlatSpec:
+    """The spec of ``tree``'s layout.  ``master_dtype`` sets the buffer
+    dtype (the master copy all round state lives in) and leaves each
+    leaf's view dtype as it is: bfloat16 leaves over a float32 master read
+    bfloat16 views, and the updates apply at float32."""
     paths, leaves = zip(*_leaves(tree))
     shapes = tuple(tuple(lv.shape) for lv in leaves)
     dtypes = tuple(lv.dtype for lv in leaves)
@@ -111,8 +121,12 @@ def make_flat_spec(tree: PyTree) -> FlatSpec:
     offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
     n = sum(sizes)
     p = -(-max(n, 1) // LANES) * LANES
-    dtype = dtypes[0] if all(d == dtypes[0] for d in dtypes) \
-        else torch.float32
+    if master_dtype is not None:
+        dtype = (master_dtype if isinstance(master_dtype, torch.dtype)
+                 else getattr(torch, master_dtype))
+    else:
+        dtype = dtypes[0] if all(d == dtypes[0] for d in dtypes) \
+            else torch.float32
     return FlatSpec(paths, _treedef(tree), shapes, dtypes, sizes, offsets,
                     n, p, dtype)
 
@@ -129,15 +143,46 @@ def ravel(spec: FlatSpec, tree: PyTree, client_dims: int = 0
     return flat
 
 
+def ravel_rows(spec: FlatSpec, tree: PyTree) -> torch.Tensor:
+    """``ravel(spec, tree, client_dims=1)``: a tree of ``(M, …)`` leaves
+    into ``(M, P)`` rows."""
+    return ravel(spec, tree, client_dims=1)
+
+
+def leaf_view(spec: FlatSpec, flat: torch.Tensor, i: int,
+              client_dims: int = 0) -> torch.Tensor:
+    """Leaf ``i`` as a view of the buffer at its view-table offset, in the
+    leaf's dtype: no copy where that is the buffer dtype, one cast where
+    it is not (a bfloat16 leaf of a float32 master)."""
+    lead = tuple(flat.shape[:client_dims])
+    return (flat.narrow(-1, spec.offsets[i], spec.sizes[i])
+            .view(lead + spec.shapes[i]).to(spec.dtypes[i]))
+
+
 def view_tree(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
               ) -> PyTree:
-    """The model tree as per-leaf views of the buffer (no copies where the
-    leaf dtype is the buffer dtype)."""
-    lead = tuple(flat.shape[:client_dims])
-    leaves = [flat.narrow(-1, off, size).view(lead + shape).to(dtype)
-              for off, size, shape, dtype in zip(spec.offsets, spec.sizes,
-                                                 spec.shapes, spec.dtypes)]
-    return _tree(spec.treedef, leaves)
+    """The model tree as per-leaf views of the buffer (``leaf_view``)."""
+    return _tree(spec.treedef, [leaf_view(spec, flat, i, client_dims)
+                                for i in range(len(spec.sizes))])
+
+
+def flat_cotangent(spec: FlatSpec, tree: PyTree, client_dims: int = 0
+                   ) -> torch.Tensor:
+    """Per-leaf cotangents (``client_dims`` leading axes) into ONE
+    ``(*lead, P)`` buffer at the master dtype, each written into its
+    view-table region with a zero pad tail: ``ravel``'s layout, the write
+    half of the view table."""
+    return ravel(spec, tree, client_dims)
+
+
+def flat_apply(spec: FlatSpec, apply_fn: Callable,
+               flat_params: torch.Tensor, *args, client_dims: int = 0,
+               **kwargs):
+    """``apply_fn(params_tree, *args, **kwargs)`` with ``params_tree`` the
+    view table's leaves of ``flat_params``: a tree-signature model
+    function run on the buffer."""
+    return apply_fn(view_tree(spec, flat_params, client_dims), *args,
+                    **kwargs)
 
 
 def unravel(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
@@ -151,6 +196,29 @@ def unravel(spec: FlatSpec, flat: torch.Tensor, client_dims: int = 0
     return _tree(spec.treedef, leaves)
 
 
+def _passes_through(key: str) -> bool:
+    """State keys that are the same on both layouts: the round counter,
+    the compression rows (flat on both) and the ``(M,)`` health
+    vectors."""
+    return (key == "round" or key in compress.FLAT_STATE_KEYS
+            or key in robust_mod.ROBUST_STATE_KEYS)
+
+
+def flatten_state(spec: FlatSpec, state: dict) -> dict:
+    """Tree round state into flat round state (same keys): params, ν and
+    the server moments become ``(P,)`` buffers, ν⁽ⁱ⁾ ``(M, P)`` rows."""
+    return {k: v if _passes_through(k)
+            else ravel(spec, v, client_dims=int(k == "nu_i"))
+            for k, v in state.items()}
+
+
+def unflatten_state(spec: FlatSpec, state: dict) -> dict:
+    """Inverse of ``flatten_state``."""
+    return {k: v if _passes_through(k)
+            else unravel(spec, v, client_dims=int(k == "nu_i"))
+            for k, v in state.items()}
+
+
 def flat_value_and_grad(spec: FlatSpec,
                         loss_fn: Callable[[PyTree, PyTree], torch.Tensor]):
     """``vag(rows, batch) -> (losses (M,), grads (M, P))`` for ``(M, P)``
@@ -161,7 +229,11 @@ def flat_value_and_grad(spec: FlatSpec,
     per-client losses.  Each client's loss depends only on its own row, so
     row *i* of the result is exactly client *i*'s gradient.  The gradient
     is taken with respect to the leaf views and written into one
-    ``(M, P)`` buffer with a zero pad tail."""
+    ``(M, P)`` buffer with a zero pad tail.  Under a ``master_dtype``
+    (bfloat16 leaves, float32 master) the view cast is the only
+    float32 → bfloat16 crossing, and each bfloat16 leaf gradient is
+    widened into the float32 buffer, as in the reference's
+    ``flat_value_and_grad``."""
     batched = torch.func.vmap(loss_fn)
 
     def run(rows: torch.Tensor, batch: PyTree):

@@ -19,13 +19,16 @@ streams are drawn from numpy seeds, so they are not the reference's
 global model is saved to ``--ckpt`` (a ``{round}`` format, the reference's
 checkpoint format; ``--ckpt ""`` saves nothing), as the reference does.
 
-Not ported yet, and refused by name: ``--bf16`` (the mixed-precision
-master buffer, ROADMAP A3) and ``--layout tree`` (ROADMAP A2).
-``--small`` shrinks to a 2-layer d = 64 model.
+``--bf16`` runs the mixed-precision configuration: bfloat16 parameters and
+compute over a float32 flat master (``FedConfig.master_dtype``), so the
+attention kernels run in bfloat16 and the calibrated update on the
+float32 master.  Not ported yet, and refused by name: ``--layout tree``
+(ROADMAP A2).  ``--small`` shrinks to a 2-layer d = 64 model.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 from typing import Optional
@@ -46,24 +49,21 @@ STREAM_SEQS, HELD_OUT_SEQS, HELD_OUT_SEED = 128, 8, 999
 DEFAULT_CKPT = "build/fed_lm/fed_lm_{round}.msgpack"
 
 
-def build_config(small: bool) -> ModelConfig:
+def build_config(small: bool, bf16: bool = False) -> ModelConfig:
+    """The example's model; ``bf16`` makes its parameters and compute
+    bfloat16 (the float32 master is ``fed_config``'s)."""
     base = get_arch("gemma-2b")
-    if small:
-        return reduced(base, n_layers=2, d_model=64, vocab=256)
-    return reduced(base, n_layers=6, d_model=512, vocab=8192)
+    cfg = (reduced(base, n_layers=2, d_model=64, vocab=256) if small
+           else reduced(base, n_layers=6, d_model=512, vocab=8192))
+    return dataclasses.replace(cfg, dtype="bfloat16") if bf16 else cfg
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature the port does
     not run yet, naming its ROADMAP item."""
-    unported = [
-        (args.bf16, "--bf16 (the mixed-precision master buffer, "
-                    "FedConfig.master_dtype: ROADMAP A3)"),
-        (args.layout != "flat", "--layout tree (ROADMAP A2)")]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"the PyTorch port does not run {what}"
-                                      f" yet")
+    if args.layout != "flat":
+        raise NotImplementedError("the PyTorch port does not run --layout "
+                                  "tree (ROADMAP A2) yet")
 
 
 def make_streams(cfg: ModelConfig, seq: int,
@@ -111,11 +111,14 @@ def make_simulation(cfg: ModelConfig, fed: FedConfig, *, seq: int,
                                t_max=max(rounds, 1), device=device)
 
 
-def fed_config(algo: str, n_clients: int = MCLIENTS) -> FedConfig:
-    """The example's round: K_i ~ N(4, 2²), lr 0.3, λ 0.5."""
+def fed_config(algo: str, n_clients: int = MCLIENTS,
+               bf16: bool = False) -> FedConfig:
+    """The example's round: K_i ~ N(4, 2²), lr 0.3, λ 0.5; ``bf16`` keeps
+    the state in a float32 master (``master_dtype``)."""
     return FedConfig(algorithm=algo, n_clients=n_clients, k_mean=4,
                      k_var=4.0, lr=0.3, calibration_rate=0.5,
-                     param_layout="flat")
+                     param_layout="flat",
+                     master_dtype="float32" if bf16 else "")
 
 
 def main(argv: Optional[list] = None) -> float:
@@ -128,7 +131,7 @@ def main(argv: Optional[list] = None) -> float:
     ap.add_argument("--algo", default="fedagrac")
     ap.add_argument("--layout", choices=("flat", "tree"), default="flat")
     ap.add_argument("--bf16", action="store_true",
-                    help="not ported yet (ROADMAP A3)")
+                    help="bf16 params/compute + f32 flat master buffer")
     ap.add_argument("--sampler", choices=("device", "host"), default="host")
     ap.add_argument("--eval-every", type=int, default=5,
                     help="eval/checkpoint cadence = round-chunk length")
@@ -141,14 +144,14 @@ def main(argv: Optional[list] = None) -> float:
     refuse_unported(args)
 
     device = resolve_device(args.device)
-    cfg = build_config(args.small)
+    cfg = build_config(args.small, args.bf16)
     seq = min(args.seq, 32) if args.small else args.seq
     print(f"model: gemma-family {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab} dtype={cfg.dtype}  "
-          f"params ≈ {cfg.param_count() / 1e6:.1f}M  layout=flat  "
-          f"device={device}")
-    sim = make_simulation(cfg, fed_config(args.algo), seq=seq,
-                          batch=args.batch, rounds=args.rounds,
+          f"params ≈ {cfg.param_count() / 1e6:.1f}M  layout=flat"
+          + (" (f32 master)" if args.bf16 else "") + f"  device={device}")
+    sim = make_simulation(cfg, fed_config(args.algo, bf16=args.bf16),
+                          seq=seq, batch=args.batch, rounds=args.rounds,
                           device=device, sampler=args.sampler)
     ckpt_cb = (checkpoint.save_every(args.ckpt, every=args.eval_every)
                if args.ckpt else lambda t, tree: None)

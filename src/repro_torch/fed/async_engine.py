@@ -61,8 +61,9 @@ EWMA and quarantine rows.
 
 The port runs the flat layout, with the host batcher or a device batcher
 (``DeviceBatcher``: each report's rows drawn on the device from its keyed
-(wave, client) indices, the reference's ``sample_row``); the tree layout
-(ROADMAP A2) and a mixed-precision master (A3) raise
+(wave, client) indices, the reference's ``sample_row``), and with a
+mixed-precision master (``FedConfig.master_dtype``: bfloat16 leaves over
+a float32 buffer); the tree layout (ROADMAP A2) raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -214,7 +215,8 @@ class BufferedAsyncSimulation:
                         if self.scenario is not None
                         and self.scenario.corrupts_payload else None)
         self.robust = robust.RobustConfig.from_fed(fed)
-        self._spec = flat.make_flat_spec(params)
+        self._spec = flat.make_flat_spec(
+            params, master_dtype=fed.master_dtype or None)
         self._rb = robust.build_round_robust(self.robust, self._spec,
                                              self.algo.uses_nu)
         self.compression = compress.CompressionConfig.from_fed(fed)

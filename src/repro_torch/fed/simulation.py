@@ -40,11 +40,12 @@ checkpoint.load(path, sim.state)``, and a restored simulation's next
 ``run`` continues as the saved one's would have.
 
 The port runs the flat layout, full participation and cohort rounds alike,
-with or without wire compression (core/compress.py), a scenario or a
-defense.  A config asking for anything else raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  As in the
-reference, this engine runs its synchronous round whatever
-``buffer_size`` says: the buffered engine is
+with or without wire compression (core/compress.py), a scenario, a
+defense or a mixed-precision master (``FedConfig.master_dtype``: the
+float32 buffer under bfloat16 leaves, core/flat.py).  A config asking for
+anything else raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.  As in the reference, this engine runs its synchronous round
+whatever ``buffer_size`` says: the buffered engine is
 ``fed.async_engine.BufferedAsyncSimulation``.  Every run records the wire
 bytes per round (``History.bytes_up`` / ``bytes_down``) at the number of
 clients that report, at the fp32 cost when compression is off.
@@ -88,8 +89,6 @@ def _check_supported(fed: FedConfig) -> None:
         (fed.param_layout != "flat",
          f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
          f"tree layout is ROADMAP A2)"),
-        (fed.master_dtype != "",
-         "a mixed-precision master buffer (master_dtype, ROADMAP A3)"),
     ]
     for unsupported, what in unported:
         if unsupported:
@@ -197,7 +196,8 @@ class FederatedSimulation:
                                         1.0 / fed.n_clients,
                                         dtype=torch.float32,
                                         device=self.device))
-        self._spec = flat.make_flat_spec(params)
+        self._spec = flat.make_flat_spec(
+            params, master_dtype=fed.master_dtype or None)
         # failure scenario: None for "baseline", and every run path then
         # takes its unperturbed round
         self.scenario = (scenario if scenario is not None

@@ -1,6 +1,7 @@
 """Where the serving paths spend their time on the card.
 
-    PYTHONPATH=src python -m repro_torch.roofline.serve_profile [--hybrid]
+    PYTHONPATH=src python -m repro_torch.roofline.serve_profile \
+        [--hybrid | --personalized]
 
 Without ``--hybrid``: builds llama3-8b at full width and depth in bfloat16
 (random weights from a seed) behind a ``ServeEngine`` with 4 slots,
@@ -13,6 +14,13 @@ With ``--hybrid``: builds zamba2-2.7b at full width and depth in bfloat16,
 as ``chip_smoke.py`` phase 10 does; after a warm prefill and two decode
 steps, profiles one ``serve_prefill`` of 4 prompts of 128 tokens and one
 ``serve_decode`` step of those 4 rows.
+
+With ``--personalized``: gemma-2b at full width, cut to 2 layers, in
+bfloat16 over a float32 master, as ``chip_smoke.py`` phase 16 serves it,
+behind ``PersonalizedServeEngine`` with a ν snapshot whose deltas' RMS is
+5% of the base's: four slots of four clients, two warm steps, then one
+decode tick profiled on the "none" engine (the shared path) and one on
+the "nu" engine (the row path).
 
 Prints one JSON line each: host wall time, the device's busy time (the
 union of kernel intervals) and idle share, kernel launches, the device
@@ -34,10 +42,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import flat
 from repro_torch.models.model import (init_caches, init_params,
                                       serve_decode, serve_prefill)
 from repro_torch.roofline.round_profile import _busy_us
-from repro_torch.serving import Request, ServeEngine
+from repro_torch.serving import (PersonalizedServeEngine, Request,
+                                 ServeEngine, make_snapshot)
 
 SLOTS, MAX_LEN, BUCKETS = 4, 512, (32, 64, 128, 256)
 HYBRID_ROWS, HYBRID_PROMPT = 4, 128
@@ -127,6 +137,36 @@ def profile_hybrid(cfg: ModelConfig, device: str = "cuda",
         cfg, dev)
 
 
+def profile_personalized(cfg: ModelConfig, device: str = "cuda",
+                         top: int = 10) -> list[dict]:
+    dev = torch.device(device)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    spec = flat.make_flat_spec(params, master_dtype="float32")
+    base = flat.ravel(spec, params)
+    del params
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nu_i = torch.randn((SLOTS, spec.p), generator=gen, device=dev)
+    nu_i *= 0.05 * float(base[:spec.n].norm()) / spec.n ** 0.5
+    nu_i[:, spec.n:] = 0
+    snap = make_snapshot(0, base, nu=torch.zeros_like(base), nu_i=nu_i)
+    rng = np.random.default_rng(0)
+    rows = []
+    for kind in ("none", "nu"):
+        eng = PersonalizedServeEngine(cfg, spec, snap, personalizer=kind,
+                                      slots=SLOTS, max_len=MAX_LEN,
+                                      prefill_buckets=BUCKETS, device=dev)
+        for uid, n in enumerate((200, 100, 50, 120)):
+            eng.submit(Request(uid=uid, max_new_tokens=64, client_id=uid,
+                               prompt=rng.integers(1, cfg.vocab, n).astype(
+                                   np.int32)))
+        eng.step()
+        eng.step()
+        rows.append(_profiled(f"{kind}_decode_tick_{SLOTS}_slots",
+                              eng._tick, dev, top))
+        del eng
+    return _tagged(rows, cfg, dev)
+
+
 def _tagged(rows: list[dict], cfg: ModelConfig,
             dev: torch.device) -> list[dict]:
     for row in rows:
@@ -138,15 +178,25 @@ def _tagged(rows: list[dict], cfg: ModelConfig,
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--hybrid", action="store_true",
-                    help="profile zamba2-2.7b's serve_prefill / "
-                         "serve_decode instead of llama3-8b's engine")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--hybrid", action="store_true",
+                       help="profile zamba2-2.7b's serve_prefill / "
+                            "serve_decode instead of llama3-8b's engine")
+    which.add_argument("--personalized", action="store_true",
+                       help="profile a shared and a row-path tick of the "
+                            "personalized engine on 2-layer gemma-2b")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name, fn = (("zamba2-2.7b", profile_hybrid) if args.hybrid
-                else ("llama3-8b", profile_serving))
-    for row in fn(dataclasses.replace(get_arch(name), dtype="bfloat16")):
+    if args.personalized:
+        cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=2,
+                                  dtype="bfloat16")
+        rows = profile_personalized(cfg)
+    else:
+        name, fn = (("zamba2-2.7b", profile_hybrid) if args.hybrid
+                    else ("llama3-8b", profile_serving))
+        rows = fn(dataclasses.replace(get_arch(name), dtype="bfloat16"))
+    for row in rows:
         print(json.dumps(row), flush=True)
 
 

@@ -485,13 +485,31 @@ def test_history_records_and_rerun_restarts_the_timeline():
     (dict(param_layout="tree"), "A2"), (dict(master_dtype="float32"), "A3"),
     ("sampler", "A5")])
 def test_async_refusals_name_the_roadmap_item(kw, item):
-    """The tree layout (A2) and a mixed-precision master (A3) are refused by
-    name; the device sampler (A5) runs (its parity:
-    tests/test_torch_device_mode.py)."""
+    """The tree layout (A2) is refused by name; the device sampler (A5)
+    and a mixed-precision master (A3: bfloat16 leaves over a float32
+    buffer) run (their parity: tests/test_torch_device_mode.py and
+    tests/test_torch_master_dtype.py)."""
     x, y, parts, params, ks = _task()
     data = Dataset(torch.from_numpy(x), torch.from_numpy(y).long())
     batcher = FederatedBatcher(data, parts, batch_size=BATCH, device="cpu")
     extra = {}
+    if item == "A3":
+        fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,
+                        param_layout="flat", **kw)
+        def bf16_loss(p, b):
+            # torch does not promote float32 features against bfloat16
+            # weights, as jnp does: the features are cast to the leaves'
+            return simple.lr_loss(p, dict(b, x=b["x"].bfloat16()))
+        sim = BufferedAsyncSimulation(
+            bf16_loss,
+            {k: torch.from_numpy(v).bfloat16() for k, v in params.items()},
+            fed, batcher, k_schedule=ks, device="cpu")
+        assert sim._spec.dtype == torch.float32
+        assert set(sim._spec.dtypes) == {torch.bfloat16}
+        assert np.isfinite(sim.run(2).loss).all()
+        assert sim.state["params"].dtype == torch.float32
+        assert {t.dtype for t in sim.params.values()} == {torch.bfloat16}
+        return
     if kw == "sampler":
         from repro_torch.data import DeviceBatcher
         fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,

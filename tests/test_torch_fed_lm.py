@@ -171,10 +171,11 @@ def test_small_example_learns_on_cpu(capsys, tmp_path):
     (["--bf16"], "A3"), (["--sampler", "device"], "A5"),
     (["--layout", "tree"], "A2"), (["--ckpt", "x.msgpack"], "A11")])
 def test_example_refuses_unported_flags(argv, item, tmp_path):
-    """``--bf16`` and ``--layout tree`` are refused by name; the device
-    sampler (A5) and checkpoints (A11) run: the model saved at each eval
-    boundary restores into the simulation's parameter tree."""
-    if item not in ("A5", "A11"):
+    """``--layout tree`` is refused by name; the device sampler (A5),
+    checkpoints (A11) and ``--bf16`` (A3: bfloat16 leaves over a float32
+    master) run: the model saved at each eval boundary restores into the
+    simulation's parameter tree."""
+    if item == "A2":
         with pytest.raises(NotImplementedError, match=item):
             fed_lm_train.main(["--small", "--device", "cpu", *argv])
         return
@@ -194,6 +195,11 @@ def test_example_refuses_unported_flags(argv, item, tmp_path):
     finally:
         fed_lm_train.make_simulation = real
     assert sim["sim"]._device_sampler == (item == "A5")
+    assert sim["sim"].state["params"].dtype == torch.float32
+    leaf_dtypes = {t.dtype for t in
+                   torch.utils._pytree.tree_leaves(sim["sim"].params)}
+    assert leaf_dtypes == {torch.bfloat16 if item == "A3"
+                           else torch.float32}
     from repro_torch.checkpoint import serialize
     restored = serialize.load(fmt.format(round=1), sim["sim"].params)
     for a, b in zip(torch.utils._pytree.tree_leaves(restored),

@@ -42,7 +42,9 @@ def test_scan_covers_every_slice():
                 "benchmarks/scenario_bench.py", "benchmarks/robust_bench.py",
                 "checkpoint/serialize.py", "checkpoint/_msgpack.py",
                 "data/pipeline.py", "benchmarks/population_bench.py",
-                "examples/failure_scenarios.py"):
+                "examples/failure_scenarios.py", "serving/personalized.py",
+                "benchmarks/serving_bench.py",
+                "examples/personalized_serving.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
@@ -89,9 +91,11 @@ def test_entry_points_without_device_raise_where_no_cuda():
 # the fields whose features the port has since brought: buffer_size (the
 # synchronous engine runs its round whatever it says, as the reference's
 # does; the buffered engine is BufferedAsyncSimulation), compression on
-# the cohort round (A9), failure scenarios (A8) and robust aggregation (A10)
+# the cohort round (A9), failure scenarios (A8), robust aggregation (A10)
+# and the mixed-precision master (A3)
 PORTED = {("cohort_size", "A9"), ("buffer_size", "A7"), ("scenario", "A8"),
-          ("quarantine_window", "A10"), ("defense", "A10")}
+          ("quarantine_window", "A10"), ("defense", "A10"),
+          ("master_dtype", "A3")}
 
 
 def _reference_round(fed_kw, sim, cohort=None):
@@ -144,7 +148,7 @@ def _reference_round(fed_kw, sim, cohort=None):
     ("master_dtype", "float32", "A3")])
 def test_unported_config_fields_raise(field, value, item):
     """A field whose feature the port does not run raises, naming its
-    ROADMAP item; the two it has since brought (``PORTED``) run, and their
+    ROADMAP item; those it has since brought (``PORTED``) run, and their
     first round matches the reference's."""
     data, parts = _small_task()
     batcher = FederatedBatcher(data, parts, batch_size=2, device="cpu")
