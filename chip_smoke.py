@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases, each printing JSON lines; any failure exits non-zero.
+Seventeen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -105,7 +105,21 @@ Sixteen phases, each printing JSON lines; any failure exits non-zero.
    shape, timed from CUDA-graph replay (back to back as ``stream_ms``),
    with the bound (a third of the TF32 peak; the SIMT one beside it) and
    the tensor-core work (``mma_ops``; no PyTorch call computes the SSD: no
-   yardstick).
+   yardstick).  Then the four SSD backward kernels (``ssd_scan_bwd.cu``:
+   dstate, chain, chunk, reduce; SIMT float32) against the plain chunked
+   VJP (``ref.ssd_chunked_bwd``) on the card, float32 and bfloat16, every
+   gradient (dx, ddt, dA, dB, dC) within SSD_BWD_TOL of its largest entry
+   (dA SSD_BWD_DA_TOL, a bfloat16 one one bfloat16 ulp more), at the same
+   shapes — strided conv-output slices, one chunk, 32 chunks, grouped,
+   P = N = 128, ragged — and at the training path's folded shape with one
+   A per row, dS_last zero and not, after the forward's chunk-entry
+   states are held to the plain ones; ``kernel_time`` lines of each
+   backward kernel at the path's shape and the long one from CUDA-graph
+   replay, with its bound (the VJP's own tensors it moves, or its
+   operations; the traffic of the intermediates between the kernels beside
+   it, ``intermediate_ms``), its plain stage's time and the plain
+   backward's (autograd of ``ref.ssd_chunked``, ``plain_ms``), and a line
+   of the four together against the whole VJP's bound.
 10. hybrid inference — zamba2-2.7b at full width and depth (54 Mamba2
    layers, a shared attention block after every 6, d 2560, 80 SSM heads,
    d_ff 10240, vocab 32000) in bfloat16, random weights from a seed,
@@ -249,8 +263,26 @@ Sixteen phases, each printing JSON lines; any failure exits non-zero.
    against the CPU's snapshot rows teacher-forced with the card's tokens
    by phase 6's rule.  (d) the ``serving_bench`` twin's quick run:
    requests/s at M = 32, 1,000 and 100,000 and its flatness check.
+17. hybrid training — ``FederatedSimulation.run(3, eval_every=3)`` of the
+   LM example on zamba2-2.7b at full width (d 2560, 80 SSM heads of dim
+   64, one group of d_state 64, chunk 128, 32 attention heads of dim 80,
+   d_ff 10240, vocab 32000) in float32, cut to 12 of 54 layers (two
+   groups: the shared block applied twice), 2 clients, batch 2, seq 256
+   (two SSD chunks), lr 0.003, fedagrac and fedavg, then fedagrac in
+   bfloat16 over a float32 master: exactly one SSD forward and one launch
+   of each backward kernel per Mamba2 layer per local step for both
+   clients (12 × k_max × rounds, the forward 12 more for the eval), the
+   attention forward, dq and dk/dv twice a step (the forward twice more),
+   B1 once a step, and no other; a finite loss, a held-out perplexity
+   below the initial weights' (printed beside the vocab), wall per round,
+   tokens/s and peak memory.  Then the
+   reduced model (4 layers, d 128, chunk 16, two groups) at seq 32 and
+   lr 0.03 on the card against the CPU by phase 8's rule.
 
-Each phase prints its seconds.  Then a ``{"kernels": [...]}`` line, and
+Each phase prints its seconds.  Then the card's name and power limit, a
+``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
+instances timed on phase 16's path, and the four SSD backward kernels,
+which replace autodiff of ``src/repro/models/mamba2.py:74``), and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -461,6 +493,50 @@ SSD_TOL = 2e-4
 HYBRID = {"prompts": [(4, 128), (2, 256), (1, 100)], "decode_steps": 32,
           "max_len": 512, "check_layers": 12,
           "check_prompts": [(2, 256), (1, 100)], "check_steps": 8}
+# Phase 9's backward: the four kernels of ssd_scan_bwd.cu against the plain
+# chunked VJP (ref.ssd_chunked_bwd) on the card at every SSD_SHAPES shape
+# (x, B and C slices of one conv output; P = N = 128, grouped, ragged,
+# one chunk, 32 chunks) with dS_last nonzero, and at SSD_BWD_EXTRA: the
+# training path's folded shape (phase 17: 2 clients × 2 rows) with one A
+# per row, with dS_last zero too (a training loss reads no final state),
+# and a grouped one with one A per row.  Each gradient is held to a
+# fraction of its largest entry: SSD_BWD_TOL for the float32 ones (both
+# sides sum float32 terms, in other orders; the kernel reads the forward
+# kernel's states, which carry its TF32 splits); dA to SSD_BWD_DA_TOL,
+# looser because dA sums ddA·dt over a head's positions, ddA the reverse
+# cumsum of C·dC − xdt·d(xdt), two large terms that cancel (the float32
+# plain version is itself 3e-4 of the largest entry from a float64 one at
+# P = N = 128, tests/test_torch_ssd_backward.py); a bfloat16 dx, dB or dC
+# also to SSD_BWD_BF16_TOL, one bfloat16 ulp of its largest entry: both
+# sides round the same float32 sum once, and two sums a few float32 ulps
+# apart can round to neighbouring bfloat16 values.
+SSD_BWD_EXTRA = [(SSD_PATH_SHAPE, True, False), (SSD_PATH_SHAPE, True, True),
+                 ((2, 64, 4, 16, 2, 8, 16), True, False)]
+SSD_BWD_TOL = 1e-4
+SSD_BWD_DA_TOL = 1e-3
+SSD_BWD_BF16_TOL = 2.0 ** -7
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+# Phase 17: zamba2-2.7b at full width in float32, cut to 12 of 54 layers
+# (two groups: the shared attention block applied twice), through the LM
+# example's simulation, phase 8's run (lr 0.003, ROADMAP C9) but at seq 256
+# (two SSD chunks, so the backward's chain runs).  The random weights'
+# logit spread puts the initial held-out perplexity above the vocab
+# (a training loss of 10.89 nats against ln 32000 = 10.37), and twelve
+# local steps at lr 0.003 do not bring it below: the check is that the
+# held-out perplexity fell below the initial weights', both printed beside
+# the vocab.  Then fedagrac in bfloat16 over the float32 master; then the
+# 4-layer reduced model at seq 32 on the card against the CPU by phase 8's
+# rule, with CPU reruns that change only rounding —
+# reversed batch rows, then initial weights moved by a float32 ulp — drawn
+# until the card is covered, at most HYBRID_TRAIN["max_probes"]; the CPU
+# runs on one thread (ROADMAP C18: with several, two identical CPU runs of
+# the reduced hybrid differ).  The reduced model runs at lr 0.03: at the
+# example's 0.3 it is chaotic (two identical 8-thread CPU runs end 0.2
+# apart after 3 rounds), which would make any spread-based check vacuous
+HYBRID_TRAIN = {"layers": 12, "clients": 2, "seq": 256, "batch": 2,
+                "rounds": 3, "lr": 0.003, "algorithms": ("fedagrac", "fedavg"),
+                "small_layers": 4, "small_seq": 32, "small_lr": 0.03,
+                "max_probes": 4}
 
 # quantize-kernel launches of one codec call
 CODEC_LAUNCHES = {
@@ -1915,14 +1991,18 @@ def _lm_batcher_class(flip_rows: bool):
 def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
                 batch: int, rounds: int, lr: Optional[float] = None,
                 generator=None, flip_rows: bool = False, bf16: bool = False,
-                moved: Optional[int] = None, keep: bool = False) -> dict:
+                moved: Optional[int] = None, ulp_moved: Optional[int] = None,
+                keep: bool = False, eval_first: bool = False) -> dict:
     """The example's simulation (``repro_torch.examples.fed_lm_train``)
     for ``rounds`` rounds in one chunk; returns its history, final params,
     the kernels' launches, wall and peak memory.  ``bf16``: the example's
     ``--bf16`` (``cfg`` in bfloat16 over a float32 master); ``moved``: the
     master's initial weights moved by a bfloat16 ulp or two at random
-    (``_bf16_moved``, seeded); ``keep``: the simulation is returned too,
-    under ``"sim"``."""
+    (``_bf16_moved``, seeded); ``ulp_moved``: by a float32 ulp
+    (``_f32_moved``); ``keep``: the simulation is returned too, under
+    ``"sim"``; ``eval_first``: the held-out metric of the initial weights
+    too, under ``"metric0"``, taken before the counts and the clock
+    start."""
     from repro_torch.examples import fed_lm_train as ex
     batcher = _lm_batcher_class(flip_rows)(
         ex.make_streams(cfg, seq, clients), batch_size=batch, device=device)
@@ -1935,6 +2015,10 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
     if moved is not None:
         sim.state["params"] = _bf16_moved(sim.state["params"], sim._spec.n,
                                           moved)
+    if ulp_moved is not None:
+        sim.state["params"] = _f32_moved(sim.state["params"], sim._spec.n,
+                                         ulp_moved)
+    metric0 = float(sim.eval_fn(sim.params)) if eval_first else None
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1948,7 +2032,7 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
            "params": sim.state["params"].cpu(), "n": sim._spec.n,
            "p": sim._spec.p, "master_dtype": sim.state["params"].dtype,
            "view_dtypes": sorted({str(d) for d in sim._spec.dtypes}),
-           "launches": _all_launches(),
+           "launches": _all_launches(), "metric0": metric0,
            "peak_memory_bytes": (torch.cuda.max_memory_allocated()
                                  if device != "cpu" else None)}
     if keep:
@@ -1988,6 +2072,16 @@ def _bf16_moved(master: torch.Tensor, n: int, seed: int) -> torch.Tensor:
     step = torch.randint(-1, 2, (n,), generator=gen).to(master.device)
     out = master.clone()
     out[:n] = (master[:n] * (1 + step * 2.0 ** -7)).bfloat16().float()
+    return out
+
+
+def _f32_moved(master: torch.Tensor, n: int, seed: int) -> torch.Tensor:
+    """A float32 master whose first ``n`` entries are moved to a float32
+    neighbour, up or down at random, or left (a third each:
+    ``_ulp_moved``'s rule)."""
+    out = master.clone()
+    out[:n] = _ulp_moved({"w": master[:n].cpu()}, seed)["w"].to(
+        master.device)
     return out
 
 
@@ -2071,10 +2165,11 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
     return launches
 
 
-def _ssd_operands(shape, dtype, gen):
+def _ssd_operands(shape, dtype, gen, a_rows: bool = False):
     """The SSD's operands as the Mamba2 block hands them over: x, B and C
     views of one (b, l, h·p + 2·g·n) tensor in ``dtype`` (x's position
-    stride is that width), dt = softplus(·) and A = −exp(·) in float32."""
+    stride is that width), dt = softplus(·) and A = −exp(·) in float32, A
+    (b, h) with ``a_rows`` (the vmapped clients' fold), else (h,)."""
     b, l, h, p, g, n, _ = shape
     d_in = h * p
     xbc = torch.randn(b, l, d_in + 2 * g * n, generator=gen,
@@ -2084,7 +2179,8 @@ def _ssd_operands(shape, dtype, gen):
     C = xbc[..., d_in + g * n:].reshape(b, l, g, n)
     dt = torch.nn.functional.softplus(
         torch.randn(b, l, h, generator=gen, device=DEVICE))
-    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=DEVICE))
+    A = -torch.exp(0.5 * torch.randn((b, h) if a_rows else (h,),
+                                     generator=gen, device=DEVICE))
     return x, dt, A, B, C
 
 
@@ -2132,10 +2228,234 @@ def _ssd_mma_ops(x, B, chunk) -> int:
     return b * h * (chunks * per_chunk + (chunks - 1) * off)
 
 
+def _ssd_bwd_parts(kernel: str, x, B, L: int, A) -> tuple[int, int, int]:
+    """One launch of a backward kernel: (bytes of the VJP's own tensors it
+    reads or writes, bytes of the intermediates between the kernels it
+    reads or writes, its float32 operations).  The VJP's own tensors are
+    x, dt, A, B, C, dy, dS_last, the forward's saved states (entering each
+    chunk, and the final one) in, and dx, ddt, dA, dB, dC out; the
+    intermediates are ΔG / G (a state per chunk), the chunk decays, each
+    head's dB / dC (dBh, dCh) and each chunk's dA.  Operations, per (b, h)
+    and chunk of L positions, c chunks: dstate ΔG (2·L·P·N, chunks after
+    the first); chain one multiply-add per state entry and chunk; chunk
+    the causal triangles of C·Bᵀ, dy·xdtᵀ, Wᵀ·dy, Vᵀ·C and V·B
+    (L(L+1)·(3N + 2P)) and B·G_cᵀ, xdt·G_c and dy·S_{c−1} (2·L·P·N each,
+    the last after the first chunk); reduce one add per head entry."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    es, f4 = x.element_size(), 4
+    c = l // L
+    state = b * h * p * n * f4
+    dt_b, a_b = b * l * h * f4, A.numel() * f4
+    bc = b * l * g * n * es
+    heads = b * l * h * n * f4
+    chunk_h = b * c * h * f4
+    if kernel == "ssd_bwd_dstate":
+        own = dt_b + a_b + bc + b * l * h * p * f4
+        mid = (c - 1) * state + chunk_h
+        ops = 2 * L * p * n * b * h * (c - 1)
+    elif kernel == "ssd_bwd_chain":
+        own = state
+        mid = (c - 1) * state + chunk_h + c * state
+        ops = 2 * p * n * b * h * (c - 1)
+    elif kernel == "ssd_bwd_chunk":
+        own = (b * l * h * p + 2 * b * l * g * n) * es + dt_b + a_b \
+            + b * l * h * p * f4 + (c + 1) * state + b * l * h * p * es \
+            + dt_b
+        mid = c * state + 2 * heads + chunk_h
+        ops = b * h * (c * (L * (L + 1) * (3 * n + 2 * p) + 4 * L * p * n)
+                       + (c - 1) * 2 * L * p * n)
+    else:
+        own = 2 * bc + a_b
+        mid = 2 * heads + chunk_h
+        ops = 2 * b * l * h * n
+    return own, mid, ops
+
+
+def _ssd_bwd_bound(kernel: str, x, B, L: int, A
+                   ) -> tuple[float, str, Optional[float], int]:
+    """(bound ms, "bytes" or "operations", SIMT bound ms, intermediate
+    bytes) of one launch of a backward kernel: the VJP's own bytes it
+    moves (``_ssd_bwd_parts``) or its operations at a third of the TF32
+    peak (``_tensor_bound``), whichever takes longer.  The intermediates'
+    traffic is an artefact of splitting the VJP into four kernels and
+    stays out of the bound; it is returned beside it."""
+    own, mid, ops = _ssd_bwd_parts(kernel, x, B, L, A)
+    return (*_tensor_bound(own, ops, torch.float32), mid)
+
+
+def _ssd_vjp_bound(x, B, L: int, A) -> tuple[float, str, Optional[float]]:
+    """The least time for the whole SSD backward: x, dt, A, B, C, dy,
+    dS_last and the saved states read once, dx, ddt, dA, dB and dC
+    written once, or the four kernels' operations (``_ssd_bwd_parts``) at
+    a third of the TF32 peak, whichever takes longer."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    es, f4 = x.element_size(), 4
+    c = l // L
+    state = b * h * p * n * f4
+    nbytes = 2 * (b * l * h * p + 2 * b * l * g * n) * es \
+        + 2 * b * l * h * f4 + 2 * A.numel() * f4 + b * l * h * p * f4 \
+        + (c + 2) * state
+    ops = sum(_ssd_bwd_parts(k, x, B, L, A)[2] for k in (
+        "ssd_bwd_dstate", "ssd_bwd_chain", "ssd_bwd_chunk", "ssd_bwd_reduce"))
+    return _tensor_bound(nbytes, ops, torch.float32)
+
+
+def _ssd_bwd_check(checks: list, shape, dtype, gen, a_rows: bool,
+                   ds_zero: bool) -> None:
+    """The forward kernel with its states (y, the final state and the
+    states entering each chunk held to SSD_TOL of the plain version's),
+    then the four backward kernels against ``ref.ssd_chunked_bwd`` on the
+    same inputs, each gradient within its tolerance (SSD_BWD_*)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    chunk = shape[-1]
+    x, dt, A, B, C = _ssd_operands(shape, dtype, gen, a_rows=a_rows)
+    y, state, states = ops.ssd_scan(x, dt, A, B, C, chunk, states=True)
+    for what, got, want in zip(("y", "state", "states"), (y, state, states),
+                               ref.chunk_states(x, dt, A, B, C, chunk)):
+        amax = float(want.abs().max())
+        err = float((got - want).abs().max())
+        _require(err <= SSD_TOL * max(amax, 1e-30)
+                 and bool(torch.isfinite(got).all()),
+                 f"ssd_scan {dtype} {shape} A rows {a_rows}: {what} max "
+                 f"|err| {err} > {SSD_TOL} × {amax}")
+    dy = torch.randn(y.shape, generator=gen, device=DEVICE)
+    dS = (torch.zeros_like(state) if ds_zero
+          else torch.randn(state.shape, generator=gen, device=DEVICE))
+    got = ops.ssd_scan_bwd(x, dt, A, B, C, chunk, dy, dS, states, state)
+    want = ref.ssd_chunked_bwd(x, dt, A, B, C, chunk, dy, dS)
+    torch.cuda.synchronize()
+    rel, err_abs = {}, {}
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        _require(g.shape == w.shape and g.dtype == w.dtype,
+                 f"ssd_scan_bwd {name}: {tuple(g.shape)} {g.dtype}, the "
+                 f"plain version's {tuple(w.shape)} {w.dtype}")
+        tol = SSD_BWD_DA_TOL if name == "dA" else SSD_BWD_TOL
+        if g.dtype == torch.bfloat16:
+            tol += SSD_BWD_BF16_TOL
+        amax = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        _require(err <= tol * amax and bool(torch.isfinite(g).all()),
+                 f"ssd_scan_bwd {dtype} {shape} A rows {a_rows} dS zero "
+                 f"{ds_zero}: {name} max |err| {err} > {tol} × {amax}")
+        rel[name] = err / amax
+        err_abs[name] = err
+    checks.append({"kernel": "ssd_scan_bwd", "dtype": str(dtype),
+                   "shape": shape, "a_rows": a_rows, "ds_zero": ds_zero,
+                   "rel_err": rel, "abs_err": err_abs})
+
+
+def _ssd_bwd_times(shape, dtype, gen) -> dict:
+    """kernel_time lines of the four backward kernels at ``shape`` (one A
+    per row at the training path's shape, as phase 17 folds its clients),
+    from CUDA-graph replay, beside each one's plain stage (``ref.bwd_*``,
+    graph replay), the plain backward (autograd of ``ref.ssd_chunked``,
+    back to back: ``plain_ms``) and the bound.  No tensor cores (SIMT
+    float32), and no PyTorch call computes the SSD: no yardstick.  Returns
+    {kernel: timing}."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    chunk = shape[-1]
+    a_rows = shape == SSD_PATH_SHAPE
+    x, dt, A, B, C = _ssd_operands(shape, dtype, gen, a_rows=a_rows)
+    b, l, h, _ = x.shape
+    L = min(chunk, l)
+    _, state, states = ops.ssd_scan(x, dt, A, B, C, chunk, states=True)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE)
+    dS = torch.randn(state.shape, generator=gen, device=DEVICE)
+    iters = 20 if shape == SSD_PATH_SHAPE else 3
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+    out = ref.ssd_chunked(*leaves, chunk)
+    plain_ms = _time_ms(lambda: torch.autograd.grad(
+        out, leaves, (dy, dS), retain_graph=True), iters)
+    del out, leaves
+    dG, decay = ops._launch_dstate(dt, A, C, dy, L, h)
+    G = ops._launch_chain(dG, decay, dS)
+    _, _, dBh, dCh, dA_chunks = ops._launch_chunk(x, dt, A, B, C, dy, states,
+                                                  state, G, L)
+    shared = A.dim() == 1
+    entries = {
+        "ssd_bwd_dstate": (lambda: ops._launch_dstate(dt, A, C, dy, L, h),
+                           lambda: ref.bwd_dstate(dt, A, C, dy, L, h)),
+        "ssd_bwd_chain": (lambda: ops._launch_chain(G, decay, dS),
+                          lambda: ref.bwd_chain(G, decay, dS)),
+        "ssd_bwd_chunk": (
+            lambda: ops._launch_chunk(x, dt, A, B, C, dy, states, state, G,
+                                      L),
+            lambda: ref.bwd_chunk(x, dt, A, B, C, dy, states, state, G, L)),
+        "ssd_bwd_reduce": (
+            lambda: ops._launch_reduce(dBh, dCh, dA_chunks, B.shape[2],
+                                       dtype, shared),
+            lambda: ref.bwd_reduce(dBh, dCh, dA_chunks, B.shape[2], dtype,
+                                   shared))}
+    out = {}
+    for name, (kernel, plain) in entries.items():
+        bound_ms, bound_by, simt_ms, mid = _ssd_bwd_bound(name, x, B, L, A)
+        timing = {"kernel": name, "dtype": str(dtype), "shape": shape,
+                  "a_rows": a_rows, "ms": _graph_ms(kernel, iters),
+                  "stream_ms": _time_ms(kernel, iters),
+                  "plain_stage_ms": _graph_ms(plain, iters),
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "simt_bound_ms": simt_ms,
+                  "intermediate_bytes": mid,
+                  "intermediate_ms": mid / HBM_BYTES_PER_S * 1e3,
+                  "mma_ops": 0, "library_ms": None}
+        _emit({"phase": "kernel_time", **timing})
+        out[name] = timing
+    total = sum(t["ms"] for t in out.values())
+    bound_ms, bound_by, simt_ms = _ssd_vjp_bound(x, B, L, A)
+    _emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd (four)",
+           "dtype": str(dtype), "shape": shape, "ms": total,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "simt_bound_ms": simt_ms, "x_bound": total / bound_ms,
+           "intermediate_ms": sum(t["intermediate_ms"]
+                                  for t in out.values())})
+    return out
+
+
+def _ssd_backward() -> dict:
+    """Part of phase 9: the backward kernels checked (``_ssd_bwd_check``)
+    at SSD_SHAPES and SSD_BWD_EXTRA in float32 and bfloat16, then timed at
+    SSD_TIMED.  Returns each kernel's timing at the training path's shape
+    in float32 (phase 17's dtype), with the largest absolute error over
+    the checks of the gradients it writes (the chunk kernel dx and ddt,
+    the reduce kernel dB, dC and dA; dstate and chain, whose G feeds
+    them all, every gradient)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    checks = []
+    timings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, a_rows, ds_zero in ([(s, False, False) for s in SSD_SHAPES]
+                                       + SSD_BWD_EXTRA):
+            _ssd_bwd_check(checks, shape, dtype, gen, a_rows, ds_zero)
+            torch.cuda.empty_cache()
+        for shape in SSD_TIMED:
+            times = _ssd_bwd_times(shape, dtype, gen)
+            if dtype == torch.float32 and shape == SSD_PATH_SHAPE:
+                timings = {name: {key: t[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    for name, t in times.items()}
+            torch.cuda.empty_cache()
+    worst = {name: max(ch["rel_err"][name] for ch in checks)
+             for name in SSD_BWD_NAMES}
+    writes = {"ssd_bwd_chunk": ("dx", "ddt"),
+              "ssd_bwd_reduce": ("dB", "dC", "dA")}
+    for name, t in timings.items():
+        t["max_abs_err"] = max(ch["abs_err"][g] for ch in checks
+                               for g in writes.get(name, SSD_BWD_NAMES))
+    _emit({"phase": "ssd_backward", "checks": len(checks),
+           "worst_rel_err": worst,
+           "tol": {"float32": SSD_BWD_TOL, "dA": SSD_BWD_DA_TOL,
+                   "bfloat16_extra": SSD_BWD_BF16_TOL}})
+    return timings
+
+
 def phase_ssd_kernel() -> dict:
     """B8 against its plain version on the card at SSD_SHAPES in float32
-    and bfloat16 (y and the final state), then timed at SSD_TIMED.  Returns
-    its worst error and its timing at the path's shape in bfloat16."""
+    and bfloat16 (y and the final state), then timed at SSD_TIMED; then
+    the backward kernels (``_ssd_backward``).  Returns {kernel: timing}:
+    B8's at the path's shape in bfloat16 (with its worst error), the
+    backward kernels' there in float32."""
     from repro_torch.kernels.ssd_scan import ops, ref
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     result = {"max_abs_err": 0.0}
@@ -2144,7 +2464,7 @@ def phase_ssd_kernel() -> dict:
         for shape in SSD_SHAPES:
             chunk = shape[-1]
             x, dt, A, B, C = _ssd_operands(shape, dtype, gen)
-            y, state = ops.ssd_scan(x, dt, A, B, C, chunk)
+            y, state, _ = ops.ssd_scan(x, dt, A, B, C, chunk)
             want_y, want_s = ref.ssd_chunked(x, dt, A, B, C, chunk)
             torch.cuda.synchronize()
             errs = {}
@@ -2192,7 +2512,7 @@ def phase_ssd_kernel() -> dict:
     _emit({"phase": "ssd_kernel", "checks": len(checks),
            "max_abs_err": result["max_abs_err"],
            "worst": max(checks, key=lambda ch: ch["rel_err"])})
-    return result
+    return {"ssd_scan": result, **_ssd_backward()}
 
 
 def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
@@ -4654,6 +4974,153 @@ def phase_personalized(cfg=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: hybrid training (zamba2) through the flat round
+# ---------------------------------------------------------------------------
+
+def _hybrid_layers(cfg) -> tuple[int, int]:
+    """(Mamba2 layers, shared-attention applications) of a forward."""
+    from repro_torch.models import model as model_lib
+    segments, n_groups = model_lib.group_spec(cfg)
+    count = {kind: n for kind, n, _ in segments}
+    return (count.get("mamba2", 0) * n_groups,
+            count.get("attn", 0) * n_groups)
+
+
+def _hybrid_run_checked(cfg, algo: str, run: dict, bf16: bool = False
+                        ) -> dict:
+    """One counted run of HYBRID_TRAIN's cut: exact launches — per local
+    step one SSD forward and one launch of each backward kernel per
+    Mamba2 layer, the attention forward, dq and dk/dv once per
+    shared-block application, B1 once; the eval one SSD forward per layer
+    and one attention forward per application — a finite loss, and a
+    held-out perplexity below the initial weights' (HYBRID_TRAIN's
+    comment says why not below the vocab); prints wall, tokens/s and peak
+    memory."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    n_mamba, n_attn = _hybrid_layers(cfg)
+    g = _run_fed_lm(cfg, algo, DEVICE, bf16=bf16, eval_first=True, **run)
+    k_max, R = g["k_max"], run["rounds"]
+    steps = k_max * R
+    want = {"ssd_scan": n_mamba * steps + n_mamba,
+            **{name: n_mamba * steps for name in ssd_ops.BWD_KERNELS},
+            "flash_attention_fwd": n_attn * steps + n_attn,
+            "flash_attention_bwd_dq": n_attn * steps,
+            "flash_attention_bwd_dkv": n_attn * steps,
+            "calibrated_update": steps}
+    launches = g["launches"]
+    got = {k: launches[k] for k in want}
+    tokens = run["clients"] * k_max * run["batch"] * run["seq"]
+    wall = float(np.mean(g["round_wall_s"]))
+    _emit({"phase": "hybrid_training", "model": cfg.name,
+           "algorithm": algo, "dtype": cfg.dtype,
+           "master_dtype": str(g["master_dtype"]),
+           "n_layers": cfg.n_layers, "mamba_layers": n_mamba,
+           "attention_applications": n_attn, **run, "params": g["n"],
+           "k": g["k"], "k_max": k_max, "loss": g["loss"].tolist(),
+           "initial_perplexity": g["metric0"],
+           "perplexity": g["metric"].tolist(), "vocab": cfg.vocab,
+           "wall_per_round_s": g["round_wall_s"],
+           "wall_per_local_step_s": wall / k_max,
+           "tokens_per_round": tokens, "train_tokens_per_s": tokens / wall,
+           "run_wall_s": g["wall_s"], "launches": got,
+           "peak_memory_bytes": g["peak_memory_bytes"]})
+    _require(got == want and all(n == 0 for k, n in launches.items()
+                                 if k not in want),
+             f"hybrid {algo} ({cfg.dtype}): launches {launches}, expected "
+             f"{want} and no other")
+    _require(np.isfinite(g["loss"]).all() and np.isfinite(g["metric"]).all(),
+             f"hybrid {algo}: non-finite loss {g['loss']} or perplexity "
+             f"{g['metric']}")
+    _require(float(g["metric"][-1]) < g["metric0"],
+             f"hybrid {algo}: held-out perplexity {g['metric'][-1]} is not "
+             f"below the initial weights' ({g['metric0']})")
+    if bf16:
+        # the Mamba2 blocks keep A_log, D and dt_bias float32, as the
+        # reference does
+        _require(g["master_dtype"] == torch.float32
+                 and g["view_dtypes"] == [str(torch.bfloat16),
+                                          str(torch.float32)],
+                 f"hybrid bf16: master {g['master_dtype']}, views "
+                 f"{g['view_dtypes']}")
+    return got
+
+
+def phase_hybrid_training(cfg=None, small_cfg=None) -> dict:
+    """zamba2-2.7b at full width, cut to HYBRID_TRAIN["layers"] layers, in
+    float32 through the LM example's simulation (fedagrac and fedavg),
+    then fedagrac in bfloat16 over a float32 master, each with exact
+    launch counts (``_hybrid_run_checked``); then the reduced model on the
+    card against the CPU.  Returns the launches of the float32 fedagrac
+    run."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples import fed_lm_train as ex
+    base = get_arch("zamba2-2.7b")
+    cfg = cfg or dataclasses.replace(base, n_layers=HYBRID_TRAIN["layers"],
+                                     dtype="float32")
+    small = small_cfg or reduced(base, n_layers=HYBRID_TRAIN["small_layers"])
+    run = {k: HYBRID_TRAIN[k] for k in ("clients", "seq", "batch", "rounds",
+                                        "lr")}
+    s = cfg.ssm
+    _emit({"phase": "hybrid_training_cuts", "model": cfg.name,
+           "n_layers": f"{cfg.n_layers} of {base.n_layers}",
+           "clients": f"{run['clients']} of {ex.MCLIENTS}",
+           "widths": {"d_model": cfg.d_model, "ssm_heads":
+                      s.expand * cfg.d_model // s.head_dim,
+                      "ssm_head_dim": s.head_dim, "n_groups": s.n_groups,
+                      "d_state": s.d_state, "chunk": s.chunk,
+                      "n_heads": cfg.n_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab}})
+    # warm-up (cuBLAS and cuDNN handles, the allocator) outside the counts
+    _run_fed_lm(small, "fedavg", DEVICE, clients=2, seq=HYBRID_TRAIN[
+        "small_seq"], batch=2, rounds=1)
+    counted = {}
+    for algo in HYBRID_TRAIN["algorithms"]:
+        got = _hybrid_run_checked(cfg, algo, run)
+        if algo == "fedagrac":
+            counted = got
+        torch.cuda.empty_cache()
+    _hybrid_run_checked(dataclasses.replace(cfg, dtype="bfloat16"),
+                        "fedagrac", run, bf16=True)
+    torch.cuda.empty_cache()
+    srun = {"clients": ex.MCLIENTS, "seq": HYBRID_TRAIN["small_seq"],
+            "batch": 2, "rounds": 3, "lr": HYBRID_TRAIN["small_lr"]}
+    threads = torch.get_num_threads()
+    for algo in HYBRID_TRAIN["algorithms"]:
+        def one(dev, **kw):
+            # the CPU runs on one thread: with several, the embedding's
+            # gradient differs by an ulp between identical calls (C18)
+            torch.set_num_threads(1 if dev == "cpu" else threads)
+            try:
+                return _run_fed_lm(small, algo, dev, generator=torch.Generator(
+                    ).manual_seed(0), **srun, **kw)
+            finally:
+                torch.set_num_threads(threads)
+        g, c = one(DEVICE), one("cpu")
+        probes = [one("cpu", flip_rows=True)]
+        while (not _vs_covered(_lm_vs_cpu_margins(g, c, probes))
+               and len(probes) < HYBRID_TRAIN["max_probes"]):
+            probes.append(one("cpu", ulp_moved=len(probes)))
+        _require(g["launches"]["ssd_bwd_chunk"] > 0,
+                 f"hybrid {algo} --small: the card run launched no SSD "
+                 f"backward kernel")
+        vs = _lm_vs_cpu_margins(g, c, probes)
+        for what, (diff, tol) in vs.items():
+            _require(bool(np.all(diff <= tol)),
+                     f"hybrid {algo} small: {what} differs from the CPU run "
+                     f"by {diff}, more than {tol}")
+        _emit({"phase": "hybrid_training_vs_cpu",
+               "model": f"reduced zamba2-2.7b, {small.n_layers} layers",
+               "algorithm": algo, **srun, "k": g["k"],
+               "loss": g["loss"].tolist(), "perplexity": g["metric"].tolist(),
+               "probes": len(probes),
+               "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+               "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4682,7 +5149,7 @@ def main() -> int:
     launches.update({name: n for name, n in timed(
         "fed_lm", phase_fed_lm).items() if name.startswith(
             "flash_attention_bwd")})
-    timings["ssd_scan"] = timed("ssd_kernel", phase_ssd_kernel)
+    timings.update(timed("ssd_kernel", phase_ssd_kernel))
     launches["ssd_scan"] = timed("hybrid", phase_hybrid)["ssd_scan"]
     host_ms = timed("population", phase_population)["host_mode_ms"]
     import multiprocessing
@@ -4692,16 +5159,18 @@ def main() -> int:
         table_async = pool.apply_async(_table_async_run,
                                        (reference["table_async"],))
         for name, n in timed("twins", phase_twins).items():
-            launches[name] += n
+            launches[name] = launches.get(name, 0) + n
         for name, n in timed("async", lambda: phase_async(
                 table_async=table_async)).items():
-            launches[name] += n
+            launches[name] = launches.get(name, 0) + n
     for name, n in timed("faults", phase_faults).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     for name, n in timed("device_path", lambda: phase_device_path(
             host_ms=host_ms)).items():
-        launches[name] += n
+        launches[name] = launches.get(name, 0) + n
     for name, n in timed("personalized", phase_personalized).items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in timed("hybrid_training", phase_hybrid_training).items():
         launches[name] = launches.get(name, 0) + n
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
@@ -4735,7 +5204,13 @@ def main() -> int:
         "flash_attention_bwd_dq_bf16": (bwd_src, bwd_rep + "150"),
         "flash_attention_bwd_dkv_bf16": (bwd_src, bwd_rep + "178"),
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan/kernel.py:88")}
+                     "src/repro/kernels/ssd_scan/kernel.py:88"),
+        # no Pallas site: the reference differentiates ssd_chunked with
+        # autodiff
+        **{name: ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_bwd.cu",
+                  "src/repro/models/mamba2.py:74")
+           for name in ("ssd_bwd_dstate", "ssd_bwd_chain", "ssd_bwd_chunk",
+                        "ssd_bwd_reduce")}}
     _emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **timings[name]}

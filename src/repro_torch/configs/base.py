@@ -237,7 +237,7 @@ class FedConfig:
     server_opt: Literal["sgd", "momentum", "adam"] = "sgd"
     server_lr: float = 1.0                 # FedOpt server step size
     seed: int = 0
-    # -- buffered semi-asynchronous execution (not ported: ROADMAP A7) ------
+    # -- buffered semi-asynchronous execution (fed/async_engine.py) ---------
     buffer_size: int = 0
     staleness: Literal["constant", "hinge", "poly"] = "constant"
     staleness_a: float = 0.5

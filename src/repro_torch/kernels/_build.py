@@ -40,6 +40,7 @@ SOURCES = {
     "flash_attention_bwd":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
     "ssd_scan": KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
+    "ssd_scan_bwd": KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -70,6 +70,13 @@
 //     each 16 positions' products in a fresh fragment and add it to their
 //     sums in float32; the state's recurrence over the chunks is float32
 //     FMAs on S_{c−1} itself.
+//   - A per batch row: A's row of batch row b is read at b·a_sb (0 for the
+//     model's one A (H,)), so the vmapped training path folds its clients,
+//     each with its own A, into the batch of one launch.  Where the
+//     backward asks for them, the block also writes S_{c−1}, which it
+//     holds anyway, to a `states` output (ssd_scan_bwd.cu reads it): an
+//     instance of its own (kStates), so that the inference instance's
+//     state loop carries no store and no branch for it.
 //   - Work of a block (8 warps): ΔS_c in m16 × n8 tiles split over the
 //     warps; y in row tiles of 16 positions, one a warp — warp w takes tile
 //     w, and warp 4 + i tile 7 − i, so that the two warps of an SM
@@ -123,6 +130,9 @@ struct Params {
   long long dt_sb, dt_sl, dt_sh;
   long long b_sb, b_sl, b_sg;     // batch, position, group
   long long c_sb, c_sl, c_sg;
+  long long a_sb;                 // A's batch stride: 0 for one A (H,)
+  float* states;                  // null, or the states entering each
+                                  // chunk (batch, chunks, H, P, N)
   int vec;                        // x, B and C rows in 16-byte vectors
 };
 
@@ -242,8 +252,9 @@ constexpr int min_blocks() {
 }
 
 // One block per (chunk, batch, head), taken in ticket order (chunk-major).
-// T: the type of x, B and C; D: the bucket of max(P, N).
-template <typename T, int D>
+// T: the type of x, B and C; D: the bucket of max(P, N); kStates: whether
+// the block writes S_{c−1} to p.states.
+template <typename T, int D, bool kStates>
 __global__ void __launch_bounds__(kThreads, min_blocks<D>())
     ssd_scan_kernel_mma(const Params p, int* flags) {
   using Sm = Smem<T, D>;
@@ -288,7 +299,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
   const int gi = h / (p.H / p.G);
   const int pos0 = ci * p.L;
   const int Lc = min(p.L, p.l - pos0);
-  const float a = p.A[h];
+  const float a = p.A[b * p.a_sb + h];
   const T* xg = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
   const T* bg = static_cast<const T*>(p.B) + b * p.b_sb + gi * p.b_sg;
   const T* cg = static_cast<const T*>(p.C) + b * p.c_sb + gi * p.c_sg;
@@ -545,6 +556,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
     }
   }
   const float decay = expf(cum_last);
+  // the backward's copy of S_{c−1}, in the instance that writes one
+  [[maybe_unused]] float* entering = nullptr;
+  if constexpr (kStates) {
+    const long long chunks = (p.l + p.L - 1) / p.L;
+    entering = p.states + ((b * chunks + ci) * p.H + h) * p.P * p.N;
+  }
 #pragma unroll
   for (int j = 0; j < NPW; ++j) {
 #pragma unroll
@@ -563,6 +580,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
       }
       if (r < p.P && col < p.N) {
         __stcg(state + r * p.N + col, ds[j][e] + decay * prev[j][e]);
+        if constexpr (kStates) entering[r * p.N + col] = prev[j][e];
       }
     }
   }
@@ -648,12 +666,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, int* flags, cudaStream_t stream) {
+template <typename T, int D, bool kStates>
+cudaError_t launch_k(const Params& p, int* flags, cudaStream_t stream) {
   const int Lp = (p.L + 15) / 16 * 16;
   const size_t smem = Smem<T, D>::bytes(Lp);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel_mma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel_mma<T, D, kStates>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long bh = static_cast<long long>(p.batch) * p.H;
@@ -661,9 +680,17 @@ cudaError_t launch(const Params& p, int* flags, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const long long blocks = bh * ((p.l + p.L - 1) / p.L);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ssd_scan_kernel_mma<T, D><<<static_cast<unsigned>(blocks), kThreads, smem,
-                              stream>>>(p, flags);
+  ssd_scan_kernel_mma<T, D, kStates>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(p, flags);
   return cudaGetLastError();
+}
+
+// the instance that writes the states entering each chunk where they are
+// asked for
+template <typename T, int D>
+cudaError_t launch(const Params& p, int* flags, cudaStream_t stream) {
+  return p.states != nullptr ? launch_k<T, D, true>(p, flags, stream)
+                             : launch_k<T, D, false>(p, flags, stream);
 }
 
 template <typename T>
@@ -702,9 +729,14 @@ int rows_in_vectors(const Params& p, int esize) {
 // dtype codes (those of ops.py): 0 = float32, 1 = bfloat16, for x, B and C
 // alike; dt and A are float32.  x (batch, l, H, P), dt (batch, l, H), B and
 // C (batch, l, G, N) with the given element strides and a contiguous last
-// dimension; A (H,) contiguous.  y is written contiguous float32
-// (batch, l, H, P), state contiguous float32 (batch, H, P, N).  The scan
-// walks chunks of L positions, the last one ragged when L does not divide l.
+// dimension; A's row of batch row b at A + b·a_sb (a_sb = 0: one A (H,)
+// for every row; H: A (batch, H), the vmapped clients folded into the
+// batch), contiguous over H.  y is written contiguous float32
+// (batch, l, H, P), state contiguous float32 (batch, H, P, N), and, where
+// `states` is not null, the state entering each chunk to it, contiguous
+// float32 (batch, ⌈l / L⌉, H, P, N), zero for the first: the backward
+// reads them.  The scan walks chunks of L positions, the last one ragged
+// when L does not divide l.
 // `flags`: int32 scratch of 1 + batch·H elements, zeroed here (a memset on
 // `stream`) and used by the kernel to chain the chunks.  Requires
 // 1 ≤ P, N, L ≤ 128, H % G == 0, and batch·H·⌈l / L⌉ < 2³¹.  Launches on
@@ -716,15 +748,16 @@ extern "C" int ssd_scan_fwd(
     int G, int N, int L, long long x_sb, long long x_sl, long long x_sh,
     long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
     long long b_sl, long long b_sg, long long c_sb, long long c_sl,
-    long long c_sg, int* flags, void* stream) {
+    long long c_sg, long long a_sb, float* states, int* flags, void* stream) {
   if (batch <= 0 || l <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
       P > kMaxDim || N <= 0 || N > kMaxDim || L <= 0 || L > kMaxL ||
       flags == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{x,    dt,   A,    B,    C,     y,     state, batch, l,    H,
-           P,    G,    N,    L,    x_sb,  x_sl,  x_sh,  dt_sb, dt_sl, dt_sh,
-           b_sb, b_sl, b_sg, c_sb, c_sl,  c_sg,  0};
+  Params p{x,    dt,   A,    B,    C,     y,     state, batch, l,
+           H,    P,    G,    N,    L,     x_sb,  x_sl,  x_sh,  dt_sb,
+           dt_sl, dt_sh, b_sb, b_sl, b_sg, c_sb,  c_sl,  c_sg,  a_sb,
+           states, 0};
   p.vec = rows_in_vectors(p, dtype == 0 ? 4 : 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(launch_d<float>(p, flags, s));

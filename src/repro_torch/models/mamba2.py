@@ -2,10 +2,12 @@
 the chunked-parallel scan for a prompt, the O(1)-state recurrence for one
 token.
 
-A prompt's SSD goes through ``ssd_scan`` (``kernels/ssd_scan/ops.py``) on
-either device: a CPU tensor takes the plain ``ssd_chunked``, a CUDA tensor
-the hand-written kernel, which reads the heads' ``x`` and the groups' B and
-C straight out of the convolution's output.  The single-token recurrence
+A prompt's SSD goes through ``ssd_scan_diff`` (``kernels/ssd_scan/ops.py``)
+on either device, for inference and training alike: a CPU tensor takes
+the plain ``ssd_chunked`` and its explicit chunked VJP, a CUDA tensor the
+hand-written forward and backward kernels, which read the heads' ``x``
+and the groups' B and C straight out of the convolution's output; under
+the flat round's vmap one launch of each covers every client.  The single-token recurrence
 stays plain torch, as the reference computes it outside any kernel.  The
 reference's ``dist.constrain`` sharding hint is dropped (one device;
 ROADMAP A15).
@@ -18,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_diff
 from repro_torch.models.layers import _normal, dense_init, rms_norm
 
 Params = dict[str, Any]
@@ -133,7 +135,7 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
     A = -torch.exp(params["A_log"])
 
     if cache is None or S_ > 1:
-        y, S_last = ssd_scan(xs, dt, A, Bm, Cm, s.chunk)
+        y, S_last = ssd_scan_diff(xs, dt, A, Bm, Cm, s.chunk)
         if new_cache is not None:
             new_cache["ssm"] = S_last
     else:

@@ -1,23 +1,29 @@
 """Where a local step of the federated LM training path spends its time on
 the card.
 
-    PYTHONPATH=src python -m repro_torch.roofline.train_profile
+    PYTHONPATH=src python -m repro_torch.roofline.train_profile [--hybrid]
 
 Builds the model of ``chip_smoke.py`` phase 8 — gemma-2b at full width
 (d 2048, 8 heads / 1 kv head, head dim 256, d_ff 16384, vocab 256000) in
 float32, cut to 2 layers, random weights from a seed — and the example's
-batches (2 clients, batch 2, seq 128), runs one local step of the flat
+batches (2 clients, batch 2, seq 128); with ``--hybrid`` phase 17's —
+zamba2-2.7b at full width (d 2560, 80 SSM heads of dim 64, d_state 64,
+chunk 128, 32 attention heads of dim 80, d_ff 10240, vocab 32000) in
+float32, cut to 12 layers (two groups), at seq 256 — and runs one local
+step of the flat
 fedagrac round warm (``core/flat.py`` ``make_flat_client_update`` with
 k_max 1: one vmapped forward and backward for both clients, then one
 calibrated-update launch on the ``(M, P)`` client matrix), then profiles
 one more with ``torch.profiler``.  Prints one JSON line: host wall time,
 the device's busy time (the union of kernel intervals) and idle share,
 kernel launches, the device time and share of the attention kernels
-(forward, dq, dk/dv), of the GEMMs and of the calibrated update, and the
-kernels by device time.  Needs a CUDA device.
+(forward, dq, dk/dv), of the SSD forward and backward kernels, of the
+GEMMs and of the calibrated update, and the kernels by device time.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
@@ -37,17 +43,21 @@ from repro_torch.models import model as M
 from repro_torch.roofline.round_profile import _busy_us
 
 LAYERS, CLIENTS, BATCH, SEQ = 2, 2, 2, 128
+# --hybrid: chip_smoke.py phase 17's cut and sequence length
+HYBRID_LAYERS, HYBRID_SEQ = 12, 256
 # kernel-name pieces of each share reported (the hand-written kernels'
 # names, and the GEMM kernels of cuBLAS / CUTLASS)
 GROUPS = {"flash_attention_fwd": ("flash_fwd_kernel",),
           "flash_attention_bwd_dq": ("dq_kernel",),
           "flash_attention_bwd_dkv": ("dkv_kernel",),
+          "ssd_scan": ("ssd_scan_kernel",),
+          "ssd_scan_bwd": ("ssd_bwd_",),
           "calibrated_update": ("calibrated_update",),
           "gemm": ("gemm", "cutlass", "sm90_xmma")}
 
 
 def profile_local_step(cfg: ModelConfig, device: str = "cuda",
-                       top: int = 12) -> dict:
+                       top: int = 12, seq: int = SEQ) -> dict:
     dev = torch.device(device)
     params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     spec = flat.make_flat_spec(params)
@@ -60,7 +70,7 @@ def profile_local_step(cfg: ModelConfig, device: str = "cuda",
     step = flat.make_flat_client_update(spec, lambda p, b: loss_fn(p, b),
                                         algo, lr=fed.lr, k_max=1)
     batcher = LMFederatedBatcher(
-        [lm_sequences(i, 16, SEQ, cfg.vocab, skew_topic=i)
+        [lm_sequences(i, 16, seq, cfg.vocab, skew_topic=i)
          for i in range(CLIENTS)], batch_size=BATCH, device=dev)
     batches = batcher.round_batches(0, 1)
     c_all = torch.zeros((CLIENTS, spec.p), dtype=spec.dtype, device=dev)
@@ -94,7 +104,7 @@ def profile_local_step(cfg: ModelConfig, device: str = "cuda",
                          "share_of_busy": ms * 1e3 / busy if busy else None}
     return {"step": "local_step", "model": cfg.name, "dtype": cfg.dtype,
             "n_layers": cfg.n_layers, "clients": CLIENTS, "batch": BATCH,
-            "seq": SEQ, "params": spec.n,
+            "seq": seq, "params": spec.n,
             "device": torch.cuda.get_device_name(0),
             "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
@@ -106,11 +116,23 @@ def profile_local_step(cfg: ModelConfig, device: str = "cuda",
                                         key=lambda kv: -kv[1][1])[:top]]}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--hybrid", action="store_true",
+                    help="profile zamba2-2.7b (12 layers, seq 256) instead "
+                         "of gemma-2b")
+    args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS,
-                              dtype="float32")
-    print(json.dumps(profile_local_step(cfg)), flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    if args.hybrid:
+        cfg = dataclasses.replace(get_arch("zamba2-2.7b"),
+                                  n_layers=HYBRID_LAYERS, dtype="float32")
+        row = profile_local_step(cfg, seq=HYBRID_SEQ)
+    else:
+        cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=LAYERS,
+                                  dtype="float32")
+        row = profile_local_step(cfg)
+    print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

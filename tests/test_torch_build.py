@@ -77,6 +77,24 @@ def test_editing_a_header_or_source_changes_library_path(csrc_copy,
         assert after[name].parent == _build.BUILD_DIR
 
 
+@pytest.mark.parametrize("edit", ["forward", "backward"])
+def test_each_ssd_source_names_its_own_library(tmp_path, monkeypatch, edit):
+    """The SSD forward and backward are two libraries, each named by its
+    own source's hash: an edit to one renames it alone."""
+    names = ("ssd_scan", "ssd_scan_bwd")
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.SOURCES["ssd_scan"].parent, dst)
+    monkeypatch.setattr(_build, "SOURCES", {
+        name: dst / _build.SOURCES[name].name for name in names})
+    before = {name: _build.library_path(name) for name in names}
+    edited = names[edit == "backward"]
+    src = _build.SOURCES[edited]
+    src.write_bytes(src.read_bytes() + b"\n")
+    after = {name: _build.library_path(name) for name in names}
+    assert {name for name in names if after[name] != before[name]} == {
+        edited}
+
+
 @pytest.mark.parametrize("header", SHARED)
 def test_editing_a_shared_header_changes_attention_and_ssd_library_paths(
         tmp_path, monkeypatch, header):

@@ -207,8 +207,9 @@ def test_lm_loss_matches(model):
 
 
 def test_lm_loss_gradient_flows_on_cpu(model):
-    """On the CPU the plain attention is differentiable (the card's kernel
-    has no backward yet, ROADMAP B7): every weight gets a gradient."""
+    """On the CPU the plain attention's backward (the route a CPU tensor
+    takes through ``FlashAttentionFn``; the card's is the dq and dk/dv
+    kernels) reaches every weight: each gets a gradient."""
     _, tcfg, _, tparams = model
     params = tree_map(lambda t: t.clone().requires_grad_(True), tparams)
     toks = torch.from_numpy(_tokens(tcfg, 1, 16, 5))

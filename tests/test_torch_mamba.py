@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from _ssd_fake_card import plain_card  # noqa: E402
 
 TOL = 2e-5
 LOSS_RTOL = 1e-5
@@ -319,16 +320,87 @@ def test_short_prefill_raises():
     assert torch.isfinite(logits).all()
 
 
-def test_training_on_the_card_raises(monkeypatch):
-    """Under autograd a CUDA SSD call raises (no backward kernel yet); the
-    CUDA dispatch is mocked here, so the whole hybrid loss reaches it."""
+def _client_batch(tcfg, m, b, S, seed):
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, tcfg.vocab, (m, b, S + 1)))
+    return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+
+
+def test_training_on_the_card_launches_once_per_layer_for_all_clients(
+        monkeypatch):
+    """The flat round's vmapped local step (``flat_value_and_grad`` of the
+    hybrid ``lm_loss``, two groups) on a fake card: each Mamba2 layer
+    launches the SSD forward once, keeping its states, and each of the four
+    backward kernels once, for both clients together — x folded to
+    (M·b, S, heads, P), A to (M·b, heads) at batch stride heads — and never
+    the CPU route; losses and gradients equal the CPU route's."""
     _, tcfg = _cfgs("hybrid")
+    m, b, S = 2, 2, 32                     # two SSD chunks of 16
+    params = TM.init_params(torch.Generator().manual_seed(0), tcfg)
+    spec = flat.make_flat_spec(params)
+    rows = flat.ravel(spec, params)[None].repeat(m, 1)
+    rows[1, :spec.n] += 1e-3 * torch.randn(spec.n, generator=torch.Generator(
+        ).manual_seed(1))
+    batch = _client_batch(tcfg, m, b, S, 3)
+    vag = flat.flat_value_and_grad(
+        spec, lambda p, bt: TM.lm_loss(p, bt, tcfg))
+    want = vag(rows, batch)
+    seen = plain_card(monkeypatch)
+    got = vag(rows, batch)
+    heads = tcfg.ssm.expand * tcfg.d_model // tcfg.ssm.head_dim
+    x_shape = (m * b, S, heads, tcfg.ssm.head_dim)
+    layers = 4
+    for name in ("ssd_scan", "ssd_bwd_dstate", "ssd_bwd_chunk"):
+        # ssd_bwd_dstate's dy is shaped as x
+        assert [(ln.x, ln.a, ln.a_stride) for ln in seen[name]] == [
+            (x_shape, (m * b, heads), heads)] * layers
+    assert ssd_ops.launches == {name: layers for name in ssd_ops.launches}
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_unvmapped_training_on_the_card_shares_one_A(monkeypatch):
+    """A plain ``lm_loss`` backward (no vmap) on the fake card hands the
+    kernels the model's one A (heads,) at batch stride 0, and dA comes
+    back (heads,): its gradient reaches A_log."""
+    _, tcfg = _cfgs("ssm")
     params = tree_map(lambda t: t.requires_grad_(True),
                       TM.init_params(torch.Generator().manual_seed(0), tcfg))
-    monkeypatch.setattr(ssd_ops, "_on_cpu", lambda t: False)
-    toks = torch.zeros(1, 16, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="SSD backward.*B9"):
-        TM.lm_loss(params, {"tokens": toks, "labels": toks}, tcfg)
+    seen = plain_card(monkeypatch)
+    batch = {k: v[0] for k, v in _client_batch(tcfg, 1, 2, 32, 4).items()}
+    TM.lm_loss(params, batch, tcfg).backward()
+    heads = tcfg.ssm.expand * tcfg.d_model // tcfg.ssm.head_dim
+    assert {ln.a for ln in seen["ssd_bwd_chunk"]} == {(heads,)}
+    assert {ln.a_stride for ln in seen["ssd_scan"]} == {0}
+    assert ssd_ops.launches["ssd_bwd_reduce"] == tcfg.n_layers
+    a_logs = [t for path, t in flat._leaves(params) if "A_log" in path]
+    assert len(a_logs) and all(t.grad is not None
+                               and bool(t.grad.abs().sum() > 0)
+                               for t in a_logs)
+
+
+def test_inference_on_the_card_keeps_no_states(monkeypatch):
+    """A prefill under inference mode on the fake card launches the SSD
+    forward once per Mamba2 layer, keeping no states, and no backward
+    kernel."""
+    _, tcfg = _cfgs("hybrid")
+    params = TM.init_params(torch.Generator().manual_seed(0), tcfg)
+    caches = TM.init_caches(tcfg, 1, 24, device="cpu")
+    calls = []
+    plain = ssd_ops.ssd_scan
+
+    def counted(*args, **kw):
+        calls.append(kw.get("states", False))
+        return plain(*args, **kw)
+
+    plain_card(monkeypatch)
+    monkeypatch.setattr(ssd_ops, "ssd_scan", counted)
+    with torch.inference_mode():
+        TM.serve_prefill(params, {"tokens": torch.zeros(1, 16,
+                                                        dtype=torch.long)},
+                         tcfg, caches=caches)
+    assert calls == [False] * 4
+    assert ssd_ops.launches["ssd_scan"] == 4
+    assert not any(ssd_ops.launches[k] for k in ssd_ops.BWD_KERNELS)
 
 
 def test_prefill_calls_each_kernel_wrapper_once_per_layer(monkeypatch):
@@ -340,7 +412,8 @@ def test_prefill_calls_each_kernel_wrapper_once_per_layer(monkeypatch):
     params = TM.init_params(torch.Generator().manual_seed(0), tcfg)
     caches = TM.init_caches(tcfg, 1, 24, device="cpu")
     calls = {"ssd": 0, "attn": 0}
-    ssd_scan, flash_attention = ssd_ops.ssd_scan, fa_ops.flash_attention_diff
+    ssd_scan, flash_attention = (tmamba.ssd_scan_diff,
+                                 fa_ops.flash_attention_diff)
 
     def count_ssd(*a, **kw):
         calls["ssd"] += 1
@@ -350,7 +423,7 @@ def test_prefill_calls_each_kernel_wrapper_once_per_layer(monkeypatch):
         calls["attn"] += 1
         return flash_attention(*a, **kw)
 
-    monkeypatch.setattr(tmamba, "ssd_scan", count_ssd)
+    monkeypatch.setattr(tmamba, "ssd_scan_diff", count_ssd)
     monkeypatch.setattr(fa_ops, "flash_attention_diff", count_attn)
     with torch.inference_mode():
         _, caches = TM.serve_prefill(

@@ -21,6 +21,7 @@ from repro.kernels.ssd_scan.ops import (  # noqa: E402
     ssd_scan as pallas_ssd_scan)
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
+from _ssd_fake_card import plain_card  # noqa: E402
 
 TOL = 2e-4
 CASES = [
@@ -100,9 +101,9 @@ def test_chunked_equals_recurrence(chunk):
 def test_wrapper_on_cpu_is_the_plain_version():
     args = _torch(_inputs(2, 64, 4, 16, 2, 8))
     before = dict(ops.launches)
-    y, s = ops.ssd_scan(*args, 16)
+    y, s, entering = ops.ssd_scan(*args, 16)
     y_r, s_r = ref.ssd_chunked(*args, 16)
-    assert torch.equal(y, y_r) and torch.equal(s, s_r)
+    assert torch.equal(y, y_r) and torch.equal(s, s_r) and entering is None
     assert ops.launches == before           # CPU tensors launch nothing
 
 
@@ -127,15 +128,15 @@ def test_wrapper_reads_model_slices_in_place(monkeypatch):
     monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
     monkeypatch.setattr(ops, "_launch", fake_launch)
     assert ops.ssd_scan(x, dt, A, B, C, 16) == "launched"
-    lx, _, _, lB, lC, L = seen["args"]
-    assert L == 16
+    lx, _, _, lB, lC, L, states = seen["args"]
+    assert L == 16 and not states
     for got, want in ((lx, x), (lB, B), (lC, C)):
         assert got.data_ptr() == want.data_ptr()
         assert got.stride() == want.stride()
     assert x.stride()[:2] == (l * xbc.shape[-1], xbc.shape[-1])
     # l < chunk: one chunk of all l positions
     ops.ssd_scan(x, dt, A, B, C, 128)
-    assert seen["args"][-1] == l
+    assert seen["args"][5] == l
 
 
 def _fake_card(monkeypatch):
@@ -172,7 +173,7 @@ def test_misaligned_views_reach_the_kernel(monkeypatch):
     assert all(t.data_ptr() % 16 for t in (x, B, C, dt))
     calls = _fake_card(monkeypatch)
     before = ops.launches["ssd_scan"]
-    y, state = ops.ssd_scan(x, dt, A, B, C, 16)
+    y, state, _ = ops.ssd_scan(x, dt, A, B, C, 16)
     assert ops.launches["ssd_scan"] == before + 1
     (args,) = calls
     assert args[1:6] == tuple(t.data_ptr() for t in (x, dt, A, B, C))
@@ -180,6 +181,7 @@ def test_misaligned_views_reach_the_kernel(monkeypatch):
     assert args[8:15] == (b, l, h, p, g, n, 16)
     assert args[15:27] == (*x.stride()[:3], *dt.stride(), *B.stride()[:3],
                            *C.stride()[:3])
+    assert args[27:29] == (0, None)         # one A (h,); no states kept
 
 
 @pytest.mark.parametrize("shape,chunk,match", [
@@ -197,30 +199,114 @@ def test_kernel_limits_raise_on_the_card(monkeypatch, shape, chunk, match):
     assert not calls
 
 
-def test_cuda_autograd_raises_instead_of_falling_back(monkeypatch):
-    """No backward kernel yet: on a CUDA tensor (the dispatch mocked here)
-    a call under autograd raises, naming the queued SSD backward; under
-    inference it launches."""
-    args = list(_torch(_inputs(1, 16, 2, 8, 1, 4)))
-    launched = []
-    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
-    monkeypatch.setattr(ops, "_launch", lambda *a: launched.append(1))
-    args[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="SSD backward.*B9"):
-        ops.ssd_scan(*args, 8)
-    assert not launched
+def test_cuda_autograd_launches_the_backward_kernels(monkeypatch):
+    """On a CUDA tensor (the dispatch faked here) a call under autograd
+    launches the forward once, keeping the states entering each chunk, and
+    its backward each of the four kernels once, never the CPU route; the
+    gradients equal the CPU route's to the bit (the fake kernels compute
+    its stages).  Under inference the forward keeps no states."""
+    arrays = _torch(_inputs(2, 64, 4, 16, 2, 8))
+    leaves = [t.clone().requires_grad_() for t in arrays]
+    plain_bwd = ref.ssd_chunked_bwd
+    seen = plain_card(monkeypatch)
+    y, s = ops.ssd_scan_diff(*leaves, 16)
+    (y.square().sum() + s.sum()).backward()
+    assert ops.launches == {name: 1 for name in ops.launches}
+    assert [ln.shapes for ln in seen["ssd_bwd_chunk"]] == [(
+        (2, 64, 4, 16), (2, 64, 4), (4,), (2, 64, 2, 8), (2, 64, 2, 8),
+        (2, 64, 4, 16), (2, 4, 4, 16, 8), (2, 4, 16, 8), (2, 4, 4, 16, 8))]
+    cpu = [t.clone().requires_grad_() for t in arrays]
+    y_c, s_c = ops.SSDScanFn.forward(*cpu, 16, False)[:2]
+    dy, dS = 2 * y_c.detach(), torch.ones_like(s_c)
+    want = plain_bwd(*arrays, 16, dy, dS)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    ops.reset_launches()
     with torch.inference_mode():
-        ops.ssd_scan(*args, 8)
-    with torch.no_grad():
-        ops.ssd_scan(*args, 8)
-    assert len(launched) == 2
+        ops.ssd_scan_diff(*arrays, 16)
+    assert seen["ssd_scan"][-1].shapes == tuple(tuple(t.shape)
+                                                for t in arrays)
+    assert ops.launches["ssd_scan"] == 1
+    assert not any(ops.launches[name] for name in ops.BWD_KERNELS)
+
+
+def _bwd_recorder(monkeypatch):
+    calls = []
+
+    def record(name):
+        def entry(*args):
+            calls.append((name, args))
+            return 0
+        return entry
+
+    monkeypatch.setattr(ops, "_on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "_bwd_kernels", lambda: types.SimpleNamespace(
+        **{name: record(name) for name in ops.BWD_KERNELS}))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("a_rows", [False, True])
+def test_backward_kernels_receive_slices_in_place(monkeypatch, a_rows):
+    """x, B and C as the Mamba2 block hands them over (views of one conv
+    output, bfloat16) reach the four C entries in order with their
+    pointers and strides, uncopied, A with its batch stride (0 for one A
+    (h,), h for (b, h)); each entry gets the common argument list, its
+    scratch and outputs in the named slots, the others null."""
+    b, l, h, p, g, n, L = 2, 32, 4, 8, 2, 4, 16
+    d_in = h * p
+    xbc = torch.randn(b, l, d_in + 2 * g * n).bfloat16()
+    x = xbc[..., :d_in].reshape(b, l, h, p)
+    B = xbc[..., d_in:d_in + g * n].reshape(b, l, g, n)
+    C = xbc[..., d_in + g * n:].reshape(b, l, g, n)
+    dt = torch.rand(b, l, h) + 0.1
+    A = -torch.rand((b, h) if a_rows else (h,)) - 0.1
+    dy = torch.randn(b, l, h, p)
+    dS = torch.randn(b, h, p, n)
+    states = torch.randn(b, l // L, h, p, n)
+    state = torch.randn(b, h, p, n)
+    calls = _bwd_recorder(monkeypatch)
+    dx, ddt, dA, dB, dC = ops.ssd_scan_bwd(x, dt, A, B, C, L, dy, dS,
+                                           states, state)
+    assert [name for name, _ in calls] == list(ops.BWD_KERNELS)
+    assert (dx.dtype, dB.dtype, dC.dtype) == (torch.bfloat16,) * 3
+    assert dA.shape == A.shape and dB.shape == B.shape == dC.shape
+    k = len(ops.BWD_TENSORS)
+    slots = {name: dict(zip(ops.BWD_TENSORS, args[1:1 + k]))
+             for name, args in calls}
+    ptr = {"x": x, "dt": dt, "A": A, "B": B, "C": C, "dy": dy,
+           "dS_last": dS, "states": states, "final": state, "dx": dx,
+           "ddt": ddt, "dB": dB, "dC": dC, "dA": dA}
+    reads = {"ssd_bwd_dstate": ("dt", "A", "C", "dy"),
+             "ssd_bwd_chain": ("dS_last",),
+             "ssd_bwd_chunk": ("x", "dt", "A", "B", "C", "dy", "states",
+                               "final", "dx", "ddt"),
+             "ssd_bwd_reduce": ("dB", "dC", "dA")}
+    for name, names in reads.items():
+        for t in names:
+            assert slots[name][t] == ptr[t].data_ptr(), (name, t)
+    # ΔG is written by the first and chained over in place by the second
+    assert slots["ssd_bwd_dstate"]["gs"] == slots["ssd_bwd_chain"]["gs"] \
+        == slots["ssd_bwd_chunk"]["gs"] is not None
+    assert slots["ssd_bwd_chunk"]["dB"] is None
+    (_, chunk), = [c for c in calls if c[0] == "ssd_bwd_chunk"]
+    assert chunk[0] == 1                             # bfloat16
+    assert chunk[1 + k:9 + k] == (b, l, h, p, g, n, L, 1)
+    assert chunk[9 + k:22 + k] == (*x.stride()[:3], *dt.stride(),
+                                   *B.stride()[:3], *C.stride()[:3],
+                                   h if a_rows else 0)
+    assert x.stride()[:2] == (l * xbc.shape[-1], xbc.shape[-1])
+    (_, reduce), = [c for c in calls if c[0] == "ssd_bwd_reduce"]
+    assert reduce[1 + k:9 + k] == (b, l, h, 1, g, n, L, b if a_rows else 1)
 
 
 def test_cpu_autograd_takes_the_differentiable_plain_version():
     args = list(_torch(_inputs(1, 16, 2, 8, 1, 4)))
     for t in args:
         t.requires_grad_(True)
-    y, s = ops.ssd_scan(*args, 8)
+    y, s, _ = ops.ssd_scan(*args, 8)
     (y.sum() + s.sum()).backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in args)
