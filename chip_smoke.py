@@ -106,7 +106,8 @@ Seventeen phases, each printing JSON lines; any failure exits non-zero.
    with the bound (a third of the TF32 peak; the SIMT one beside it) and
    the tensor-core work (``mma_ops``; no PyTorch call computes the SSD: no
    yardstick).  Then the four SSD backward kernels (``ssd_scan_bwd.cu``:
-   dstate, chain, chunk, reduce; SIMT float32) against the plain chunked
+   dstate, chain, chunk, reduce; dstate and chunk on the tensor cores,
+   chain and reduce SIMT float32) against the plain chunked
    VJP (``ref.ssd_chunked_bwd``) on the card, float32 and bfloat16, every
    gradient (dx, ddt, dA, dB, dC) within SSD_BWD_TOL of its largest entry
    (dA SSD_BWD_DA_TOL, a bfloat16 one one bfloat16 ulp more), at the same
@@ -116,10 +117,13 @@ Seventeen phases, each printing JSON lines; any failure exits non-zero.
    states are held to the plain ones; ``kernel_time`` lines of each
    backward kernel at the path's shape and the long one from CUDA-graph
    replay, with its bound (the VJP's own tensors it moves, or its
-   operations; the traffic of the intermediates between the kernels beside
-   it, ``intermediate_ms``), its plain stage's time and the plain
-   backward's (autograd of ``ref.ssd_chunked``, ``plain_ms``), and a line
-   of the four together against the whole VJP's bound.
+   operations at the peaks of their operand types; the traffic of the
+   intermediates between the kernels beside it, ``intermediate_ms``), its plain stage's time and the plain
+   backward's (autograd of ``ref.ssd_chunked``, ``plain_ms``), the
+   tensor-core work of dstate and chunk (``mma_ops``), and a line of the
+   four together against the whole VJP's bound; then the four again at the
+   path's shape in each dtype, every gradient bit-equal to the first
+   run's.
 10. hybrid inference — zamba2-2.7b at full width and depth (54 Mamba2
    layers, a shared attention block after every 6, d 2560, 80 SSM heads,
    d_ff 10240, vocab 32000) in bfloat16, random weights from a seed,
@@ -640,8 +644,9 @@ def _hmma_counts(dump: str) -> dict:
 
 # The instances phase 1 requires tensor-core products of, by library: the
 # name every instance of a kernel carries, and the HMMA kinds it must run
-# (the SSD scan's bfloat16 instances take C·Bᵀ in bf16, its float32 ones
-# in TF32, and every other product in TF32)
+# (the SSD scan's and its backward chunk kernel's bfloat16 instances take
+# C·Bᵀ in bf16, their float32 ones in TF32, and every other product in
+# TF32)
 HMMA_REQUIRED = {
     "flash_attention": {"flash_fwd_kernel_tf32": ("hmma_tf32",)},
     "flash_attention_bwd": {"dq_kernel_tf32": ("hmma_tf32",),
@@ -649,6 +654,10 @@ HMMA_REQUIRED = {
     "ssd_scan": {"ssd_scan_kernel_mmaIf": ("hmma_tf32",),
                  "ssd_scan_kernel_mmaI13__nv_bfloat16": ("hmma_tf32",
                                                         "hmma_bf16")},
+    "ssd_scan_bwd": {"ssd_bwd_dstate_kernel": ("hmma_tf32",),
+                     "ssd_bwd_chunk_kernelIf": ("hmma_tf32",),
+                     "ssd_bwd_chunk_kernelI13__nv_bfloat16": ("hmma_tf32",
+                                                             "hmma_bf16")},
 }
 
 
@@ -1326,23 +1335,35 @@ def _band_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def _tensor_bound(nbytes: int, ops: int, dtype
-                  ) -> tuple[float, str, Optional[float]]:
+def _typed_bound(nbytes: int, ops: tuple[int, int, int]
+                 ) -> tuple[float, str, Optional[float]]:
     """(bound ms, "bytes" or "operations", SIMT bound ms or None): the
-    larger of ``nbytes`` over the memory rate and ``ops`` over the tensor
-    cores' peak for ``dtype`` — bfloat16's, or for float32 a third of
-    TF32's, since three TF32 products stand for one float32 product
-    (3×TF32).  For float32 also the bound at the SIMT float32 peak, the
-    float32 bound before the kernels ran on the tensor cores."""
+    larger of ``nbytes`` over the memory rate and the operations ``ops``
+    by the types of their operands — (bf16 × bf16, one operand exact,
+    float32 only) — at the tensor cores' peaks: the first at bfloat16's,
+    the second at half TF32's (two TF32 products each), the third at a
+    third of it (three TF32 products stand for one float32 product,
+    3×TF32).  Where every operation is float32 only, also the bound at the
+    SIMT float32 peak, the float32 bound before the kernels ran on the
+    tensor cores."""
+    bf, exact, f32 = ops
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if dtype == torch.bfloat16:
-        t_ops, simt = ops / BF16_OPS_PER_S * 1e3, None
-    else:
-        t_ops = ops / (TF32_OPS_PER_S / BWD_TF32_TERMS) * 1e3
-        simt = max(t_bytes, ops / FP32_OPS_PER_S * 1e3)
+    t_ops = (bf / BF16_OPS_PER_S + exact / (TF32_OPS_PER_S / 2)
+             + f32 / (TF32_OPS_PER_S / BWD_TF32_TERMS)) * 1e3
+    simt = (max(t_bytes, f32 / FP32_OPS_PER_S * 1e3)
+            if bf == exact == 0 else None)
     if t_bytes >= t_ops:
         return t_bytes, "bytes", simt
     return t_ops, "operations", simt
+
+
+def _tensor_bound(nbytes: int, ops: int, dtype
+                  ) -> tuple[float, str, Optional[float]]:
+    """``_typed_bound`` for ``ops`` operations of one input type: all
+    bf16 × bf16 for bfloat16 (no SIMT bound), all float32 otherwise."""
+    if dtype == torch.bfloat16:
+        return (*_typed_bound(nbytes, (ops, 0, 0))[:2], None)
+    return _typed_bound(nbytes, (0, 0, ops))
 
 
 def _attn_bound(q, k, v, window) -> tuple[float, str, Optional[float]]:
@@ -2228,19 +2249,61 @@ def _ssd_mma_ops(x, B, chunk) -> int:
     return b * h * (chunks * per_chunk + (chunks - 1) * off)
 
 
-def _ssd_bwd_parts(kernel: str, x, B, L: int, A) -> tuple[int, int, int]:
+def _ssd_bwd_mma_ops(kernel: str, x, B, L: int) -> int:
+    """Tensor-core operations that the dstate and chunk kernels issue on
+    these inputs (0 for chain and reduce, SIMT), over the bucket D of
+    max(P, N) and row tiles of SSD_ROW_TILE positions: per (b, h) and
+    chunk, its nt row tiles and the nt(nt + 1)/2 causal tile pairs.  Per
+    pair, six 16 × 16 × D products, each 2·SSD_ROW_TILE²·D operations: the
+    scores C·Bᵀ, x·dyᵀ and dy·xᵀ (V is formed twice, as Vᵀ for dB and as V
+    for dC) and Wᵀ·dy, Vᵀ·C and V·B; per row tile, B·G_cᵀ, xdt·G_c and,
+    past the first chunk, dy·S_{c−1}, 2·SSD_ROW_TILE·D² each.  dstate: ΔG
+    over the chunk's tiles, 2·nt·SSD_ROW_TILE·D², chunks after the first.
+    Float32 inputs take every product as BWD_TF32_TERMS TF32 products;
+    bfloat16 ones C·Bᵀ as one bf16 product, the products with an exact x,
+    B or C (x·dyᵀ, dy·xᵀ, Vᵀ·C, V·B, B·G_cᵀ, xdt·G_c, ΔG) as two, and those
+    of float32 operands only (Wᵀ·dy, dy·S_{c−1}) as BWD_TF32_TERMS."""
+    b, l, h, p = x.shape
+    n = B.shape[3]
+    D = min(d for d in SSD_BUCKETS if d >= max(p, n))
+    c = -(-l // L)
+    lengths = [min(L, l - i * L) for i in range(c)]
+    tiles = [-(-lc // SSD_ROW_TILE) for lc in lengths]
+    full = BWD_TF32_TERMS
+    exact = 2 if x.dtype == torch.bfloat16 else full
+    score_cb = 1 if x.dtype == torch.bfloat16 else full
+    pair = 2 * SSD_ROW_TILE ** 2 * D
+    row = 2 * SSD_ROW_TILE * D * D
+    if kernel == "ssd_bwd_dstate":
+        return b * h * sum(nt * row * exact for nt in tiles[1:])
+    if kernel != "ssd_bwd_chunk":
+        return 0
+    ops = 0
+    for ci, nt in enumerate(tiles):
+        ops += nt * (nt + 1) // 2 * pair * (score_cb + full + 4 * exact)
+        ops += nt * row * (2 * exact + (full if ci > 0 else 0))
+    return b * h * ops
+
+
+def _ssd_bwd_parts(kernel: str, x, B, L: int, A
+                   ) -> tuple[int, int, tuple[int, int, int]]:
     """One launch of a backward kernel: (bytes of the VJP's own tensors it
     reads or writes, bytes of the intermediates between the kernels it
-    reads or writes, its float32 operations).  The VJP's own tensors are
-    x, dt, A, B, C, dy, dS_last, the forward's saved states (entering each
-    chunk, and the final one) in, and dx, ddt, dA, dB, dC out; the
-    intermediates are ΔG / G (a state per chunk), the chunk decays, each
-    head's dB / dC (dBh, dCh) and each chunk's dA.  Operations, per (b, h)
-    and chunk of L positions, c chunks: dstate ΔG (2·L·P·N, chunks after
-    the first); chain one multiply-add per state entry and chunk; chunk
-    the causal triangles of C·Bᵀ, dy·xdtᵀ, Wᵀ·dy, Vᵀ·C and V·B
-    (L(L+1)·(3N + 2P)) and B·G_cᵀ, xdt·G_c and dy·S_{c−1} (2·L·P·N each,
-    the last after the first chunk); reduce one add per head entry."""
+    reads or writes, its operations by the types of their operands).  The
+    VJP's own tensors are x, dt, A, B, C, dy, dS_last, the forward's saved
+    states (entering each chunk, and the final one) in, and dx, ddt, dA,
+    dB, dC out; the intermediates are ΔG / G (a state per chunk), the
+    chunk decays, each head's dB / dC (dBh, dCh) and each chunk's dA.
+    Operations, per (b, h) and chunk of L positions, c chunks: dstate ΔG
+    (2·L·P·N, chunks after the first); chain one multiply-add per state
+    entry and chunk; chunk the causal triangles of C·Bᵀ, dy·xdtᵀ, Wᵀ·dy,
+    Vᵀ·C and V·B (L(L+1)·(3N + 2P)) and B·G_cᵀ, xdt·G_c and dy·S_{c−1}
+    (2·L·P·N each, the last after the first chunk); reduce one add per
+    head entry.  They come as (bf16 × bf16, one operand exact — a bfloat16
+    x, B or C against a float32 one —, float32 only): with bfloat16 inputs
+    C·Bᵀ is the first; dy·xdtᵀ, Vᵀ·C, V·B, B·G_cᵀ, xdt·G_c and ΔG the
+    second; Wᵀ·dy, dy·S_{c−1}, chain and reduce the third.  With float32
+    inputs every operation is the third."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     es, f4 = x.element_size(), 4
@@ -2250,45 +2313,51 @@ def _ssd_bwd_parts(kernel: str, x, B, L: int, A) -> tuple[int, int, int]:
     bc = b * l * g * n * es
     heads = b * l * h * n * f4
     chunk_h = b * c * h * f4
+    tri, lpn = L * (L + 1), 2 * L * p * n
+    bf = exact = 0
     if kernel == "ssd_bwd_dstate":
         own = dt_b + a_b + bc + b * l * h * p * f4
         mid = (c - 1) * state + chunk_h
-        ops = 2 * L * p * n * b * h * (c - 1)
+        exact, f32 = b * h * (c - 1) * lpn, 0
     elif kernel == "ssd_bwd_chain":
         own = state
         mid = (c - 1) * state + chunk_h + c * state
-        ops = 2 * p * n * b * h * (c - 1)
+        f32 = 2 * p * n * b * h * (c - 1)
     elif kernel == "ssd_bwd_chunk":
         own = (b * l * h * p + 2 * b * l * g * n) * es + dt_b + a_b \
             + b * l * h * p * f4 + (c + 1) * state + b * l * h * p * es \
             + dt_b
         mid = c * state + 2 * heads + chunk_h
-        ops = b * h * (c * (L * (L + 1) * (3 * n + 2 * p) + 4 * L * p * n)
-                       + (c - 1) * 2 * L * p * n)
+        bf = b * h * c * tri * n
+        exact = b * h * c * (tri * (2 * n + p) + 2 * lpn)
+        f32 = b * h * (c * tri * p + (c - 1) * lpn)
     else:
         own = 2 * bc + a_b
         mid = 2 * heads + chunk_h
-        ops = 2 * b * l * h * n
-    return own, mid, ops
+        f32 = 2 * b * l * h * n
+    if x.dtype != torch.bfloat16:
+        bf, exact, f32 = 0, 0, bf + exact + f32
+    return own, mid, (bf, exact, f32)
 
 
 def _ssd_bwd_bound(kernel: str, x, B, L: int, A
                    ) -> tuple[float, str, Optional[float], int]:
     """(bound ms, "bytes" or "operations", SIMT bound ms, intermediate
     bytes) of one launch of a backward kernel: the VJP's own bytes it
-    moves (``_ssd_bwd_parts``) or its operations at a third of the TF32
-    peak (``_tensor_bound``), whichever takes longer.  The intermediates'
-    traffic is an artefact of splitting the VJP into four kernels and
-    stays out of the bound; it is returned beside it."""
+    moves (``_ssd_bwd_parts``) or its operations at the peaks of their
+    operand types (``_typed_bound``), whichever takes longer.  The
+    intermediates' traffic is an artefact of splitting the VJP into four
+    kernels and stays out of the bound; it is returned beside it."""
     own, mid, ops = _ssd_bwd_parts(kernel, x, B, L, A)
-    return (*_tensor_bound(own, ops, torch.float32), mid)
+    return (*_typed_bound(own, ops), mid)
 
 
 def _ssd_vjp_bound(x, B, L: int, A) -> tuple[float, str, Optional[float]]:
     """The least time for the whole SSD backward: x, dt, A, B, C, dy,
     dS_last and the saved states read once, dx, ddt, dA, dB and dC
     written once, or the four kernels' operations (``_ssd_bwd_parts``) at
-    a third of the TF32 peak, whichever takes longer."""
+    the peaks of their operand types (``_typed_bound``), whichever takes
+    longer."""
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     es, f4 = x.element_size(), 4
@@ -2297,9 +2366,9 @@ def _ssd_vjp_bound(x, B, L: int, A) -> tuple[float, str, Optional[float]]:
     nbytes = 2 * (b * l * h * p + 2 * b * l * g * n) * es \
         + 2 * b * l * h * f4 + 2 * A.numel() * f4 + b * l * h * p * f4 \
         + (c + 2) * state
-    ops = sum(_ssd_bwd_parts(k, x, B, L, A)[2] for k in (
-        "ssd_bwd_dstate", "ssd_bwd_chain", "ssd_bwd_chunk", "ssd_bwd_reduce"))
-    return _tensor_bound(nbytes, ops, torch.float32)
+    parts = [_ssd_bwd_parts(k, x, B, L, A)[2] for k in (
+        "ssd_bwd_dstate", "ssd_bwd_chain", "ssd_bwd_chunk", "ssd_bwd_reduce")]
+    return _typed_bound(nbytes, tuple(sum(col) for col in zip(*parts)))
 
 
 def _ssd_bwd_check(checks: list, shape, dtype, gen, a_rows: bool,
@@ -2351,9 +2420,9 @@ def _ssd_bwd_times(shape, dtype, gen) -> dict:
     per row at the training path's shape, as phase 17 folds its clients),
     from CUDA-graph replay, beside each one's plain stage (``ref.bwd_*``,
     graph replay), the plain backward (autograd of ``ref.ssd_chunked``,
-    back to back: ``plain_ms``) and the bound.  No tensor cores (SIMT
-    float32), and no PyTorch call computes the SSD: no yardstick.  Returns
-    {kernel: timing}."""
+    back to back: ``plain_ms``), the bound and the tensor-core work
+    (``_ssd_bwd_mma_ops``; chain and reduce are SIMT).  No PyTorch call
+    computes the SSD: no yardstick.  Returns {kernel: timing}."""
     from repro_torch.kernels.ssd_scan import ops, ref
     chunk = shape[-1]
     a_rows = shape == SSD_PATH_SHAPE
@@ -2399,7 +2468,8 @@ def _ssd_bwd_times(shape, dtype, gen) -> dict:
                   "bound_by": bound_by, "simt_bound_ms": simt_ms,
                   "intermediate_bytes": mid,
                   "intermediate_ms": mid / HBM_BYTES_PER_S * 1e3,
-                  "mma_ops": 0, "library_ms": None}
+                  "mma_ops": _ssd_bwd_mma_ops(name, x, B, L),
+                  "library_ms": None}
         _emit({"phase": "kernel_time", **timing})
         out[name] = timing
     total = sum(t["ms"] for t in out.values())
@@ -2413,9 +2483,30 @@ def _ssd_bwd_times(shape, dtype, gen) -> dict:
     return out
 
 
+def _ssd_bwd_rerun(dtype, gen) -> None:
+    """The four backward kernels twice at SSD_PATH_SHAPE (one A per row):
+    every gradient bit-equal to the first run's (sums in a fixed order, no
+    atomics)."""
+    from repro_torch.kernels.ssd_scan import ops
+    chunk = SSD_PATH_SHAPE[-1]
+    x, dt, A, B, C = _ssd_operands(SSD_PATH_SHAPE, dtype, gen, a_rows=True)
+    _, state, states = ops.ssd_scan(x, dt, A, B, C, chunk, states=True)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE)
+    dS = torch.randn(state.shape, generator=gen, device=DEVICE)
+    first = ops.ssd_scan_bwd(x, dt, A, B, C, chunk, dy, dS, states, state)
+    again = ops.ssd_scan_bwd(x, dt, A, B, C, chunk, dy, dS, states, state)
+    torch.cuda.synchronize()
+    for name, g, h in zip(SSD_BWD_NAMES, first, again):
+        _require(torch.equal(g, h), f"ssd_scan_bwd {dtype} "
+                 f"{SSD_PATH_SHAPE}: a rerun's {name} is not bit-equal")
+    _emit({"phase": "ssd_backward_rerun", "dtype": str(dtype),
+           "shape": SSD_PATH_SHAPE, "bit_equal": list(SSD_BWD_NAMES)})
+
+
 def _ssd_backward() -> dict:
     """Part of phase 9: the backward kernels checked (``_ssd_bwd_check``)
-    at SSD_SHAPES and SSD_BWD_EXTRA in float32 and bfloat16, then timed at
+    at SSD_SHAPES and SSD_BWD_EXTRA in float32 and bfloat16, rerun
+    bit-equal at the path's shape (``_ssd_bwd_rerun``), then timed at
     SSD_TIMED.  Returns each kernel's timing at the training path's shape
     in float32 (phase 17's dtype), with the largest absolute error over
     the checks of the gradients it writes (the chunk kernel dx and ddt,
@@ -2429,6 +2520,7 @@ def _ssd_backward() -> dict:
                                        + SSD_BWD_EXTRA):
             _ssd_bwd_check(checks, shape, dtype, gen, a_rows, ds_zero)
             torch.cuda.empty_cache()
+        _ssd_bwd_rerun(dtype, gen)
         for shape in SSD_TIMED:
             times = _ssd_bwd_times(shape, dtype, gen)
             if dtype == torch.float32 and shape == SSD_PATH_SHAPE:

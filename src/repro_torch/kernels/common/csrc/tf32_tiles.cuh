@@ -1,9 +1,9 @@
 // Tile machinery of the float32 tensor-core kernels (the flash-attention
-// forward and backward, the SSD scan): every float32 product as three TF32
-// products (3×TF32) on mma.sync m16n8k8, from float32 tiles staged in shared
-// memory by cp.async.  Beside mma_tiles.cuh (the bfloat16 machinery, whose
-// cp.async group helpers it uses); every build hashes both
-// (kernels/_build.py).
+// forward and backward, the SSD scan and its backward): every float32
+// product as three TF32 products (3×TF32) on mma.sync m16n8k8, from
+// float32 tiles staged in shared memory by cp.async.  Beside
+// mma_tiles.cuh (the bfloat16 machinery, whose cp.async group helpers it
+// uses); every build hashes both (kernels/_build.py).
 //
 // 3×TF32.  A float32 x splits in registers into two TF32 values,
 // x_hi = rna(x) and x_lo = rna(x − x_hi) (rna: round to nearest, ties away,
@@ -30,7 +30,9 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_tiles.cuh"
@@ -84,14 +86,45 @@ struct FragA {
   }
 };
 
-// a B fragment (b0, b1) split into hi and lo
+// a B fragment (b0, b1) split into hi and lo, or from halves split before
 struct FragB {
   uint32_t hi[2], lo[2];
   __device__ __forceinline__ FragB(float b0, float b1) {
     split(b0, hi[0], lo[0]);
     split(b1, hi[1], lo[1]);
   }
+  __device__ __forceinline__ FragB(float2 h, float2 l) {
+    hi[0] = __float_as_uint(h.x);
+    hi[1] = __float_as_uint(h.y);
+    lo[0] = __float_as_uint(l.x);
+    lo[1] = __float_as_uint(l.y);
+  }
 };
+
+// Fragments of operands that are exactly TF32 (a bfloat16 value widened
+// to float32): no lo half, so a product with one takes two TF32 products
+struct ExactA {
+  uint32_t v[4];
+  __device__ __forceinline__ ExactA(float a0, float a1, float a2, float a3) {
+    v[0] = __float_as_uint(a0);
+    v[1] = __float_as_uint(a1);
+    v[2] = __float_as_uint(a2);
+    v[3] = __float_as_uint(a3);
+  }
+};
+struct ExactB {
+  uint32_t v[2];
+  __device__ __forceinline__ ExactB(float b0, float b1) {
+    v[0] = __float_as_uint(b0);
+    v[1] = __float_as_uint(b1);
+  }
+};
+
+// the A and B fragments of a float32 operand (split) or an exact one
+template <bool kExact>
+using OperandA = std::conditional_t<kExact, ExactA, FragA>;
+template <bool kExact>
+using OperandB = std::conditional_t<kExact, ExactB, FragB>;
 
 // d (16 × 8, f32) += a (16 × 8, tf32, row) · b (8 × 8, tf32, col)
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -109,6 +142,24 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
   mma_tf32(d, a.lo, b.hi);
   mma_tf32(d, a.hi, b.lo);
   mma_tf32(d, a.hi, b.hi);
+}
+
+// d += a·b in TF32 products, the small terms first: three for two float32
+// operands (mma_3xtf32), two where one is exact (a_lo·b + a_hi·b, or
+// a·b_lo + a·b_hi)
+__device__ __forceinline__ void mma(float (&d)[4], const FragA& a,
+                                    const FragB& b) {
+  mma_3xtf32(d, a, b);
+}
+__device__ __forceinline__ void mma(float (&d)[4], const FragA& a,
+                                    const ExactB& b) {
+  mma_tf32(d, a.lo, b.v);
+  mma_tf32(d, a.hi, b.v);
+}
+__device__ __forceinline__ void mma(float (&d)[4], const ExactA& a,
+                                    const FragB& b) {
+  mma_tf32(d, a.v, b.lo);
+  mma_tf32(d, a.v, b.hi);
 }
 
 // W bytes to shared `dst` by one cp.async: the first `bytes` (0 ≤ bytes ≤
@@ -170,6 +221,17 @@ __device__ __forceinline__ float2 ld2(const float* ptr) {
   return *reinterpret_cast<const float2*>(ptr);
 }
 
+// elements (col, col + 1) of a float32 or bfloat16 tile row as floats
+// (col even)
+__device__ __forceinline__ float2 pair(const float* row, int col) {
+  return ld2(row + col);
+}
+__device__ __forceinline__ float2 pair(const __nv_bfloat16* row, int col) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + col);
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xffff0000u));
+}
+
 // The A fragment of k8 step kk over the head dim from the 16 rows at
 // `row` (row g; g + 8 at 8 rows below) of a tile of pitch P: dims 2t and
 // 2t + 1 of the step stand for k = t and t + 4
@@ -189,28 +251,36 @@ __device__ __forceinline__ FragA acc_a(const float (&x)[4]) {
 }
 
 // acc (16 × 8·NO) += a (16 × 8·NK: A operands from a score block's NK n8
-// tiles, k8 step j from tile j, acc_a) · the tile rows 8·j + pk[0]
-// and 8·j + pk[1] of step j, at columns cols + 8·n of n8 tile n.  Each n8
-// tile of the product is summed over the NK steps in a fresh fragment and
-// then added to acc in float32 (round to nearest): the tensor cores
-// truncate as they accumulate, which over a long band biased a running sum
-// past the tolerance.
+// tiles, k8 step j from tile j, acc_a) · B, the B fragment of step j and
+// n8 tile n from bf(j, n) (FragB or ExactB).  Each n8 tile of the product
+// is summed over the NK steps in a fresh fragment and then added to acc
+// in float32 (round to nearest): the tensor cores truncate as they
+// accumulate, which over a long band biased a running sum past the
+// tolerance.
+template <int NO, int NK, class BF>
+__device__ __forceinline__ void mma_rows(float (&acc)[NO][4],
+                                         const FragA (&a)[NK], BF bf) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NK; ++j) mma(part, a[j], bf(j, n));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// mma_rows with B from the float32 tile rows 8·j + pk[0] and 8·j + pk[1]
+// of step j, at columns cols + 8·n of n8 tile n (rows of P floats)
 template <int NO, int NK, int P>
 __device__ __forceinline__ void mma_rows_tf32(float (&acc)[NO][4],
                                               const FragA (&a)[NK],
                                               const float* cols,
                                               const int (&pk)[2]) {
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      mma_3xtf32(part, a[j], FragB(cols[(8 * j + pk[0]) * P + 8 * n],
-                                   cols[(8 * j + pk[1]) * P + 8 * n]));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-  }
+  mma_rows(acc, a, [&](int j, int n) {
+    return FragB(cols[(8 * j + pk[0]) * P + 8 * n],
+                 cols[(8 * j + pk[1]) * P + 8 * n]);
+  });
 }
 
 }  // namespace fa_tf32

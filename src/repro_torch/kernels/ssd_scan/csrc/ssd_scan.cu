@@ -151,61 +151,6 @@ __device__ __forceinline__ bf16 from_float<bf16>(float v) {
   return __float2bfloat16_rn(v);  // exact: v came from a bf16
 }
 
-// elements (col, col + 1) of a tile row as floats (col even)
-__device__ __forceinline__ float2 pair(const float* row, int col) {
-  return tf32::ld2(row + col);
-}
-__device__ __forceinline__ float2 pair(const bf16* row, int col) {
-  const uint32_t w = *reinterpret_cast<const uint32_t*>(row + col);
-  return make_float2(__uint_as_float(w << 16),
-                     __uint_as_float(w & 0xffff0000u));
-}
-
-// d += a·b for an operand that is exactly TF32 (a bf16 value; its lo half
-// is 0): a·b_lo + a·b_hi for such an a, a_lo·b + a_hi·b for such a b
-__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
-                                           const uint32_t (&a)[4],
-                                           const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  tf32::mma_tf32(d, a, b_lo);
-  tf32::mma_tf32(d, a, b_hi);
-}
-__device__ __forceinline__ void mma_2xtf32(float (&d)[4],
-                                           const tf32::FragA& a,
-                                           const uint32_t (&b)[2]) {
-  tf32::mma_tf32(d, a.lo, b);
-  tf32::mma_tf32(d, a.hi, b);
-}
-
-// The bits of a bf16 as a float32 (exactly TF32)
-__device__ __forceinline__ uint32_t bits(bf16 v) {
-  return static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(&v))
-         << 16;
-}
-
-// acc (16 × 8·NO) += a (16 × 8·NK, from the accumulator, tf32::acc_a) ·
-// the bf16 tile rows 8·j + pk[0] and 8·j + pk[1] of step j, at columns
-// cols + 8·n of n8 tile n: tf32::mma_rows_tf32 for a B operand that is
-// exactly TF32, two products a step
-template <int NO, int NK, int P>
-__device__ __forceinline__ void mma_rows_exact(float (&acc)[NO][4],
-                                               const tf32::FragA (&a)[NK],
-                                               const bf16* cols,
-                                               const int (&pk)[2]) {
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < NK; ++j) {
-      const uint32_t bv[2] = {bits(cols[(8 * j + pk[0]) * P + 8 * n]),
-                              bits(cols[(8 * j + pk[1]) * P + 8 * n])};
-      mma_2xtf32(part, a[j], bv);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-  }
-}
-
 __device__ __forceinline__ int ld_acquire(const int* ptr) {
   int v;
   asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
@@ -432,9 +377,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
       for (int kk = 0; kk < 2; ++kk) {
         const int s = s0 + 8 * kk + quad;
         if constexpr (kBf16) {
-          const uint32_t bv[2] = {bits(bs[s * PT + nc]),
-                                  bits(bs[(s + 4) * PT + nc])};
-          mma_2xtf32(part, ax[kk], bv);
+          tf32::mma(part, ax[kk],
+                    tf32::ExactB(to_float(bs[s * PT + nc]),
+                                 to_float(bs[(s + 4) * PT + nc])));
         } else {
           tf32::mma_3xtf32(
               part, ax[kk],
@@ -519,7 +464,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
     // per n8 tile
     const tf32::FragA aw[2] = {tf32::acc_a(gm[0]), tf32::acc_a(gm[1])};
     if constexpr (kBf16) {
-      mma_rows_exact<NP, 2, PT>(yacc, aw, xs + s0 * PT + g8, pk);
+      const T* const xr = xs + s0 * PT + g8;
+      tf32::mma_rows(yacc, aw, [&](int j, int n) {
+        return tf32::ExactB(to_float(xr[(8 * j + pk[0]) * PT + 8 * n]),
+                            to_float(xr[(8 * j + pk[1]) * PT + 8 * n]));
+      });
     } else {
       tf32::mma_rows_tf32<NP, 2, PT>(
           yacc, aw, reinterpret_cast<const float*>(xs) + s0 * PT + g8, pk);
@@ -609,22 +558,16 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>())
 #pragma unroll 2
       for (int kk = 0; kk < KD; ++kk) {
         const int c = 8 * kk + 2 * quad;
-        const float2 x = pair(crow, c);
-        const float2 x8 = pair(crow + 8 * PT, c);
+        const float2 x = tf32::pair(crow, c);
+        const float2 x8 = tf32::pair(crow + 8 * PT, c);
         const int srow = (8 * NH * half + g8) * PT + c;
         if constexpr (kBf16) {
-          const uint32_t ac[4] = {__float_as_uint(x.x), __float_as_uint(x8.x),
-                                  __float_as_uint(x.y),
-                                  __float_as_uint(x8.y)};
+          const tf32::ExactA ac(x.x, x8.x, x.y, x8.y);
 #pragma unroll
           for (int n = 0; n < NH; ++n) {
-            const float2 hv = tf32::ld2(sp + srow + 8 * n * PT);
-            const float2 lv = tf32::ld2(sp_lo + srow + 8 * n * PT);
-            const uint32_t bh[2] = {__float_as_uint(hv.x),
-                                    __float_as_uint(hv.y)};
-            const uint32_t bl[2] = {__float_as_uint(lv.x),
-                                    __float_as_uint(lv.y)};
-            mma_2xtf32(off[n], ac, bh, bl);
+            tf32::mma(off[n], ac,
+                      tf32::FragB(tf32::ld2(sp + srow + 8 * n * PT),
+                                  tf32::ld2(sp_lo + srow + 8 * n * PT)));
           }
         } else {
           const tf32::FragA ac(x.x, x8.x, x.y, x8.y);

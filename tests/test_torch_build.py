@@ -98,10 +98,10 @@ def test_each_ssd_source_names_its_own_library(tmp_path, monkeypatch, edit):
 @pytest.mark.parametrize("header", SHARED)
 def test_editing_a_shared_header_changes_attention_and_ssd_library_paths(
         tmp_path, monkeypatch, header):
-    """Both attention libraries and the SSD scan's include the shared
-    headers: an edit to either changes all three library names, so a
-    stale SSD library never survives it."""
-    names = ATTN + ("ssd_scan",)
+    """Both attention libraries and the SSD scan's forward and backward
+    include the shared headers: an edit to either changes all four library
+    names, so a stale SSD library never survives it."""
+    names = ATTN + ("ssd_scan", "ssd_scan_bwd")
     shutil.copytree(_build.COMMON_DIR, tmp_path / "common")
     monkeypatch.setattr(_build, "COMMON_DIR", tmp_path / "common")
     for name in names:
@@ -179,15 +179,18 @@ def test_python_copies_of_backward_constants_match_the_source(constant):
 
 @pytest.mark.parametrize("constant", ["fwd_block_rows", "fwd_block_keys",
                                       "fwd_wide_head_dim", "ssd_buckets",
-                                      "ssd_row_tile"])
+                                      "ssd_row_tile", "ssd_bwd_buckets",
+                                      "ssd_bwd_row_tile", "ssd_bwd_terms"])
 def test_python_copies_of_forward_and_ssd_constants_match_the_source(
         constant):
-    """chip_smoke.py counts the float32 forward's and the SSD kernel's
-    tensor-core work from copies of their sources' tile constants; each
-    copy equals the source's value."""
+    """chip_smoke.py counts the float32 forward's and the SSD kernels'
+    tensor-core work (``_ssd_mma_ops``, ``_ssd_bwd_mma_ops``) from copies
+    of their sources' tile constants; each copy equals the source's
+    value."""
     smoke = _chip_smoke()
     fwd = _build.SOURCES["flash_attention"].read_text()
     ssd = _build.SOURCES["ssd_scan"].read_text()
+    bwd = _build.SOURCES["ssd_scan_bwd"].read_text()
     if constant == "fwd_block_rows":
         (warps,) = re.findall(r"constexpr int kMmaWarps = (\d+);", fwd)
         assert "constexpr int kMmaBQ = 16 * kMmaWarps;" in fwd
@@ -214,7 +217,44 @@ def test_python_copies_of_forward_and_ssd_constants_match_the_source(
         (max_dim,) = re.findall(r"constexpr int kMaxDim = (\d+);", ssd)
         assert smoke.SSD_BUCKETS == buckets + (int(last),)
         assert smoke.SSD_BUCKETS[-1] == int(max_dim) == ops_ssd.MAX_DIM
-    else:
+    elif constant == "ssd_row_tile":
         assert "const int Lp = (p.L + 15) / 16 * 16;" in ssd
         assert "const int z0 = 16 * rt;" in ssd
         assert smoke.SSD_ROW_TILE == 16
+    elif constant == "ssd_bwd_buckets":
+        # the dstate and the chunk kernel each dispatch on the same buckets
+        body = _body(bwd, "cudaError_t by_bucket(")
+        for launch in ("launch_dstate", "launch_chunk"):
+            buckets = tuple(int(d) for d in re.findall(
+                rf"if \(d <= (\d+)\) return {launch}<T, \1>", body))
+            (last,) = re.findall(
+                rf"^\s+return {launch}<T, (\d+)>\(p, stream\);", body, re.M)
+            assert smoke.SSD_BUCKETS == buckets + (int(last),)
+        (max_dim,) = re.findall(r"constexpr int kMaxDim = (\d+);", bwd)
+        assert int(max_dim) == smoke.SSD_BUCKETS[-1]
+    elif constant == "ssd_bwd_row_tile":
+        (tile,) = re.findall(r"constexpr int kRowTile = (\d+);", bwd)
+        assert smoke.SSD_ROW_TILE == int(tile)
+        assert "16 * kk" not in _body(bwd, "    ssd_bwd_chunk_kernel(")
+        for kernel in ("    ssd_bwd_dstate_kernel(", "    ssd_bwd_chunk_kernel("):
+            assert ("(Lc + kRowTile - 1) / kRowTile"
+                    in _body(bwd, kernel))
+    else:
+        # a product of two float32 operands takes BWD_TF32_TERMS TF32
+        # products, one with an exact (bfloat16) operand two: the shared
+        # header's mma overloads, which the backward calls
+        header = (_build.COMMON_DIR / "tf32_tiles.cuh").read_text()
+        three = _body(header, "__device__ __forceinline__ void mma_3xtf32(")
+        assert three.count("mma_tf32(d, ") == smoke.BWD_TF32_TERMS
+        pad = " " * len("__device__ __forceinline__ void mma(")
+        for sig, terms in (("const FragA& a,\n" + pad + "const FragB& b) {",
+                            smoke.BWD_TF32_TERMS),
+                           ("const FragA& a,\n" + pad + "const ExactB& b) {",
+                            2),
+                           ("const ExactA& a,\n" + pad + "const FragB& b) {",
+                            2)):
+            body = _body(header, sig)
+            calls = body.count("mma_tf32(d, ") or 3 * body.count(
+                "mma_3xtf32(d, ")
+            assert calls == terms, sig
+        assert "tf32::mma(" in bwd and "mma_tf32" not in bwd

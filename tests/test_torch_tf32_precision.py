@@ -2,9 +2,10 @@
 
 The float32 instances of the attention backward (``dq_kernel_tf32`` and
 ``dkv_kernel_tf32`` in ``csrc/flash_attention_bwd.cu``), of the attention
-forward (``flash_fwd_kernel_tf32`` in ``csrc/flash_attention.cu``) and the
-SSD scan (``ssd_scan_kernel_mma`` in ``ssd_scan/csrc/ssd_scan.cu``) run
-their products on the tensor cores in TF32, whose operands keep 10 of
+forward (``flash_fwd_kernel_tf32`` in ``csrc/flash_attention.cu``), the
+SSD scan (``ssd_scan_kernel_mma`` in ``ssd_scan/csrc/ssd_scan.cu``) and the
+SSD backward's dstate and chunk kernels (``ssd_scan/csrc/ssd_scan_bwd.cu``)
+run their products on the tensor cores in TF32, whose operands keep 10 of
 float32's 23 mantissa bits.  Each float32 operand x is split into
 x_hi = rna(x) and x_lo = rna(x − x_hi), rna rounding to nearest with ties
 away from zero on the 13 low mantissa bits, and a·b is taken as
@@ -16,15 +17,18 @@ with three products and with one — the forward's P·V summed a kv tile at a
 time into the rescaled O, as the kernel sums each tile in a fresh
 fragment; the SSD's C·Bᵀ exact for bfloat16 inputs (the kernel's bf16
 product), its other products in TF32 terms, a bfloat16 x, B or C being
-exactly TF32 (no lo half).
+exactly TF32 (no lo half); the SSD backward's products likewise.
 
 Held to the tolerances the card's checks hold the kernels to
 (``chip_smoke.py``): the backward's ``ATTN_BWD_TOL``, 2e-5 of each
 gradient's largest entry; the forward's ``ATTN_TOL``, 1e-5·(1 + |o|) for o
 and 1e-5·(1 + |lse|) for lse; the SSD's ``SSD_TOL``, 2e-4 of the largest
-entry of y and of the state — against the float32 plain versions: three
-products stay within each, one does not (with bfloat16 SSD inputs, whose
-exact operands leave one side unrounded, at two of three shapes).
+entry of y and of the state; the SSD backward's ``SSD_BWD_TOL`` (1e-4 of
+each gradient's largest entry, ``SSD_BWD_DA_TOL`` for dA, one bfloat16 ulp
+more for a bfloat16 dx, dB or dC), the dstate, chain, chunk and reduce
+stages together — against the float32 plain versions: three products
+stay within each, one does not (with bfloat16 SSD inputs, whose exact
+operands leave one side unrounded, at two of three shapes).
 Attention shapes: the training
 path's (gemma-2b: 8 heads, 1 kv head, head dim 256, S 128) cut to one
 batch row, the ``--small`` model's local step (head dim 32) and a windowed
@@ -312,3 +316,121 @@ def test_one_tf32_product_misses_the_ssd_tolerance_with_bf16_inputs():
            for shape in SSD_SMALL}
     assert sum(err > tol for err in one.values()) >= 2, one
     assert min(one.values()) > 0.5 * tol, one
+
+
+# ---------------------------------------------------------------------------
+# the SSD backward
+# ---------------------------------------------------------------------------
+
+def emulated_bwd_chunk(x, dt, A, B, C, dy, states, final, G, L, terms):
+    """``ssd_ref.bwd_chunk``'s formulas with the chunk kernel's products
+    (``product``; a bfloat16 operand has no lo half, so three terms are the
+    kernel's two): W = C·Bᵀ (exact for bfloat16 inputs) ∘ E, V = (dy·xᵀ) ∘ (dt_s E), the
+    scalars on the side of the float32 operand so that x, B and C stay
+    exact in bfloat16; d(xdt) = Wᵀ·dy + w ∘ (B·G_cᵀ), dB = Vᵀ·C +
+    (dt·w) ∘ (x·G_c), dC = V·B + exp(cum) ∘ (dy·S_{c−1}); the rest
+    (row dots, dcum, ddA, ddt, dA) in float32 as the plain version."""
+    b, l, h, p = x.shape
+    c = l // L
+    rep = h // B.shape[2]
+    dt_t, cum = ssd_ref._chunked(dt, A, L)                    # (b,c,h,L)
+    xc = x.float().reshape(b, c, L, h, p)
+    dtc = dt.float().reshape(b, c, L, h)
+    Bc, Cc = ssd_ref._heads(B, c, L, rep), ssd_ref._heads(C, c, L, rep)
+    dyc = dy.float().reshape(b, c, L, h, p)
+    E = torch.exp(ssd_ref._segsum(dt_t * ssd_ref._a_rows(A, b)[:, None, :,
+                                                                None]))
+    dts = dt_t[:, :, :, None, :]                              # by s
+    W = product("bczhn,bcshn->bchzs", Cc, Bc, terms) * E
+    V = product("bczhp,bcshp->bchzs", dyc, xc, terms) * (dts * E)
+    wend = torch.exp(cum[..., -1:] - cum)
+    wsb = wend.permute(0, 1, 3, 2)[..., None]                 # (b,c,L,h,1)
+    dxdt = (product("bchzs,bczhp->bcshp", W, dyc, terms)
+            + wsb * product("bcshn,bchpn->bcshp", Bc, G, terms))
+    dBh = (product("bchzs,bczhn->bcshn", V, Cc, terms)
+           + wsb * dtc[..., None] * product("bcshp,bchpn->bcshn", xc, G,
+                                            terms))
+    ez = torch.exp(cum).permute(0, 1, 3, 2)[..., None]
+    dCh = (product("bchzs,bcshn->bczhn", V, Bc, terms)
+           + ez * product("bczhp,bchpn->bczhn", dyc, states, terms))
+    rx = (xc * dxdt).sum(-1)                                  # (b,c,L,h)
+    dcum = ((Cc * dCh).sum(-1) - dtc * rx).permute(0, 1, 3, 2)
+    S_next = torch.cat([states[:, 1:], final[:, None]], dim=1)
+    dcum[..., -1] += (G * S_next).sum((-2, -1))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = rx.permute(0, 1, 3, 2) + ddA * ssd_ref._a_rows(A, b)[:, None, :,
+                                                              None]
+    dA = (ddA * dt_t).sum(-1)
+    dx = (dxdt * dtc[..., None]).reshape(b, l, h, p).to(x.dtype)
+    return (dx, ddt.permute(0, 1, 3, 2).reshape(b, l, h),
+            dBh.reshape(b, l, h, -1), dCh.reshape(b, l, h, -1), dA)
+
+
+def emulated_ssd_bwd(x, dt, A, B, C, chunk, dy, dS_last, terms):
+    """The four backward kernels: ΔG = (exp(cum) ∘ dy)ᵀ·C with dstate's
+    products, the chain and the reduce in float32 (``ssd_ref.bwd_chain``,
+    ``bwd_reduce``), the chunk kernel as ``emulated_bwd_chunk``; the
+    forward's states from the plain version."""
+    b, l, h, p = x.shape
+    L = min(chunk, l)
+    c = l // L
+    _, final, states = ssd_ref.chunk_states(x, dt, A, B, C, chunk)
+    _, cum = ssd_ref._chunked(dt, A, L)
+    Cc = ssd_ref._heads(C, c, L, h // C.shape[2])
+    edy = (torch.exp(cum).permute(0, 1, 3, 2)[..., None]
+           * dy.float().reshape(b, c, L, h, p))
+    dG = product("bczhp,bczhn->bchpn", edy, Cc, terms)
+    G = ssd_ref.bwd_chain(dG, torch.exp(cum[..., -1]), dS_last)
+    dx, ddt, dBh, dCh, dA_chunks = emulated_bwd_chunk(
+        x, dt, A, B, C, dy, states, final, G, L, terms)
+    dB, dC, dA = ssd_ref.bwd_reduce(dBh, dCh, dA_chunks, B.shape[2],
+                                    B.dtype, A.dim() == 1)
+    return dx, ddt, dA, dB, dC
+
+
+def _ssd_bwd_misses(shape, dtype, terms):
+    """Each gradient's largest |emulated − plain| over its allowance in
+    phase 9 (chip_smoke's SSD_BWD_TOL, SSD_BWD_DA_TOL for dA, plus
+    SSD_BWD_BF16_TOL for a bfloat16 dx, dB or dC), times its largest
+    |plain| entry: above 1 misses."""
+    smoke = _chip_smoke()
+    b, l, h, p, g, n, chunk = shape
+    rng = np.random.default_rng(l + p + n + 7)
+    x = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, l, h), np.float32)))
+    A = -torch.exp(0.5 * torch.from_numpy(rng.standard_normal(h, np.float32)))
+    B, C = (torch.from_numpy(rng.standard_normal((b, l, g, n), np.float32))
+            .to(dtype) for _ in range(2))
+    x = x.to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, l, h, p), np.float32))
+    dS = torch.from_numpy(rng.standard_normal((b, h, p, n), np.float32))
+    want = ssd_ref.ssd_chunked_bwd(x, dt, A, B, C, chunk, dy, dS)
+    got = emulated_ssd_bwd(x, dt, A, B, C, chunk, dy, dS, terms)
+    misses = {}
+    for name, gt, w in zip(smoke.SSD_BWD_NAMES, got, want):
+        assert gt.shape == w.shape and gt.dtype == w.dtype, name
+        tol = smoke.SSD_BWD_DA_TOL if name == "dA" else smoke.SSD_BWD_TOL
+        if gt.dtype == torch.bfloat16:
+            tol += smoke.SSD_BWD_BF16_TOL
+        misses[name] = float((gt.float() - w.float()).abs().max()
+                             / (tol * w.float().abs().max()))
+    return misses
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SMALL, ids=["chunks4", "ragged77",
+                                                  "pn128"])
+def test_split_tf32_products_hold_the_ssd_backward_tolerance(shape, dtype):
+    """The split products stay within half of the phase-9 allowance."""
+    misses = _ssd_bwd_misses(shape, dtype, terms=3)
+    assert max(misses.values()) <= 0.5, misses
+
+
+def test_one_tf32_product_misses_the_ssd_backward_tolerance():
+    """One TF32 product (each operand rounded to TF32) misses the phase-9
+    allowance at every small shape, by more than 7×."""
+    worst = {shape: max(_ssd_bwd_misses(shape, torch.float32, terms=1)
+                        .values()) for shape in SSD_SMALL}
+    assert min(worst.values()) > 7.0, worst
