@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases, each printing JSON lines; any failure exits non-zero.
+Eighteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -282,6 +282,22 @@ Seventeen phases, each printing JSON lines; any failure exits non-zero.
    tokens/s and peak memory.  Then the
    reduced model (4 layers, d 128, chunk 16, two groups) at seq 32 and
    lr 0.03 on the card against the CPU by phase 8's rule.
+18. tree layout — ``param_layout="tree"``, ``FedConfig``'s default, whose
+   local steps are plain torch leaf by leaf (no calibrated-update launch)
+   and whose wire crosses the flat view table: (a) phase 8's gemma-2b cut
+   and inputs, fedagrac, against phase 8's flat run (reused, not run
+   again) by phase 8's rule (the spread of a tree rerun with reversed
+   sequences), the attention launches as phase 8 counts them and no
+   other, wall per round and peak memory beside phase 8's; (b) phase 3's
+   main path, TREE_ROUNDS rounds of the nine algorithms, FedAvgM and
+   FedAdam, against the CPU by phase 3's rule (relabelled reruns where the
+   mlp's branches need them, C14), no launch; (c) phase 4's compressed
+   workload, one run of each codec and the int8 broadcast: exact quantize
+   launches and wire bytes, against the CPU; (d) phase 13's setting at M =
+   1024, a cohort run in chunks and a buffered run, against the CPU; (e)
+   ``track_nu="explicit"`` and ``quantize_transmit`` (fedagrac_first with
+   a prox term) on each layout against the CPU, the flat round one
+   calibrated-update launch a local step.
 
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
@@ -2013,7 +2029,8 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
                 batch: int, rounds: int, lr: Optional[float] = None,
                 generator=None, flip_rows: bool = False, bf16: bool = False,
                 moved: Optional[int] = None, ulp_moved: Optional[int] = None,
-                keep: bool = False, eval_first: bool = False) -> dict:
+                keep: bool = False, eval_first: bool = False,
+                layout: str = "flat") -> dict:
     """The example's simulation (``repro_torch.examples.fed_lm_train``)
     for ``rounds`` rounds in one chunk; returns its history, final params,
     the kernels' launches, wall and peak memory.  ``bf16``: the example's
@@ -2023,11 +2040,14 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
     (``_f32_moved``); ``keep``: the simulation is returned too, under
     ``"sim"``; ``eval_first``: the held-out metric of the initial weights
     too, under ``"metric0"``, taken before the counts and the clock
-    start."""
+    start; ``layout``: the example's ``--layout`` (the params come back
+    raveled on both, ``"base_memory_bytes"`` is what was allocated on the
+    card before the run)."""
+    from repro_torch.core import flat
     from repro_torch.examples import fed_lm_train as ex
     batcher = _lm_batcher_class(flip_rows)(
         ex.make_streams(cfg, seq, clients), batch_size=batch, device=device)
-    fed = ex.fed_config(algo, n_clients=clients, bf16=bf16)
+    fed = ex.fed_config(algo, n_clients=clients, bf16=bf16, layout=layout)
     if lr is not None:
         fed = dataclasses.replace(fed, lr=lr)
     sim = ex.make_simulation(cfg, fed, seq=seq, batch=batch, rounds=rounds,
@@ -2040,22 +2060,28 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
         sim.state["params"] = _f32_moved(sim.state["params"], sim._spec.n,
                                          ulp_moved)
     metric0 = float(sim.eval_fn(sim.params)) if eval_first else None
+    base = None
     if device != "cpu":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     _reset_all_launches()
     t0 = time.perf_counter()
     hist = sim.run(rounds, eval_every=rounds)
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    spec = sim.flat_spec
+    master = (sim.state["params"] if layout == "flat"
+              else flat.ravel(spec, sim.state["params"]))
     out = {"loss": np.array(hist.loss), "metric": np.array(hist.metric),
            "round_wall_s": list(hist.wall), "wall_s": wall,
            "k_max": sim.k_max, "k": sim.k_schedule[0].tolist(),
-           "params": sim.state["params"].cpu(), "n": sim._spec.n,
-           "p": sim._spec.p, "master_dtype": sim.state["params"].dtype,
-           "view_dtypes": sorted({str(d) for d in sim._spec.dtypes}),
+           "params": master.cpu(), "n": spec.n, "p": spec.p,
+           "master_dtype": master.dtype,
+           "view_dtypes": sorted({str(d) for d in spec.dtypes}),
            "launches": _all_launches(), "metric0": metric0,
-           "peak_memory_bytes": (torch.cuda.max_memory_allocated()
-                                 if device != "cpu" else None)}
+           "peak_memory_bytes": peak, "base_memory_bytes": base}
+    del master
     if keep:
         out["sim"] = sim
     del sim
@@ -2106,10 +2132,12 @@ def _f32_moved(master: torch.Tensor, n: int, seed: int) -> torch.Tensor:
     return out
 
 
-def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
+def phase_fed_lm(cfg=None, small_cfg=None) -> tuple[dict, dict]:
     """Federated LM training at full width (FED_LM), then the example's
     --small model on the card against the CPU.  Returns the kernels'
-    launch counts of the last full-width run."""
+    launch counts of the last full-width run, and the full-width fedagrac
+    run (its history, host params, wall and peak memory), which phase 18
+    holds the tree layout to."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.examples import fed_lm_train as ex
     cfg = cfg or dataclasses.replace(get_arch("gemma-2b"),
@@ -2127,7 +2155,7 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
     # warm-up (cuBLAS handles, allocator) outside the counted runs
     _run_fed_lm(small_cfg or ex.build_config(True), "fedavg", DEVICE,
                 clients=2, seq=32, batch=2, rounds=1)
-    launches = {}
+    launches, kept = {}, {}
     for algo in FED_LM["algorithms"]:
         g = _run_fed_lm(cfg, algo, DEVICE, **run)
         launches = g["launches"]
@@ -2160,6 +2188,8 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
                "run_wall_s": g["wall_s"], "launches": got,
                "peak_memory_bytes": g["peak_memory_bytes"]})
         width = g["p"]
+        if algo == "fedagrac":
+            kept = g
         del g
     # B1 at this path's (M, P), on the memory the runs have given back
     check_update_at(run["clients"], width)
@@ -2183,7 +2213,7 @@ def phase_fed_lm(cfg=None, small_cfg=None) -> dict:
                "loss": g["loss"].tolist(), "perplexity": g["metric"].tolist(),
                "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
                "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
-    return launches
+    return launches, kept
 
 
 def _ssd_operands(shape, dtype, gen, a_rows: bool = False):
@@ -3340,11 +3370,12 @@ def _cpu_rerun(rec: dict, order: Optional[torch.Tensor] = None,
         params0 = _relabelled(params0, features, hidden)
 
     class Batcher(FederatedBatcher):
-        # both engines draw their rows through round_indices: (…, B) with
-        # a microbatch's rows on the last axis
-        def round_indices(self, t, k_max):
-            idx = super().round_indices(t, k_max)
-            return idx if order is None else idx[..., order.numpy()]
+        # every path (rounds, cohorts, both engines) gathers its rows
+        # through _gather: (…, B) indices, a microbatch's rows on the last
+        # axis
+        def _gather(self, idx):
+            return super()._gather(idx if order is None
+                                   else idx[..., order.numpy()])
 
     accuracy = {simple.lr_loss: simple.lr_accuracy,
                 simple.mlp_loss: simple.mlp_accuracy}[sim._loss_fn]
@@ -3361,11 +3392,11 @@ def _cpu_rerun(rec: dict, order: Optional[torch.Tensor] = None,
         rerun = FederatedSimulation(sim._loss_fn, params0, sim.fed, batcher,
                                     **kw)
     hist = rerun.run(rec["rounds"], *rec["args"], **rec["kwargs"])
-    params = rerun.state["params"].cpu()
+    params = {k: v.cpu() for k, v in rerun.params.items()}
     if relabel_seed is not None:
-        params = flat.ravel(sim._spec, _relabelled(
-            {k: v.cpu() for k, v in rerun.params.items()},
-            torch.argsort(features), torch.argsort(hidden)))
+        params = _relabelled(params, torch.argsort(features),
+                             torch.argsort(hidden))
+    params = flat.ravel(flat.make_flat_spec(params), params)
     return {"loss": np.array(hist.loss), "metric": np.array(hist.metric),
             "params": params, "dropped": hist.dropped,
             "sim_time": hist.sim_time, "staleness": hist.staleness}
@@ -5213,6 +5244,397 @@ def phase_hybrid_training(cfg=None, small_cfg=None) -> dict:
     return counted
 
 
+# Phase 18: the tree layout (param_layout="tree", FedConfig's default), whose
+# local steps are plain torch per leaf (no calibrated-update launch) and
+# whose wire crosses the flat view table.  (b): phase 3's main path for the
+# nine algorithms and FedAvgM / FedAdam (the server_opt twin's settings),
+# TREE_ROUNDS rounds each; (c): phase 4's compressed workload, one run of
+# each codec and the broadcast; (d): phase 13's small M, a cohort and a
+# buffered run; (e): the builder-level ``track_nu="explicit"`` and
+# ``quantize_transmit`` rounds on both layouts, on phase 4's lr task.  The
+# CPU runs of (b), (c) and (e) go to a worker process while the card runs
+# its own (TREE_CPU_THREADS intra-op threads there).
+TREE_RUNS = (tuple((a, "sgd", 1.0) for a in (
+    "fedavg", "fedprox", "fednova", "scaffold", "fedlin", "fedagrac",
+    "fedagrac_avg", "fedagrac_first", "fedagrac_reverse"))
+    + (("fedavg", "momentum", 1.0), ("fedavg", "adam", 0.05)))
+TREE_ROUNDS = 2
+TREE_COMPRESSED_RUNS = (
+    ("lr", "fedagrac", "int8", "none"), ("lr", "fedavg", "int4", "none"),
+    ("lr", "fedagrac", "topk", "none"), ("lr", "fedagrac", "topk+int8",
+                                         "int8"),
+    ("mlp", "fedavg", "topk+int8", "none"))
+TREE_POP_ROUNDS = 8
+TREE_BUILDER_RUNS = (("explicit", dict(track_nu="explicit")),
+                     ("quantize_transmit", dict(quantize_transmit=True)))
+TREE_CPU_THREADS = 4
+
+
+def _tree_lm(flat_run: dict, cfg=None) -> dict:
+    """Part (a): phase 8's gemma-2b cut (or ``cfg``, phase 8's) and
+    inputs, fedagrac on the tree layout, held to phase 8's flat fedagrac
+    run (not run again) by phase 8's rule: PATH_SPREAD × the spread of a
+    tree rerun with every microbatch's sequences reversed, plus PATH_RTOL.
+    Exact attention launches, no calibrated-update launch.  Returns the
+    launches."""
+    from repro_torch.configs.registry import get_arch
+    cfg = cfg or dataclasses.replace(get_arch("gemma-2b"),
+                                     n_layers=FED_LM["layers"],
+                                     dtype="float32")
+    run = {k: FED_LM[k] for k in ("clients", "seq", "batch", "rounds",
+                                  "lr")}
+    g = _run_fed_lm(cfg, "fedagrac", DEVICE, layout="tree", **run)
+    launches = g["launches"]
+    probe = _run_fed_lm(cfg, "fedagrac", DEVICE, layout="tree",
+                        flip_rows=True, **run)
+    L, k_max, R = cfg.n_layers, g["k_max"], run["rounds"]
+    want = {"flash_attention_fwd": L * k_max * R + L,
+            "flash_attention_bwd_dq": L * k_max * R,
+            "flash_attention_bwd_dkv": L * k_max * R}
+    _require(k_max == flat_run["k_max"] and g["n"] == flat_run["n"],
+             "tree LM: not phase 8's run")
+    _require({k: launches[k] for k in want} == want and all(
+        n == 0 for k, n in launches.items() if k not in want),
+        f"tree LM: launches {launches}, expected {want} and no other "
+        f"(no calibrated_update: the tree step is plain torch)")
+    _require(np.isfinite(g["loss"]).all() and np.isfinite(g["metric"]).all(),
+             f"tree LM: non-finite loss {g['loss']} or perplexity "
+             f"{g['metric']}")
+    # |tree − flat| within PATH_SPREAD × |tree reversed − tree| + floor
+    vs = _lm_vs_cpu_margins(flat_run, g, [probe])
+    for what, (diff, tol) in vs.items():
+        _require(bool(np.all(diff <= tol)),
+                 f"tree LM: {what} differs from phase 8's flat run by "
+                 f"{diff}, more than {tol}")
+    tokens = run["clients"] * k_max * run["batch"] * run["seq"]
+    _emit({"phase": "tree_layout", "part": "lm", "model": cfg.name,
+           "algorithm": "fedagrac", "dtype": cfg.dtype, **run,
+           "params": g["n"], "k": g["k"], "k_max": k_max,
+           "loss": g["loss"].tolist(), "perplexity": g["metric"].tolist(),
+           "flat_loss": flat_run["loss"].tolist(),
+           "flat_perplexity": flat_run["metric"].tolist(),
+           "wall_per_round_s": g["round_wall_s"],
+           "flat_wall_per_round_s": flat_run["round_wall_s"],
+           "train_tokens_per_s": tokens / float(np.mean(g["round_wall_s"])),
+           "peak_memory_bytes": g["peak_memory_bytes"],
+           "base_memory_bytes": g["base_memory_bytes"],
+           "flat_peak_memory_bytes": flat_run["peak_memory_bytes"],
+           "flat_base_memory_bytes": flat_run.get("base_memory_bytes"),
+           "launches": {k: launches[k] for k in want},
+           "vs_flat": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+           "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+    return {k: launches[k] for k in want}
+
+
+def _tree_run(sim, params0: dict, rounds: int, **kwargs) -> dict:
+    """``sim.run(rounds, **kwargs)`` recorded as ``_cpu_rerun`` reads it,
+    its launches and its final params raveled."""
+    from repro_torch.core import flat
+    before = _all_launches()
+    hist = sim.run(rounds, **kwargs)
+    return {"sim": sim, "params0": params0, "rounds": rounds, "args": (),
+            "kwargs": kwargs, "hist": hist, "launches": _launch_delta(before),
+            "params": flat.ravel(flat.make_flat_spec(sim.params),
+                                 sim.params).cpu()}
+
+
+def _tree_main_sim(device: str, run: tuple) -> dict:
+    """One TREE_RUNS entry on ``device``: phase 3's task (the mlp,
+    nine clients at K = 2 and one at 200, lr 0.03, λ 1) on the tree
+    layout, TREE_ROUNDS rounds, recorded."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.data import fedprox_synthetic
+    from repro_torch.fed import FederatedSimulation
+    from repro_torch.models.simple import mlp_accuracy, mlp_init, mlp_loss
+    algo, server, slr = run
+    data, parts = fedprox_synthetic(0, 10, alpha=1.0, beta=1.0)
+    params0 = mlp_init(torch.Generator().manual_seed(0), 60, 64, 10)
+    x_eval, y_eval = data.x.to(device), data.y.to(device)
+    fed = FedConfig(algorithm=algo, n_clients=10, lr=0.03,
+                    calibration_rate=1.0, weights="data",
+                    server_opt=server, server_lr=slr)
+    sim = FederatedSimulation(
+        mlp_loss, params0, fed, _batcher(data, parts, device, False),
+        k_schedule=_bimodal(), device=device,
+        eval_fn=lambda p: float(mlp_accuracy(p, {"x": x_eval, "y": y_eval})))
+    _require(sim.layout == "tree", f"{algo}: not the tree layout")
+    return _tree_run(sim, params0, TREE_ROUNDS, eval_every=TREE_ROUNDS)
+
+
+def _tree_compressed_sim(device: str, run: tuple) -> dict:
+    """One TREE_COMPRESSED_RUNS entry on ``device``: phase 4's task and
+    codecs on the tree layout, TREE_ROUNDS rounds, recorded."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.fed import FederatedSimulation
+    task, algo, up, down = run
+    spec = _compressed_tasks()[task]
+    data = spec["data"]
+    x_eval, y_eval = data.x.to(device), data.y.to(device)
+    fed = FedConfig(algorithm=algo, n_clients=10, lr=spec["lr"],
+                    calibration_rate=1.0, weights="data", compressor=up,
+                    broadcast_compressor=down, error_feedback=True,
+                    topk_frac=0.05)
+    sim = FederatedSimulation(
+        spec["loss"], spec["params"], fed,
+        _batcher(data, spec["parts"], device, False),
+        k_schedule=_bimodal(), device=device,
+        eval_fn=lambda p, acc=spec["accuracy"]: float(
+            acc(p, {"x": x_eval, "y": y_eval})))
+    _require(sim.layout == "tree", f"{run}: not the tree layout")
+    return _tree_run(sim, spec["params"], TREE_ROUNDS,
+                     eval_every=TREE_ROUNDS)
+
+
+def _builder_run(device: str, layout: str, kw: dict,
+                 reverse_rows: bool = False) -> dict:
+    """TREE_ROUNDS rounds of the builder-level round (``rounds.make_round``
+    or ``flat.make_flat_round`` with ``kw``) of fedagrac_first with a prox
+    term on phase 4's lr task (the bimodal K): loss, final accuracy,
+    params raveled, launches."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import flat, rounds
+    from repro_torch.core.fedopt import get_algorithm
+    task = _compressed_tasks()["lr"]
+    data = task["data"]
+    batcher = _batcher(data, task["parts"], device, reverse_rows)
+    algo = dataclasses.replace(get_algorithm("fedagrac_first", FedConfig(
+        algorithm="fedagrac_first", n_clients=10, lr=task["lr"],
+        calibration_rate=1.0)), prox_mu=0.01)
+    params = {k: v.to(device) for k, v in task["params"].items()}
+    spec = flat.make_flat_spec(params)
+    ks = torch.from_numpy(_bimodal()[0]).to(device)
+    k_max = int(ks.max())
+    if layout == "tree":
+        fn = rounds.make_round(task["loss"], algo, lr=task["lr"],
+                               k_max=k_max, **kw)
+        state = rounds.init_state(params, 10, algo)
+    else:
+        fn = flat.make_flat_round(spec, task["loss"], algo, lr=task["lr"],
+                                  k_max=k_max, **kw)
+        state = rounds.init_state(flat.ravel(spec, params), 10, algo)
+    before = _all_launches()
+    losses = []
+    for t in range(TREE_ROUNDS):
+        state, metrics = fn(state, batcher.round_batches(t, k_max), ks,
+                            batcher.weights)
+        losses.append(float(metrics["loss"]))
+    master = (state["params"] if layout == "flat"
+              else flat.ravel(spec, state["params"]))
+    acc = float(task["accuracy"](flat.unravel(spec, master),
+                                 {"x": data.x.to(device),
+                                  "y": data.y.to(device)}))
+    return {"loss": np.array(losses), "metric": np.array([acc]),
+            "params": master.cpu(), "launches": _launch_delta(before),
+            "k_max": k_max}
+
+
+def _cpu_pair(rec: dict) -> dict:
+    """A recorded run on the CPU (its own trajectory where it ran there)
+    and the CPU rerun with every microbatch's rows reversed."""
+    batch = rec["sim"].batcher.batch_size
+    on_cpu = rec["sim"].device.type == "cpu"
+    return {"plain": _trajectory(rec) if on_cpu else _cpu_rerun(rec),
+            "reversed": _cpu_rerun(rec, torch.arange(batch - 1, -1, -1))}
+
+
+def _tree_cpu_side() -> dict:
+    """Phase 18's CPU runs, a worker process's job beside the card's: each
+    run of (b) and (c) and its reversed-rows rerun, each builder run of
+    (e) and its reversed-rows run."""
+    torch.set_num_threads(TREE_CPU_THREADS)
+    out = {("main",) + run: _cpu_pair(_tree_main_sim("cpu", run))
+           for run in TREE_RUNS}
+    out.update({("compressed",) + run: _cpu_pair(_tree_compressed_sim(
+        "cpu", run)) for run in TREE_COMPRESSED_RUNS})
+    for what, kw in TREE_BUILDER_RUNS:
+        for layout in ("tree", "flat"):
+            out[("builder", what, layout)] = {
+                "plain": _builder_run("cpu", layout, kw),
+                "reversed": _builder_run("cpu", layout, kw,
+                                         reverse_rows=True)}
+    return out
+
+
+def _tree_vs_cpu(name: str, g: dict, cpu: dict, n_eval: int,
+                 rec: Optional[dict] = None) -> tuple[dict, int]:
+    """A card run's trajectory ``g`` against the CPU's by phase 3's rule:
+    PATH_SPREAD × the spread of the reversed-rows rerun and, given the
+    card's recorded mlp run ``rec``, relabelled reruns drawn until the
+    card is covered (C14), at most TWIN_MAX_PROBES."""
+    _require(np.isfinite(g["loss"]).all() and np.isfinite(g["metric"]).all(),
+             f"{name}: non-finite loss or metric")
+    probes = [cpu["reversed"]]
+    while (rec is not None
+           and not _vs_covered(_vs_cpu_margins(g, cpu["plain"], probes,
+                                               n_eval))
+           and len(probes) < TWIN_MAX_PROBES):
+        probes.append(_cpu_rerun(rec, relabel_seed=len(probes)))
+    return _vs_cpu(name, g, cpu["plain"], probes, n_eval), len(probes)
+
+
+def _vs_fields(vs: dict) -> dict:
+    return {"vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+            "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}}
+
+
+def _tree_main_path(card: dict, cpu: dict) -> None:
+    """Part (b): each TREE_RUNS entry on the card against the CPU; no
+    kernel launch (the tree step is plain torch)."""
+    for run in TREE_RUNS:
+        rec = card[run]
+        name = f"tree {run[0]}/{run[1]}"
+        _require(rec["launches"] == {},
+                 f"{name}: launches {rec['launches']}, expected none")
+        vs, probes = _tree_vs_cpu(name, _trajectory(rec),
+                                  cpu[("main",) + run],
+                                  len(rec["sim"].batcher.data), rec)
+        hist = rec["hist"]
+        _emit({"phase": "tree_layout", "part": "main_path",
+               "algorithm": run[0], "server_opt": run[1],
+               "server_lr": run[2], "rounds": TREE_ROUNDS,
+               "loss": hist.loss, "metric": hist.metric,
+               "wall_per_round_s": float(np.mean(hist.wall)),
+               "probes": probes, **_vs_fields(vs)})
+
+
+def _tree_compressed(card: dict, cpu: dict) -> dict:
+    """Part (c): exact quantize launches (the wire crosses the view table,
+    so B3-B5 run on the tree round) and wire bytes, each run against the
+    CPU.  Returns the launches."""
+    from repro_torch.core import compress
+    total: dict = {}
+    for run in TREE_COMPRESSED_RUNS:
+        task, algo, up, down = run
+        rec = card[run]
+        sim, hist = rec["sim"], rec["hist"]
+        name = f"tree {task}/{algo} up={up} down={down}"
+        quantities = 2 if sim.algo.uses_nu else 1
+        want = {k: TREE_ROUNDS * quantities * n for k, n in (
+            (k, CODEC_LAUNCHES[up].get(k, 0) + CODEC_LAUNCHES[down].get(k, 0))
+            for k in ("quantize_2d", "dequantize_2d", "topk_mask_2d")) if n}
+        _require(rec["launches"] == want,
+                 f"{name}: launches {rec['launches']}, expected {want}")
+        wire = compress.wire_cost(sim.flat_spec.n, sim.algo.uses_nu,
+                                  sim.compression)
+        _require(hist.bytes_up == [10 * wire["uplink_per_client"]]
+                 * TREE_ROUNDS and hist.bytes_down
+                 == [10 * wire["downlink_per_client"]] * TREE_ROUNDS,
+                 f"{name}: bytes {hist.bytes_up[0]}/{hist.bytes_down[0]} "
+                 f"per round, expected 10 × {wire}")
+        vs, probes = _tree_vs_cpu(name, _trajectory(rec),
+                                  cpu[("compressed",) + run],
+                                  len(sim.batcher.data),
+                                  rec if task == "mlp" else None)
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+        _emit({"phase": "tree_layout", "part": "compressed", "task": task,
+               "algorithm": algo, "uplink": up, "broadcast": down,
+               "rounds": TREE_ROUNDS, "loss": hist.loss,
+               "metric": hist.metric, "launches": rec["launches"],
+               "bytes_up_per_round": hist.bytes_up[0],
+               "bytes_down_per_round": hist.bytes_down[0],
+               "wall_per_round_s": float(np.mean(hist.wall)),
+               "probes": probes, **_vs_fields(vs)})
+    return total
+
+
+def _tree_builder_options(card: dict, cpu: dict) -> dict:
+    """Part (e): ``track_nu="explicit"`` and ``quantize_transmit`` on each
+    layout against the CPU by phase 3's rule; the flat round one
+    calibrated-update launch a local step, the tree round none.  Returns
+    the launches."""
+    total: dict = {}
+    for key, g in card.items():
+        _, what, layout = key
+        name = f"{what} on {layout}"
+        want = ({} if layout == "tree" else
+                {"calibrated_update": g["k_max"] * TREE_ROUNDS})
+        _require(g["launches"] == want,
+                 f"{name}: launches {g['launches']}, expected {want}")
+        vs, _ = _tree_vs_cpu(name, g, cpu[key], 4000)
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+        _emit({"phase": "tree_layout", "part": "builder_options",
+               "option": what, "layout": layout,
+               "algorithm": "fedagrac_first + prox 0.01",
+               "loss": g["loss"].tolist(), "metric": g["metric"][0],
+               "launches": g["launches"], **_vs_fields(vs)})
+    return total
+
+
+def _tree_population() -> None:
+    """Part (d): phase 13's population setting at its small M on the tree
+    layout, a cohort run in chunks and a buffered run, against the CPU by
+    phase 3's rule."""
+    from repro_torch.models.simple import mlp_accuracy
+    from repro_torch.roofline.round_profile import (
+        population_async_simulation, population_simulation)
+    pop = population_settings()
+    m = pop["m_small"]
+    for engine, build, kw in (
+            ("cohort", population_simulation, {"chunk_rounds": 4,
+                                               "eval_every": 4}),
+            ("buffered", population_async_simulation, {"chunk_updates": 4,
+                                                       "eval_every": 4})):
+        sim = build(m, pop, DEVICE, param_layout="tree")
+        data = sim.batcher.data
+        x_eval, y_eval = data.x.to(DEVICE), data.y.to(DEVICE)
+        sim.eval_fn = lambda p: float(mlp_accuracy(p, {"x": x_eval,
+                                                       "y": y_eval}))
+        _require(sim.layout == "tree" and not
+                 sim.population.full_participation,
+                 f"tree {engine}: not the tree layout's population path")
+        params0 = {k: v.cpu() for k, v in sim.params.items()}
+        rec = _tree_run(sim, params0, TREE_POP_ROUNDS, **kw)
+        name = f"tree {engine} M = {m}"
+        _require(rec["launches"] == {},
+                 f"{name}: launches {rec['launches']}, expected none")
+        _require(tuple(sim.state["nu_i"]["w1"].shape[:1]) == (m,),
+                 f"{name}: the ν⁽ⁱ⁾ store is not population-sized")
+        vs, probes = _tree_vs_cpu(name, _trajectory(rec), _cpu_pair(rec),
+                                  len(data), rec)
+        hist = rec["hist"]
+        _emit({"phase": "tree_layout", "part": "population",
+               "engine": engine, "m": m, "cohort": pop["cohort"],
+               "k": pop["k"], "rounds": TREE_POP_ROUNDS,
+               "loss": hist.loss, "metric": hist.metric, "mass": hist.mass,
+               "ms_per_round": 1e3 * float(np.mean(hist.wall)),
+               "probes": probes, **_vs_fields(vs)})
+
+
+def phase_tree_layout(flat_lm: dict, cfg=None) -> dict:
+    """Phase 18, the tree layout: (a) phase 8's gemma-2b cut (``cfg``:
+    phase 8's) against ``flat_lm`` (phase 8's fedagrac run), (b) phase 3's
+    main path, (c) phase 4's compressed workload, (d) phase 13's small-M
+    cohort and buffered runs, (e) the builder options on both layouts.
+    The CPU runs of (b), (c) and (e) run in a worker process meanwhile.
+    Returns the launches of its runs."""
+    import multiprocessing
+    launches: dict = {}
+
+    def add(more: dict) -> None:
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        cpu_side = pool.apply_async(_tree_cpu_side)
+        add(_tree_lm(flat_lm, cfg))
+        torch.cuda.empty_cache()
+        main = {run: _tree_main_sim(DEVICE, run) for run in TREE_RUNS}
+        compressed = {run: _tree_compressed_sim(DEVICE, run)
+                      for run in TREE_COMPRESSED_RUNS}
+        builder = {("builder", what, layout): _builder_run(DEVICE, layout,
+                                                           kw)
+                   for what, kw in TREE_BUILDER_RUNS
+                   for layout in ("tree", "flat")}
+        _tree_population()
+        cpu = cpu_side.get()
+    _tree_main_path(main, cpu)
+    add(_tree_compressed(compressed, cpu))
+    add(_tree_builder_options(builder, cpu))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5238,9 +5660,9 @@ def main() -> int:
     launches["flash_attention_fwd"] = timed(
         "serving", phase_serving)["flash_attention_fwd"]
     timings.update(timed("attention_backward", phase_attention_backward))
-    launches.update({name: n for name, n in timed(
-        "fed_lm", phase_fed_lm).items() if name.startswith(
-            "flash_attention_bwd")})
+    lm_launches, flat_lm = timed("fed_lm", phase_fed_lm)
+    launches.update({name: n for name, n in lm_launches.items()
+                     if name.startswith("flash_attention_bwd")})
     timings.update(timed("ssd_kernel", phase_ssd_kernel))
     launches["ssd_scan"] = timed("hybrid", phase_hybrid)["ssd_scan"]
     host_ms = timed("population", phase_population)["host_mode_ms"]
@@ -5264,6 +5686,10 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     for name, n in timed("hybrid_training", phase_hybrid_training).items():
         launches[name] = launches.get(name, 0) + n
+    for name, n in timed("tree_layout",
+                         lambda: phase_tree_layout(flat_lm)).items():
+        launches[name] = launches.get(name, 0) + n
+    del flat_lm
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)

@@ -15,14 +15,13 @@ import argparse
 import time
 import traceback
 
-from repro_torch.benchmarks import (compression_bench, engine_bench,
-                                    fairness, fig2_lambda, fig3_orientation,
-                                    fig4_grid, fig5_curves, robust_bench,
-                                    scenario_bench, server_opt,
+from repro_torch.benchmarks import (ablation_int8_nu, compression_bench,
+                                    engine_bench, fairness, fig2_lambda,
+                                    fig3_orientation, fig4_grid, fig5_curves,
+                                    robust_bench, scenario_bench, server_opt,
                                     serving_bench, table1_deterioration,
-                                    table2_utilization,
-                                    table6_rounds, table_async,
-                                    thm1_quadratic)
+                                    table2_utilization, table6_rounds,
+                                    table_async, thm1_quadratic)
 
 MODULES = {
     "thm1": thm1_quadratic,
@@ -34,6 +33,7 @@ MODULES = {
     "table6": table6_rounds,
     "table_async": table_async,
     "fig5": fig5_curves,
+    "int8_nu": ablation_int8_nu,
     "compression": compression_bench,
     "scenario": scenario_bench,
     "robust": robust_bench,

@@ -4,10 +4,9 @@
 the same in both packages.  Every architecture is a ``ModelConfig`` in one
 file of this package (``registry.py`` lists them).
 
-The port runs the flat-layout synchronous round.  Fields whose features are
-not ported yet keep their defaults here and make the port's
-``FederatedSimulation`` raise ``NotImplementedError`` when set (it names the
-ROADMAP item that brings them).
+Every ``FedConfig`` field's feature runs in the port's engines, on both
+parameter layouts ("tree", the default, and "flat"), and the same values
+are refused as in the reference.
 """
 from __future__ import annotations
 
@@ -251,7 +250,7 @@ class FedConfig:
                             "round_robin"] = "all"
     availability: float = 1.0
     cohort_nu_decay: float = 0.0
-    # -- parameter layout: the port runs "flat" only (tree: ROADMAP A2) -----
+    # -- parameter layout: the model's tree, or one flat buffer (core/flat.py)
     param_layout: Literal["tree", "flat"] = "tree"
     master_dtype: Literal["", "float32", "bfloat16", "float16"] = ""
     # -- failure scenarios (fed/scenarios.py) -------------------------------

@@ -29,6 +29,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.tree_util import tree_leaves
 from repro_torch.kernels.quantize import ops as qops
 
 # int8: n code bytes + one 4-byte per-row scale.  int4: two codes per
@@ -234,7 +235,7 @@ def init_compression_state(state: dict, compression: CompressionConfig,
     predicate."""
     if not compression.error_feedback:
         return
-    device = state["params"].device
+    device = tree_leaves(state["params"])[0].device
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.stages import delivered_weights, last_occurrence
+from repro_torch.core.tree_util import tree_leaves
 
 
 def _run(state: dict, r: int, donate: bool, step: Callable
@@ -105,7 +106,8 @@ def make_population_chunk(round_fn: Callable, r: int,
                           sample_fn: Optional[Callable] = None,
                           scenario_fn: Optional[Callable] = None
                           ) -> Callable:
-    """``r`` cohort rounds (``flat.make_flat_cohort_round``) per call, in
+    """``r`` cohort rounds (``flat.make_flat_cohort_round`` or the tree
+    layout's ``stages.make_cohort_round``) per call, in
     two modes, as the reference's:
 
     * **host** (neither ``cohort_fn`` nor ``sample_fn``): ``chunk_fn(state,
@@ -182,7 +184,7 @@ def make_population_chunk(round_fn: Callable, r: int,
             ks.append(k_c)
             cws.append(cw)
         cohorts = np.stack(ids).astype(np.int64)
-        device = state["params"].device
+        device = tree_leaves(state["params"])[0].device
         dev_ids = torch.from_numpy(cohorts).to(device)
         batches = sample_fn(torch.as_tensor(np.asarray(ts, np.int64)).to(
             device), dev_ids)

@@ -31,6 +31,7 @@ from repro_torch.core import robust as robust_mod
 from repro_torch.core.fedopt import Algorithm
 from repro_torch.core.tree_util import tree_wsum
 from repro_torch.kernels.calibrated_update import ops as cu_ops
+from repro_torch.kernels.quantize import ops as qops
 
 LANES = cu_ops.LANES
 
@@ -266,10 +267,14 @@ def flat_value_and_grad(spec: FlatSpec,
 def make_flat_client_update(spec: FlatSpec,
                             loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                             algo: Algorithm, *, lr: float, k_max: int,
+                            track_nu: str = "delta",
                             per_client_anchor: bool = False):
-    """``f(anchor, c_all, batches, k_steps, lam) -> (x_i, g0_i, loss0)`` on
-    (M, P) rows; ``c_all`` is ignored by algorithms without ν and ``g0_i``
-    is None unless the selector reads the first gradient.
+    """``f(anchor, c_all, batches, k_steps, lam) -> (x_i, g0_i, acc_i,
+    loss0)`` on (M, P) rows (``stages.make_client_update``'s signature);
+    ``c_all`` is ignored by algorithms without ν, ``g0_i`` is None unless
+    the selector reads the first gradient, and ``acc_i`` None unless
+    ``track_nu="explicit"`` accumulates ν̄⁽ⁱ⁾ = Σ_{k<K_i} g_k / K_i in the
+    loop (a ν algorithm's; the delta recovery is the default).
 
     Every client runs ``k_max`` steps; client *i* applies updates only for
     ``k < K_i`` through its per-row η, and each step is ONE calibrated-update
@@ -280,10 +285,12 @@ def make_flat_client_update(spec: FlatSpec,
     models), which are then also the prox term's x₀."""
     needs_first = algo.selector in ("fedagrac", "first", "reverse")
     uses_nu = algo.uses_nu
+    explicit = track_nu == "explicit" and uses_nu
     # fusing the prox term into the kernel is valid only when nothing
-    # downstream reads the gradient; a first-gradient selector does, and
-    # sees the prox-augmented g as on the reference's tree path
-    fuse_prox = bool(algo.prox_mu) and not needs_first
+    # downstream reads the gradient; a first-gradient selector and the
+    # explicit ν accumulation do, and see the prox-augmented g as on the
+    # reference's tree path
+    fuse_prox = bool(algo.prox_mu) and not (needs_first or explicit)
     grad_fn = flat_value_and_grad(spec, loss_fn)
 
     def run(anchor: torch.Tensor, c_all: Optional[torch.Tensor],
@@ -303,7 +310,13 @@ def make_flat_client_update(spec: FlatSpec,
         steps = torch.arange(k_max, device=k_steps.device)
         etas = torch.where(steps[:, None] < k_steps[None, :], lr, 0.0
                            ).to(torch.float32)                  # (k_max, M)
-        g0, loss0 = None, None
+        g0, loss0, acc = None, None, None
+        if explicit:
+            acc = torch.zeros((m, spec.p), dtype=spec.dtype,
+                              device=k_steps.device)
+            # 1/K_i on the steps a client takes, 0 after (k_max, M)
+            w_acc = torch.where(steps[:, None] < k_steps[None, :],
+                                1.0 / k_steps.float()[None, :], 0.0)
         for k in range(k_max):
             loss, g = grad_fn(x, {key: v[:, k] for key, v in batches.items()})
             if k == 0:
@@ -317,10 +330,41 @@ def make_flat_client_update(spec: FlatSpec,
                                                   lam_k, algo.prox_mu)
             else:
                 x = cu_ops.calibrated_update(x, g, c_k, etas[k], lam_k)
+            if explicit:
+                acc = acc + w_acc[k][:, None] * g
             del g           # not held through the next step's backward
-        return x, g0, loss0
+        return x, g0, acc, loss0
 
     return run
+
+
+def quantize_int8_flat(spec: FlatSpec, mat: torch.Tensor) -> torch.Tensor:
+    """``stages.quantize_int8`` on ``(M, P)`` rows: the scale is per client
+    and LEAF, so each view-table segment is quantized against its own
+    row-wise amax (``qops.row_scales`` over the segment's columns), in the
+    leaf's dtype, and written into its region of a new buffer whose pad
+    tail is zero."""
+    out = mat.new_zeros((mat.shape[0], spec.p), dtype=spec.dtype)
+    for off, size, dtype in zip(spec.offsets, spec.sizes, spec.dtypes):
+        af = mat[:, off:off + size].to(dtype).float()
+        scale = qops.row_scales(af, size, 127)
+        out[:, off:off + size] = (torch.round(af / scale) * scale).to(dtype)
+    return out
+
+
+def _flat_transmit(spec: FlatSpec, algo: Algorithm, params0, x_i, g0_i,
+                   acc_i, c_all, kf, kbar, lr, lam, *,
+                   track_nu: str = "delta", quantize_transmit: bool = False,
+                   anchor_i=None):
+    """``stages.orientation_transmit`` on flat rows, where the int8
+    fake-quantization of ``quantize_transmit`` is ``quantize_int8_flat``'s
+    (per leaf, as on the tree layout), not one scale a row."""
+    transmit, avg_g = stages.orientation_transmit(
+        algo, params0, x_i, g0_i, acc_i, c_all, kf, kbar, lr, lam,
+        track_nu=track_nu, anchor_i=anchor_i)
+    if quantize_transmit:
+        transmit = quantize_int8_flat(spec, transmit)
+    return transmit, avg_g
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +374,7 @@ def make_flat_client_update(spec: FlatSpec,
 def make_flat_round(spec: FlatSpec,
                     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                     algo: Algorithm, *, lr: float, k_max: int,
+                    track_nu: str = "delta", quantize_transmit: bool = False,
                     compression: Optional[compress.CompressionConfig] = None,
                     robust: Optional[robust_mod.RobustConfig] = None,
                     attack=None):
@@ -358,9 +403,14 @@ def make_flat_round(spec: FlatSpec,
     metrics then hold ``quarantined``, the count of quarantined reporters.
     ``noise`` holds the ``(2, M, P)`` device noise rows (delta, ν) of an
     attack that draws them (``Scenario.payload_noise``); without them the
-    attack draws them on the host from the round counter."""
+    attack draws them on the host from the round counter.
+
+    ``track_nu="explicit"`` takes ν̄⁽ⁱ⁾ from the local steps' accumulated
+    gradients instead of the delta recovery; ``quantize_transmit`` int8
+    fake-quantizes each client's ν transmit per leaf
+    (``quantize_int8_flat``)."""
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
-                                            k_max=k_max)
+                                            k_max=k_max, track_nu=track_nu)
     aggregate = stages.AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
     rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
@@ -390,8 +440,8 @@ def make_flat_round(spec: FlatSpec,
 
         c_all = (nu_bc[None] - state["nu_i"]
                  if algo.uses_nu else None)                # (M, P)
-        x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
-                                         lam)
+        x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
+                                                k_steps, lam)
         r = state["round"]
         ids = quar = None
         if rb is not None:
@@ -421,8 +471,9 @@ def make_flat_round(spec: FlatSpec,
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
-            transmit, avg_g = stages.orientation_transmit(
-                algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            transmit, avg_g = _flat_transmit(
+                spec, algo, anchor, x_i, g0_i, acc_i, c_all, kf, kbar, lr,
+                lam, track_nu=track_nu, quantize_transmit=quantize_transmit)
             w_nu = weights
             if atk is not None:
                 transmit = atk.corrupt_nu(r, transmit, spec.n,
@@ -457,7 +508,8 @@ def make_flat_round(spec: FlatSpec,
 def make_flat_cohort_round(spec: FlatSpec,
                            loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                            algo: Algorithm, *, lr: float, k_max: int,
-                           nu_decay: float = 0.0,
+                           nu_decay: float = 0.0, track_nu: str = "delta",
+                           quantize_transmit: bool = False,
                            compression: Optional[
                                compress.CompressionConfig] = None,
                            robust: Optional[robust_mod.RobustConfig] = None,
@@ -497,9 +549,10 @@ def make_flat_cohort_round(spec: FlatSpec,
 
     ``donate=True``: the caller hands the state over (a chunk that owns
     it, or a simulation replacing its own), and the ν⁽ⁱ⁾, error-feedback
-    and health stores are updated in place instead of copied whole."""
+    and health stores are updated in place instead of copied whole.
+    ``track_nu`` and ``quantize_transmit`` as in ``make_flat_round``."""
     client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
-                                            k_max=k_max)
+                                            k_max=k_max, track_nu=track_nu)
     aggregate = stages.BUFFERED_AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
     rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
@@ -533,8 +586,8 @@ def make_flat_cohort_round(spec: FlatSpec,
         # a fresh contiguous (C, P) correction, never a view of the store
         c_all = (nu_bc[None] - state["nu_i"].index_select(0, cohort)
                  if algo.uses_nu else None)
-        x_i, g0_i, loss0 = client_update(anchor, c_all, batches, k_steps,
-                                         lam)
+        x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
+                                                k_steps, lam)
         r = state["round"]
         quar = rb.quarantined(state, r, cohort) if rb is not None else None
         w_agg = cweights
@@ -565,8 +618,9 @@ def make_flat_cohort_round(spec: FlatSpec,
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
-            transmit, avg_g = stages.orientation_transmit(
-                algo, anchor, x_i, g0_i, c_all, kf, kbar, lr, lam)
+            transmit, avg_g = _flat_transmit(
+                spec, algo, anchor, x_i, g0_i, acc_i, c_all, kf, kbar, lr,
+                lam, track_nu=track_nu, quantize_transmit=quantize_transmit)
             w_nu = cweights
             if atk is not None:
                 transmit = atk.corrupt_nu(r, transmit, spec.n, ids=cohort,

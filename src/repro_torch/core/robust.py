@@ -44,6 +44,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.tree_util import tree_leaves, tree_map
+
 _EPS = 1e-12
 # finite sentinel for sort/distance padding — NOT inf, so the pairwise
 # krum distances never produce inf − inf = NaN under masking
@@ -279,7 +281,7 @@ def init_robust_state(state: dict, robust: Optional[RobustConfig],
     """Allocate the (M,) health vectors when quarantine is on."""
     if robust is None or not robust.quarantines:
         return state
-    dev = state["params"].device
+    dev = tree_leaves(state["params"])[0].device
     for key, dtype in zip(ROBUST_STATE_KEYS,
                           (torch.int32, torch.float32, torch.float32,
                            torch.int32, torch.int32)):
@@ -287,10 +289,11 @@ def init_robust_state(state: dict, robust: Optional[RobustConfig],
     return state
 
 
-def guard(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """``old`` wherever ``new`` is non-finite (the final stage: a defended
-    run never writes NaN into the server state)."""
-    return torch.where(torch.isfinite(new), new, old)
+def guard(new, old):
+    """``old`` wherever ``new`` is non-finite, leaf by leaf (the final
+    stage: a defended run never writes NaN into the server state)."""
+    return tree_map(lambda a, b: torch.where(torch.isfinite(a), a, b),
+                    new, old)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,10 +364,11 @@ def build_round_robust(robust: Optional[RobustConfig], spec,
                        model=model, nu=nu, guard=guard)
 
 
-def guarded_rows(rows: torch.Tensor, store: torch.Tensor,
-                 ids: torch.Tensor) -> torch.Tensor:
-    """The guard on rows about to be written into an ``(M, P)`` store at
-    ``ids``: each non-finite element takes the store's current value, as
-    ``guard(new store, old store)`` would after the write."""
-    return guard(rows, store.index_select(0, ids).to(rows.dtype))
+def guarded_rows(rows, store, ids: torch.Tensor):
+    """The guard on rows about to be written into an ``(M, …)`` store at
+    ``ids`` (leaf by leaf): each non-finite element takes the store's
+    current value, as ``guard(new store, old store)`` would after the
+    write."""
+    return tree_map(lambda r, s: guard(r, s.index_select(0, ids).to(
+        r.dtype)), rows, store)
 

@@ -1,4 +1,4 @@
-"""Federated LM training on the flat synchronous round: the port's twin of
+"""Federated LM training on the synchronous round: the port's twin of
 ``examples/fed_lm_train.py``.
 
     PYTHONPATH=src python -m repro_torch.examples.fed_lm_train [--rounds 30]
@@ -11,7 +11,8 @@ gemma-2b (MQA, GeGLU, tied embeddings) through ``FederatedSimulation`` on
 the flat layout: each local step is one vmapped forward and backward for
 all clients — attention through the flash-attention forward, dq and dk/dv
 kernels on the card — and one calibrated-update launch on the ``(M, P)``
-client matrix.  Batches come from the host sampler (``LMFederatedBatcher``)
+client matrix.  ``--layout tree`` runs the tree round instead: the same
+forward and backward, and the update leaf by leaf in plain torch.  Batches come from the host sampler (``LMFederatedBatcher``)
 or, with ``--sampler device``, from ``DeviceLMBatcher``: the streams live
 on the device and each chunk of rounds draws its batches there.  The token
 streams are drawn from numpy seeds, so they are not the reference's
@@ -22,8 +23,8 @@ checkpoint format; ``--ckpt ""`` saves nothing), as the reference does.
 ``--bf16`` runs the mixed-precision configuration: bfloat16 parameters and
 compute over a float32 flat master (``FedConfig.master_dtype``), so the
 attention kernels run in bfloat16 and the calibrated update on the
-float32 master.  Not ported yet, and refused by name: ``--layout tree``
-(ROADMAP A2).  ``--small`` shrinks to a 2-layer d = 64 model.
+float32 master (the master is the flat buffer: ``--layout flat`` only, as
+in the reference).  ``--small`` shrinks to a 2-layer d = 64 model.
 """
 from __future__ import annotations
 
@@ -56,14 +57,6 @@ def build_config(small: bool, bf16: bool = False) -> ModelConfig:
     cfg = (reduced(base, n_layers=2, d_model=64, vocab=256) if small
            else reduced(base, n_layers=6, d_model=512, vocab=8192))
     return dataclasses.replace(cfg, dtype="bfloat16") if bf16 else cfg
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature the port does
-    not run yet, naming its ROADMAP item."""
-    if args.layout != "flat":
-        raise NotImplementedError("the PyTorch port does not run --layout "
-                                  "tree (ROADMAP A2) yet")
 
 
 def make_streams(cfg: ModelConfig, seq: int,
@@ -112,12 +105,12 @@ def make_simulation(cfg: ModelConfig, fed: FedConfig, *, seq: int,
 
 
 def fed_config(algo: str, n_clients: int = MCLIENTS,
-               bf16: bool = False) -> FedConfig:
-    """The example's round: K_i ~ N(4, 2²), lr 0.3, λ 0.5; ``bf16`` keeps
-    the state in a float32 master (``master_dtype``)."""
+               bf16: bool = False, layout: str = "flat") -> FedConfig:
+    """The example's round: K_i ~ N(4, 2²), lr 0.3, λ 0.5, on ``layout``;
+    ``bf16`` keeps the state in a float32 master (``master_dtype``)."""
     return FedConfig(algorithm=algo, n_clients=n_clients, k_mean=4,
                      k_var=4.0, lr=0.3, calibration_rate=0.5,
-                     param_layout="flat",
+                     param_layout=layout,
                      master_dtype="float32" if bf16 else "")
 
 
@@ -141,16 +134,19 @@ def main(argv: Optional[list] = None) -> float:
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
-    refuse_unported(args)
+    if args.bf16 and args.layout != "flat":
+        raise SystemExit("--bf16 requires --layout flat (the f32 master IS "
+                         "the flat buffer)")
 
     device = resolve_device(args.device)
     cfg = build_config(args.small, args.bf16)
     seq = min(args.seq, 32) if args.small else args.seq
     print(f"model: gemma-family {cfg.n_layers}L d={cfg.d_model} "
           f"vocab={cfg.vocab} dtype={cfg.dtype}  "
-          f"params ≈ {cfg.param_count() / 1e6:.1f}M  layout=flat"
+          f"params ≈ {cfg.param_count() / 1e6:.1f}M  layout={args.layout}"
           + (" (f32 master)" if args.bf16 else "") + f"  device={device}")
-    sim = make_simulation(cfg, fed_config(args.algo, bf16=args.bf16),
+    sim = make_simulation(cfg, fed_config(args.algo, bf16=args.bf16,
+                                          layout=args.layout),
                           seq=seq, batch=args.batch, rounds=args.rounds,
                           device=device, sampler=args.sampler)
     ckpt_cb = (checkpoint.save_every(args.ckpt, every=args.eval_every)

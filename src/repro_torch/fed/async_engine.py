@@ -59,12 +59,15 @@ The health vectors are updated in place; a reporter repeated in one
 buffer adds to its counters once per report and keeps its last report's
 EWMA and quarantine rows.
 
-The port runs the flat layout, with the host batcher or a device batcher
+Both parameter layouts run, with the host batcher or a device batcher
 (``DeviceBatcher``: each report's rows drawn on the device from its keyed
-(wave, client) indices, the reference's ``sample_row``), and with a
-mixed-precision master (``FedConfig.master_dtype``: bfloat16 leaves over
-a float32 buffer); the tree layout (ROADMAP A2) raises
-``NotImplementedError``.
+(wave, client) indices, the reference's ``sample_row``): "flat" on
+``(P,)`` / ``(M, P)`` buffers with one calibrated-update launch a local
+step (and a mixed-precision master, ``FedConfig.master_dtype``: bfloat16
+leaves over a float32 buffer), "tree" on the model's leaves (the anchor
+buffers one ``(M + 1, …)`` tensor a leaf, the local steps
+``stages.make_client_update``'s), whose wire stages cross the flat view
+table (``_bridge``) as the reference's do.
 """
 from __future__ import annotations
 
@@ -78,15 +81,15 @@ import torch
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import compress, flat, robust, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
-from repro_torch.core.tree_util import tree_wsum
+from repro_torch.core.tree_util import expand, tree_leaves, tree_map, \
+    tree_wsum
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
 from repro_torch.fed.clock import ClientClock, Timeline, make_clock, \
     simulate_timeline
 from repro_torch.fed.population import ClientPopulation
 from repro_torch.fed.scenarios import Scenario, make_scenario
-from repro_torch.fed.simulation import History, _check_finite_metric, \
-    _check_supported
+from repro_torch.fed.simulation import History, _check_finite_metric
 
 PyTree = Any
 
@@ -142,7 +145,6 @@ class BufferedAsyncSimulation:
                  scenario: Optional[Scenario] = None, t_max: int = 10_000,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        _check_supported(fed)
         if batcher.device != self.device:
             raise ValueError(f"batcher is on {batcher.device}, the "
                              f"simulation on {self.device}")
@@ -215,26 +217,44 @@ class BufferedAsyncSimulation:
                         if self.scenario is not None
                         and self.scenario.corrupts_payload else None)
         self.robust = robust.RobustConfig.from_fed(fed)
-        self._spec = flat.make_flat_spec(
-            params, master_dtype=fed.master_dtype or None)
+        self.compression = compress.CompressionConfig.from_fed(fed)
+        self.layout = fed.param_layout
+        if self.layout == "flat":
+            self._spec = flat.make_flat_spec(
+                params, master_dtype=fed.master_dtype or None)
+        elif (self.compression is not None or self.robust is not None
+                or self._attack is not None):
+            # the tree layout's wire stages cross the flat view table
+            self._spec = flat.make_flat_spec(params)
+        else:
+            self._spec = None
         self._rb = robust.build_round_robust(self.robust, self._spec,
                                              self.algo.uses_nu)
-        self.compression = compress.CompressionConfig.from_fed(fed)
-        self._wire = compress.wire_cost(self._spec.n, self.algo.uses_nu,
+        n_true = (self._spec.n if self._spec is not None
+                  else sum(lv.numel() for lv in tree_leaves(params)))
+        self._wire = compress.wire_cost(n_true, self.algo.uses_nu,
                                         self.compression)
         self._cs = compress.build_stages(self.compression, self._spec,
                                          self.algo.uses_nu)
         self._down_on = self._cs is not None and self._cs.down is not None
         self._up_on = self._cs is not None and self._cs.up is not None
+        params = (flat.ravel(self._spec, params).to(self.device)
+                  if self.layout == "flat"
+                  else tree_map(lambda a: a.detach().to(self.device,
+                                                        copy=True), params))
         self.state = rounds.init_state(
-            flat.ravel(self._spec, params).to(self.device), m, self.algo,
-            compression=self.compression, spec=self._spec,
-            broadcast_carry=True, robust=self.robust)
+            params, m, self.algo, compression=self.compression,
+            spec=self._spec, broadcast_carry=True, robust=self.robust)
         self.version = 0
         self._loss_fn = loss_fn
-        self._client_update = flat.make_flat_client_update(
-            self._spec, loss_fn, self.algo, lr=fed.lr, k_max=self.k_max,
-            per_client_anchor=True)
+        self._client_update = (
+            flat.make_flat_client_update(
+                self._spec, loss_fn, self.algo, lr=fed.lr, k_max=self.k_max,
+                per_client_anchor=True)
+            if self.layout == "flat"
+            else stages.make_client_update(
+                loss_fn, self.algo, lr=fed.lr, k_max=self.k_max,
+                per_client_anchor=True))
         self._aggregate = stages.BUFFERED_AGGREGATORS[self.algo.aggregator]
         # stale-ν⁽ⁱ⁾ decay is a PARTIAL-participation rule: with every
         # client in flight each row refreshes on its own report
@@ -242,8 +262,8 @@ class BufferedAsyncSimulation:
                           if self.population is not None
                           and not self.population.full_participation
                           else 0.0)
-        self._anchors: Optional[torch.Tensor] = None
-        self._nu_anchors: Optional[torch.Tensor] = None
+        self._anchors: Optional[PyTree] = None
+        self._nu_anchors: Optional[PyTree] = None
         # host wave cache: per-wave index arrays, dropped after their last
         # consumer in the timeline and LRU-capped at M + 1 waves (under
         # heavy speed skew a straggler's wave can be asked for thousands
@@ -258,31 +278,49 @@ class BufferedAsyncSimulation:
 
     # -- the device-resident anchor buffers ----------------------------------
 
+    def _bridge(self):
+        """(ravel, ravel_rows, unravel, unravel_rows): identities on the
+        flat layout, view-table crossings on the tree layout."""
+        if self.layout == "flat":
+            ident = lambda a: a  # noqa: E731
+            return ident, ident, ident, ident
+        return stages._flat_bridge(self._spec)
+
     def _broadcast_init(self) -> None:
         """The t = 0 dispatch ships a real compressed broadcast: one codec
         event through ``ef_down`` (and ``ef_down_nu``), kept as the
         ``bc_params`` / ``bc_nu`` carry the updates read."""
         state, cs = self.state, self._cs
+        rv = self._bridge()[0]
         new_state = dict(state)
-        new_state["bc_params"] = cs.down(state["params"], state, new_state)
+        new_state["bc_params"] = cs.down(rv(state["params"]), state,
+                                         new_state)
         if self.algo.uses_nu:
-            new_state["bc_nu"] = cs.down_nu(state["nu"], state, new_state)
+            new_state["bc_nu"] = cs.down_nu(rv(state["nu"]), state,
+                                            new_state)
         self.state = new_state
 
     def _reset_anchors(self) -> None:
-        """(M + 1)-row anchor buffers, real tensors written in place: rows
-        0…M-1 hold each client's dispatch-time (params, ν), row M is the
-        scratch row.  Under downlink compression the dispatch-time model is
-        the COMPRESSED broadcast, not the raw master."""
+        """(M + 1)-row anchor buffers, real tensors written in place (one a
+        leaf on the tree layout): rows 0…M-1 hold each client's
+        dispatch-time (params, ν), row M is the scratch row.  Under
+        downlink compression the dispatch-time model is the COMPRESSED
+        broadcast, not the raw master."""
         # the old buffers go before the new ones are made: at M = 100k each
         # is the size of the ν⁽ⁱ⁾ store
         self._anchors = self._nu_anchors = None
         rows = self.clock.m + 1
-        p0 = self.state["bc_params" if self._down_on else "params"]
-        self._anchors = p0.expand(rows, -1).clone()
+        ur = self._bridge()[2]
+
+        def buffer(key: str, bc_key: str) -> PyTree:
+            p0 = (ur(self.state[bc_key]) if self._down_on
+                  else self.state[key])
+            return tree_map(lambda p: p.expand((rows,) + tuple(p.shape))
+                            .clone(), p0)
+
+        self._anchors = buffer("params", "bc_params")
         if self.algo.uses_nu:
-            nu0 = self.state["bc_nu" if self._down_on else "nu"]
-            self._nu_anchors = nu0.expand(rows, -1).clone()
+            self._nu_anchors = buffer("nu", "bc_nu")
 
     # -- one buffered server update ------------------------------------------
 
@@ -296,6 +334,7 @@ class BufferedAsyncSimulation:
         algo, cs, lr = self.algo, self._cs, self.fed.lr
         rb, atk = self._rb, self._attack
         uses_nu = algo.uses_nu
+        rv, rvr, ur, urr = self._bridge()
         A, N = self._anchors, self._nu_anchors
         ids, cur, fresh, wids, last = (t["ids"], t["cur"], t["fresh"],
                                        t["write_ids"], t["last"])
@@ -303,15 +342,17 @@ class BufferedAsyncSimulation:
         new_state = dict(state)
         # what a client dispatched on THIS version received: the
         # compressed broadcast carried in the state, or the raw model
-        cur_p = state["bc_params"] if self._down_on else params
-        cur_nu = ((state["bc_nu"] if self._down_on else state["nu"])
+        cur_p = ur(state["bc_params"]) if self._down_on else params
+        cur_nu = ((ur(state["bc_nu"]) if self._down_on else state["nu"])
                   if uses_nu else None)
 
         def gather(buf, current):
-            # dispatch-time anchors as fresh contiguous (B, P) rows; reports
-            # dispatched within THIS update read the live model
-            return torch.where(cur[:, None], current[None],
-                               buf.index_select(0, ids))
+            # dispatch-time anchors as fresh contiguous (B, …) rows;
+            # reports dispatched within THIS update read the live model
+            def one(b, c):
+                rows = b.index_select(0, ids)
+                return torch.where(expand(cur, rows), c[None], rows)
+            return tree_map(one, buf, current)
 
         anchor_i = gather(A, cur_p)
         kf = t["k"].float()
@@ -324,9 +365,10 @@ class BufferedAsyncSimulation:
             # the correction each client ran with: ν_{v_i} − ν⁽ⁱ⁾ (with
             # nu_decay the row has drifted toward ν since dispatch, the
             # reference's accepted approximation)
-            c_b = gather(N, cur_nu) - state["nu_i"].index_select(0, ids)
-        x_b, g0_b, loss0 = self._client_update(anchor_i, c_b, batches,
-                                               t["k"], lam)
+            c_b = tree_map(lambda na, nui: na - nui.index_select(0, ids),
+                           gather(N, cur_nu), state["nu_i"])
+        x_b, g0_b, acc_b, loss0 = self._client_update(anchor_i, c_b, batches,
+                                                      t["k"], lam)
 
         r = state["round"]
         quar = rb.quarantined(state, r, ids) if rb is not None else None
@@ -337,7 +379,8 @@ class BufferedAsyncSimulation:
             # occurrence's residual, as the reference does); the attack
             # lands on the rows the codec sees, and the defense screens
             # what reaches the buffered aggregator
-            d = x_b - anchor_i
+            a_rows = rvr(anchor_i)
+            d = rvr(x_b) - a_rows
             if atk is not None:
                 d = atk.corrupt_delta(r, d, self._spec.n, ids=ids,
                                       noise=None if noise is None
@@ -349,7 +392,7 @@ class BufferedAsyncSimulation:
                 d, sw_eff, qcount = rb.model(d, sw, state, new_state, r,
                                              ids, quar, last=last,
                                              in_place=True)
-            x_srv = anchor_i + d
+            x_srv = urr(a_rows + d)
         else:
             x_srv = x_b
         agg = self._aggregate(params, anchor_i, x_srv, kf, sw_eff, kbar)
@@ -364,19 +407,22 @@ class BufferedAsyncSimulation:
 
         if uses_nu:
             transmit, avg_g = stages.orientation_transmit(
-                algo, params, x_b, g0_b, c_b, kf, kbar, lr, lam,
+                algo, params, x_b, g0_b, acc_b, c_b, kf, kbar, lr, lam,
                 anchor_i=anchor_i)
             w_nu = sw
-            if atk is not None:
-                transmit = atk.corrupt_nu(r, transmit, self._spec.n,
-                                          ids=ids,
-                                          noise=None if noise is None
-                                          else noise[1])
-            if self._up_on:
-                transmit = cs.up_nu(transmit, state, new_state, ids=ids,
-                                    last=last, in_place=True)
-            if rb is not None:
-                transmit, w_nu = rb.nu(transmit, sw, quar)
+            if self._up_on or rb is not None or atk is not None:
+                t_rows = rvr(transmit)
+                if atk is not None:
+                    t_rows = atk.corrupt_nu(r, t_rows, self._spec.n,
+                                            ids=ids,
+                                            noise=None if noise is None
+                                            else noise[1])
+                if self._up_on:
+                    t_rows = cs.up_nu(t_rows, state, new_state, ids=ids,
+                                      last=last, in_place=True)
+                if rb is not None:
+                    t_rows, w_nu = rb.nu(t_rows, sw, quar)
+                transmit = urr(t_rows)
             new_nu = stages.nu_mass_mix(state["nu"],
                                         tree_wsum(w_nu, transmit), mass)
             if rb is not None:
@@ -391,9 +437,9 @@ class BufferedAsyncSimulation:
         # server-side accumulator, kept for the next gather and written
         # into the re-dispatched anchors below
         if self._down_on:
-            new_bc = cs.down(new_params, state, new_state)
+            new_bc = cs.down(rv(new_params), state, new_state)
             new_state["bc_params"] = new_bc
-            old_anchor, new_anchor = cur_p, new_bc
+            old_anchor, new_anchor = cur_p, ur(new_bc)
         else:
             old_anchor, new_anchor = params, new_params
 
@@ -402,15 +448,18 @@ class BufferedAsyncSimulation:
             # one for tie-upgraded dispatches; a client dispatched twice
             # writes once (``write_ids`` sends its earlier occurrences to
             # the scratch row M)
-            buf.index_copy_(0, wids, torch.where(
-                fresh[:, None], new[None], old[None]).to(buf.dtype))
+            def one(b, o, n):
+                b.index_copy_(0, wids, torch.where(
+                    expand(fresh, b[:1]), n[None], o[None]).to(b.dtype))
+            tree_map(one, buf, old, new)
 
         scatter(A, old_anchor, new_anchor)
         if uses_nu:
             if self._down_on:
-                new_bc_nu = cs.down_nu(new_state["nu"], state, new_state)
+                new_bc_nu = cs.down_nu(rv(new_state["nu"]), state,
+                                       new_state)
                 new_state["bc_nu"] = new_bc_nu
-                scatter(N, cur_nu, new_bc_nu)
+                scatter(N, cur_nu, ur(new_bc_nu))
             else:
                 scatter(N, state["nu"], new_state["nu"])
 
@@ -570,5 +619,8 @@ class BufferedAsyncSimulation:
 
     @property
     def params(self) -> PyTree:
-        """Current global model as a tree of tensors that own their data."""
-        return flat.unravel(self._spec, self.state["params"])
+        """Current global model as a tree: the state's own on the tree
+        layout, new tensors that own their data on the flat layout."""
+        if self.layout == "flat":
+            return flat.unravel(self._spec, self.state["params"])
+        return self.state["params"]

@@ -39,13 +39,18 @@ chunks never crossing a publish boundary; a run's ``state`` saves with
 checkpoint.load(path, sim.state)``, and a restored simulation's next
 ``run`` continues as the saved one's would have.
 
-The port runs the flat layout, full participation and cohort rounds alike,
-with or without wire compression (core/compress.py), a scenario, a
-defense or a mixed-precision master (``FedConfig.master_dtype``: the
-float32 buffer under bfloat16 leaves, core/flat.py).  A config asking for
-anything else raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.  As in the reference, this engine runs its synchronous round
-whatever ``buffer_size`` says: the buffered engine is
+Both of the reference's parameter layouts run (``FedConfig.param_layout``):
+"tree", its default, keeps the model a tree of tensors and runs the tree
+rounds (``rounds.make_round``, ``stages.make_cohort_round``: plain torch
+per leaf, the wire stages through the flat view table), "flat" the
+single-buffer rounds of core/flat.py (one calibrated-update launch a local
+step; with ``FedConfig.master_dtype`` the float32 buffer under bfloat16
+leaves).  Either runs full participation and cohort rounds, with or without
+wire compression (core/compress.py), a scenario or a defense; a tree run
+builds the ``FlatSpec`` only when its wire stages need one (``flat_spec``
+builds it on first use otherwise), and its compression and health state
+are flat rows, as in the reference.  As in the reference, this engine runs
+its synchronous round whatever ``buffer_size`` says: the buffered engine is
 ``fed.async_engine.BufferedAsyncSimulation``.  Every run records the wire
 bytes per round (``History.bytes_up`` / ``bytes_down``) at the number of
 clients that report, at the fp32 cost when compression is off.
@@ -64,6 +69,7 @@ from repro_torch.checkpoint import serialize
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import compress, engine, flat, robust, rounds, stages
 from repro_torch.core.fedopt import get_algorithm
+from repro_torch.core.tree_util import tree_leaves, tree_map
 from repro_torch.data.partition import gaussian_k_schedule
 from repro_torch.device import resolve_device
 from repro_torch.fed.population import ClientPopulation
@@ -80,20 +86,6 @@ def _check_finite_metric(value: float, t: int) -> None:
             f"evaluation metric is non-finite ({value}) after round {t}: "
             f"the run has diverged or been poisoned; configure a defense "
             f"(FedConfig.defense / quarantine_window, core/robust.py)")
-
-
-def _check_supported(fed: FedConfig) -> None:
-    """Raise for every config field whose feature this port does not run
-    yet, naming the ROADMAP item that brings it."""
-    unported = [
-        (fed.param_layout != "flat",
-         f"param_layout={fed.param_layout!r} (the port runs 'flat'; the "
-         f"tree layout is ROADMAP A2)"),
-    ]
-    for unsupported, what in unported:
-        if unsupported:
-            raise NotImplementedError(f"the PyTorch port does not run {what}"
-                                      f" yet")
 
 
 @dataclasses.dataclass
@@ -175,7 +167,6 @@ class FederatedSimulation:
                  t_max: int = 10_000,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        _check_supported(fed)
         if batcher.device != self.device:
             raise ValueError(f"batcher is on {batcher.device}, the "
                              f"simulation on {self.device}")
@@ -196,10 +187,11 @@ class FederatedSimulation:
                                         1.0 / fed.n_clients,
                                         dtype=torch.float32,
                                         device=self.device))
-        self._spec = flat.make_flat_spec(
-            params, master_dtype=fed.master_dtype or None)
+        self.layout = fed.param_layout
         # failure scenario: None for "baseline", and every run path then
-        # takes its unperturbed round
+        # takes its unperturbed round.  Resolved before the spec: a payload
+        # attack works on wire rows, so the tree layout needs the view
+        # table for it, as for compression
         self.scenario = (scenario if scenario is not None
                          else make_scenario(fed))
         if self.scenario is not None and self.scenario.m != fed.n_clients:
@@ -215,12 +207,30 @@ class FederatedSimulation:
         # wire compression: None when the config asks for none, and the
         # round is then the unchanged one
         self.compression = compress.CompressionConfig.from_fed(fed)
-        self._wire = compress.wire_cost(self._spec.n, self.algo.uses_nu,
+        if self.layout == "flat":
+            self._spec = flat.make_flat_spec(
+                params, master_dtype=fed.master_dtype or None)
+        elif (self.compression is not None or self.robust is not None
+                or self._attack is not None):
+            # the tree round works the wire rows through the view table:
+            # it needs the spec (and flat error-feedback and health state)
+            # while the params stay a tree
+            self._spec = flat.make_flat_spec(params)
+        else:
+            self._spec = None
+        n_true = (self._spec.n if self._spec is not None
+                  else sum(lv.numel() for lv in tree_leaves(params)))
+        self._wire = compress.wire_cost(n_true, self.algo.uses_nu,
                                         self.compression)
+        # a private copy on the device: the run replaces and updates its
+        # state, never the caller's tensors
+        params = (flat.ravel(self._spec, params).to(self.device)
+                  if self.layout == "flat"
+                  else tree_map(lambda a: a.detach().to(self.device,
+                                                        copy=True), params))
         self.state = rounds.init_state(
-            flat.ravel(self._spec, params).to(self.device), fed.n_clients,
-            self.algo, compression=self.compression, spec=self._spec,
-            robust=self.robust)
+            params, fed.n_clients, self.algo, compression=self.compression,
+            spec=self._spec, robust=self.robust)
         self._loss_fn = loss_fn
         self._round: Optional[Callable] = None
         self._chunks: dict[int, Callable] = {}
@@ -250,10 +260,17 @@ class FederatedSimulation:
             self.population.availability_fn = self.scenario.availability_fn
 
     def _build_round(self) -> Callable:
-        return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
-                                    lr=self.fed.lr, k_max=self.k_max,
-                                    compression=self.compression,
-                                    robust=self.robust, attack=self._attack)
+        """The one synchronous-round builder every path shares: the tree
+        round or its single-buffer twin, both ``round_fn(state, batches,
+        k_steps, weights, lam, *, noise=None)``."""
+        kw = dict(lr=self.fed.lr, k_max=self.k_max,
+                  compression=self.compression, robust=self.robust,
+                  attack=self._attack)
+        if self.layout == "flat":
+            return flat.make_flat_round(self._spec, self._loss_fn, self.algo,
+                                        **kw)
+        return rounds.make_round(self._loss_fn, self.algo, spec=self._spec,
+                                 **kw)
 
     def _round_fn(self) -> Callable:
         if self._round is None:
@@ -272,12 +289,18 @@ class FederatedSimulation:
         return self._chunks[r]
 
     def _pop_round_fn(self) -> Callable:
+        """The one cohort-round builder both population paths share."""
         if self._round is None:
-            self._round = flat.make_flat_cohort_round(
-                self._spec, self._loss_fn, self.algo, lr=self.fed.lr,
-                k_max=self.k_max, nu_decay=self.fed.cohort_nu_decay,
-                compression=self.compression, robust=self.robust,
-                attack=self._attack)
+            kw = dict(lr=self.fed.lr, k_max=self.k_max,
+                      nu_decay=self.fed.cohort_nu_decay,
+                      compression=self.compression, robust=self.robust,
+                      attack=self._attack)
+            self._round = (
+                flat.make_flat_cohort_round(self._spec, self._loss_fn,
+                                            self.algo, **kw)
+                if self.layout == "flat"
+                else stages.make_cohort_round(self._loss_fn, self.algo,
+                                              spec=self._spec, **kw))
         return self._round
 
     def _pop_chunk_fn(self, r: int) -> Callable:
@@ -338,7 +361,7 @@ class FederatedSimulation:
         done = int(self.state["round"])
         rows = [self._attack.payload_noise(
             done + j,
-            None if cohorts is None else cohorts[j], self._spec.p)
+            None if cohorts is None else cohorts[j], self.flat_spec.p)
             for j in range(r)]
         return self._on_device(np.stack(rows), torch.float32)
 
@@ -535,25 +558,39 @@ class FederatedSimulation:
 
     @property
     def params(self) -> PyTree:
-        """Current global model as a tree of tensors that own their data."""
-        return flat.unravel(self._spec, self.state["params"])
+        """Current global model as a tree: the state's own on the tree
+        layout (the rounds replace it, never write it), new tensors that
+        own their data on the flat layout."""
+        if self.layout == "flat":
+            return flat.unravel(self._spec, self.state["params"])
+        return self.state["params"]
 
     @property
     def flat_spec(self) -> flat.FlatSpec:
-        """The ``FlatSpec`` of this model's ``(P,)`` layout."""
+        """The ``FlatSpec`` of this model's ``(P,)`` layout.  A flat run,
+        and a tree run with wire stages, already own one; a plain tree run
+        builds it on first use (shape metadata: the state is untouched)."""
+        if self._spec is None:
+            self._spec = flat.make_flat_spec(self.state["params"])
         return self._spec
 
     def publish_snapshot(self) -> dict:
         """A versioned serving snapshot of the current training state: the
         ``(P,)`` flat master and, for algorithms that keep one, the
-        calibration signal (ν and the ``(M, P)`` ν⁽ⁱ⁾ rows).  Version = the
-        state's round counter.  The snapshot owns its buffers: the next
-        rounds update the state's in place."""
+        calibration signal (ν and the ``(M, P)`` ν⁽ⁱ⁾ rows), a tree state
+        raveled through ``flat_spec``.  Version = the state's round
+        counter.  The snapshot owns its buffers: the next rounds update the
+        state's in place."""
+        def own(key: str, client_dims: int = 0) -> torch.Tensor:
+            v = self.state[key]
+            return (v.clone() if self.layout == "flat"
+                    else flat.ravel(self.flat_spec, v, client_dims))
+
         snap = {"version": np.int32(int(self.state["round"])),
-                "flat_master": self.state["params"].clone()}
+                "flat_master": own("params")}
         if self.algo.uses_nu and "nu" in self.state:
-            snap["nu"] = self.state["nu"].clone()
-            snap["nu_i"] = self.state["nu_i"].clone()
+            snap["nu"] = own("nu")
+            snap["nu_i"] = own("nu_i", 1)
         return snap
 
     def save_snapshot(self, path: str) -> dict:

@@ -138,14 +138,15 @@ def population_simulation(m: int, pop: dict = POPULATION,
                           **fed_kw):
     """FedaGrac on ``m`` clients, a cohort of ``pop["cohort"]`` a round,
     on the mlp ``d``-64-``classes`` over Gaussian blobs at 2 samples a
-    client (at least ``n_data``), IID parts, one K row; ``fed_kw`` adds
-    config fields (a compressor), ``sampler`` picks the batcher."""
+    client (at least ``n_data``), IID parts, one K row, on the flat layout;
+    ``fed_kw`` adds or replaces config fields (a compressor, the tree
+    layout), ``sampler`` picks the batcher."""
     from repro_torch.fed import FederatedSimulation
     batcher, params, ks = _population_parts(m, pop, device, sampler)
-    fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
-                    lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
-                    cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],
-                    param_layout="flat", **fed_kw)
+    fed = FedConfig(**{**dict(
+        algorithm="fedagrac", n_clients=m, k_mean=pop["k"], lr=pop["lr"],
+        calibration_rate=pop["lam"], seed=0, cohort_size=pop["cohort"],
+        cohort_sampler=pop["sampler"], param_layout="flat"), **fed_kw})
     return FederatedSimulation(mlp_loss, params, fed, batcher,
                                k_schedule=ks, device=device)
 
@@ -154,15 +155,15 @@ def population_async_simulation(m: int, pop: dict = POPULATION,
                                 device: str = "cuda", **fed_kw):
     """The same setting on the buffered-async engine: ``pop["cohort"]``
     clients in flight, a buffer of as many reports, hinge staleness, the
-    lognormal σ = 1 fleet; ``fed_kw`` adds config fields."""
+    lognormal σ = 1 fleet; ``fed_kw`` adds or replaces config fields."""
     from repro_torch.fed import BufferedAsyncSimulation
     batcher, params, ks = _population_parts(m, pop, device)
-    fed = FedConfig(algorithm="fedagrac", n_clients=m, k_mean=pop["k"],
-                    lr=pop["lr"], calibration_rate=pop["lam"], seed=0,
-                    cohort_size=pop["cohort"], cohort_sampler=pop["sampler"],
-                    buffer_size=pop["cohort"], staleness="hinge",
-                    speed_dist="lognormal", speed_sigma=1.0,
-                    param_layout="flat", **fed_kw)
+    fed = FedConfig(**{**dict(
+        algorithm="fedagrac", n_clients=m, k_mean=pop["k"], lr=pop["lr"],
+        calibration_rate=pop["lam"], seed=0, cohort_size=pop["cohort"],
+        cohort_sampler=pop["sampler"], buffer_size=pop["cohort"],
+        staleness="hinge", speed_dist="lognormal", speed_sigma=1.0,
+        param_layout="flat"), **fed_kw})
     return BufferedAsyncSimulation(mlp_loss, params, fed, batcher,
                                    k_schedule=ks, device=device)
 

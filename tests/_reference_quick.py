@@ -41,10 +41,11 @@ MODULES = {"thm1": "thm1_quadratic", "table1": "table1_deterioration",
            "fig3": "fig3_orientation", "fig4": "fig4_grid",
            "fairness": "fairness", "server_opt": "server_opt",
            "table_async": "table_async", "compression": "compression_bench",
-           "scenario": "scenario_bench", "robust": "robust_bench"}
+           "scenario": "scenario_bench", "robust": "robust_bench",
+           "int8_nu": "ablation_int8_nu"}
 # modules without a rounds-to-target helper whose runs' History calls are
 # recorded instead
-RECORD_HISTORY = ("scenario", "robust")
+RECORD_HISTORY = ("scenario", "robust", "int8_nu")
 COMMAND = ("PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks.run "
            "--quick --only " + ",".join(MODULES))
 

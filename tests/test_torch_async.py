@@ -260,7 +260,7 @@ def test_per_client_anchor_update_matches_jax(algorithm):
                             jax.tree.map(jnp.asarray, batches),
                             jnp.asarray(k), jnp.float32(LAM))
     t_anchors = torch.from_numpy(anchors)
-    tx, tg0, tloss = tfn(t_anchors, torch.from_numpy(c),
+    tx, tg0, _, tloss = tfn(t_anchors, torch.from_numpy(c),
                          {kk: torch.from_numpy(v) for kk, v in
                           batches.items()}, torch.from_numpy(k), LAM)
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **PARAMS_TOL)
@@ -485,14 +485,29 @@ def test_history_records_and_rerun_restarts_the_timeline():
     (dict(param_layout="tree"), "A2"), (dict(master_dtype="float32"), "A3"),
     ("sampler", "A5")])
 def test_async_refusals_name_the_roadmap_item(kw, item):
-    """The tree layout (A2) is refused by name; the device sampler (A5)
-    and a mixed-precision master (A3: bfloat16 leaves over a float32
-    buffer) run (their parity: tests/test_torch_device_mode.py and
+    """The items these cases once refused now run: the tree layout (A2)
+    matches the reference's tree engine; the device sampler (A5) and a
+    mixed-precision master (A3: bfloat16 leaves over a float32 buffer)
+    run (their parity: tests/test_torch_device_mode.py and
     tests/test_torch_master_dtype.py)."""
+    if item == "A2":
+        jsim, tsim = _engines(dict(algorithm="fedagrac", buffer_size=2,
+                                   staleness="hinge", **kw))
+        jh, th = jsim.run(T_UPDATES), tsim.run(T_UPDATES)
+        np.testing.assert_allclose(th.loss, jh.loss, **PARAMS_TOL)
+        assert th.sim_time == jh.sim_time
+        for key, tol in (("params", PARAMS_TOL), ("nu", NU_TOL),
+                         ("nu_i", NU_TOL)):
+            assert set(tsim.state[key]) == {"w", "b"}
+            for leaf in ("w", "b"):
+                np.testing.assert_allclose(
+                    tsim.state[key][leaf].numpy(),
+                    np.asarray(jsim.state[key][leaf]), **tol,
+                    err_msg=f"{key}/{leaf}")
+        return
     x, y, parts, params, ks = _task()
     data = Dataset(torch.from_numpy(x), torch.from_numpy(y).long())
     batcher = FederatedBatcher(data, parts, batch_size=BATCH, device="cpu")
-    extra = {}
     if item == "A3":
         fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,
                         param_layout="flat", **kw)
@@ -510,25 +525,15 @@ def test_async_refusals_name_the_roadmap_item(kw, item):
         assert sim.state["params"].dtype == torch.float32
         assert {t.dtype for t in sim.params.values()} == {torch.bfloat16}
         return
-    if kw == "sampler":
-        from repro_torch.data import DeviceBatcher
-        fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,
-                        param_layout="flat")
-        sim = BufferedAsyncSimulation(
-            simple.lr_loss,
-            {k: torch.from_numpy(v) for k, v in params.items()}, fed,
-            DeviceBatcher(data, parts, batch_size=BATCH, device="cpu"),
-            k_schedule=ks, device="cpu")
-        assert sim._device_sampler
-        assert np.isfinite(sim.run(2).loss).all()
-        return
-    fed = FedConfig(**dict(dict(algorithm="fedavg", n_clients=M,
-                                buffer_size=2, param_layout="flat"), **kw))
-    with pytest.raises(NotImplementedError, match=item):
-        BufferedAsyncSimulation(
-            simple.lr_loss,
-            {k: torch.from_numpy(v) for k, v in params.items()}, fed,
-            batcher, k_schedule=ks, device="cpu", **extra)
+    from repro_torch.data import DeviceBatcher
+    fed = FedConfig(algorithm="fedavg", n_clients=M, buffer_size=2,
+                    param_layout="flat")
+    sim = BufferedAsyncSimulation(
+        simple.lr_loss, {k: torch.from_numpy(v) for k, v in params.items()},
+        fed, DeviceBatcher(data, parts, batch_size=BATCH, device="cpu"),
+        k_schedule=ks, device="cpu")
+    assert sim._device_sampler
+    assert np.isfinite(sim.run(2).loss).all()
 
 
 def test_buffer_size_out_of_range_raises():

@@ -12,6 +12,8 @@ the reference's ``benchmarks/`` on the CPU.
 * Table 1's ``lr, non_iid`` quick row crosses 0.78 at round 24 in the port
   as in the reference: it sits at 0.78000003 there, one ulp above the
   0.77999997 that ``sum / n`` gave.
+* The ``ablation_int8_nu`` twin's quick rows (tree layout, int8 wire)
+  equal the reference's.
 * ``run.parse_only`` on the cases of tests/test_benchmarks_cli.py; every
   twin's ``main(quick=True)`` on the CPU with its rounds cut to 2 (the
   buffered-async, compression, scenario and robust twins' included), its
@@ -20,6 +22,7 @@ the reference's ``benchmarks/`` on the CPU.
   are tests/test_torch_scenario_twin.py and test_torch_robust_twin.py's.)
 * ``reference_quick.json``'s thm1, table1 and server_opt rows regenerated
   from the JAX modules, equal to the committed file.
+* The engine twin's rows include the tree-vs-flat layout rows.
 * The ``continuous_batching`` twin on the CPU.
 """
 import pytest
@@ -42,7 +45,7 @@ from repro.configs.base import FedConfig as JFedConfig  # noqa: E402
 from repro.fed.simulation import FederatedSimulation as JSim  # noqa: E402
 from repro.models.simple import lr_accuracy as jlr_accuracy  # noqa: E402
 from repro.models.simple import mlp_init as jmlp_init  # noqa: E402
-from repro_torch.benchmarks import common  # noqa: E402
+from repro_torch.benchmarks import ablation_int8_nu, common  # noqa: E402
 from repro_torch.benchmarks import run as trun  # noqa: E402
 from repro_torch.benchmarks import table1_deterioration  # noqa: E402
 from repro_torch.configs.base import FedConfig  # noqa: E402
@@ -193,6 +196,15 @@ def test_table1_lr_non_iid_quick_row_crosses_at_round_24():
     assert row in REFERENCE["modules"]["table1"]["rows"]
 
 
+def test_int8_nu_twin_quick_rows_equal_the_reference():
+    """The ``ablation_int8_nu`` twin runs the tree layout with
+    ``compressor="int8"``, as the reference's module does: its quick rows
+    are the reference's (``reference_quick.json``)."""
+    rows = [[str(v) for v in row]
+            for row in ablation_int8_nu.run(quick=True, device="cpu")]
+    assert rows == REFERENCE["modules"]["int8_nu"]["rows"]
+
+
 @pytest.mark.parametrize("only,want", [
     (None, list(trun.MODULES)),
     ("engine,thm1,engine", ["engine", "thm1"]),
@@ -234,6 +246,7 @@ def _cut_rounds(mod, monkeypatch):
     if mod.__name__.endswith("engine_bench"):
         monkeypatch.setattr(mod, "REPEATS", 1)
         monkeypatch.setattr(mod, "CHUNK", 2)
+        monkeypatch.setattr(mod, "ENGINE_CHUNK", 2)
 
 
 @pytest.mark.parametrize("name", sorted(trun.MODULES))
@@ -252,15 +265,19 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
              if not ln.startswith("#")]
     if name == "engine":
         header = lines[0].split(",")
-        rows = [ln.split(",") for ln in lines[1:7]]
-        report = json.loads("\n".join(lines[7:]))
+        rows = [ln.split(",") for ln in lines[1:15]]
+        report = json.loads("\n".join(lines[15:]))
         assert [r[:4] for r in rows] == [
             ["lr", "sync", "host_loop", "1"],
             ["lr", "sync", "chunked_host", "2"],
             ["lr", "sync", "chunked_device", "2"],
             ["lr", "async", "per_update", "1"],
             ["lr", "async", "chunked_host", "2"],
-            ["lr", "async", "chunked_device", "2"]]
+            ["lr", "async", "chunked_device", "2"]] + [
+            [kind, engine, layout, chunk]
+            for kind in ("lr", "mlp")
+            for engine, chunk in (("layout", "2"), ("layout_engine", "1"))
+            for layout in ("tree", "flat")]
         rates = report["sync"]["lr"]
         assert rates["host_loop_rounds_per_s"] > 0
         assert rates["chunked_host_rounds_per_s"] > 0
@@ -269,8 +286,15 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
         assert rates["per_update_updates_per_s"] > 0
         assert rates["chunked_host_updates_per_s"] > 0
         assert rates["chunked_device_updates_per_s"] > 0
+        for kind in ("lr", "mlp"):
+            rates = report["layout"][kind]
+            assert rates["tree_rounds_per_s"] > 0
+            assert rates["flat_rounds_per_s"] > 0
+            assert rates["engine_tree_rounds_per_s"] > 0
+            assert rates["engine_flat_rounds_per_s"] > 0
+            assert 0.0 <= rates["grad_fraction_tree"] < 1.0
         assert report["meta"]["device_name"] == "cpu"
-        assert set(report["meta"]["not_run"]) == {"layout"}
+        assert "not_run" not in report["meta"]
         assert header[0] == "task"
         return
     if name == "serving":
@@ -305,7 +329,8 @@ def test_twin_runs_quick_on_cpu(name, monkeypatch, capsys):
     # the settings columns line up; numbers are the run's own at 2 rounds
     n_key = {"thm1": 2, "table1": 3, "table2": 3, "fig2": 3, "fig3": 3,
              "fig4": 4, "fairness": 2, "server_opt": 4, "table_async": 4,
-             "compression": 3, "scenario": 3, "robust": 2}[name]
+             "compression": 3, "scenario": 3, "robust": 2,
+             "int8_nu": 2}[name]
     assert [r[:n_key] for r in rows] == [r[:n_key] for r in ref["rows"]]
     for r in rows:
         # robust's survival column is a word

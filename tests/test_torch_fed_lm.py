@@ -211,37 +211,49 @@ def test_small_example_learns_on_cpu(capsys, tmp_path):
     (["--bf16"], "A3"), (["--sampler", "device"], "A5"),
     (["--layout", "tree"], "A2"), (["--ckpt", "x.msgpack"], "A11")])
 def test_example_refuses_unported_flags(argv, item, tmp_path):
-    """``--layout tree`` is refused by name; the device sampler (A5),
-    checkpoints (A11) and ``--bf16`` (A3: bfloat16 leaves over a float32
-    master) run: the model saved at each eval boundary restores into the
-    simulation's parameter tree."""
-    if item == "A2":
-        with pytest.raises(NotImplementedError, match=item):
-            fed_lm_train.main(["--small", "--device", "cpu", *argv])
-        return
+    """The flags these cases once refused run: the device sampler (A5),
+    checkpoints (A11), ``--bf16`` (A3: bfloat16 leaves over a float32
+    master) and ``--layout tree`` (A2, whose round matches the flat
+    layout's on the same example within PARAMS_RTOL / PARAMS_ATOL); the
+    model saved at each eval boundary restores into the simulation's
+    parameter tree."""
     fmt = str(tmp_path / "fed_lm_{round}.msgpack")
     if item == "A11":
         argv = ["--ckpt", fmt]
-    sim = {}
+    sims = []
     real = fed_lm_train.make_simulation
 
     def kept(*args, **kw):
-        sim["sim"] = real(*args, **kw)
-        return sim["sim"]
+        sims.append(real(*args, **kw))
+        return sims[-1]
     fed_lm_train.make_simulation = kept
     try:
+        if item == "A2":
+            fed_lm_train.main(["--small", "--device", "cpu", "--rounds",
+                               "1", "--eval-every", "1", "--ckpt", "",
+                               "--layout", "flat"])
         fed_lm_train.main(["--small", "--device", "cpu", "--rounds", "1",
                            "--eval-every", "1", "--ckpt", fmt, *argv])
     finally:
         fed_lm_train.make_simulation = real
-    assert sim["sim"]._device_sampler == (item == "A5")
-    assert sim["sim"].state["params"].dtype == torch.float32
-    leaf_dtypes = {t.dtype for t in
-                   torch.utils._pytree.tree_leaves(sim["sim"].params)}
+    sim = sims[-1]
+    assert sim._device_sampler == (item == "A5")
+    master = (sim.state["params"] if item != "A2"
+              else flat.ravel(sim.flat_spec, sim.state["params"]))
+    assert master.dtype == torch.float32
+    leaves = torch.utils._pytree.tree_leaves(sim.params)
+    leaf_dtypes = {t.dtype for t in leaves}
     assert leaf_dtypes == {torch.bfloat16 if item == "A3"
                            else torch.float32}
+    if item == "A2":
+        assert sim.layout == "tree" and sims[0].layout == "flat"
+        got, want = (dict(flat._leaves(s.params)) for s in (sim, sims[0]))
+        assert set(got) == set(want)
+        for path, a in got.items():
+            np.testing.assert_allclose(a.numpy(), want[path].numpy(),
+                                       rtol=PARAMS_RTOL, atol=PARAMS_ATOL,
+                                       err_msg=str(path))
     from repro_torch.checkpoint import serialize
-    restored = serialize.load(fmt.format(round=1), sim["sim"].params)
-    for a, b in zip(torch.utils._pytree.tree_leaves(restored),
-                    torch.utils._pytree.tree_leaves(sim["sim"].params)):
+    restored = serialize.load(fmt.format(round=1), sim.params)
+    for a, b in zip(torch.utils._pytree.tree_leaves(restored), leaves):
         assert torch.equal(a, b)

@@ -91,11 +91,11 @@ def test_entry_points_without_device_raise_where_no_cuda():
 # the fields whose features the port has since brought: buffer_size (the
 # synchronous engine runs its round whatever it says, as the reference's
 # does; the buffered engine is BufferedAsyncSimulation), compression on
-# the cohort round (A9), failure scenarios (A8), robust aggregation (A10)
-# and the mixed-precision master (A3)
+# the cohort round (A9), failure scenarios (A8), robust aggregation (A10),
+# the mixed-precision master (A3) and the tree layout (A2)
 PORTED = {("cohort_size", "A9"), ("buffer_size", "A7"), ("scenario", "A8"),
           ("quarantine_window", "A10"), ("defense", "A10"),
-          ("master_dtype", "A3")}
+          ("master_dtype", "A3"), ("param_layout", "A2")}
 
 
 def _reference_round(fed_kw, sim, cohort=None):
@@ -175,8 +175,13 @@ def test_unported_config_fields_raise(field, value, item):
     sim.run(1)
     want = _reference_round(dict(algorithm="fedavg", n_clients=2, **kw),
                             sim, drawn[0] if drawn else None)
-    np.testing.assert_allclose(sim.state["params"].numpy(), want,
-                               rtol=1e-5, atol=2e-6)
+    got = sim.state["params"]
+    if sim.layout == "tree":
+        # the tree round's model in the reference's flat layout
+        from repro_torch.core import flat
+        assert set(got) == {"w", "b"}
+        got = flat.ravel(sim.flat_spec, got)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=2e-6)
 
 
 @pytest.mark.parametrize("sampler", ["all", "uniform", "weighted",
