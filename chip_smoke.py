@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases, each printing JSON lines; any failure exits non-zero.
+Nineteen phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -57,7 +57,12 @@ Eighteen phases, each printing JSON lines; any failure exits non-zero.
    CUDA-graph replay, with the bound (float32: at a third of the TF32
    tensor-core peak, and at the SIMT peak beside it; its tensor-core work
    as ``mma_ops``) and the time of ``scaled_dot_product_attention`` as a
-   yardstick (the port never calls it).
+   yardstick (the port never calls it).  Then phase 19's prefill
+   instances (``ATTN_SERVE_SHAPES``), checked in both dtypes and timed in
+   bfloat16 beside SDPA (under gemma3's window with the window as an
+   explicit mask): deepseek-v2-lite's MLA at Dqk 192 / Dv 128, granite's
+   GQA at head dim 64, gemma3-12b's local layers at S = 2048, window
+   1024.
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -299,16 +304,44 @@ Eighteen phases, each printing JSON lines; any failure exits non-zero.
    a prox term) on each layout against the CPU, the flat round one
    calibrated-update launch a local step.
 
+19. MoE, MLA and sliding-window serving — each model at full width and
+   depth in bfloat16 behind ``ServeEngine``, random weights from a seed
+   drawn one expert at a time, one model at a time (the one before freed,
+   each one's peak memory printed).  (a) deepseek-v2-lite-16b (27 layers,
+   MLA kv_lora 512, 64 experts top-6 + 2 shared, ≈32.4 GB): 4 slots,
+   buckets (64, 128, 256), prompts of 37, 101, 190 and 256 tokens, 16 new
+   each; exactly 27 attention launches an admission (Dqk 192, Dv 128),
+   none in decode; TTFT, prefill / decode tokens/s, wall per tick, and
+   the MoE assignments dropped per admission and per tick at the config's
+   capacity factor 1.25 (a tick of 4 slots has capacity 1, C19); then at
+   capacity factor NO_DROP_CAPACITY (nothing drops) the absorbed decode's
+   logits against a no-cache forward of the same tokens and against the
+   naive decode teacher-forced with its tokens, within BF16_LOGIT_RTOL;
+   then a float32 cut (2 layers, d 256, the full routing) on the card
+   against the CPU, served on both with the card's tokens, by phase 6's
+   rule.  (b) granite-moe-1b-a400m (24 layers, 32 experts top-8): the
+   same timing run and card-against-CPU check.  (c) gemma3-12b (48
+   layers, 5:1 local:global, window 1024, head dim 256, vocab 262,144,
+   ≈23.6 GB): 2 slots, a prompt of 1020 tokens filling its bucket (its
+   decode crosses the local rings' end) and one of 2048 (the rings'
+   whole-ring gather), 16 new each, 48 attention launches an admission;
+   the 1020 prompt's logits against a no-cache forward; the 2048 prompt's
+   printed (behind the engine its pad mask empties every local ring slot,
+   C20) and, through ``serve_prefill`` / ``serve_decode``, checked
+   against a no-cache forward.
+
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
-instances timed on phase 16's path, and the four SSD backward kernels,
-which replace autodiff of ``src/repro/models/mamba2.py:74``), and
+instances timed on phase 16's path and on phase 19's three models' (its
+launches), and the four SSD backward kernels, which replace autodiff of
+``src/repro/models/mamba2.py:74``), and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -386,6 +419,16 @@ ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_STEP_SHAPE = (4, 128, 8, 1, 256, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
               (4, 128, 32, 32, 80, 0), ATTN_STEP_SHAPE]
+# Phase 19's prefill instances (B, S, H, Hkv, Dqk, Dv, window), checked in
+# both dtypes and timed in bfloat16: deepseek-v2-lite's MLA at its largest
+# bucket (q and k of dn + dr = 128 + 64, v of dv = 128), granite-moe's GQA
+# 16 / 8 at head dim 64 there, and gemma3-12b's local layers at a
+# 2048-token prefill (GQA 16 / 8, head dim 256, window 1024); the kernels
+# line names them by model
+ATTN_SERVE_SHAPES = {"mla_bf16": (1, 256, 16, 16, 192, 128, 0),
+                     "granite_bf16": (1, 256, 16, 8, 64, 64, 0),
+                     "gemma3_bf16": (1, 2048, 16, 8, 256, 256, 1024)}
+ATTN_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # The float32 forward's tiles, copied from csrc/flash_attention.cu
 # (tests/test_torch_build.py holds each against the source): q tiles of
 # FWD_TF32_BLOCK_ROWS rows, kv tiles of FWD_TF32_BLOCK_KEYS[bucket] keys;
@@ -1456,6 +1499,40 @@ def _check_attention(checks, result, label, dtype, q, k, v, window):
                    "tol": ATTN_TOL[dtype]})
 
 
+def _attn_timing(shape, dtype, q, k, v, window) -> dict:
+    """A ``kernel_time`` line of the forward kernel at ``shape`` from
+    CUDA-graph replay, beside its plain version, its bound and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls;
+    under a window it takes the window as an explicit boolean mask)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    iters = 100 if q.shape[1] <= 256 else 5
+    bound_ms, bound_by, simt_ms = _attn_bound(q, k, v, window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = {"is_causal": True}
+    if window:
+        sdpa = {"attn_mask": ref.visible(q.shape[1], k.shape[1], True,
+                                         window, device=q.device)}
+
+    def kernel():
+        ops.flash_attention_fwd(q, k, v, causal=True, window=window)
+
+    timing = {
+        "kernel": "flash_attention_fwd", "dtype": str(dtype),
+        "shape": shape, "ms": _graph_ms(kernel, iters),
+        **({} if dtype != torch.float32 else
+           {"mma_ops": _fwd_mma_ops(q, k, v, window)}),
+        "stream_ms": _time_ms(kernel, iters),
+        "plain_ms": _graph_ms(lambda: ref.attention_fwd(
+            q, k, v, causal=True, window=window), iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        **({} if simt_ms is None else {"simt_bound_ms": simt_ms}),
+        "library_ms": _graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **sdpa), iters)}
+    _emit({"phase": "kernel_time", **timing})
+    return timing
+
+
 def phase_attention_kernel() -> dict:
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1468,37 +1545,25 @@ def phase_attention_kernel() -> dict:
                                    ).to(dtype) for h in (H, Hkv, Hkv))
             _check_attention(checks, result, shape, dtype, q, k, v, window)
             if shape in ATTN_TIMED:
-                iters = 100 if S <= 256 else 5
-                bound_ms, bound_by, simt_ms = _attn_bound(q, k, v, window)
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-                def kernel():
-                    ops.flash_attention_fwd(q, k, v, causal=True,
-                                            window=window)
-
-                timing = {
-                    "kernel": "flash_attention_fwd", "dtype": str(dtype),
-                    "shape": shape, "ms": _graph_ms(kernel, iters),
-                    **({} if dtype != torch.float32 else
-                       {"mma_ops": _fwd_mma_ops(q, k, v, window)}),
-                    "stream_ms": _time_ms(kernel, iters),
-                    "plain_ms": _graph_ms(lambda: ref.attention_fwd(
-                        q, k, v, causal=True, window=window), iters),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    **({} if simt_ms is None else
-                       {"simt_bound_ms": simt_ms}),
-                    "library_ms": _graph_ms(
-                        lambda: torch.nn.functional
-                        .scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True),
-                        iters)}
-                _emit({"phase": "kernel_time", **timing})
-                keys = ("ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")
+                timing = _attn_timing(shape, dtype, q, k, v, window)
                 if dtype == torch.bfloat16 and shape == ATTN_PATH_SHAPE:
-                    result.update({key: timing[key] for key in keys})
+                    result.update({key: timing[key] for key in ATTN_KEYS})
                 if dtype == torch.bfloat16 and shape == ATTN_STEP_SHAPE:
-                    result["bf16_step"] = {key: timing[key] for key in keys}
+                    result["bf16_step"] = {key: timing[key]
+                                           for key in ATTN_KEYS}
+            del q, k, v
+            torch.cuda.empty_cache()
+        for name, shape in ATTN_SERVE_SHAPES.items():
+            B, S, H, Hkv, Dqk, Dv, window = shape
+            q = torch.randn(B, S, H, Dqk, generator=gen, device=DEVICE
+                            ).to(dtype)
+            k, v = (torch.randn(B, S, Hkv, d, generator=gen, device=DEVICE
+                                ).to(dtype) for d in (Dqk, Dv))
+            _check_attention(checks, result, shape, dtype, q, k, v, window)
+            if dtype == torch.bfloat16:
+                timing = _attn_timing(shape, dtype, q, k, v, window)
+                result[name] = {key: timing[key] for key in ATTN_KEYS}
+                result[name]["max_abs_err"] = checks[-1]["max_abs_err_o"]
             del q, k, v
             torch.cuda.empty_cache()
         for shape in ATTN_FUSED_SHAPES:
@@ -1811,9 +1876,13 @@ def _timed_engine_class():
     from repro_torch.serving import ServeEngine
 
     class TimedEngine(ServeEngine):
-        def __init__(self, *args, record: bool = False, **kw):
+        def __init__(self, *args, record: bool = False,
+                     forced: Optional[dict] = None, **kw):
             super().__init__(*args, **kw)
             self.record = record
+            # uid -> tokens: emit these instead of sampling (a run
+            # teacher-forced with another run's tokens)
+            self.forced = forced
             self.logits: dict[int, list] = {}
             self.first_token_s: dict[int, float] = {}
             self.admit_s, self.tick_s = [], []
@@ -1833,6 +1902,9 @@ def _timed_engine_class():
 
         def _sample(self, logits, rows, uids, steps):
             out = super()._sample(logits, rows, uids, steps)
+            if self.forced is not None:
+                out = [self.forced[uid][step]
+                       for uid, step in zip(uids, steps)]
             now = time.perf_counter() - self.t0    # the tokens are on the host
             for uid, step in zip(uids, steps):
                 if step == 0:
@@ -1903,15 +1975,18 @@ def _serve_stats(eng, reqs, wall_s: float) -> dict:
             "flash_launches_decode": eng.tick_launches}
 
 
-def _serve(cfg, params, reqs, device, record=False):
+def _serve(cfg, params, reqs, device, record=False, settings=None,
+           forced=None):
     engine_cls = _timed_engine_class()
-    eng = engine_cls(cfg, params, device=device, record=record, **SERVE)
+    eng = engine_cls(cfg, params, device=device, record=record,
+                     forced=forced, **(settings or SERVE))
     for r in reqs:
         eng.submit(r)
     t0 = time.perf_counter()
     eng.t0 = t0
     eng.run()
-    torch.cuda.synchronize()
+    if device != "cpu":
+        torch.cuda.synchronize()
     return eng, time.perf_counter() - t0
 
 
@@ -5635,6 +5710,400 @@ def phase_tree_layout(flat_lm: dict, cfg=None) -> dict:
     return launches
 
 
+# Phase 19: MoE, MLA and sliding-window serving, each model at full width
+# and depth in bfloat16 behind ServeEngine, one at a time.  deepseek-v2-lite
+# and granite-moe: 4 slots, buckets (64, 128, 256), three ragged prompts and
+# one of exactly the largest bucket, 16 new tokens each.  gemma3-12b: 2
+# slots, a prompt that fills a bucket of 1020 (under the window: exact, its
+# decode steps cross the local rings' end) and one of 2048 (over the
+# window: the rings' whole-ring gather; behind the engine the pad mask then
+# empties every local ring slot, C20, so its logits are printed, not
+# checked, and the model path without the engine is checked instead).
+MODEL_SERVE = {"slots": 4, "max_len": 512, "prefill_buckets": (64, 128, 256)}
+MODEL_PROMPTS = (37, 101, 190, 256)
+MODEL_NEW_TOKENS = 16
+GEMMA3_SERVE = {"slots": 2, "max_len": 2048 + 16,
+                "prefill_buckets": (1020, 2048)}
+GEMMA3_PROMPTS = (1020, 2048)
+# the capacity factor at which no MoE assignment drops (capacity ≥ T needs
+# cf ≥ E / k: 10.7 for deepseek, 4 for granite), so that a decode tick and
+# a no-cache forward route alike
+NO_DROP_CAPACITY = 64.0
+# bfloat16 logits of two computations that differ only in rounding (the
+# engine's decode against a no-cache forward, the absorbed MLA decode
+# against the naive one), by each emitted position's ‖Δ‖₂ / ‖logits‖₂
+# over the vocab: the median position within BF16_LOGIT_MEDIAN_RTOL, the
+# worst within BF16_LOGIT_RTOL.  In bfloat16 an MoE's top-k flips where
+# two experts' router probabilities lie within a rounding, and a flipped
+# expert moves that token's layer output by a sixth or more, so the worst
+# position of a 27-layer MoE wanders far beyond the rounding itself
+BF16_LOGIT_RTOL = 0.5
+BF16_LOGIT_MEDIAN_RTOL = 0.15
+# one MLA layer's decode output, absorbed against naive, on the served
+# cache: the same bfloat16 operands, the absorbed path rounding q̃, p and õ
+# to bfloat16 (the reference's arithmetic) — a few bfloat16 units
+MLA_LAYER_RTOL = 2.0 ** -5
+# the card-against-CPU check (phase 6's rule, LOGIT_TOL): the float32 model
+# cut to 2 layers at d 256 with the full model's experts and top-k (its
+# capacity arithmetic), served on both with the card's tokens
+MODEL_CHECK_PROMPTS = (20, 50, 100, 200)
+MODEL_CHECK_NEW_TOKENS = 8
+
+
+def _fixed_requests(lengths, new: int, vocab: int, seed: int) -> list:
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, max_new_tokens=new,
+                    prompt=rng.integers(1, vocab, n).astype(np.int32))
+            for i, n in enumerate(lengths)]
+
+
+@contextlib.contextmanager
+def _recorded_routes():
+    """The expert ids of every ``moe.route`` call inside the block, kept on
+    the device (no host sync), in call order."""
+    from repro_torch.models import moe as moe_mod
+    route, calls = moe_mod.route, []
+
+    def recording(router_w, x, top_k):
+        out = route(router_w, x, top_k)
+        calls.append(out[1])
+        return out
+
+    moe_mod.route = recording
+    try:
+        yield calls
+    finally:
+        moe_mod.route = route
+
+
+def _dropped(calls: list, cfg) -> list[tuple[int, int]]:
+    """(tokens routed, assignments past the capacity) of each call."""
+    from repro_torch.models import moe as moe_mod
+    out = []
+    for ids in calls:
+        T, k = ids.shape
+        counts = torch.bincount(ids.reshape(-1),
+                                minlength=cfg.moe.n_experts)
+        kept = counts.clamp(max=moe_mod.capacity(T, cfg)).sum()
+        out.append((T, T * k - int(kept)))
+    return out
+
+
+def _logit_gaps(got: torch.Tensor, want: torch.Tensor) -> list[float]:
+    """Each position's ‖got − want‖₂ / ‖want‖₂ over the vocab."""
+    got, want = got.float(), want.float().to(got.device)
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+
+
+def _gap_check(what: str, gaps: list[float]) -> dict:
+    """Fails unless the median and the worst position's gap are within
+    BF16_LOGIT_MEDIAN_RTOL and BF16_LOGIT_RTOL."""
+    out = {"median": float(np.median(gaps)), "max": float(np.max(gaps))}
+    _require(out["median"] <= BF16_LOGIT_MEDIAN_RTOL
+             and out["max"] <= BF16_LOGIT_RTOL,
+             f"{what}: bfloat16 logit gaps {out} above "
+             f"{BF16_LOGIT_MEDIAN_RTOL} / {BF16_LOGIT_RTOL}")
+    return out
+
+
+def _mla_layer_gaps(cfg, params, caches) -> list[float]:
+    """The first and last layers' MLA decode of one random token a slot on
+    the served cache, absorbed against naive: ‖Δy‖₂ / ‖y‖₂."""
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.layers import rope_angles
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    naive = dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, absorb=False))
+    gaps = []
+    with torch.inference_mode():
+        for layer in (0, cfg.n_layers - 1):
+            p = tree_map(lambda t: t[layer, 0], params["segments"][0]["attn"])
+            cache = tree_map(lambda t: t[layer, 0], caches[0])
+            B = cache["idx"].shape[0]
+            x = torch.randn(B, 1, cfg.d_model, generator=gen,
+                            device=DEVICE).to(params["embed"].dtype)
+            q_pos = cache["idx"].long()[:, None].to(torch.int32)
+            angles = rope_angles(q_pos, cfg.resolved_head_dim,
+                                 cfg.rope_theta)
+            y = {c.mla.absorb: attn_mod.mla_attention(
+                    p, x, c, angles=angles, q_pos=q_pos, cache=cache)[0]
+                 for c in (cfg, naive)}
+            gaps.append(float((y[True].float() - y[False].float()).norm()
+                              / y[False].float().norm()))
+    return gaps
+
+
+def _no_cache_logits(cfg, params, req, tokens) -> torch.Tensor:
+    """A no-cache forward over prompt + emitted tokens: the logits at each
+    emitting position."""
+    from repro_torch.models import model as model_lib
+    seq = np.concatenate([req.prompt, np.asarray(tokens[:-1], np.int32)])
+    with torch.inference_mode():
+        logits = model_lib.forward(
+            params, {"tokens": torch.from_numpy(seq)[None].long().to(
+                DEVICE)}, cfg)[0]
+    return logits[0, len(req.prompt) - 1:]
+
+
+def _timed_model_run(cfg, params, settings, lengths, seed: int) -> tuple:
+    """The engine's timing run on ``lengths``, after a short warm-up:
+    (stats, the attention launches, the MoE's (T, dropped) per route
+    call)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    _serve(cfg, params, _fixed_requests(lengths[:1], 2, cfg.vocab, 99),
+           DEVICE, settings=settings)
+    reqs = _fixed_requests(lengths, MODEL_NEW_TOKENS, cfg.vocab, seed)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_launches()
+    with _recorded_routes() as calls:
+        eng, wall = _serve(cfg, params, reqs, DEVICE, record=True,
+                           settings=settings)
+    launches = fa_ops.launches["flash_attention_fwd"]
+    stats = _serve_stats(eng, reqs, wall)
+    want = cfg.n_layers * eng.admissions
+    _require(launches == want == eng.admit_launches
+             and eng.tick_launches == 0
+             and fa_ops.launches["flash_attention_bwd_dq"] == 0,
+             f"{cfg.name}: {eng.admit_launches} attention launches in "
+             f"prefills, {eng.tick_launches} in decode ticks; expected "
+             f"{want} ({cfg.n_layers} layers × {eng.admissions} "
+             f"admissions) and 0")
+    stats["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    drops = _dropped(calls, cfg) if cfg.moe is not None else []
+    return eng, reqs, stats, launches, drops
+
+
+def _drop_summary(drops: list, cfg, slots: int) -> dict:
+    """Assignments past the capacity per admission and per decode tick:
+    each forward routes in its n_layers layers one after another, a
+    tick's ``slots`` tokens (idle slots' dummies included), an
+    admission's whole bucket."""
+    from repro_torch.models.moe import capacity
+    if not drops:
+        return {}
+    L = cfg.n_layers
+    forwards = [(drops[i][0], sum(d for _, d in drops[i:i + L]))
+                for i in range(0, len(drops), L)]
+    return {"capacity_per_tick": capacity(slots, cfg),
+            "assignments_per_tick": slots * cfg.moe.top_k * L,
+            "dropped_per_tick": [d for T, d in forwards if T == slots],
+            "dropped_per_admission": [d for T, d in forwards if T != slots]}
+
+
+def _engine_vs_cpu(cfg) -> dict:
+    """The float32 check model served on the card, then on the CPU with
+    the card's tokens: logits within LOGIT_TOL, each token the CPU's
+    argmax wherever its margin exceeds 2·LOGIT_TOL (phase 6's rule)."""
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(1), cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    reqs = _fixed_requests(MODEL_CHECK_PROMPTS, MODEL_CHECK_NEW_TOKENS,
+                           cfg.vocab, 1)
+    eng, wall = _serve(cfg, params, reqs, DEVICE, record=True,
+                       settings=MODEL_SERVE)
+    _serve_stats(eng, reqs, wall)
+    card = {c.uid: c.tokens for c in eng.done}
+    cpu, _ = _serve(cfg, cpu_params, reqs, "cpu", record=True,
+                    settings=MODEL_SERVE, forced=card)
+    worst, clear_tokens, near_ties = 0.0, 0, 0
+    for r in reqs:
+        got = torch.stack(eng.logits[r.uid])
+        ref = torch.stack(cpu.logits[r.uid])
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        _require(err <= LOGIT_TOL,
+                 f"{cfg.name} request {r.uid}: card logits differ from the "
+                 f"CPU's by {err} > {LOGIT_TOL}")
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_TOL
+        toks = torch.tensor(card[r.uid])
+        _require(torch.equal(toks[clear], ref.argmax(-1)[clear]),
+                 f"{cfg.name} request {r.uid}: a token differs from the "
+                 f"CPU's argmax where its margin exceeds {2 * LOGIT_TOL}")
+        clear_tokens += int(clear.sum())
+        near_ties += int((~clear).sum())
+    out = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "requests": len(reqs), "max_abs_logit_err": worst,
+           "tol": LOGIT_TOL, "tokens_checked": clear_tokens,
+           "near_ties": near_ties}
+    del eng, cpu, params, cpu_params
+    return out
+
+
+def _check_cfg(cfg):
+    """The float32 check model: ``reduced`` to 2 layers at d 256 (vocab
+    4096; MLA's reduced latent dims), the full model's routing kept."""
+    from repro_torch.configs.base import reduced
+    small = reduced(cfg, n_layers=2, d_model=256, vocab=4096)
+    if cfg.moe is not None:
+        small = dataclasses.replace(small, moe=dataclasses.replace(
+            cfg.moe, d_ff=256))
+    return small
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _serve_moe_model(name: str, mla_checks: bool) -> int:
+    """(a) / (b): the timing run at the config's own capacity factor, the
+    dropped assignments per tick; for MLA the absorbed decode against a
+    no-cache forward and against the naive decode at NO_DROP_CAPACITY;
+    the float32 check model against the CPU.  Returns the timing run's
+    attention launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(get_arch(name), dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    eng, reqs, stats, launches, drops = _timed_model_run(
+        cfg, params, MODEL_SERVE, MODEL_PROMPTS, 0)
+    _emit({"phase": "moe_mla_window", "model": name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "param_bytes": param_bytes,
+           "init_s": init_s, **MODEL_SERVE,
+           "prompt_lens": list(MODEL_PROMPTS),
+           "max_new_tokens": MODEL_NEW_TOKENS, **stats,
+           **_drop_summary(drops, cfg, MODEL_SERVE["slots"])})
+    del eng
+    if mla_checks:
+        nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=NO_DROP_CAPACITY))
+        absorbed, _ = _serve(nodrop, params, reqs, DEVICE, record=True,
+                             settings=MODEL_SERVE)
+        tokens = {c.uid: c.tokens for c in absorbed.done}
+        naive, _ = _serve(dataclasses.replace(nodrop, mla=dataclasses.replace(
+            cfg.mla, absorb=False)), params, reqs, DEVICE, record=True,
+            settings=MODEL_SERVE, forced=tokens)
+        gaps = {"absorbed_vs_no_cache": [], "absorbed_vs_naive": []}
+        for r in reqs:
+            got = torch.stack(absorbed.logits[r.uid])
+            gaps["absorbed_vs_no_cache"] += _logit_gaps(
+                got, _no_cache_logits(nodrop, params, r, tokens[r.uid]))
+            gaps["absorbed_vs_naive"] += _logit_gaps(
+                got, torch.stack(naive.logits[r.uid]))
+        layer = _mla_layer_gaps(nodrop, params, absorbed.caches)
+        _emit({"phase": "moe_mla_window_mla", "model": name,
+               "capacity_factor": NO_DROP_CAPACITY,
+               "gaps": {k: sorted(v) for k, v in gaps.items()},
+               "tol": [BF16_LOGIT_MEDIAN_RTOL, BF16_LOGIT_RTOL],
+               "layer_absorbed_vs_naive": layer,
+               "layer_tol": MLA_LAYER_RTOL,
+               "absorbed_wall_per_tick_s": float(np.mean(absorbed.tick_s)),
+               "naive_wall_per_tick_s": float(np.mean(naive.tick_s))})
+        _require(max(layer) <= MLA_LAYER_RTOL,
+                 f"{name}: one layer's absorbed decode is {layer} from the "
+                 f"naive one's")
+        for what, g in gaps.items():
+            _gap_check(f"{name} {what}", g)
+        del absorbed, naive
+    del params
+    _free()
+    _emit({"phase": "moe_mla_window_vs_cpu",
+           **_engine_vs_cpu(_check_cfg(get_arch(name)))})
+    _free()
+    return launches
+
+
+def _serve_gemma3() -> int:
+    """(c): the engine on the two prompts; the one that fills its bucket
+    under the window against a no-cache forward; the 2048-token prompt
+    through ``serve_prefill`` / ``serve_decode`` (no pad mask) against a
+    no-cache forward.  Returns the engine's attention launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(get_arch("gemma3-12b"), dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    eng, reqs, stats, launches, _ = _timed_model_run(
+        cfg, params, GEMMA3_SERVE, GEMMA3_PROMPTS, 0)
+    gaps = {}
+    for r in reqs:
+        n = len(r.prompt)
+        tokens = next(c.tokens for c in eng.done if c.uid == r.uid)
+        g = _logit_gaps(torch.stack(eng.logits[r.uid]),
+                        _no_cache_logits(cfg, params, r, tokens))
+        # C20: behind the engine only the prompt that fills a bucket under
+        # the window keeps every key of its local windows
+        gaps[n] = (_gap_check(f"gemma3's {n}-token prompt behind the "
+                              f"engine", g) if n <= cfg.sliding_window
+                   else {"median": float(np.median(g)),
+                         "max": float(np.max(g))})
+    _emit({"phase": "moe_mla_window", "model": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "param_bytes": param_bytes,
+           "init_s": init_s, **GEMMA3_SERVE,
+           "prompt_lens": list(GEMMA3_PROMPTS),
+           "max_new_tokens": MODEL_NEW_TOKENS, **stats,
+           "engine_vs_no_cache": gaps,
+           "tol": [BF16_LOGIT_MEDIAN_RTOL, BF16_LOGIT_RTOL]})
+    del eng
+    # the whole-ring gather without the engine's pad mask
+    r = reqs[GEMMA3_PROMPTS.index(2048)]
+    before = fa_ops.launches["flash_attention_fwd"]
+    with torch.inference_mode():
+        caches = model_lib.init_caches(cfg, 1, GEMMA3_SERVE["max_len"],
+                                       device=DEVICE)
+        logits, caches = model_lib.serve_prefill(
+            params, {"tokens": torch.from_numpy(r.prompt)[None].long().to(
+                DEVICE)}, cfg, caches=caches)
+        rows, tokens = [logits[0, -1]], []
+        for step in range(MODEL_NEW_TOKENS - 1):
+            tokens.append(int(rows[-1].argmax()))
+            logits, caches = model_lib.serve_decode(
+                params, {"tokens": torch.tensor([[tokens[-1]]],
+                                                device=DEVICE)},
+                caches, len(r.prompt) + step, cfg)
+            rows.append(logits[0, 0])
+    tokens.append(int(rows[-1].argmax()))
+    prefill_launches = fa_ops.launches["flash_attention_fwd"] - before
+    model_gap = _logit_gaps(torch.stack(rows),
+                            _no_cache_logits(cfg, params, r, tokens))
+    _emit({"phase": "moe_mla_window_model_path", "model": cfg.name,
+           "prompt_len": len(r.prompt), "decode_steps": MODEL_NEW_TOKENS - 1,
+           "vs_no_cache": sorted(model_gap),
+           "tol": [BF16_LOGIT_MEDIAN_RTOL, BF16_LOGIT_RTOL],
+           "flash_launches": prefill_launches})
+    _require(prefill_launches == cfg.n_layers,
+             f"gemma3: {prefill_launches} attention launches in a prefill "
+             f"and {MODEL_NEW_TOKENS - 1} decode steps, expected "
+             f"{cfg.n_layers}")
+    _gap_check("gemma3's 2048-token prompt through serve_prefill / "
+               "serve_decode", model_gap)
+    del params, caches, logits, rows
+    _free()
+    return launches
+
+
+def phase_moe_mla_window() -> dict:
+    """Phase 19.  Returns the timing runs' attention launches by the
+    kernels line's names."""
+    _free()
+    return {"flash_attention_fwd_mla_bf16": _serve_moe_model(
+                "deepseek-v2-lite-16b", mla_checks=True),
+            "flash_attention_fwd_granite_bf16": _serve_moe_model(
+                "granite-moe-1b-a400m", mla_checks=False),
+            "flash_attention_fwd_gemma3_bf16": _serve_gemma3()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5655,6 +6124,9 @@ def main() -> int:
                                            phase_attention_kernel)
     timings["flash_attention_fwd_bf16"] = timings[
         "flash_attention_fwd"].pop("bf16_step")
+    for name in ATTN_SERVE_SHAPES:
+        timings[f"flash_attention_fwd_{name}"] = timings[
+            "flash_attention_fwd"].pop(name)
     launches = timed("main_path", phase_main_path)
     launches.update(timed("compressed_path", phase_compressed_path))
     launches["flash_attention_fwd"] = timed(
@@ -5690,6 +6162,7 @@ def main() -> int:
                          lambda: phase_tree_layout(flat_lm)).items():
         launches[name] = launches.get(name, 0) + n
     del flat_lm
+    launches.update(timed("moe_mla_window", phase_moe_mla_window))
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -5721,6 +6194,12 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:113"),
         "flash_attention_bwd_dq_bf16": (bwd_src, bwd_rep + "150"),
         "flash_attention_bwd_dkv_bf16": (bwd_src, bwd_rep + "178"),
+        # the bfloat16 instances on phase 19's serving paths, each timed at
+        # its model's largest prefill (ATTN_SERVE_SHAPES)
+        **{f"flash_attention_fwd_{name}": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:113")
+           for name in ATTN_SERVE_SHAPES},
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:88"),
         # no Pallas site: the reference differentiates ssd_chunked with

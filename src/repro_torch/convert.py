@@ -65,8 +65,12 @@ def lm_params_from_numpy(tree: dict, device: Device) -> dict:
     leaves, float32 or bfloat16) → the port's: ``{"segments": [...],
     "embed", "head"?, "final_norm"}`` with layer leaves stacked
     ``(n_groups, count, …)``, and for a hybrid stack ``"shared_attn"`` (one
-    unstacked block) with ``{}`` for its segment.  Raises on the trees of
-    parts the port does not run yet (multi-codebook heads)."""
+    unstacked block) with ``{}`` for its segment.  Every leaf crosses bit
+    for bit in its own dtype: an MoE block's float32 ``router`` beside
+    bfloat16 experts stays float32, and MLA's ``wq`` / ``w_kv_down`` /
+    ``w_kv_up`` / ``ckv_norm`` cross like any weight.  Raises on the trees
+    of parts the port does not run yet (the audio front end's
+    multi-codebook ``heads``)."""
     unknown = sorted(set(tree) - {"segments", "embed", "head", "final_norm",
                                   "shared_attn"})
     if unknown:
@@ -79,6 +83,8 @@ def lm_params_from_numpy(tree: dict, device: Device) -> dict:
 def lm_caches_from_numpy(caches: list, device: Device) -> list:
     """A JAX cache list (``repro.models.model.init_caches`` or a prefill's
     output; one dict per segment, stacked ``(n_groups, count, B, …)``: an
-    attention segment's ``k``/``v``/``pos``/``idx``, a Mamba2 segment's
-    ``conv`` (model dtype) and ``ssm`` (float32) state) → the port's."""
+    attention segment's ``k``/``v``/``pos``/``idx`` (a local layer's ring
+    of ``sliding_window`` slots), an MLA segment's ``ckv``/``krope``/
+    ``pos``/``idx``, a Mamba2 segment's ``conv`` (model dtype) and ``ssm``
+    (float32) state) → the port's, bit for bit."""
     return [params_from_numpy(c, device) for c in caches]

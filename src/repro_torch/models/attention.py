@@ -1,4 +1,5 @@
-"""Attention (``repro.models.attention`` counterpart): MHA / GQA / MQA with a
+"""Attention (``repro.models.attention`` counterpart): MHA / GQA / MQA,
+sliding-window (gemma3's local layers) and MLA (DeepSeek-V2), with a
 positional per-row KV cache.
 
 In-flight attention (training forward and backward, prefill) goes through
@@ -17,7 +18,14 @@ new cache dict and never writes the one it was given.  The reference's
 the backward (small at the training path's sizes), and
 ``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``, which
 batches the clients of a round (core/flat.py).
-MLA (DeepSeek-V2) is not ported yet (ROADMAP A12).
+
+A local layer's cache is a ring of ``sliding_window`` slots; a prefill
+longer than the ring keeps its last ``size`` tokens by one gather.  MLA
+caches the normalised latent ``ckv`` and the shared rope key ``krope``;
+its in-flight attention (training, prefill) reaches the flash kernel with
+Dqk = dn + dr and Dv = dv, and its decode runs in the latent space
+(``mla_decode_absorbed``) or, with ``absorb=False``, up-projects the
+whole cache (the reference's A/B baseline).
 """
 from __future__ import annotations
 
@@ -27,17 +35,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, dense_init, softcap
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
 
 Params = dict[str, Any]
 NEG_INF = -2.0 ** 30
 BLOCK_Q = 512                 # query rows per block of blocked_attention
-
-
-def _refuse_mla(cfg: ModelConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            "MLA attention (DeepSeek-V2) is not ported yet (ROADMAP A12)")
 
 
 # ---------------------------------------------------------------------------
@@ -46,9 +48,23 @@ def _refuse_mla(cfg: ModelConfig) -> None:
 
 def init_attention(generator: torch.Generator, cfg: ModelConfig,
                    dtype: torch.dtype, lead: tuple[int, ...] = ()) -> Params:
-    _refuse_mla(cfg)
     d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "wq": dense_init(generator, d, H * qk_dim, dtype, lead),
+            "w_kv_down": dense_init(generator, d,
+                                    m.kv_lora_rank + m.qk_rope_head_dim,
+                                    dtype, lead),
+            "w_kv_up": dense_init(generator, m.kv_lora_rank,
+                                  H * (m.qk_nope_head_dim + m.v_head_dim),
+                                  dtype, lead),
+            "wo": dense_init(generator, H * m.v_head_dim, d, dtype, lead),
+            "ckv_norm": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                                    device=generator.device),
+        }
     p: Params = {
         "wq": dense_init(generator, d, H * hd, dtype, lead),
         "wk": dense_init(generator, d, Hkv * hd, dtype, lead),
@@ -69,17 +85,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Positional KV cache.  ``pos[b, s]`` holds the absolute position
     written to ring slot ``s`` of row ``b`` (-1 = empty), per row, so a
     continuous-batching engine holds requests at different phases in one
-    pool; ``idx[b]`` is the row's next ring slot."""
-    _refuse_mla(cfg)
+    pool; ``idx[b]`` is the row's next ring slot.  An MLA cache holds
+    the latent ``ckv (B, size, kv_lora_rank)`` and the rope key ``krope
+    (B, size, qk_rope_head_dim)`` in place of ``k`` and ``v``."""
     size = (min(max_len, cfg.sliding_window)
             if window_only and cfg.sliding_window else max_len)
     hd = cfg.resolved_head_dim
-    kv = lead + (batch, size, cfg.n_kv_heads, hd)
+    rows = lead + (batch, size)
+    if cfg.mla is not None:
+        m = cfg.mla
+        tensors = {
+            "ckv": torch.zeros(rows + (m.kv_lora_rank,), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros(rows + (m.qk_rope_head_dim,), dtype=dtype,
+                                 device=device)}
+    else:
+        kv = rows + (cfg.n_kv_heads, hd)
+        tensors = {"k": torch.zeros(kv, dtype=dtype, device=device),
+                   "v": torch.zeros(kv, dtype=dtype, device=device)}
     return {
-        "k": torch.zeros(kv, dtype=dtype, device=device),
-        "v": torch.zeros(kv, dtype=dtype, device=device),
-        "pos": torch.full(lead + (batch, size), -1, dtype=torch.int32,
-                          device=device),
+        **tensors,
+        "pos": torch.full(rows, -1, dtype=torch.int32, device=device),
         "idx": torch.zeros(lead + (batch,), dtype=torch.int32,
                            device=device),
     }
@@ -124,28 +150,39 @@ def _mask_rows(q_pos, kv_pos, window, is_global):
 def blocked_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
                       is_global=True, logit_cap: float = 0.0
                       ) -> torch.Tensor:
-    """Causal attention over query blocks (bounded score memory), with
-    soft-capped logits.  q (B, Sq, H, D); k, v (B, Skv, Hkv, D).  The
-    reference's sliding-window kv band is a saving for local layers, which
-    the port does not run yet (ROADMAP A12); here every block scores the
-    whole kv length and masks."""
+    """Causal attention over query blocks of ``BLOCK_Q`` rows (bounded
+    score memory), with soft-capped logits.  q (B, Sq, H, D); k, v (B,
+    Skv, Hkv, D).  A local layer's in-flight blocks (``is_global`` the
+    bool False, Skv the reference's padded Sq) score only the kv band
+    ``window + block`` wide that ends with the block, as the reference
+    does; the keys outside it are masked anyway, so the result is the
+    same."""
     B, Sq, H, D = q.shape
-    Hkv = k.shape[2]
+    Skv, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     scale = D ** -0.5
+    bq = min(BLOCK_Q, Sq)
+    band = (min(Skv, window + bq)
+            if window and is_global is False and Skv == -(-Sq // bq) * bq
+            else 0)
     kf, vf = k.float(), v.float()
     out = []
-    for s0 in range(0, Sq, BLOCK_Q):
-        qi = q[:, s0:s0 + BLOCK_Q]
-        bq = qi.shape[1]
-        qi = qi.reshape(B, bq, Hkv, g, D).float() * scale
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kf)
+    for s0 in range(0, Sq, bq):
+        qi = q[:, s0:s0 + bq]
+        nq = qi.shape[1]
+        qi = qi.reshape(B, nq, Hkv, g, D).float() * scale
+        kk, vv, kp = kf, vf, kv_pos
+        if band:
+            start = min(max(s0 + bq - band, 0), Skv - band)
+            kk, vv = kf[:, start:start + band], vf[:, start:start + band]
+            kp = kv_pos[start:start + band]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kk)
         s = softcap(s, logit_cap)
-        m = _mask(q_pos[s0:s0 + BLOCK_Q], kv_pos, window, is_global)
+        m = _mask(q_pos[s0:s0 + bq], kp, window, is_global)
         s = torch.where(m, s, NEG_INF)
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
-        out.append(o.reshape(B, bq, H, v.shape[-1]).to(q.dtype))
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vv)
+        out.append(o.reshape(B, nq, H, v.shape[-1]).to(q.dtype))
     return torch.cat(out, dim=1)
 
 
@@ -222,7 +259,9 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               angles: torch.Tensor, q_pos: torch.Tensor, is_global=True,
               cache: Optional[Params] = None
               ) -> tuple[torch.Tensor, Optional[Params]]:
-    _refuse_mla(cfg)
+    if cfg.mla is not None:
+        return mla_attention(params, x, cfg, angles=angles, q_pos=q_pos,
+                             cache=cache)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -262,4 +301,116 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                    window=window, is_global=is_global,
                                    logit_cap=cfg.attn_logit_softcap)
     y = out.reshape(B, S, H * hd) @ params["wo"]
+    return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_decode_absorbed(params: Params, cfg: ModelConfig,
+                        q_nope: torch.Tensor, q_rope: torch.Tensor,
+                        cache: Params, q_pos: torch.Tensor) -> torch.Tensor:
+    """Weight-absorbed MLA decode: scores and outputs in the
+    ``kv_lora_rank``-dimensional latent space,
+
+        q̃ = q_nope · W_uk,  s = q̃ · ckvᵀ + q_rope · kropeᵀ,
+        õ = softmax(s) · ckv,  o = õ · W_uv,
+
+    equal in exact arithmetic to up-projecting the whole cache.
+    q_nope (B, H, dn), q_rope (B, H, dr), q_pos (B,) -> o (B, 1, H, dv).
+
+    The reference keeps the cache in its storage dtype and accumulates
+    each product in float32 (``preferred_element_type``), rounding q̃, p
+    and õ to the storage dtype before the product that reads them.  torch
+    has no such option, so each product here takes its operands, already
+    rounded to the storage dtype, in float32: the products of two bfloat16
+    values are exact in float32, so this is the reference's arithmetic up
+    to the order of the sums (not a bfloat16 matmul, which would round the
+    scores to bfloat16 before the softmax).  The price is a float32 copy
+    of ``ckv`` and ``krope`` a layer a tick: twice the cache's bytes read
+    again, small beside a tick's weight reads at the served lengths."""
+    m = cfg.mla
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    B = q_nope.shape[0]
+    w_up = params["w_kv_up"].reshape(m.kv_lora_rank, H, dn + dv).float()
+    w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
+    cd = cache["ckv"].dtype
+    ckv = cache["ckv"].float()                               # (B, S, r)
+    krope = cache["krope"].float()                           # (B, S, dr)
+    scale = (dn + dr) ** -0.5
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
+    s = (torch.einsum("bhr,bsr->bhs", q_abs.to(cd).float(), ckv)
+         + torch.einsum("bhd,bsd->bhs", q_rope.float(), krope)) * scale
+    s = softcap(s, cfg.attn_logit_softcap)
+    mask = _mask_rows(q_pos, cache["pos"], 0, True)          # (B, S)
+    s = torch.where(mask[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p.to(cd).float(), ckv)
+    o = torch.einsum("bhr,rhd->bhd", o_lat.to(cd).float(), w_uv)
+    return o.reshape(B, 1, H, dv).to(cd)
+
+
+def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  angles: torch.Tensor, q_pos: torch.Tensor,
+                  cache: Optional[Params] = None
+                  ) -> tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention.  The rope part of q and of the shared
+    key takes the first ``dr / 2`` frequencies of the table built for the
+    model's head dim (the reference's partial rope); the latent ``ckv`` is
+    normalised by ``rms_norm`` (a ``1 + scale`` gain) before it is cached
+    or up-projected."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q = (x @ params["wq"]).reshape(B, S, H, dn + dr)
+    ang_r = angles[..., :dr // 2]
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], ang_r)
+    kv = x @ params["w_kv_down"]
+    ckv = rms_norm(kv[..., :m.kv_lora_rank], params["ckv_norm"],
+                   cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_lora_rank:], ang_r)  # (B,S,1,dr)
+
+    def expand(ckv_seq: torch.Tensor):
+        up = (ckv_seq @ params["w_kv_up"]).reshape(B, -1, H, dn + dv)
+        return up[..., :dn], up[..., dn:]
+
+    def in_flight() -> torch.Tensor:
+        k_nope, v = expand(ckv)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+        return full_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                              q_pos, logit_cap=cfg.attn_logit_softcap)
+
+    if cache is None:
+        out, new_cache = in_flight(), None
+    else:
+        slot = cache["idx"]                          # (B,)
+        q_pos_rows = (q_pos if q_pos.dim() == 2
+                      else q_pos[None].expand(B, S))
+        new_cache = {
+            "ckv": _cache_insert(cache["ckv"], ckv, slot),
+            "krope": _cache_insert(cache["krope"], k_rope[:, :, 0], slot),
+            "pos": _pos_insert(cache["pos"], q_pos_rows, slot),
+            "idx": cache["idx"] + S,
+        }
+        if S > 1:
+            # prefill into the cache: the cache was empty, so attending
+            # over the in-flight sequence is exact
+            out = in_flight()
+        elif not m.absorb:
+            # the naive decode: the whole cache up-projected every token
+            k_nope, v = expand(new_cache["ckv"])
+            size = k_nope.shape[1]
+            k = torch.cat([k_nope, new_cache["krope"][:, :, None].expand(
+                B, size, H, dr)], dim=-1)
+            out = decode_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                                   q_pos_rows[:, 0], new_cache["pos"],
+                                   logit_cap=cfg.attn_logit_softcap)
+        else:
+            out = mla_decode_absorbed(params, cfg, q_nope[:, 0],
+                                      q_rope[:, 0], new_cache,
+                                      q_pos_rows[:, 0])
+    y = out.reshape(B, S, H * dv) @ params["wo"]
     return y, new_cache

@@ -1,8 +1,9 @@
 """Residual blocks (``repro.models.blocks`` counterpart) with the uniform
 ``(params, cache)`` calling convention of the reference.  The port runs the
-attention kinds with a dense MLP and the Mamba2 block; mLSTM, sLSTM and MoE
-blocks are not ported yet (ROADMAP A12) and raise
-``NotImplementedError``."""
+attention kinds (global, local and MLA attention) with a dense MLP or an
+MoE feed-forward, whose load-balance loss is the block's aux loss, and
+the Mamba2 block; mLSTM and sLSTM blocks are not ported yet (ROADMAP A12)
+and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -14,6 +15,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.layers import apply_norm, init_norm
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe
 
 Params = dict[str, Any]
 
@@ -28,9 +30,6 @@ def _refuse(kind: str, cfg: ModelConfig) -> None:
             f"(ROADMAP A12)")
     if kind not in ATTN_KINDS and kind != "mamba2":
         raise ValueError(kind)
-    if cfg.moe is not None and kind in ATTN_KINDS:
-        raise NotImplementedError(
-            "MoE feed-forward blocks are not ported yet (ROADMAP A12)")
 
 
 def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
@@ -45,7 +44,9 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
         "attn": attn_mod.init_attention(generator, cfg, dtype, lead),
         "norm2": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
     }
-    if cfg.d_ff:
+    if cfg.moe is not None:
+        p["moe"] = init_moe(generator, cfg, dtype, lead)
+    elif cfg.d_ff:
         p["mlp"] = init_mlp(generator, cfg, dtype, lead=lead)
     return p
 
@@ -77,7 +78,11 @@ def apply_block(params: Params, kind: str, x: torch.Tensor,
         params["attn"], h, cfg, angles=angles, q_pos=q_pos,
         is_global=is_global, cache=cache)
     x = x + a
-    if cfg.d_ff:
+    if cfg.moe is not None:
+        h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
+        y, aux = moe(params["moe"], h, cfg)
+        x = x + y
+    elif cfg.d_ff:
         h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)
         x = x + mlp(params["mlp"], h, cfg)
     return x, new_cache, aux

@@ -9,13 +9,16 @@ The reference's ``lax.scan`` over the stack is a Python loop over
 ``(group, layer)`` views of the same tensors.
 
 The port runs the text front end, uniform attention stacks (dense MHA /
-GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings), Mamba2 stacks and
-the zamba2 hybrid: groups of Mamba2 layers, each group followed by one
+GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings; MoE feed-forward
+and MLA attention), gemma3's local / global stacks (groups of
+``global_every − 1`` sliding-window layers, whose caches are rings of
+``sliding_window`` slots, then one global layer), Mamba2 stacks and the
+zamba2 hybrid: groups of Mamba2 layers, each group followed by one
 attention block whose weights every group shares (``params["shared_attn"]``,
 its segment ``{}`` in ``params["segments"]``) and whose cache is the
 group's own (``caches[si][g, 0]``).  It refuses with ``NotImplementedError``
-what it does not run yet (ROADMAP A12): sliding-window / local-global
-layers, xLSTM stacks, MoE, MLA, and the audio and vision front ends.
+what it does not run yet (ROADMAP A12): xLSTM stacks and the audio and
+vision front ends.
 """
 from __future__ import annotations
 
@@ -38,10 +41,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     run yet, naming its ROADMAP item."""
     unported = [
-        (cfg.sliding_window > 0, "sliding-window / local-global attention"),
         (cfg.xlstm is not None, "xLSTM stacks"),
-        (cfg.moe is not None, "MoE feed-forward"),
-        (cfg.mla is not None, "MLA attention"),
         (cfg.frontend != "none", f"the {cfg.frontend} front end"),
     ]
     for hit, what in unported:

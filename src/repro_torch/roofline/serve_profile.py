@@ -1,14 +1,17 @@
 """Where the serving paths spend their time on the card.
 
     PYTHONPATH=src python -m repro_torch.roofline.serve_profile \
-        [--hybrid | --personalized]
+        [--arch NAME | --hybrid | --personalized]
 
-Without ``--hybrid``: builds llama3-8b at full width and depth in bfloat16
-(random weights from a seed) behind a ``ServeEngine`` with 4 slots,
-max_len 512 and buckets (32, 64, 128, 256), as ``chip_smoke.py`` phase 6
-does; fills three slots and runs two warm steps, then profiles with
-``torch.profiler`` one admission of a 240-token prompt (bucket 256) into
-the free slot and one decode tick of the four live slots.
+Without ``--hybrid``: builds llama3-8b (or ``--arch``: any model the
+engine serves, e.g. deepseek-v2-lite-16b, granite-moe-1b-a400m or
+gemma3-12b, as ``chip_smoke.py`` phase 19 serves them) at full width and
+depth in bfloat16 (random weights from a seed) behind a ``ServeEngine``
+with 4 slots, max_len 512 and buckets (32, 64, 128, 256), as
+``chip_smoke.py`` phase 6 does; fills three slots and runs two warm
+steps, then profiles with ``torch.profiler`` one admission of a 240-token
+prompt (bucket 256) into the free slot and one decode tick of the four
+live slots.
 
 With ``--hybrid``: builds zamba2-2.7b at full width and depth in bfloat16,
 as ``chip_smoke.py`` phase 10 does; after a warm prefill and two decode
@@ -179,6 +182,9 @@ def _tagged(rows: list[dict], cfg: ModelConfig,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     which = ap.add_mutually_exclusive_group()
+    which.add_argument("--arch", default="llama3-8b",
+                       help="the model behind the engine profile "
+                            "(default llama3-8b)")
     which.add_argument("--hybrid", action="store_true",
                        help="profile zamba2-2.7b's serve_prefill / "
                             "serve_decode instead of llama3-8b's engine")
@@ -194,7 +200,7 @@ def main() -> None:
         rows = profile_personalized(cfg)
     else:
         name, fn = (("zamba2-2.7b", profile_hybrid) if args.hybrid
-                    else ("llama3-8b", profile_serving))
+                    else (args.arch, profile_serving))
         rows = fn(dataclasses.replace(get_arch(name), dtype="bfloat16"))
     for row in rows:
         print(json.dumps(row), flush=True)

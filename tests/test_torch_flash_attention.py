@@ -247,6 +247,11 @@ ACCEPTED = [
     (2, 77, 77, 4, 2, 36, 36, 16, "fused"),
     (1, 64, 64, 4, 2, 40, 40, 0, "fused+1"),
     (1, 33, 33, 4, 2, 64, 64, 0, "offset+1"),
+    # deepseek-v2-lite's MLA prefill: q and k of dn + dr = 192 from a
+    # concatenation, v (dv 128) a strided view of the up-projection
+    (1, 256, 256, 16, 16, 192, 128, 0, "mla"),
+    # gemma3-12b's local layers at a 2048-token prefill, window 1024
+    (1, 2048, 2048, 16, 8, 256, 256, 1024, "contiguous"),
 ]
 
 
@@ -254,6 +259,12 @@ def _accepted_operands(B, Sq, Skv, H, Hkv, Dqk, Dv, layout, dtype):
     if layout.startswith("fused"):
         lead = 1 if layout.endswith("+1") else 0
         return _fused(B, Sq, H, Hkv, Dqk, lead, dtype)
+    if layout == "mla":                  # Dqk = Dnope + Drope, Dv = Dnope
+        q = torch.randn(B, Sq, H, Dqk).to(dtype)
+        up = torch.randn(B, Skv, Hkv, 2 * Dv).to(dtype)
+        k = torch.cat([up[..., :Dv], torch.randn(B, Skv, 1, Dqk - Dv).to(
+            dtype).expand(B, Skv, Hkv, Dqk - Dv)], dim=-1)
+        return [q, k, up[..., Dv:]]
     shapes = [(B, Sq, H, Dqk), (B, Skv, Hkv, Dqk), (B, Skv, Hkv, Dv)]
     lead = 1 if layout == "offset+1" else 0
     return [torch.randn(math.prod(s) + lead).to(dtype)[lead:].reshape(s)
@@ -284,3 +295,28 @@ def test_accepted_shapes_reach_the_kernel(monkeypatch, B, Sq, Skv, H, Hkv,
     assert args[23:] == (1, window, 0.125, 0)
     assert o.shape == (B, Sq, H, Dv) and o.dtype == dtype
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("name,dqk,dv,windows", [
+    ("deepseek-v2-lite-16b", 80, 64, (0, 0)),
+    ("gemma3-12b", 64, 64, (16, 0))])
+def test_model_prefill_reaches_the_kernel(monkeypatch, name, dqk, dv,
+                                          windows):
+    """A prefill of the reduced deepseek-v2-lite (MLA: Dqk = dn + dr =
+    64 + 16, Dv = 64, scale Dqk^-0.5) and gemma3-12b (a local layer with
+    window 16, then a global one) on the mocked card: one launch a layer,
+    with these head dims, scale and windows."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import model
+    cfg = reduced(registry.get_arch(name))
+    params = model.init_params(torch.Generator().manual_seed(0), cfg)
+    calls = _fake_card(monkeypatch)
+    model.forward(params, {"tokens": torch.ones(2, 24, dtype=torch.long)},
+                  cfg)
+    assert len(calls) == cfg.n_layers
+    for args, window in zip(calls, windows):
+        B, H, Hkv, Sq, Skv, Dqk, Dv = args[7:14]
+        assert (B, H, Sq, Skv, Dqk, Dv) == (2, cfg.n_heads, 24, 24, dqk, dv)
+        assert args[23:25] == (1, window)
+        assert args[25] == pytest.approx(dqk ** -0.5)

@@ -2,11 +2,14 @@
 (``repro.models``) on the CPU, at reduced size, with the reference's
 weights carried across (``convert.lm_params_from_numpy``).
 
-Three reduced configurations: llama3-8b forced to GQA (``reduced`` gives
-MHA), gemma-2b (MQA, GeGLU, tied embeddings, head dim 64 here) and
-qwen1.5-32b (QKV bias).  Everything is float32; logits and caches agree to
-TOL (the same float32 operations, summed in other orders by XLA and by
-PyTorch; measured ≲ 2e-6 at these sizes)."""
+Six reduced configurations: llama3-8b forced to GQA (``reduced`` gives
+MHA), gemma-2b (MQA, GeGLU, tied embeddings, head dim 64 here),
+qwen1.5-32b (QKV bias), deepseek-v2-lite (MLA with kv_lora 32, dn 64, dr
+16, dv 64; MoE of 4 experts, top-2, one shared), granite-moe (MoE of 4
+experts, top-2, GQA, tied embeddings) and gemma3-12b (a local layer of
+window 16, then a global one).  Everything is float32; logits, caches
+and the MoE aux loss agree to TOL (the same float32 operations, summed in
+other orders by XLA and by PyTorch; measured ≲ 2e-6 at these sizes)."""
 import dataclasses
 
 import pytest
@@ -32,7 +35,8 @@ from repro_torch.models import model as TM  # noqa: E402
 
 TOL = 2e-5
 CONFIGS = {"llama3-8b": dict(n_heads=4, n_kv_heads=2, head_dim=32),
-           "gemma-2b": {}, "qwen1.5-32b": {}}
+           "gemma-2b": {}, "qwen1.5-32b": {}, "deepseek-v2-lite-16b": {},
+           "granite-moe-1b-a400m": {}, "gemma3-12b": {}}
 
 
 def _np(tree):
@@ -143,7 +147,9 @@ def test_forward_blocked_path_matches(model):
     want, _, aux = M.forward(params, {"tokens": jnp.asarray(toks)}, cfg)
     got, caches, taux = TM.forward(tparams, {"tokens": torch.from_numpy(toks)},
                                    tcfg)
-    assert caches is None and float(taux) == float(aux) == 0.0
+    assert caches is None
+    assert (float(aux) == 0.0) == (cfg.moe is None)
+    assert abs(float(taux) - float(aux)) <= TOL
     _close(got, want)
 
 
@@ -179,10 +185,12 @@ def test_prefill_and_decode_match(model):
     offs = np.array([20, 20], np.int32)
     for step in range(2):
         for c, tc in zip(_np(caches), tcaches):
-            for k in ("k", "v"):
-                _close(tc[k], c[k])
-            for k in ("pos", "idx"):
-                np.testing.assert_array_equal(tc[k].numpy(), c[k])
+            assert sorted(tc) == sorted(c)
+            for k in c:
+                if k in ("pos", "idx"):
+                    np.testing.assert_array_equal(tc[k].numpy(), c[k])
+                else:                   # k, v; or MLA's ckv, krope
+                    _close(tc[k], c[k])
         tok = toks[:, 20:21] if step == 0 else np.asarray(
             jnp.argmax(want[:, -1:], -1)).astype(np.int32)
         want, caches = M.serve_decode(params, {"tokens": jnp.asarray(tok)},
@@ -221,9 +229,8 @@ def test_lm_loss_gradient_flows_on_cpu(model):
 
 
 @pytest.mark.parametrize("name,what", [
-    ("granite-moe-1b-a400m", "MoE"), ("deepseek-v2-lite-16b", "MoE"),
-    ("xlstm-125m", "xLSTM"), ("gemma3-12b", "sliding-window"),
-    ("musicgen-medium", "audio"), ("qwen2-vl-2b", "vision")])
+    ("xlstm-125m", "xLSTM"), ("musicgen-medium", "audio"),
+    ("qwen2-vl-2b", "vision")])
 def test_unported_parts_raise(name, what):
     cfg = treduced(tregistry.get_arch(name))
     for call in (lambda: TM.init_params(torch.Generator(), cfg),
@@ -233,12 +240,39 @@ def test_unported_parts_raise(name, what):
             call()
 
 
-def test_mla_attention_raises():
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "gemma3-12b"])
+def test_moe_mla_and_window_parts_run(name):
+    """The parts the port once refused (MoE, MLA, sliding-window layers)
+    pass ``check_supported`` and run init, caches and a forward."""
+    cfg = treduced(tregistry.get_arch(name))
+    TM.check_supported(cfg)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    caches = TM.init_caches(cfg, 1, 8, device="cpu")
+    logits, new, aux = TM.forward(params, {"tokens": torch.ones(1, 4,
+                                                                dtype=torch.long)},
+                                  cfg, caches=caches)
+    assert logits.shape == (1, 4, cfg.vocab) and torch.isfinite(logits).all()
+    assert len(new) == len(caches) and bool(aux > 0) == (cfg.moe is not None)
+
+
+def test_mla_attention_inits():
+    """MLA's weights without an MoE block beside them (the reference's
+    ``init_attention`` branch): the latent down- and up-projections and a
+    zero ``ckv_norm``."""
     from repro_torch.models import attention
     cfg = dataclasses.replace(
         treduced(tregistry.get_arch("deepseek-v2-lite-16b")), moe=None)
-    with pytest.raises(NotImplementedError, match="MLA.*ROADMAP A12"):
-        attention.init_attention(torch.Generator(), cfg, torch.float32)
+    m = cfg.mla
+    p = attention.init_attention(torch.Generator(), cfg, torch.float32)
+    H, dqk = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim
+    assert {k: tuple(v.shape) for k, v in p.items()} == {
+        "wq": (cfg.d_model, H * dqk),
+        "w_kv_down": (cfg.d_model, m.kv_lora_rank + m.qk_rope_head_dim),
+        "w_kv_up": (m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": (H * m.v_head_dim, cfg.d_model),
+        "ckv_norm": (m.kv_lora_rank,)}
+    assert not p["ckv_norm"].any()
 
 
 @pytest.mark.parametrize("logit_cap,window,is_global", [

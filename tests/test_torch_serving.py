@@ -19,6 +19,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro import dist  # noqa: E402
 from repro.configs.base import reduced  # noqa: E402
 from repro.configs.registry import get_arch  # noqa: E402
 from repro.models import model as M  # noqa: E402
@@ -172,12 +173,71 @@ def test_engine_eos_frees_slot(setup):
 
 @pytest.mark.parametrize("name,exc", [
     ("xlstm-125m", ValueError), ("zamba2-2.7b", ValueError),
-    ("musicgen-medium", ValueError),
-    ("granite-moe-1b-a400m", NotImplementedError)])
+    ("musicgen-medium", ValueError)])
 def test_engine_rejects_unservable_configs(name, exc):
     cfg = treduced(tregistry.get_arch(name))
     with pytest.raises(exc):
         ServeEngine(cfg, {}, slots=1, device="cpu")
+
+
+class JRecordingEngine(JServeEngine):
+    """The reference engine, recording as ``RecordingEngine`` does."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.logits: dict[int, list[np.ndarray]] = {}
+
+    def _prefill_slot(self, s, req, toks, caches):
+        logits, single = super()._prefill_slot(s, req, toks, caches)
+        self.logits[req.uid] = [np.asarray(logits[0, len(req.prompt) - 1])]
+        return logits, single
+
+    def _decode_tick(self, toks, live):
+        logits = super()._decode_tick(toks, live)
+        for s in live:
+            self.logits[self.active[s].uid].append(np.asarray(logits[s]))
+        return logits
+
+
+# prompts up to 32 tokens in one bucket of 32: gemma3's past its window
+# of 16 (C20), the MoE's decode ticks at capacity 2 with idle slots
+MODEL_SET = [(5, 6), (30, 4), (12, 9), (27, 3), (3, 5)]
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "granite-moe-1b-a400m", "gemma3-12b"])
+def test_engine_serves_moe_mla_and_window_models(name):
+    """Reduced deepseek-v2-lite (MLA, MoE with a shared expert), granite
+    (MoE) and gemma3 (a local and a global layer) behind both engines,
+    3 slots: every completion token-equal to the reference engine's, and
+    the logits of every emitted token within TOL of the reference
+    engine's.  A teacher-forced forward is no reference here: the MoE
+    drops by batch (a decode tick routes 3 tokens, capacity 2: C19) and
+    gemma3's rings lose padded prompts' tokens (C20), in both engines
+    alike."""
+    dist.unset_mesh()          # C4: a mesh left set by another test file
+    cfg = reduced(get_arch(name))
+    tcfg = treduced(tregistry.get_arch(name))
+    params = jax.jit(M.init_params, static_argnums=1)(
+        jax.random.PRNGKey(0), cfg)
+    tparams = lm_params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    reqs = _requests(cfg, MODEL_SET, 2)
+    kw = dict(slots=3, max_len=64, prefill_buckets=(32,))
+    jeng = JRecordingEngine(cfg, params, **kw)
+    eng = RecordingEngine(tcfg, tparams, device="cpu", **kw)
+    for uid, prompt, m in reqs:
+        jeng.submit(JRequest(uid=uid, prompt=prompt, max_new_tokens=m))
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=m))
+    want = {c.uid: c for c in jeng.run()}
+    got = {c.uid: c for c in eng.run()}
+    assert sorted(got) == sorted(want) == [uid for uid, _, _ in reqs]
+    for uid, prompt, m in reqs:
+        assert got[uid].tokens == want[uid].tokens, uid
+        assert len(got[uid].tokens) == m
+        assert got[uid].ticks == want[uid].ticks
+        np.testing.assert_allclose(np.stack(eng.logits[uid]),
+                                   np.stack(jeng.logits[uid]), rtol=TOL,
+                                   atol=TOL)
 
 
 def test_engine_rejects_long_prompt(setup):
