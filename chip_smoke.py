@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases, each printing JSON lines; any failure exits non-zero.
+Twenty phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -57,12 +57,13 @@ Nineteen phases, each printing JSON lines; any failure exits non-zero.
    CUDA-graph replay, with the bound (float32: at a third of the TF32
    tensor-core peak, and at the SIMT peak beside it; its tensor-core work
    as ``mma_ops``) and the time of ``scaled_dot_product_attention`` as a
-   yardstick (the port never calls it).  Then phase 19's prefill
-   instances (``ATTN_SERVE_SHAPES``), checked in both dtypes and timed in
-   bfloat16 beside SDPA (under gemma3's window with the window as an
-   explicit mask): deepseek-v2-lite's MLA at Dqk 192 / Dv 128, granite's
-   GQA at head dim 64, gemma3-12b's local layers at S = 2048, window
-   1024.
+   yardstick (the port never calls it).  Then phases 19's and 20's
+   prefill instances (``ATTN_SERVE_SHAPES``), checked in both dtypes and
+   timed in bfloat16 beside SDPA (under gemma3's window with the window as
+   an explicit mask): deepseek-v2-lite's MLA at Dqk 192 / Dv 128,
+   granite's GQA at head dim 64, gemma3-12b's local layers at S = 2048,
+   window 1024; musicgen-medium's MHA (24 heads of 64) and qwen2-vl-2b's
+   GQA 12 / 2 at head dim 128, each at 4 × 512.
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -329,11 +330,36 @@ Nineteen phases, each printing JSON lines; any failure exits non-zero.
    printed (behind the engine its pad mask empties every local ring slot,
    C20) and, through ``serve_prefill`` / ``serve_decode``, checked
    against a no-cache forward.
+20. xLSTM and the audio and vision front ends — the models the engine
+   refuses (as the reference's does), through ``serve_prefill`` /
+   ``serve_decode``, each at full width and depth in bfloat16, random
+   weights from a seed, one at a time (the one before freed, each one's
+   peak memory printed), batches from ``roofline/serve_profile.py``'s
+   ``prompt_batch``: (a) xlstm-125m (12 layers, 3 mLSTM + 1 sLSTM a
+   group, d 768, 4 heads): a prefill of 4 × 512 tokens and 16 greedy
+   steps, no kernel launched (xLSTM runs outside any kernel, as in the
+   reference); prefill ms, ms a step, tokens/s; the served logits against
+   a no-cache forward of the same tokens by ``BF16_LOGIT_*``; one row of
+   2048 tokens whose prefill logits are finite, and on it the first mLSTM
+   layer's parallel form against the recurrence in float32 within
+   MLSTM_RECURRENCE_RTOL, with the rows where the reference's form
+   overflows to NaN (C21) counted.  (b) musicgen-medium (48 layers, 4
+   codebooks): 4 rows × 4 codebooks × 512 codes, each step feeding back
+   every codebook's argmax as (B, K, 1); exactly 48 attention launches a
+   prefill and none a step.  (c) qwen2-vl-2b (28 layers, M-RoPE): 4 rows
+   of 512 seeded embeddings, a 16 × 16 image grid (positions (0, i // 16,
+   i % 16)) then 256 text positions from 16 on, each step feeding back
+   ``embed[token]`` at the next text position; exactly 28 attention
+   launches a prefill and none a step.  Each: decode against a no-cache
+   forward, and a float32 cut (xLSTM one group of 4 layers, the others 2
+   layers) at full width on the card against the CPU, 2 rows × 128, 8
+   steps, teacher-forced with the card's ids, by phase 6's rule.
 
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
-instances timed on phase 16's path and on phase 19's three models' (its
-launches), and the four SSD backward kernels, which replace autodiff of
+instances timed on phase 16's path and on phases 19's and 20's five
+models' (their launches), and the four SSD backward kernels, which
+replace autodiff of
 ``src/repro/models/mamba2.py:74``), and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repository beside it, the script exits non-zero and prints no
@@ -419,15 +445,19 @@ ATTN_PATH_SHAPE = (1, 256, 32, 8, 128, 0)
 ATTN_STEP_SHAPE = (4, 128, 8, 1, 256, 0)
 ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
               (4, 128, 32, 32, 80, 0), ATTN_STEP_SHAPE]
-# Phase 19's prefill instances (B, S, H, Hkv, Dqk, Dv, window), checked in
-# both dtypes and timed in bfloat16: deepseek-v2-lite's MLA at its largest
-# bucket (q and k of dn + dr = 128 + 64, v of dv = 128), granite-moe's GQA
-# 16 / 8 at head dim 64 there, and gemma3-12b's local layers at a
-# 2048-token prefill (GQA 16 / 8, head dim 256, window 1024); the kernels
-# line names them by model
+# Phases 19's and 20's prefill instances (B, S, H, Hkv, Dqk, Dv, window),
+# checked in both dtypes and timed in bfloat16: deepseek-v2-lite's MLA at
+# its largest bucket (q and k of dn + dr = 128 + 64, v of dv = 128),
+# granite-moe's GQA 16 / 8 at head dim 64 there, gemma3-12b's local layers
+# at a 2048-token prefill (GQA 16 / 8, head dim 256, window 1024);
+# musicgen-medium's MHA 24 / 24 at head dim 64 and qwen2-vl-2b's GQA 12 / 2
+# (a group of 6) at head dim 128, each at phase 20's 4 × 512 prefill; the
+# kernels line names them by model
 ATTN_SERVE_SHAPES = {"mla_bf16": (1, 256, 16, 16, 192, 128, 0),
                      "granite_bf16": (1, 256, 16, 8, 64, 64, 0),
-                     "gemma3_bf16": (1, 2048, 16, 8, 256, 256, 1024)}
+                     "gemma3_bf16": (1, 2048, 16, 8, 256, 256, 1024),
+                     "musicgen_bf16": (4, 512, 24, 24, 64, 64, 0),
+                     "qwen2vl_bf16": (4, 512, 12, 2, 128, 128, 0)}
 ATTN_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # The float32 forward's tiles, copied from csrc/flash_attention.cu
 # (tests/test_torch_build.py holds each against the source): q tiles of
@@ -2712,19 +2742,24 @@ def phase_ssd_kernel() -> dict:
     return {"ssd_scan": result, **_ssd_backward()}
 
 
-def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
-                  device, tokens=None, seed: int = 0) -> dict:
-    """``serve_prefill`` of ``rows`` prompts of ``length`` tokens into
-    fresh caches, then ``steps`` greedy ``serve_decode`` steps — or, given
-    ``tokens`` (rows, steps), those tokens (teacher forcing) — under
-    inference mode.  Host clocks end in a synchronise.  Returns the
-    logits of every step (float32, on the CPU), the tokens fed, the walls
-    and the kernels' launches in the prefill and in the decode steps."""
+def _direct_serve(cfg, params, prompt: dict, steps: int, device,
+                  tokens=None, max_len: Optional[int] = None) -> dict:
+    """``serve_prefill`` of the batch ``prompt`` (``serve_profile.
+    prompt_batch``'s, any front end) into fresh caches of ``max_len``
+    positions (default: prompt + steps), then ``steps`` greedy
+    ``serve_decode`` steps — or, given ``tokens`` (rows, steps[, K]),
+    those tokens (teacher forcing) — under inference mode.  Host clocks end
+    in a synchronise.  Returns the logits of every step (float32, on the
+    CPU), the ids fed (rows, steps[, K]), the walls and the kernels'
+    launches in the prefill and in the decode steps."""
     from repro_torch.models import model as model_lib
+    from repro_torch.roofline.serve_profile import next_position, step_batch
     on_card = device != "cpu"
-    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-        1, cfg.vocab, (rows, length))).to(device)
-    caches = model_lib.init_caches(cfg, rows, HYBRID["max_len"],
+    length = (prompt["embeds"].shape[1] if "embeds" in prompt
+              else next(iter(prompt.values())).shape[-1])
+    rows = next(iter(prompt.values())).shape[0]
+    mrope = next_position(prompt) if cfg.frontend == "vision" else 0
+    caches = model_lib.init_caches(cfg, rows, max_len or length + steps,
                                    device=device)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     logits_seen, fed, step_s = [], [], []
@@ -2732,8 +2767,8 @@ def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
         sync()
         _reset_all_launches()
         t0 = time.perf_counter()
-        logits, caches = model_lib.serve_prefill(
-            params, {"tokens": prompt}, cfg, caches=caches)
+        logits, caches = model_lib.serve_prefill(params, prompt, cfg,
+                                                 caches=caches)
         sync()
         prefill_s = time.perf_counter() - t0
         prefill_launches = _all_launches()
@@ -2742,22 +2777,34 @@ def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
             _require(bool(torch.isfinite(logits).all()),
                      f"non-finite logits at step {i}")
             logits_seen.append(logits[:, -1].float().cpu())
-            tok = (logits[:, -1].argmax(-1)[:, None] if tokens is None
-                   else tokens[:, i:i + 1].to(device))
+            tok = (logits[:, -1].argmax(-1) if tokens is None
+                   else tokens[:, i].to(device))
             fed.append(tok.cpu())
             t0 = time.perf_counter()
             logits, caches = model_lib.serve_decode(
-                params, {"tokens": tok}, caches, length + i, cfg)
+                params, step_batch(cfg, params, tok, mrope + i), caches,
+                length + i, cfg)
             sync()
             step_s.append(time.perf_counter() - t0)
         _require(bool(torch.isfinite(logits).all()),
                  "non-finite logits after the last step")
         logits_seen.append(logits[:, -1].float().cpu())
     return {"logits": torch.stack(logits_seen, 1),
-            "tokens": torch.cat(fed, 1) if fed else None,
+            "tokens": torch.stack(fed, 1) if fed else None,
             "prefill_s": prefill_s, "step_s": step_s,
             "prefill_launches": prefill_launches,
             "decode_launches": _all_launches()}
+
+
+def _hybrid_serve(cfg, params, rows: int, length: int, steps: int,
+                  device, tokens=None, seed: int = 0) -> dict:
+    """``_direct_serve`` of ``rows`` seeded prompts of ``length`` tokens
+    into caches of HYBRID["max_len"] positions."""
+    from repro_torch.roofline.serve_profile import prompt_batch
+    return _direct_serve(cfg, params,
+                         prompt_batch(cfg, rows, length, device, seed),
+                         steps, device, tokens=tokens,
+                         max_len=HYBRID["max_len"])
 
 
 def phase_hybrid(cfg=None, check_cfg=None) -> dict:
@@ -6104,6 +6151,286 @@ def phase_moe_mla_window() -> dict:
             "flash_attention_fwd_gemma3_bf16": _serve_gemma3()}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: xLSTM and the audio and vision front ends through serve_prefill /
+# serve_decode (the engine refuses them, as the reference's does)
+# ---------------------------------------------------------------------------
+
+# (rows, prompt length, decode steps) of the timing run; the float32 cuts'
+# card-against-CPU run; a vision prompt's image grid there (16 × 16 in the
+# timing run, 8 × 8 in the cut's 128 positions)
+DIRECT = {"rows": 4, "prompt": 512, "steps": 16}
+DIRECT_CHECK = {"rows": 2, "prompt": 128, "steps": 8, "grid": 8}
+# layers of the float32 cuts: one xLSTM group (3 mLSTM + 1 sLSTM), 2 of
+# the attention models'
+DIRECT_CHECK_LAYERS = {"xlstm-125m": 4, "musicgen-medium": 2,
+                       "qwen2-vl-2b": 2}
+# xlstm-125m's long row: one prefill of 2048 tokens, where the reference's
+# parallel form gives NaN rows (ROADMAP C21: exp(a_s − amax_q) above
+# float32's range above the diagonal, then multiplied by the mask)
+XLSTM_LONG = 2048
+FLOAT32_EXP_MAX = 88.72
+# the first mLSTM layer of the long row in float32, the parallel form
+# against the recurrence (the port's decode step over the row from the
+# empty state), by each position's ‖Δh‖₂ / ‖h‖₂ over the heads: 4.7e-5 at
+# most on the CPU with the same construction (random bfloat16 weights), so
+# ten times that
+MLSTM_RECURRENCE_RTOL = 5e-4
+# xlstm-125m's float32 decode against its no-cache forward (the parallel
+# form against the recurrence, bf16 rounding out of the way), the worst
+# position's ‖Δ‖₂ / ‖logits‖₂: 3.2e-4 on the CPU and 1.9e-3 on an H100 at
+# 4 × 512, 16 steps (this model amplifies rounding some 350×: its bf16
+# forward lies 0.7 of the logits' norm from the float32 one), while a
+# decode whose first mLSTM layer lost its state after the prefill lies
+# 1.36 (median; CPU, 2 × 256) from the forward
+XLSTM_F32_DECODE_RTOL = 1e-2
+
+
+def _cat_batches(batches: list) -> dict:
+    """Batches of one front end joined along the sequence."""
+    return {key: torch.cat([b[key] for b in batches],
+                           dim=1 if key == "embeds" else -1)
+            for key in batches[0]}
+
+
+def _no_cache_logits_of(cfg, params, prompt: dict, fed) -> torch.Tensor:
+    """One no-cache forward over the prompt and the fed ids (rows, steps[,
+    K]): its logits at the served positions (the prompt's last, then one a
+    fed id), flattened to (positions × codebooks, V)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.serve_profile import next_position, step_batch
+    mrope = next_position(prompt) if cfg.frontend == "vision" else 0
+    fed = fed.to(DEVICE)
+    steps = [step_batch(cfg, params, fed[:, i], mrope + i)
+             for i in range(fed.shape[1])]
+    with torch.inference_mode():
+        logits = model_lib.forward(params, _cat_batches([prompt] + steps),
+                                   cfg)[0]
+    n = logits.shape[1] - fed.shape[1]      # the prompt's length
+    return logits[:, n - 1:].reshape(-1, logits.shape[-1])
+
+
+def _decode_vs_forward(cfg, params, prompt: dict, run: dict) -> list:
+    """Each served position's logit gap (the prefill's last position, then
+    every decode step's; each codebook's logits a position of their own)
+    against one no-cache forward of the prompt and the fed ids."""
+    want = _no_cache_logits_of(cfg, params, prompt, run["tokens"])
+    return _logit_gaps(run["logits"].reshape(want.shape), want)
+
+
+def _xlstm_decode_checks(cfg, params, prompt: dict, run: dict) -> dict:
+    """xLSTM's decode against a no-cache forward.  At random weights the
+    model is rounding-dominated in bfloat16: its bf16 forward lies a median
+    0.66 (the reference's 0.70) of the logits' norm from the float32
+    forward of the same bf16 weights (CPU, 2 × 256 tokens; 0.71 on an
+    H100 at 4 × 528), beyond BF16_LOGIT_*.  So the served path is held to the forward in float32
+    (the same weights, cast; greedy from the same prompt) within
+    XLSTM_F32_DECODE_RTOL, and the bf16 run's gaps to the spread that
+    rounding alone puts between the bf16 and float32 forwards of the bf16
+    run's tokens: its median and worst position no larger."""
+    from repro_torch.core.tree_util import tree_map
+    want = _no_cache_logits_of(cfg, params, prompt, run["tokens"])
+    gaps = _logit_gaps(run["logits"].reshape(want.shape), want)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    run32 = _direct_serve(f32, params32, prompt, DIRECT["steps"], DEVICE)
+    gaps32 = _decode_vs_forward(f32, params32, prompt, run32)
+    spread = _logit_gaps(want, _no_cache_logits_of(f32, params32, prompt,
+                                                   run["tokens"]))
+    out = {"bf16": {"median": float(np.median(gaps)),
+                    "max": float(np.max(gaps))},
+           "bf16_rounding_spread": {"median": float(np.median(spread)),
+                                    "max": float(np.max(spread))},
+           "float32": {"median": float(np.median(gaps32)),
+                       "max": float(np.max(gaps32))},
+           "float32_tol": XLSTM_F32_DECODE_RTOL}
+    _require(out["float32"]["max"] <= XLSTM_F32_DECODE_RTOL
+             and out["bf16"]["median"] <= out["bf16_rounding_spread"][
+                 "median"]
+             and out["bf16"]["max"] <= out["bf16_rounding_spread"]["max"],
+             f"{cfg.name}: decode against a no-cache forward: {out}")
+    del params32
+    return out
+
+
+def _direct_vs_cpu(name: str) -> dict:
+    """The float32 cut (DIRECT_CHECK_LAYERS) at full width served on the
+    card, then on the CPU teacher-forced with the card's ids: logits
+    within LOGIT_TOL, each id the CPU's argmax wherever its margin exceeds
+    2·LOGIT_TOL (phase 6's rule)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.serve_profile import prompt_batch
+    cfg = dataclasses.replace(get_arch(name),
+                              n_layers=DIRECT_CHECK_LAYERS[name])
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(1), cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rows, length, steps = (DIRECT_CHECK[k] for k in ("rows", "prompt",
+                                                     "steps"))
+    card = _direct_serve(cfg, params, prompt_batch(
+        cfg, rows, length, DEVICE, 1, DIRECT_CHECK["grid"]), steps, DEVICE)
+    host = _direct_serve(cfg, cpu_params, prompt_batch(
+        cfg, rows, length, "cpu", 1, DIRECT_CHECK["grid"]), steps, "cpu",
+        tokens=card["tokens"])
+    err = float((card["logits"] - host["logits"]).abs().max())
+    _require(err <= LOGIT_TOL,
+             f"{name} float32 cut: card logits differ from the CPU's by "
+             f"{err} > {LOGIT_TOL}")
+    ref = host["logits"][:, :-1]
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL
+    _require(torch.equal(card["tokens"][clear], ref.argmax(-1)[clear]),
+             f"{name} float32 cut: a served id differs from the CPU's "
+             f"argmax where its margin exceeds {2 * LOGIT_TOL}")
+    out = {"model": name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "rows": rows, "prompt_len": length, "decode_steps": steps,
+           "max_abs_logit_err": err, "tol": LOGIT_TOL,
+           "logit_std": float(host["logits"].std()),
+           "ids_checked": int(clear.sum()), "near_ties": int((~clear).sum()),
+           "prefill_launches": {k: n for k, n in
+                                card["prefill_launches"].items() if n},
+           "cpu_prefill_s": host["prefill_s"]}
+    del params, cpu_params
+    return out
+
+
+def _mlstm_layer_vs_recurrence(cfg, params, tokens) -> dict:
+    """The first mLSTM layer on the long row: its q, k, v and gates as the
+    model computes them (bfloat16), then the parallel form against the
+    recurrence, both float32; and the query rows where the reference's
+    form, exp(a_s − amax_q) unmasked above the diagonal, overflows."""
+    import torch.nn.functional as F
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.mamba2 import _causal_conv
+    _, d_in, H, hd = xlstm_mod._mdims(cfg)
+    block = tree_map(lambda t: t[0, 0], params["segments"][0])
+    p = block["mlstm"]
+    with torch.inference_mode():
+        h = apply_norm(block["norm"], params["embed"][tokens], cfg.norm,
+                       cfg.norm_eps)
+        h_path = (h @ p["up"])[..., :d_in]
+        conv_out = F.silu(_causal_conv(h_path, p["conv_w"], p["conv_b"]))
+        q, k, v, log_i, log_f = xlstm_mod._qkv_gates(p, conv_out, h_path,
+                                                     cfg)
+        par = xlstm_mod._mlstm_parallel(q, k, v, log_i, log_f)
+        B, S = tokens.shape
+        state = (torch.zeros(B, H, hd, hd, device=DEVICE),
+                 torch.zeros(B, H, hd, device=DEVICE),
+                 torch.full((B, H), -torch.inf, device=DEVICE))
+        rec = []
+        for t in range(S):
+            state, out = xlstm_mod._mlstm_step(
+                state, q[:, t].float(), k[:, t].float() * hd ** -0.5,
+                v[:, t].float(), log_i[:, t], log_f[:, t])
+            rec.append(out)
+        rec = torch.stack(rec, dim=1)
+        gaps = ((par - rec).norm(dim=(-2, -1))
+                / rec.norm(dim=(-2, -1))).flatten()
+        a = log_i - torch.cumsum(log_f, dim=1)
+        amax = torch.cummax(a, dim=1).values
+        later = torch.cat([torch.flip(torch.cummax(
+            torch.flip(a, [1]), dim=1).values, [1])[:, 1:],
+            torch.full_like(a[:, :1], -torch.inf)], dim=1)
+        overflow = ((later - amax) > FLOAT32_EXP_MAX).sum(dim=1)[0]
+    out = {"layer": 0, "tokens": S, "finite": bool(torch.isfinite(par).all()),
+           "gap_max": float(gaps.max()), "gap_median": float(gaps.median()),
+           "tol": MLSTM_RECURRENCE_RTOL,
+           "reference_nan_rows_by_head": overflow.tolist(),
+           "log_f_mean_by_head": log_f.mean(dim=1)[0].tolist()}
+    _require(out["finite"] and out["gap_max"] <= MLSTM_RECURRENCE_RTOL,
+             f"xlstm-125m: the first mLSTM layer's parallel form against "
+             f"the recurrence at {S} tokens: {out}")
+    return out
+
+
+def _serve_direct_model(name: str) -> int:
+    """One of phase 20's models: seeded bfloat16 weights on the card, a
+    warm-up, the timing run (DIRECT) with exact launches, decode against
+    a no-cache forward, xLSTM's long row, then the float32 cut against the
+    CPU.  Returns the timing run's attention launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.serve_profile import prompt_batch
+    cfg = dataclasses.replace(get_arch(name), dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    rows, length, steps = (DIRECT[k] for k in ("rows", "prompt", "steps"))
+    prompt = prompt_batch(cfg, rows, length, DEVICE, 0)
+    _direct_serve(cfg, params, prompt, 2, DEVICE)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    run = _direct_serve(cfg, params, prompt, steps, DEVICE)
+    n_attn = 0 if cfg.xlstm is not None else cfg.n_layers
+    want = {key: 0 for key in run["prefill_launches"]}
+    want["flash_attention_fwd"] = n_attn
+    _require(run["prefill_launches"] == want
+             and not any(run["decode_launches"].values()),
+             f"{name}: prefill launches {run['prefill_launches']} (expected "
+             f"{n_attn} attention launches, nothing else), decode "
+             f"{run['decode_launches']} (expected none)")
+    decode_s = float(np.sum(run["step_s"]))
+    stats = {"phase": "direct_serving", "model": name, "dtype": cfg.dtype,
+             "n_layers": cfg.n_layers,
+             "params": sum(t.numel() for t in leaves),
+             "param_bytes": sum(t.numel() * t.element_size()
+                                for t in leaves),
+             "init_s": init_s, "rows": rows, "prompt_len": length,
+             "decode_steps": steps, "prefill_ms": run["prefill_s"] * 1e3,
+             "prefill_tokens_per_s": rows * length / run["prefill_s"],
+             "decode_ms_per_step": decode_s / steps * 1e3,
+             "decode_ms_per_step_p50": float(np.median(run["step_s"])) * 1e3,
+             "decode_tokens_per_s": rows * steps / decode_s,
+             "flash_launches_prefill": run["prefill_launches"][
+                 "flash_attention_fwd"],
+             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if cfg.xlstm is None:
+        stats["decode_vs_no_cache"] = _gap_check(
+            f"{name}: decode against a no-cache forward",
+            _decode_vs_forward(cfg, params, prompt, run))
+        stats["tol"] = [BF16_LOGIT_MEDIAN_RTOL, BF16_LOGIT_RTOL]
+    else:
+        stats["decode_vs_no_cache"] = _xlstm_decode_checks(cfg, params,
+                                                           prompt, run)
+        long = prompt_batch(cfg, 1, XLSTM_LONG, DEVICE, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = model_lib.serve_prefill(
+                params, long, cfg, caches=model_lib.init_caches(
+                    cfg, 1, XLSTM_LONG, device=DEVICE))
+        _require(bool(torch.isfinite(logits).all()),
+                 f"{name}: non-finite logits after a {XLSTM_LONG}-token "
+                 f"prefill")
+        stats["long_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        stats["long_row"] = _mlstm_layer_vs_recurrence(cfg, params,
+                                                       long["tokens"])
+    _emit(stats)
+    del params, leaves, run
+    _free()
+    _emit({"phase": "direct_serving_vs_cpu", **_direct_vs_cpu(name)})
+    _free()
+    return stats["flash_launches_prefill"]
+
+
+def phase_direct_serving() -> dict:
+    """Phase 20.  Returns the timing runs' attention launches by the
+    kernels line's names."""
+    _free()
+    _serve_direct_model("xlstm-125m")
+    return {"flash_attention_fwd_musicgen_bf16": _serve_direct_model(
+                "musicgen-medium"),
+            "flash_attention_fwd_qwen2vl_bf16": _serve_direct_model(
+                "qwen2-vl-2b")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6163,6 +6490,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + n
     del flat_lm
     launches.update(timed("moe_mla_window", phase_moe_mla_window))
+    launches.update(timed("direct_serving", phase_direct_serving))
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -6194,8 +6522,8 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:113"),
         "flash_attention_bwd_dq_bf16": (bwd_src, bwd_rep + "150"),
         "flash_attention_bwd_dkv_bf16": (bwd_src, bwd_rep + "178"),
-        # the bfloat16 instances on phase 19's serving paths, each timed at
-        # its model's largest prefill (ATTN_SERVE_SHAPES)
+        # the bfloat16 instances on phases 19's and 20's serving paths, each
+        # timed at its model's largest prefill (ATTN_SERVE_SHAPES)
         **{f"flash_attention_fwd_{name}": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:113")

@@ -63,20 +63,21 @@ def flat_state_from_numpy(state: dict, device: Device) -> dict:
 def lm_params_from_numpy(tree: dict, device: Device) -> dict:
     """A JAX LM parameter tree (``repro.models.model.init_params``, numpy
     leaves, float32 or bfloat16) → the port's: ``{"segments": [...],
-    "embed", "head"?, "final_norm"}`` with layer leaves stacked
+    "embed", "head"? / "heads"?, "final_norm"}`` with layer leaves stacked
     ``(n_groups, count, …)``, and for a hybrid stack ``"shared_attn"`` (one
     unstacked block) with ``{}`` for its segment.  Every leaf crosses bit
     for bit in its own dtype: an MoE block's float32 ``router`` beside
-    bfloat16 experts stays float32, and MLA's ``wq`` / ``w_kv_down`` /
-    ``w_kv_up`` / ``ckv_norm`` cross like any weight.  Raises on the trees
-    of parts the port does not run yet (the audio front end's
-    multi-codebook ``heads``)."""
-    unknown = sorted(set(tree) - {"segments", "embed", "head", "final_norm",
-                                  "shared_attn"})
+    bfloat16 experts stays float32, as do the xLSTM blocks' gate weights
+    and biases (``w_gates``, ``b_gates``, ``W``, ``R``, ``b``); MLA's
+    ``wq`` / ``w_kv_down`` / ``w_kv_up`` / ``ckv_norm`` and the audio front
+    end's (K, V, d) ``embed`` and (K, d, V) ``heads`` cross like any
+    weight.  Raises on a key the reference's trees do not have."""
+    unknown = sorted(set(tree) - {"segments", "embed", "head", "heads",
+                                  "final_norm", "shared_attn"})
     if unknown:
         raise NotImplementedError(
-            f"parameter keys {unknown} belong to model parts the PyTorch "
-            f"port does not run yet (ROADMAP A12)")
+            f"parameter keys {unknown} are not keys of the reference's LM "
+            f"trees")
     return params_from_numpy(tree, device)
 
 
@@ -86,5 +87,8 @@ def lm_caches_from_numpy(caches: list, device: Device) -> list:
     attention segment's ``k``/``v``/``pos``/``idx`` (a local layer's ring
     of ``sliding_window`` slots), an MLA segment's ``ckv``/``krope``/
     ``pos``/``idx``, a Mamba2 segment's ``conv`` (model dtype) and ``ssm``
-    (float32) state) → the port's, bit for bit."""
+    (float32) state, an mLSTM segment's ``conv`` (model dtype) and float32
+    ``C`` / ``n`` / ``m`` (−inf before the first token), an sLSTM
+    segment's float32 ``c`` / ``n`` / ``h`` / ``m``) → the port's, bit for
+    bit."""
     return [params_from_numpy(c, device) for c in caches]

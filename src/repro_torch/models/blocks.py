@@ -1,9 +1,8 @@
 """Residual blocks (``repro.models.blocks`` counterpart) with the uniform
-``(params, cache)`` calling convention of the reference.  The port runs the
-attention kinds (global, local and MLA attention) with a dense MLP or an
-MoE feed-forward, whose load-balance loss is the block's aux loss, and
-the Mamba2 block; mLSTM and sLSTM blocks are not ported yet (ROADMAP A12)
-and raise ``NotImplementedError``."""
+``(params, cache)`` calling convention of the reference: the attention
+kinds (global, local and MLA attention) with a dense MLP or an MoE
+feed-forward, whose load-balance loss is the block's aux loss, and the
+pre-normed Mamba2, mLSTM and sLSTM mixers."""
 from __future__ import annotations
 
 from typing import Any, Optional
@@ -13,6 +12,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import apply_norm, init_norm
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe
@@ -20,25 +20,31 @@ from repro_torch.models.moe import init_moe, moe
 Params = dict[str, Any]
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
-UNPORTED_KINDS = {"mlstm": "mLSTM", "slstm": "sLSTM"}
+# the pre-normed mixers: kind -> (params key, module's init, init_cache,
+# apply)
+MIXERS = {
+    "mamba2": ("mamba", mamba_mod.init_mamba, mamba_mod.init_mamba_cache,
+               mamba_mod.mamba),
+    "mlstm": ("mlstm", xlstm_mod.init_mlstm, xlstm_mod.init_mlstm_cache,
+              xlstm_mod.mlstm),
+    "slstm": ("slstm", xlstm_mod.init_slstm, xlstm_mod.init_slstm_cache,
+              xlstm_mod.slstm),
+}
 
 
-def _refuse(kind: str, cfg: ModelConfig) -> None:
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"{UNPORTED_KINDS[kind]} blocks are not ported yet "
-            f"(ROADMAP A12)")
-    if kind not in ATTN_KINDS and kind != "mamba2":
+def _check_kind(kind: str) -> None:
+    if kind not in ATTN_KINDS and kind not in MIXERS:
         raise ValueError(kind)
 
 
 def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
                dtype: torch.dtype, lead: tuple[int, ...] = ()) -> Params:
-    _refuse(kind, cfg)
+    _check_kind(kind)
     dev = generator.device
-    if kind == "mamba2":
+    if kind in MIXERS:
+        key, init, _, _ = MIXERS[kind]
         return {"norm": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
-                "mamba": mamba_mod.init_mamba(generator, cfg, dtype, lead)}
+                key: init(generator, cfg, dtype, lead)}
     p = {
         "norm1": init_norm(cfg.d_model, cfg.norm, dtype, dev, lead),
         "attn": attn_mod.init_attention(generator, cfg, dtype, lead),
@@ -54,9 +60,9 @@ def init_block(generator: torch.Generator, kind: str, cfg: ModelConfig,
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype: torch.dtype, device,
                      lead: tuple[int, ...] = ()) -> Params:
-    _refuse(kind, cfg)
-    if kind == "mamba2":
-        return mamba_mod.init_mamba_cache(cfg, batch, dtype, device, lead)
+    _check_kind(kind)
+    if kind in MIXERS:
+        return MIXERS[kind][2](cfg, batch, dtype, device, lead)
     return attn_mod.init_cache(cfg, batch, max_len, dtype, device,
                                window_only=(kind == "attn_local"), lead=lead)
 
@@ -66,11 +72,12 @@ def apply_block(params: Params, kind: str, x: torch.Tensor,
                 cache: Optional[Params]
                 ) -> tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (x, new_cache, aux_loss)."""
-    _refuse(kind, cfg)
+    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "mamba2":
+    if kind in MIXERS:
+        key, _, _, apply = MIXERS[kind]
         h = apply_norm(params["norm"], x, cfg.norm, cfg.norm_eps)
-        y, new_cache = mamba_mod.mamba(params["mamba"], h, cfg, cache)
+        y, new_cache = apply(params[key], h, cfg, cache)
         return x + y, new_cache, aux
     h = apply_norm(params["norm1"], x, cfg.norm, cfg.norm_eps)
     is_global = kind != "attn_local" if cfg.sliding_window else True

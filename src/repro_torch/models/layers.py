@@ -5,7 +5,6 @@ The initializers draw from a ``torch.Generator`` (which cannot reproduce
 ``jax.random``'s streams: parity tests carry the reference's weights across
 with ``convert.lm_params_from_numpy``).  They take a leading ``lead`` shape
 so that one call makes a whole stack of layers, ``(n_groups, count, …)``.
-M-RoPE (``mrope_angles``) waits for the vision front end (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -138,3 +137,21 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
         sin = torch.sin(angles)[:, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def mrope_angles(positions: torch.Tensor, dim: int, theta: float,
+                 sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL).
+
+    positions: (3, B, S) temporal / height / width position ids;
+    sections: each axis's number of frequency pairs, summing to dim / 2.
+    Returns angles (B, S, dim/2) where frequency slot j takes the position
+    id of the axis that owns slot j."""
+    assert sum(sections) == dim // 2, (sections, dim)
+    inv = rope_freqs(dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv          # (3, B, S, dim/2)
+    parts, start = [], 0
+    for axis, width in enumerate(sections):
+        parts.append(ang[axis, :, :, start:start + width])
+        start += width
+    return torch.cat(parts, dim=-1)

@@ -2,23 +2,32 @@
 block segments → head.
 
 Parameters and caches keep the reference's tree, ``{"segments": [...],
-"embed", "head", "final_norm"}`` and one cache dict per segment, with
-every layer leaf stacked ``(n_groups, count, …)``, so weights carried
-across from JAX (``convert.lm_params_from_numpy``) drop in as they are.
+"embed", "head" (or the audio front end's "heads"), "final_norm"}`` and
+one cache dict per segment, with every layer leaf stacked ``(n_groups,
+count, …)``, so weights carried across from JAX
+(``convert.lm_params_from_numpy``) drop in as they are.
 The reference's ``lax.scan`` over the stack is a Python loop over
 ``(group, layer)`` views of the same tensors.
 
-The port runs the text front end, uniform attention stacks (dense MHA /
-GQA / MQA, GLU or plain MLP, QKV bias, tied embeddings; MoE feed-forward
-and MLA attention), gemma3's local / global stacks (groups of
-``global_every − 1`` sliding-window layers, whose caches are rings of
-``sliding_window`` slots, then one global layer), Mamba2 stacks and the
-zamba2 hybrid: groups of Mamba2 layers, each group followed by one
-attention block whose weights every group shares (``params["shared_attn"]``,
-its segment ``{}`` in ``params["segments"]``) and whose cache is the
-group's own (``caches[si][g, 0]``).  It refuses with ``NotImplementedError``
-what it does not run yet (ROADMAP A12): xLSTM stacks and the audio and
-vision front ends.
+The port runs every architecture of the registry: the text, audio and
+vision front ends; uniform attention stacks (dense MHA / GQA / MQA, GLU or
+plain MLP, QKV bias, tied embeddings; MoE feed-forward and MLA
+attention); gemma3's local / global stacks (groups of ``global_every − 1``
+sliding-window layers, whose caches are rings of ``sliding_window``
+slots, then one global layer); Mamba2 stacks; xLSTM stacks (groups of
+``slstm_every − 1`` mLSTM layers, then one sLSTM layer); and the zamba2
+hybrid: groups of Mamba2 layers, each group followed by one attention
+block whose weights every group shares (``params["shared_attn"]``, its
+segment ``{}`` in ``params["segments"]``) and whose cache is the group's
+own (``caches[si][g, 0]``).
+
+The audio front end (musicgen) sums K codebooks' embeddings
+(``params["embed"]`` (K, V, d)) and predicts every codebook
+(``params["heads"]`` (K, d, V), logits (B, S, K, V)); its batches carry
+``codes`` (B, K, S).  The vision front end (qwen2-vl) takes precomputed
+``embeds`` (B, S, d) and ``positions`` (B, 3, S), the temporal / height /
+width ids that M-RoPE rotates by; the cache's positions are still
+``pos_offset`` + 0 … S − 1.
 """
 from __future__ import annotations
 
@@ -32,22 +41,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (apply_block, init_block,
                                        init_block_cache)
 from repro_torch.models.layers import (apply_norm, embed_init, init_norm,
-                                       rope_angles)
+                                       mrope_angles, rope_angles)
 
 Params = dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    run yet, naming its ROADMAP item."""
-    unported = [
-        (cfg.xlstm is not None, "xLSTM stacks"),
-        (cfg.frontend != "none", f"the {cfg.frontend} front end"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP A12)")
 
 
 def group_spec(cfg: ModelConfig) -> tuple[list[tuple[str, int, bool]], int]:
@@ -87,7 +83,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     """Random weights drawn on ``generator``'s device (a CUDA generator
     makes a full-size model on the card in seconds), then moved to
     ``device`` if another one is given."""
-    check_supported(cfg)
     dt = _dtype(cfg, dtype)
     segments, n_groups = group_spec(cfg)
     params: Params = {"segments": []}
@@ -98,9 +93,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
             continue
         params["segments"].append(
             init_block(generator, kind, cfg, dt, lead=(n_groups, count)))
-    params["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
-    if not cfg.tie_embeddings:
-        params["head"] = embed_init(generator, cfg.d_model, cfg.vocab, dt)
+    if cfg.frontend == "audio":
+        K = (cfg.n_codebooks,)
+        params["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt,
+                                     K)
+        params["heads"] = embed_init(generator, cfg.d_model, cfg.vocab, dt,
+                                     K)
+    else:
+        params["embed"] = embed_init(generator, cfg.vocab, cfg.d_model, dt)
+        if not cfg.tie_embeddings:
+            params["head"] = embed_init(generator, cfg.d_model, cfg.vocab,
+                                        dt)
     params["final_norm"] = init_norm(cfg.d_model, cfg.norm, dt,
                                      generator.device)
     if device is not None:
@@ -113,7 +116,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> list:
     """Empty caches on ``device`` (``None``: the card; it raises where
     there is none)."""
-    check_supported(cfg)
     dt = _dtype(cfg, dtype)
     device = resolve_device(device)
     segments, n_groups = group_spec(cfg)
@@ -138,6 +140,23 @@ def _row_positions(B: int, S: int, pos_offset, device) -> torch.Tensor:
 
 
 def _embed(params: Params, batch: dict, cfg: ModelConfig, pos_offset):
+    if cfg.frontend == "vision":
+        h = batch["embeds"].to(_dtype(cfg, None))
+        B, S = h.shape[0], h.shape[1]
+        angles = mrope_angles(batch["positions"].transpose(0, 1),
+                              cfg.resolved_head_dim, cfg.rope_theta,
+                              cfg.mrope_sections)
+        return h, _row_positions(B, S, pos_offset, h.device), angles
+    if cfg.frontend == "audio":
+        codes = batch["codes"].long()                        # (B, K, S)
+        B, S = codes.shape[0], codes.shape[-1]
+        # the reference's order: sum() from 0, then e_0, e_1, … in the
+        # model dtype (another order rounds differently in bfloat16)
+        h = sum(params["embed"][k][codes[:, k]]
+                for k in range(cfg.n_codebooks))
+        q_pos = _row_positions(B, S, pos_offset, h.device)
+        return h, q_pos, rope_angles(q_pos, cfg.resolved_head_dim,
+                                     cfg.rope_theta)
     tokens = batch["tokens"]
     B, S = tokens.shape[0], tokens.shape[-1]
     h = params["embed"][tokens.long()]
@@ -152,7 +171,6 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *,
             ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Returns (logits, new_caches, aux_loss).  ``last_only`` computes the
     LM head only for the final position (serving prefill)."""
-    check_supported(cfg)
     segments, n_groups = group_spec(cfg)
     h, q_pos, angles = _embed(params, batch, cfg, pos_offset)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -181,7 +199,9 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *,
     h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
-    if cfg.tie_embeddings:
+    if cfg.frontend == "audio":
+        logits = torch.einsum("bsd,kdv->bskv", h, params["heads"])
+    elif cfg.tie_embeddings:
         logits = h @ params["embed"].T
     else:
         logits = h @ params["head"]
@@ -208,7 +228,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def lm_loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     logits, _, aux = forward(params, batch, cfg)
-    return cross_entropy(logits, batch["labels"]) + aux
+    labels = batch["labels"]
+    if cfg.frontend == "audio":
+        labels = labels.transpose(1, 2)                      # (B, S, K)
+    return cross_entropy(logits, labels) + aux
 
 
 def serve_prefill(params: Params, batch: dict, cfg: ModelConfig,

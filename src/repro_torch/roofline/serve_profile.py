@@ -5,7 +5,10 @@
 
 Without ``--hybrid``: builds llama3-8b (or ``--arch``: any model the
 engine serves, e.g. deepseek-v2-lite-16b, granite-moe-1b-a400m or
-gemma3-12b, as ``chip_smoke.py`` phase 19 serves them) at full width and
+gemma3-12b, as ``chip_smoke.py`` phase 19 serves them; a model the engine
+refuses — xlstm-125m, musicgen-medium, qwen2-vl-2b — takes the
+``--hybrid`` profile below at 4 prompts of 512 tokens, as phase 20 serves
+them) at full width and
 depth in bfloat16 (random weights from a seed) behind a ``ServeEngine``
 with 4 slots, max_len 512 and buckets (32, 64, 128, 256), as
 ``chip_smoke.py`` phase 6 does; fills three slots and runs two warm
@@ -16,7 +19,11 @@ live slots.
 With ``--hybrid``: builds zamba2-2.7b at full width and depth in bfloat16,
 as ``chip_smoke.py`` phase 10 does; after a warm prefill and two decode
 steps, profiles one ``serve_prefill`` of 4 prompts of 128 tokens and one
-``serve_decode`` step of those 4 rows.
+``serve_decode`` step of those 4 rows.  The engine's refused models take
+the same profile with their own batches (``prompt_batch``): musicgen's
+codes (B, K, S), each step feeding back every codebook's argmax;
+qwen2-vl's seeded embeddings behind an image grid of positions, each step
+feeding back ``embed[token]`` at the next text position.
 
 With ``--personalized``: gemma-2b at full width, cut to 2 layers, in
 bfloat16 over a float32 master, as ``chip_smoke.py`` phase 16 serves it,
@@ -54,6 +61,8 @@ from repro_torch.serving import (PersonalizedServeEngine, Request,
 
 SLOTS, MAX_LEN, BUCKETS = 4, 512, (32, 64, 128, 256)
 HYBRID_ROWS, HYBRID_PROMPT = 4, 128
+DIRECT_PROMPT = 512     # the refused models' prompts (4 rows, phase 20's)
+IMAGE_GRID = 16         # a vision prompt opens with a 16 × 16 patch grid
 # output key: a fragment of the kernel names whose device time it sums
 KERNELS = {"flash_attention_ms": "flash_fwd_kernel",
            "ssd_scan_ms": "ssd_scan_kernel"}
@@ -109,24 +118,75 @@ def profile_serving(cfg: ModelConfig, device: str = "cuda",
                    cfg, dev)
 
 
-def profile_hybrid(cfg: ModelConfig, device: str = "cuda",
-                   top: int = 10) -> list[dict]:
+def prompt_batch(cfg: ModelConfig, rows: int, length: int, device,
+                 seed: int = 0, grid: int = IMAGE_GRID) -> dict:
+    """A seeded prompt batch of ``rows`` × ``length`` for ``cfg``'s front
+    end: token ids (B, S); audio codes (B, K, S); or vision embeddings
+    (B, S, d), N(0, 1), with M-RoPE positions (B, 3, S): a ``grid`` ×
+    ``grid`` image first, patch i at (0, i // grid, i % grid), then text
+    numbered on all three axes from one past the grid's largest id, as
+    Qwen2-VL numbers text after an image."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        codes = rng.integers(0, cfg.vocab, (rows, cfg.n_codebooks, length))
+        return {"codes": torch.from_numpy(codes).to(device)}
+    if cfg.frontend == "vision":
+        assert grid * grid < length, (grid, length)
+        i = np.arange(grid * grid)
+        text = grid + np.arange(length - grid * grid)
+        pos = np.concatenate([np.stack([0 * i, i // grid, i % grid]),
+                              np.stack([text] * 3)], axis=1)
+        embeds = rng.standard_normal((rows, length, cfg.d_model),
+                                     dtype=np.float32)
+        return {"embeds": torch.from_numpy(embeds).to(device),
+                "positions": torch.from_numpy(np.broadcast_to(
+                    pos, (rows, 3, length)).copy()).to(device)}
+    return {"tokens": torch.from_numpy(
+        rng.integers(1, cfg.vocab, (rows, length))).to(device)}
+
+
+def step_batch(cfg: ModelConfig, params, tokens: torch.Tensor,
+               position) -> dict:
+    """The one-position batch feeding back ``tokens``, the last position's
+    argmax (B,) — (B, K) from the audio head: codes (B, K, 1);
+    ``embed[token]`` at M-RoPE position ``position`` on all three axes
+    (vision); else token ids (B, 1)."""
+    if cfg.frontend == "audio":
+        return {"codes": tokens[:, :, None]}
+    if cfg.frontend == "vision":
+        B = tokens.shape[0]
+        return {"embeds": params["embed"][tokens][:, None],
+                "positions": torch.full((B, 3, 1), int(position),
+                                        dtype=torch.long,
+                                        device=tokens.device)}
+    return {"tokens": tokens[:, None]}
+
+
+def next_position(batch: dict) -> int:
+    """The M-RoPE id of the first text token after a vision prompt."""
+    return int(batch["positions"].max()) + 1
+
+
+def profile_hybrid(cfg: ModelConfig, device: str = "cuda", top: int = 10,
+                   length: int = HYBRID_PROMPT) -> list[dict]:
     dev = torch.device(device)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(
-        1, cfg.vocab, (HYBRID_ROWS, HYBRID_PROMPT))).to(dev)
+    prompt = prompt_batch(cfg, HYBRID_ROWS, length, dev)
+    mrope = next_position(prompt) if cfg.frontend == "vision" else 0
     state = {}
 
     def prefill():
-        caches = init_caches(cfg, HYBRID_ROWS, MAX_LEN, device=dev)
+        caches = init_caches(cfg, HYBRID_ROWS, max(MAX_LEN, length + 16),
+                             device=dev)
         state["logits"], state["caches"] = serve_prefill(
-            params, {"tokens": prompt}, cfg, caches=caches)
-        state["pos"] = HYBRID_PROMPT
+            params, prompt, cfg, caches=caches)
+        state["pos"] = length
 
     def step():
-        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        batch = step_batch(cfg, params, state["logits"][:, -1].argmax(-1),
+                           mrope + state["pos"] - length)
         state["logits"], state["caches"] = serve_decode(
-            params, {"tokens": tok}, state["caches"], state["pos"], cfg)
+            params, batch, state["caches"], state["pos"], cfg)
         state["pos"] += 1
 
     with torch.inference_mode():
@@ -134,7 +194,7 @@ def profile_hybrid(cfg: ModelConfig, device: str = "cuda",
         step()
         step()
     return _tagged(
-        [_profiled(f"prefill_{HYBRID_ROWS}x{HYBRID_PROMPT}_tokens", prefill,
+        [_profiled(f"prefill_{HYBRID_ROWS}x{length}_tokens", prefill,
                    dev, top),
          _profiled(f"decode_step_{HYBRID_ROWS}_rows", step, dev, top)],
         cfg, dev)
@@ -187,7 +247,9 @@ def main() -> None:
                             "(default llama3-8b)")
     which.add_argument("--hybrid", action="store_true",
                        help="profile zamba2-2.7b's serve_prefill / "
-                            "serve_decode instead of llama3-8b's engine")
+                            "serve_decode instead of llama3-8b's engine "
+                            "(xlstm-125m, musicgen-medium and qwen2-vl-2b "
+                            "take this profile under --arch)")
     which.add_argument("--personalized", action="store_true",
                        help="profile a shared and a row-path tick of the "
                             "personalized engine on 2-layer gemma-2b")
@@ -199,9 +261,18 @@ def main() -> None:
                                   dtype="bfloat16")
         rows = profile_personalized(cfg)
     else:
-        name, fn = (("zamba2-2.7b", profile_hybrid) if args.hybrid
-                    else (args.arch, profile_serving))
-        rows = fn(dataclasses.replace(get_arch(name), dtype="bfloat16"))
+        cfg = dataclasses.replace(
+            get_arch("zamba2-2.7b" if args.hybrid else args.arch),
+            dtype="bfloat16")
+        if args.hybrid:
+            rows = profile_hybrid(cfg)
+        elif (cfg.frontend != "none" or cfg.ssm is not None
+              or cfg.xlstm is not None):
+            # the models the engine refuses: the direct serve_prefill /
+            # serve_decode profile at phase 20's prompts
+            rows = profile_hybrid(cfg, length=DIRECT_PROMPT)
+        else:
+            rows = profile_serving(cfg)
     for row in rows:
         print(json.dumps(row), flush=True)
 

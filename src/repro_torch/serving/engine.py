@@ -83,7 +83,6 @@ class ServeEngine:
             raise ValueError(
                 "right-padded prefill is exact for KV caches only; SSM "
                 "state needs unpadded scans")
-        model_lib.check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_map(lambda t: t.to(self.device), params)

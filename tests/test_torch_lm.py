@@ -232,21 +232,33 @@ def test_lm_loss_gradient_flows_on_cpu(model):
     ("xlstm-125m", "xLSTM"), ("musicgen-medium", "audio"),
     ("qwen2-vl-2b", "vision")])
 def test_unported_parts_raise(name, what):
+    """The parts the port once refused (xLSTM stacks, the audio and vision
+    front ends) init, make caches and run a forward (their parity with
+    the reference: ``test_torch_xlstm.py``, ``test_torch_frontends.py``)."""
     cfg = treduced(tregistry.get_arch(name))
-    for call in (lambda: TM.init_params(torch.Generator(), cfg),
-                 lambda: TM.init_caches(cfg, 1, 8, device="cpu"),
-                 lambda: TM.forward({}, {"tokens": torch.zeros(1, 4)}, cfg)):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A12"):
-            call()
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    caches = TM.init_caches(cfg, 1, 8, device="cpu")
+    if what == "audio":
+        batch = {"codes": torch.ones(1, cfg.n_codebooks, 4, dtype=torch.long)}
+        shape = (1, 4, cfg.n_codebooks, cfg.vocab)
+    elif what == "vision":
+        batch = {"embeds": torch.ones(1, 4, cfg.d_model),
+                 "positions": torch.arange(4).expand(1, 3, 4)}
+        shape = (1, 4, cfg.vocab)
+    else:
+        batch = {"tokens": torch.ones(1, 4, dtype=torch.long)}
+        shape = (1, 4, cfg.vocab)
+    logits, new, aux = TM.forward(params, batch, cfg, caches=caches)
+    assert logits.shape == shape and torch.isfinite(logits).all()
+    assert len(new) == len(caches) and float(aux) == 0.0
 
 
 @pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
                                   "deepseek-v2-lite-16b", "gemma3-12b"])
 def test_moe_mla_and_window_parts_run(name):
     """The parts the port once refused (MoE, MLA, sliding-window layers)
-    pass ``check_supported`` and run init, caches and a forward."""
+    run init, caches and a forward."""
     cfg = treduced(tregistry.get_arch(name))
-    TM.check_supported(cfg)
     params = TM.init_params(torch.Generator().manual_seed(0), cfg)
     caches = TM.init_caches(cfg, 1, 8, device="cpu")
     logits, new, aux = TM.forward(params, {"tokens": torch.ones(1, 4,

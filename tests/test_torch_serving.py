@@ -173,7 +173,7 @@ def test_engine_eos_frees_slot(setup):
 
 @pytest.mark.parametrize("name,exc", [
     ("xlstm-125m", ValueError), ("zamba2-2.7b", ValueError),
-    ("musicgen-medium", ValueError)])
+    ("musicgen-medium", ValueError), ("qwen2-vl-2b", ValueError)])
 def test_engine_rejects_unservable_configs(name, exc):
     cfg = treduced(tregistry.get_arch(name))
     with pytest.raises(exc):
