@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty phases, each printing JSON lines; any failure exits non-zero.
+Twenty-one phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -63,7 +63,14 @@ Twenty phases, each printing JSON lines; any failure exits non-zero.
    an explicit mask): deepseek-v2-lite's MLA at Dqk 192 / Dv 128,
    granite's GQA at head dim 64, gemma3-12b's local layers at S = 2048,
    window 1024; musicgen-medium's MHA (24 heads of 64) and qwen2-vl-2b's
-   GQA 12 / 2 at head dim 128, each at 4 × 512.
+   GQA 12 / 2 at head dim 128, each at 4 × 512.  Then phase 21's
+   training instances (``ATTN_TRAIN_SHAPES``, the client axis folded into
+   B), checked in both dtypes and timed in the dtype phase 21 runs them:
+   granite's f32 step (4, 128, 16, 8, 64), MLA's bf16 step (2, 256, 16,
+   16, 192 → 128), gemma3's bf16 local layer at (2, 2048, 16, 8, 256)
+   window 1024; and phase 21's other forward shapes, checked only
+   (``ATTN_TRAIN_CHECKED``: the evals, gemma3's global layer, the tests'
+   cuts).
 6. serving path — ``ServeEngine`` on llama3-8b at full width and depth
    (32 layers, d 4096, 32 / 8 heads, d_ff 14336, vocab 128256) in
    bfloat16, random weights from a seed: 8 requests whose prompts cover
@@ -90,7 +97,11 @@ Twenty phases, each printing JSON lines; any failure exits non-zero.
    (the port never calls it).  ``dkv_group`` lines: the dk/dv kernel's
    two ways of summing a GQA/MQA group, float32 and bfloat16, each forced
    and checked, timed against each other at four shapes beside the one
-   the wrapper picks.
+   the wrapper picks.  Phase 21's training shapes are among the checked
+   and timed ones (``ATTN_BWD_TRAIN``: granite's f32 step, MLA's at Dqk
+   192 / Dv 128 and gemma3's local layer at window 1024, both dtypes;
+   SDPA's backward under a window takes it as an explicit mask), and its
+   other steps' shapes among the checked ones.
 8. federated LM training — ``FederatedSimulation.run(3, eval_every=3)`` of
    the LM example (``repro_torch.examples.fed_lm_train``) on gemma-2b at
    full width (d 2048, 8 heads / 1 kv head, head dim 256, d_ff 16384,
@@ -355,10 +366,30 @@ Twenty phases, each printing JSON lines; any failure exits non-zero.
    layers) at full width on the card against the CPU, 2 rows × 128, 8
    steps, teacher-forced with the card's ids, by phase 6's rule.
 
+21. the MoE, MLA, sliding-window and xLSTM families trained — each
+   through the LM example's flat round (``_run_fed_lm``) at full width,
+   random weights from a seed, depth and clients cut to the card
+   (FAMILY_TRAIN; 2 rounds, lr 0.003, 2 clients): granite-moe-1b-a400m
+   (8 of 24 layers, 32 experts top-8, float32, fedagrac and fedavg,
+   batch 2 × 128), deepseek-v2-lite-16b (1 of 27 layers, MLA and 64
+   experts top-6 + 2 shared, bfloat16 over the float32 master, fedagrac,
+   batch 1 × 256), gemma3-12b (one local layer at window 1024 and one
+   global, bfloat16 over the master, fedavg, batch 1 × 2048, one
+   held-out row), xlstm-125m uncut (float32, fedagrac, batch 2 × 128):
+   exact launches (B6 once an attention layer a local step for both
+   clients and once more in the eval, B7's two kernels once an attention
+   layer a step, B1 once a step, no other), finite losses and
+   perplexities, peak memory under FAMILY_PEAK_BYTES, wall per round,
+   tokens/s.  Then each model's tests' cut (2 layers, d 64, vocab 256)
+   on the card against the CPU by phase 8's rule, with CPU reruns that
+   change only rounding drawn until the card is covered.
+
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
 instances timed on phase 16's path and on phases 19's and 20's five
-models' (their launches), and the four SSD backward kernels, which
+models' (their launches), phase 21's training instances of B6 and B7
+(granite's f32, MLA's and gemma3's bf16, with their runs' launches), and
+the four SSD backward kernels, which
 replace autodiff of
 ``src/repro/models/mamba2.py:74``), and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -458,6 +489,27 @@ ATTN_SERVE_SHAPES = {"mla_bf16": (1, 256, 16, 16, 192, 128, 0),
                      "gemma3_bf16": (1, 2048, 16, 8, 256, 256, 1024),
                      "musicgen_bf16": (4, 512, 24, 24, 64, 64, 0),
                      "qwen2vl_bf16": (4, 512, 12, 2, 128, 128, 0)}
+# Phase 21's training instances (B, S, H, Hkv, Dqk, Dv, window) with the
+# client axis folded into B, checked in both dtypes and timed in the dtype
+# phase 21 trains them in: granite-moe's GQA 16 / 8 at head dim 64 (2
+# clients × 2 rows × 128, float32), deepseek-v2-lite's MLA at Dqk 192 / Dv
+# 128 (2 clients × 1 row × 256, bfloat16 over the float32 master) and
+# gemma3-12b's local layer at window 1024 (2 clients × 1 row × 2048,
+# bfloat16); the kernels line names them by model and dtype
+ATTN_TRAIN_SHAPES = {
+    "granite_train_f32": ((4, 128, 16, 8, 64, 64, 0), torch.float32),
+    "mla_train_bf16": ((2, 256, 16, 16, 192, 128, 0), torch.bfloat16),
+    "gemma3_train_bf16": ((2, 2048, 16, 8, 256, 256, 1024), torch.bfloat16)}
+# and the rest of phase 21's forward shapes, checked in both dtypes: the
+# evals' (8 held-out rows; gemma3's one row, whose local layer is
+# ATTN_SERVE_SHAPES' gemma3), gemma3's global layer, and the tests' cuts
+# on the card (4 clients × 2 rows: granite, deepseek's MLA at 48 → 32,
+# gemma3's local and global layers at seq 32)
+ATTN_TRAIN_CHECKED = [(8, 128, 16, 8, 64, 64, 0), (8, 256, 16, 16, 192, 128, 0),
+                      (2, 2048, 16, 8, 256, 256, 0),
+                      (1, 2048, 16, 8, 256, 256, 0), (8, 16, 2, 2, 32, 32, 0),
+                      (8, 16, 2, 2, 48, 32, 0), (8, 32, 2, 2, 32, 32, 16),
+                      (8, 32, 2, 2, 32, 32, 0)]
 ATTN_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # The float32 forward's tiles, copied from csrc/flash_attention.cu
 # (tests/test_torch_build.py holds each against the source): q tiles of
@@ -489,19 +541,31 @@ TF32_OPS_PER_S = 494.7e12          # H100 SXM dense TF32 tensor cores
 # the --small model's local step (4 clients × batch 2, head dim 32), and
 # for the bfloat16 kernels' copy widths and head-dim buckets: head dims 36,
 # 98 and 77 (bfloat16 rows on 8-, 4- and 2-byte boundaries) and zamba2's
-# MHA block (32 / 32 heads of dim 80) at its 4 × 128 prefill
+# MHA block (32 / 32 heads of dim 80) at its 4 × 128 prefill; then phase
+# 21's training shapes (ATTN_BWD_TRAIN), gemma3's global layer and the
+# tests' cuts on the card (ATTN_TRAIN_CHECKED's steps), an eighth entry Dv
+# where v's head dim is not D (the others keep Dv = D)
+ATTN_BWD_TRAIN = {
+    "granite_train_f32": ((4, 128, 128, 16, 8, 64, 0), torch.float32),
+    "mla_train_bf16": ((2, 256, 256, 16, 16, 192, 0, 128), torch.bfloat16),
+    "gemma3_train_bf16": ((2, 2048, 2048, 16, 8, 256, 1024), torch.bfloat16)}
 ATTN_BWD_SHAPES = [(4, 128, 128, 8, 1, 256, 0), (2, 128, 128, 4, 4, 64, 0),
                    (1, 256, 256, 32, 8, 128, 0), (2, 77, 77, 4, 2, 64, 0),
                    (1, 200, 200, 8, 2, 128, 0), (1, 512, 512, 4, 2, 64, 128),
                    (1, 96, 160, 4, 2, 64, 0), (1, 160, 96, 4, 1, 64, 48),
                    (1, 4096, 4096, 32, 8, 128, 0), (8, 32, 32, 2, 1, 32, 0),
                    (2, 77, 77, 4, 2, 36, 0), (2, 64, 64, 4, 1, 98, 0),
-                   (1, 64, 64, 4, 2, 77, 0), (4, 128, 128, 32, 32, 80, 0)]
+                   (1, 64, 64, 4, 2, 77, 0), (4, 128, 128, 32, 32, 80, 0),
+                   *(shape for shape, _ in ATTN_BWD_TRAIN.values()),
+                   (2, 2048, 2048, 16, 8, 256, 0), (8, 16, 16, 2, 2, 32, 0),
+                   (8, 16, 16, 2, 2, 48, 0, 32), (8, 32, 32, 2, 2, 32, 16),
+                   (8, 32, 32, 2, 2, 32, 0)]
 # a view of a fused QKV buffer (B, S, H, Hkv, D, window, lead): one
 # element before q in each row (2-byte rows) at gemma-2b's MQA head dim
 ATTN_BWD_FUSED_SHAPES = [(2, 96, 4, 1, 256, 0, 1)]
 ATTN_BWD_PATH_SHAPE = (4, 128, 128, 8, 1, 256, 0)
-ATTN_BWD_TIMED = [ATTN_BWD_PATH_SHAPE, (1, 4096, 4096, 32, 8, 128, 0)]
+ATTN_BWD_TIMED = [ATTN_BWD_PATH_SHAPE, (1, 4096, 4096, 32, 8, 128, 0),
+                  *(shape for shape, _ in ATTN_BWD_TRAIN.values())]
 # GQA/MQA shapes at which the dk/dv kernel's two ways of summing a group
 # (ops.dkv_split picks one) are timed against each other: S = 4096
 # and 8 × 512 (512 blocks when one loops over a group), llama3-8b's
@@ -1596,6 +1660,22 @@ def phase_attention_kernel() -> dict:
                 result[name]["max_abs_err"] = checks[-1]["max_abs_err_o"]
             del q, k, v
             torch.cuda.empty_cache()
+        train = [(name, shape, timed) for name, (shape, timed)
+                 in ATTN_TRAIN_SHAPES.items()]
+        for name, shape, timed_dtype in train + [
+                (None, shape, None) for shape in ATTN_TRAIN_CHECKED]:
+            B, S, H, Hkv, Dqk, Dv, window = shape
+            q = torch.randn(B, S, H, Dqk, generator=gen, device=DEVICE
+                            ).to(dtype)
+            k, v = (torch.randn(B, S, Hkv, d, generator=gen, device=DEVICE
+                                ).to(dtype) for d in (Dqk, Dv))
+            _check_attention(checks, result, shape, dtype, q, k, v, window)
+            if dtype == timed_dtype:
+                timing = _attn_timing(shape, dtype, q, k, v, window)
+                result[name] = {key: timing[key] for key in ATTN_KEYS}
+                result[name]["max_abs_err"] = checks[-1]["max_abs_err_o"]
+            del q, k, v
+            torch.cuda.empty_cache()
         for shape in ATTN_FUSED_SHAPES:
             q, k, v = _fused_qkv(shape, dtype, gen)
             _check_attention(checks, result, shape, dtype, q, k, v,
@@ -1733,18 +1813,21 @@ def phase_attention_backward() -> dict:
     then timed at ATTN_BWD_TIMED; the dk/dv kernel's group paths at
     ATTN_BWD_GROUP_SHAPES.  Returns each kernel's worst error and
     its timing at the training path's shape in float32 (phase 8's type),
-    and under ``<name>_bf16`` the bfloat16 ones (phase 16's)."""
+    under ``<name>_bf16`` the bfloat16 ones (phase 16's), and under
+    ``<name>_<model>`` those of phase 21's shapes in its dtypes
+    (ATTN_BWD_TRAIN) with the worst error there."""
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     result = {name: {"max_abs_err": 0.0} for name in names}
     checks = []
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ATTN_BWD_SHAPES:
-            B, Sq, Skv, H, Hkv, D, window = shape
+            B, Sq, Skv, H, Hkv, D, window, *rest = shape
+            Dv = rest[0] if rest else D
             q = torch.randn(B, Sq, H, D, generator=gen, device=DEVICE
                             ).to(dtype)
-            k, v = (torch.randn(B, Skv, Hkv, D, generator=gen,
-                                device=DEVICE).to(dtype) for _ in range(2))
+            k, v = (torch.randn(B, Skv, Hkv, d, generator=gen,
+                                device=DEVICE).to(dtype) for d in (D, Dv))
             o, lse, do, delta = _check_backward(checks, result, shape, dtype,
                                                 q, k, v, window, gen)
             if shape in ATTN_BWD_TIMED:
@@ -1761,6 +1844,11 @@ def phase_attention_backward() -> dict:
     for name in names:
         result[name + "_bf16"]["max_abs_err"] = max(
             ch["max_abs_err"] for ch in bf16 if ch["kernel"] == name)
+        for model, (shape, dtype) in ATTN_BWD_TRAIN.items():
+            result[f"{name}_{model}"]["max_abs_err"] = max(
+                ch["max_abs_err"] for ch in checks
+                if ch["kernel"] == name and ch["shape"] == shape
+                and ch["dtype"] == str(dtype))
     f32 = [ch for ch in checks if ch["dtype"] == str(torch.float32)]
     _emit({"phase": "attention_backward", "checks": len(checks),
            "max_abs_err": {n: r["max_abs_err"] for n, r in result.items()},
@@ -1835,25 +1923,27 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
     it), the tensor-core work done and, for float32, the bound at the SIMT
     peak beside the 3×TF32 one."""
     from repro_torch.kernels.flash_attention import ops, ref
-    window = shape[-1]
+    window = shape[6]
     kw = {"causal": True, "window": window}
     iters = 50 if shape[1] <= 256 else 3
-    library_ms = None
-    if window == 0:
-        # SDPA's forward runs on the stream the backward is captured on:
-        # captured on another, the backward invalidated the capture
-        # (cudaErrorStreamCaptureInvalidated) at some shapes
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        dot = do.transpose(1, 2)
-        library_ms = _graph_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), iters, stream=side)
-        del out
+    # under a window SDPA takes it as an explicit boolean mask
+    sdpa = ({"is_causal": True} if window == 0 else
+            {"attn_mask": ref.visible(q.shape[1], k.shape[1], True, window,
+                                      device=q.device)})
+    # SDPA's forward runs on the stream the backward is captured on:
+    # captured on another, the backward invalidated the capture
+    # (cudaErrorStreamCaptureInvalidated) at some shapes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **sdpa)
+    dot = do.transpose(1, 2)
+    library_ms = _graph_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters, stream=side)
+    del out
     entries = {
         "flash_attention_bwd_dq": (
             lambda: ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
@@ -1884,6 +1974,10 @@ def _time_backward(result, shape, dtype, q, k, v, o, lse, do, delta):
             result[name].update({key: timing[key] for key in keys})
         if dtype == torch.bfloat16 and shape == ATTN_BWD_PATH_SHAPE:
             result[name + "_bf16"] = {key: timing[key] for key in keys}
+        for model, train in ATTN_BWD_TRAIN.items():
+            if (shape, dtype) == train:
+                result[f"{name}_{model}"] = {key: timing[key]
+                                             for key in keys}
 
 
 def _serve_requests(prompts, max_new, vocab: int, seed: int) -> list:
@@ -2135,7 +2229,8 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
                 generator=None, flip_rows: bool = False, bf16: bool = False,
                 moved: Optional[int] = None, ulp_moved: Optional[int] = None,
                 keep: bool = False, eval_first: bool = False,
-                layout: str = "flat") -> dict:
+                layout: str = "flat", held_out: Optional[int] = None
+                ) -> dict:
     """The example's simulation (``repro_torch.examples.fed_lm_train``)
     for ``rounds`` rounds in one chunk; returns its history, final params,
     the kernels' launches, wall and peak memory.  ``bf16``: the example's
@@ -2147,7 +2242,8 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
     too, under ``"metric0"``, taken before the counts and the clock
     start; ``layout``: the example's ``--layout`` (the params come back
     raveled on both, ``"base_memory_bytes"`` is what was allocated on the
-    card before the run)."""
+    card before the run); ``held_out``: the eval's sequences (the
+    example's HELD_OUT_SEQS by default)."""
     from repro_torch.core import flat
     from repro_torch.examples import fed_lm_train as ex
     batcher = _lm_batcher_class(flip_rows)(
@@ -2157,7 +2253,8 @@ def _run_fed_lm(cfg, algo: str, device, *, clients: int, seq: int,
         fed = dataclasses.replace(fed, lr=lr)
     sim = ex.make_simulation(cfg, fed, seq=seq, batch=batch, rounds=rounds,
                              device=torch.device(device),
-                             generator=generator, batcher=batcher)
+                             generator=generator, batcher=batcher,
+                             held_out=held_out or ex.HELD_OUT_SEQS)
     if moved is not None:
         sim.state["params"] = _bf16_moved(sim.state["params"], sim._spec.n,
                                           moved)
@@ -6431,6 +6528,185 @@ def phase_direct_serving() -> dict:
                 "qwen2-vl-2b")}
 
 
+# Phase 21: the MoE, MLA, sliding-window and xLSTM families through the LM
+# example's flat round (``_run_fed_lm``) at full width — every width of the
+# published config kept — with depth and clients cut to the card.  Phase 8
+# ran gemma-2b's cut at 68 bytes a parameter (float32 fedagrac, 2 clients);
+# phase 16's bfloat16 fedagrac over the float32 master at ~72, its fedavg at
+# ~32.  From ``ModelConfig.param_count()``: granite-moe-1b-a400m 8 of 24
+# layers, P 0.478 G, float32 (~33 GB); deepseek-v2-lite-16b 1 of 27 layers
+# (MLA and 64 experts top-6 + 2 shared), P 1.004 G, in bfloat16 over the
+# float32 master (float32 would need ~68 GB); gemma3-12b 2 of 48 layers,
+# one local (window 1024) and one global (global_every 2 for the
+# published 6, the only cut that keeps one layer of each kind), P 1.455 G,
+# at seq 2048 so that the window bites, in bfloat16 over the master with
+# fedavg (fedagrac's ν⁽ⁱ⁾ and first-gradient rows would pass the card) and
+# one held-out sequence (8 of 262,144-entry rows would take ~26 GB of
+# logits); xlstm-125m uncut, P 0.194 G, float32.  lr 0.003 (phase 8's, C9),
+# 2 rounds of the example's K_i ~ N(4, 2²); every cut's round fits under
+# FAMILY_PEAK_BYTES (PERF.md, phase 21).  Then each model's tests' cut
+# (``reduced(...,
+# n_layers=2, d_model=64, vocab=256)``; gemma3 at seq 32 over its window of
+# 16) on the card against the CPU by phase 8's rule, CPU reruns that change
+# only rounding (reversed rows, then weights moved by a float32 ulp) drawn
+# until the card is covered, at most FAMILY_SMALL["max_probes"]: MoE
+# routing may flip on a rounding (C19) and xLSTM amplifies one (C23)
+FAMILY_TRAIN = {
+    "granite-moe-1b-a400m": {"layers": 8, "dtype": "float32", "clients": 2,
+                             "batch": 2, "seq": 128,
+                             "algorithms": ("fedagrac", "fedavg")},
+    "deepseek-v2-lite-16b": {"layers": 1, "dtype": "bfloat16", "clients": 2,
+                             "batch": 1, "seq": 256,
+                             "algorithms": ("fedagrac",)},
+    "gemma3-12b": {"layers": 2, "global_every": 2, "dtype": "bfloat16",
+                   "clients": 2, "batch": 1, "seq": 2048, "held_out": 1,
+                   "algorithms": ("fedavg",)},
+    "xlstm-125m": {"layers": 12, "dtype": "float32", "clients": 2,
+                   "batch": 2, "seq": 128, "algorithms": ("fedagrac",)}}
+FAMILY_ROUNDS, FAMILY_LR = 2, 0.003
+FAMILY_PEAK_BYTES = 75e9
+FAMILY_SMALL = {"clients": 4, "batch": 2, "rounds": 3, "lr": 0.1,
+                "max_probes": 4}
+FAMILY_SMALL_SEQ = {"gemma3-12b": 32}
+# the kernels line's names of each model's training instances
+FAMILY_KERNELS = {"granite-moe-1b-a400m": "granite_train_f32",
+                  "deepseek-v2-lite-16b": "mla_train_bf16",
+                  "gemma3-12b": "gemma3_train_bf16"}
+
+
+def _family_cut(name: str):
+    from repro_torch.configs.registry import get_arch
+    spec = FAMILY_TRAIN[name]
+    cut = {"n_layers": spec["layers"], "dtype": spec["dtype"]}
+    if "global_every" in spec:
+        cut["global_every"] = spec["global_every"]
+    return dataclasses.replace(get_arch(name), **cut)
+
+
+def _attn_layers(cfg) -> int:
+    """Attention layers a forward runs (each one B6 launch)."""
+    from repro_torch.models import blocks, model as model_lib
+    segments, n_groups = model_lib.group_spec(cfg)
+    return n_groups * sum(n for kind, n, _ in segments
+                          if kind in blocks.ATTN_KINDS)
+
+
+def _family_run(name: str) -> dict:
+    """Each algorithm of ``name``'s cut through the round, checked: exact
+    launches, finite losses and perplexities, peak memory under
+    FAMILY_PEAK_BYTES.  Returns the first algorithm's launches."""
+    from repro_torch.configs.registry import get_arch
+    spec = FAMILY_TRAIN[name]
+    cfg = _family_cut(name)
+    L = _attn_layers(cfg)
+    run = {k: spec[k] for k in ("clients", "seq", "batch")}
+    _emit({"phase": "family_training_cuts", "model": name,
+           "n_layers": f"{cfg.n_layers} of {get_arch(name).n_layers}",
+           "attention_layers": L, "dtype": cfg.dtype,
+           "param_count": cfg.param_count(),
+           "widths": {"d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "n_kv_heads": cfg.n_kv_heads,
+                      "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                      "vocab": cfg.vocab, "moe": dataclasses.asdict(cfg.moe)
+                      if cfg.moe else None,
+                      "mla": dataclasses.asdict(cfg.mla) if cfg.mla
+                      else None, "sliding_window": cfg.sliding_window,
+                      "xlstm": dataclasses.asdict(cfg.xlstm) if cfg.xlstm
+                      else None}})
+    first = None
+    for algo in spec["algorithms"]:
+        _free()
+        g = _run_fed_lm(cfg, algo, DEVICE, rounds=FAMILY_ROUNDS, lr=FAMILY_LR,
+                        bf16=cfg.dtype == "bfloat16", eval_first=True,
+                        held_out=spec.get("held_out"), **run)
+        steps = g["k_max"] * FAMILY_ROUNDS
+        want = {"flash_attention_fwd": L * steps + L,
+                "flash_attention_bwd_dq": L * steps,
+                "flash_attention_bwd_dkv": L * steps,
+                "calibrated_update": steps}
+        want = {k: n for k, n in want.items() if n}
+        launches = g["launches"]
+        got = {k: launches[k] for k in want}
+        tokens = run["clients"] * g["k_max"] * run["batch"] * run["seq"]
+        wall = float(np.mean(g["round_wall_s"]))
+        _emit({"phase": "family_training", "model": name, "algorithm": algo,
+               "dtype": cfg.dtype, "master_dtype": str(g["master_dtype"]),
+               "view_dtypes": g["view_dtypes"], **run,
+               "rounds": FAMILY_ROUNDS, "lr": FAMILY_LR, "params": g["n"],
+               "k": g["k"], "k_max": g["k_max"], "loss": g["loss"].tolist(),
+               "initial_perplexity": g["metric0"],
+               "perplexity": g["metric"].tolist(),
+               "wall_per_round_s": g["round_wall_s"],
+               "wall_per_local_step_s": wall / g["k_max"],
+               "tokens_per_round": tokens,
+               "train_tokens_per_s": tokens / wall,
+               "run_wall_s": g["wall_s"], "launches": got,
+               "peak_memory_bytes": g["peak_memory_bytes"]})
+        _require(got == want and all(n == 0 for k, n in launches.items()
+                                     if k not in want),
+                 f"{name} {algo}: launches {launches}, expected {want} and "
+                 f"no other")
+        _require(np.isfinite(g["loss"]).all()
+                 and np.isfinite(g["metric"]).all(),
+                 f"{name} {algo}: non-finite loss {g['loss']} or perplexity "
+                 f"{g['metric']}")
+        _require(g["peak_memory_bytes"] < FAMILY_PEAK_BYTES,
+                 f"{name} {algo}: peak memory {g['peak_memory_bytes']} "
+                 f"passes {FAMILY_PEAK_BYTES}")
+        first = first or launches
+        del g
+    _free()
+    return first
+
+
+def _family_vs_cpu(name: str) -> None:
+    """The tests' cut of ``name`` on the card against the CPU, for each of
+    its algorithms, by phase 8's rule (``_lm_vs_cpu_margins``)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    small = reduced(get_arch(name), n_layers=2, d_model=64, vocab=256)
+    srun = {k: FAMILY_SMALL[k] for k in ("clients", "batch", "rounds",
+                                         "lr")}
+    srun["seq"] = FAMILY_SMALL_SEQ.get(name, 16)
+    for algo in FAMILY_TRAIN[name]["algorithms"]:
+        def one(dev, **kw):
+            return _run_fed_lm(small, algo, dev, generator=torch.Generator(
+                ).manual_seed(0), **srun, **kw)
+        g, c = one(DEVICE), one("cpu")
+        probes = [one("cpu", flip_rows=True)]
+        while (not _vs_covered(_lm_vs_cpu_margins(g, c, probes))
+               and len(probes) < FAMILY_SMALL["max_probes"]):
+            probes.append(one("cpu", ulp_moved=len(probes)))
+        vs = _lm_vs_cpu_margins(g, c, probes)
+        _emit({"phase": "family_training_vs_cpu",
+               "model": f"reduced {name}, 2 layers, d 64", "algorithm": algo,
+               **srun, "k": g["k"], "loss": g["loss"].tolist(),
+               "perplexity": g["metric"].tolist(), "probes": len(probes),
+               "launches": {k: n for k, n in g["launches"].items() if n},
+               "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+               "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}})
+        _require(g["launches"]["calibrated_update"] > 0,
+                 f"{name} small: the card run launched no B1")
+        for what, (diff, tol) in vs.items():
+            _require(bool(np.all(diff <= tol)),
+                     f"{name} small {algo}: {what} differs from the CPU run "
+                     f"by {diff}, more than {tol}")
+
+
+def phase_family_training() -> dict:
+    """Phase 21.  Returns each attention model's launches of its training
+    instances by the kernels line's names (the first algorithm's run)."""
+    out = {}
+    for name in FAMILY_TRAIN:
+        launches = _family_run(name)
+        _family_vs_cpu(name)
+        if name in FAMILY_KERNELS:
+            for kernel in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"):
+                out[f"{kernel}_{FAMILY_KERNELS[name]}"] = launches[kernel]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6451,7 +6727,7 @@ def main() -> int:
                                            phase_attention_kernel)
     timings["flash_attention_fwd_bf16"] = timings[
         "flash_attention_fwd"].pop("bf16_step")
-    for name in ATTN_SERVE_SHAPES:
+    for name in (*ATTN_SERVE_SHAPES, *ATTN_TRAIN_SHAPES):
         timings[f"flash_attention_fwd_{name}"] = timings[
             "flash_attention_fwd"].pop(name)
     launches = timed("main_path", phase_main_path)
@@ -6491,6 +6767,7 @@ def main() -> int:
     del flat_lm
     launches.update(timed("moe_mla_window", phase_moe_mla_window))
     launches.update(timed("direct_serving", phase_direct_serving))
+    launches.update(timed("family_training", phase_family_training))
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -6528,6 +6805,15 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:113")
            for name in ATTN_SERVE_SHAPES},
+        # the instances on phase 21's training paths, each timed at its
+        # model's local step (ATTN_TRAIN_SHAPES, ATTN_BWD_TRAIN)
+        **{f"flash_attention_fwd_{name}": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:113")
+           for name in ATTN_TRAIN_SHAPES},
+        **{f"flash_attention_bwd_{part}_{name}": (
+            bwd_src, bwd_rep + ("150" if part == "dq" else "178"))
+           for name in ATTN_BWD_TRAIN for part in ("dq", "dkv")},
         "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:88"),
         # no Pallas site: the reference differentiates ssd_chunked with

@@ -154,6 +154,48 @@ class LMFederatedBatcher:
         return self._gather([self.round_indices(t0 + j, k_max)
                              for j in range(r)])
 
+    # -- cohort-indexed sampling (partial participation) ---------------------
+
+    def client_indices(self, t: int, i: int, k_max: int) -> np.ndarray:
+        """(k_max, B) sequence indices of client ``i``'s round-``t`` draw
+        from its own ``(seed, t, i)`` stream, whatever the cohort."""
+        rng = np.random.default_rng((self.seed, t, i))
+        return rng.integers(0, self._toks[i].shape[0],
+                            (k_max, self.batch_size))
+
+    def client_rows(self, ids: np.ndarray, idx: np.ndarray) -> dict:
+        """(*ids.shape, k_max, B, S) token / label tensors: ``idx[a]``'s
+        (k_max, B) sequences of client ``ids[a]``'s stream, for every
+        index ``a`` of ``ids`` — one host→device transfer."""
+        ids = np.asarray(ids, np.int64)
+        toks = np.stack([self._toks[i][j] for i, j in
+                         zip(ids.reshape(-1), idx.reshape((-1,)
+                                                          + idx.shape[-2:]))])
+        labs = np.stack([self._labs[i][j] for i, j in
+                         zip(ids.reshape(-1), idx.reshape((-1,)
+                                                          + idx.shape[-2:]))])
+        lead = ids.shape + idx.shape[-2:]
+        return {"tokens": torch.from_numpy(toks.reshape(lead + toks.shape[-1:]))
+                .to(self.device),
+                "labels": torch.from_numpy(labs.reshape(lead + labs.shape[-1:]))
+                .to(self.device)}
+
+    def cohort_batches(self, t: int, cohort, k_max: int) -> dict:
+        """(C, k_max, B, S) token / label tensors of round ``t``'s cohort,
+        each client from its ``(seed, t, i)`` stream."""
+        cohort = _host_ints(cohort)
+        return self.client_rows(cohort, np.stack(
+            [self.client_indices(t, int(i), k_max) for i in cohort]))
+
+    def chunk_cohort_batches(self, t0: int, cohorts, k_max: int) -> dict:
+        """(R, C, k_max, B, S): ``cohort_batches`` of rounds ``t0 …
+        t0+R-1`` for the (R, C) id matrix, in one transfer."""
+        cohorts = _host_ints(cohorts)
+        return self.client_rows(cohorts, np.stack([
+            np.stack([self.client_indices(t0 + j, int(i), k_max)
+                      for i in cohorts[j]])
+            for j in range(cohorts.shape[0])]))
+
 
 def _host_ints(v) -> np.ndarray:
     """Round indices or client ids as a host int64 array (a tensor is read

@@ -67,11 +67,12 @@ def make_streams(cfg: ModelConfig, seq: int,
             for i in range(n_clients)]
 
 
-def make_eval(cfg: ModelConfig, seq: int, device: torch.device):
-    """Held-out perplexity ``exp(lm_loss)`` on HELD_OUT_SEQS sequences of
-    topic 1, as the reference's example evaluates."""
+def make_eval(cfg: ModelConfig, seq: int, device: torch.device,
+              n_seqs: int = HELD_OUT_SEQS):
+    """Held-out perplexity ``exp(lm_loss)`` on ``n_seqs`` sequences of
+    topic 1 (HELD_OUT_SEQS, as the reference's example evaluates)."""
     held_out = {k: v.to(device) for k, v in
-                lm_sequences(HELD_OUT_SEED, HELD_OUT_SEQS, seq, cfg.vocab,
+                lm_sequences(HELD_OUT_SEED, n_seqs, seq, cfg.vocab,
                              skew_topic=1).items()}
 
     def eval_ppl(params) -> float:
@@ -84,12 +85,13 @@ def make_eval(cfg: ModelConfig, seq: int, device: torch.device):
 def make_simulation(cfg: ModelConfig, fed: FedConfig, *, seq: int,
                     batch: int, rounds: int, device: torch.device,
                     generator: Optional[torch.Generator] = None,
-                    batcher=None, sampler: str = "host"
-                    ) -> FederatedSimulation:
+                    batcher=None, sampler: str = "host",
+                    held_out: int = HELD_OUT_SEQS) -> FederatedSimulation:
     """The example's simulation: random weights from ``generator`` (seed 0
     on ``device`` by default), the host (``sampler="host"``) or device LM
     batcher over ``make_streams`` (or ``batcher``), the held-out perplexity
-    as the eval metric, K_i drawn for ``rounds`` rounds."""
+    on ``held_out`` sequences as the eval metric, K_i drawn for ``rounds``
+    rounds."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(generator, cfg, device=device)
@@ -100,7 +102,8 @@ def make_simulation(cfg: ModelConfig, fed: FedConfig, *, seq: int,
                               batch_size=batch, device=device)
     loss_fn = functools.partial(M.lm_loss, cfg=cfg)
     return FederatedSimulation(lambda p, b: loss_fn(p, b), params, fed,
-                               batcher, eval_fn=make_eval(cfg, seq, device),
+                               batcher,
+                               eval_fn=make_eval(cfg, seq, device, held_out),
                                t_max=max(rounds, 1), device=device)
 
 

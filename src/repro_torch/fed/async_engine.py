@@ -493,6 +493,8 @@ class BufferedAsyncSimulation:
             for j in range(self.buffer):
                 idx[a, j] = self._wave(int(tl.waves[u0 + a, j]))[
                     int(tl.ids[u0 + a, j])]
+        if hasattr(self.batcher, "client_rows"):     # per-client streams
+            return self.batcher.client_rows(tl.ids[u0:u0 + r], idx)
         return self.batcher._gather(idx)
 
     # -- the timeline-driven chunked executor ---------------------------------

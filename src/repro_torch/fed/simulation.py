@@ -253,7 +253,8 @@ class FederatedSimulation:
                 hasattr(batcher, "cohort_batches")
                 or hasattr(batcher, "sample_cohort")):
             raise ValueError("cohort rounds need a batcher with cohort "
-                             "methods (FederatedBatcher or DeviceBatcher)")
+                             "methods (FederatedBatcher, LMFederatedBatcher or "
+                             "DeviceBatcher)")
         if (self.scenario is not None
                 and self.scenario.availability_fn is not None
                 and self.population is not None):

@@ -72,7 +72,10 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     E = router_w.shape[-1]
     me = probs.mean(dim=0)                                 # mean prob / expert
-    ce = torch.nn.functional.one_hot(top_ids[:, 0], E).float().mean(dim=0)
+    # the one-hot of the first choices as a comparison: ``F.one_hot``
+    # checks its input's values, which ``torch.func.vmap`` refuses
+    first = top_ids[:, :1] == torch.arange(E, device=top_ids.device)
+    ce = first.float().mean(dim=0)
     aux = E * (me * ce).sum()
     return top_p, top_ids, aux
 

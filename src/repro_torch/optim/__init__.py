@@ -1,7 +1,10 @@
-"""Optimisers and schedules (``repro.optim`` counterpart).  The schedules
-are ported; ``sgd`` and ``adamw`` come with the launch path (ROADMAP A13,
-A15)."""
+"""Optimisers and schedules (``repro.optim`` counterpart)."""
+from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedules import (constant, cosine, lambda_increase,
                                          step_decay)
+from repro_torch.optim.sgd import (SGDState, apply_updates, sgd_init,
+                                   sgd_update)
 
-__all__ = ["constant", "cosine", "lambda_increase", "step_decay"]
+__all__ = ["AdamWState", "SGDState", "adamw_init", "adamw_update",
+           "apply_updates", "constant", "cosine", "lambda_increase",
+           "sgd_init", "sgd_update", "step_decay"]

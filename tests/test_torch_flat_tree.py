@@ -34,7 +34,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
 CONFIGS = {"llama3-8b": dict(n_heads=4, n_kv_heads=2, head_dim=32),
-           "gemma-2b": {}, "qwen1.5-32b": {}}
+           "gemma-2b": {}, "qwen1.5-32b": {}, "granite-moe-1b-a400m": {},
+           "deepseek-v2-lite-16b": {}, "gemma3-12b": {}, "xlstm-125m": {}}
 GRAD_TOL = 1e-6
 
 
@@ -77,6 +78,32 @@ def test_lm_spec_matches_reference(name):
     views = flat.view_tree(got, buf)
     assert views["embed"].data_ptr() == buf.data_ptr() + \
         got.offsets[got.paths.index(("embed",))] * 4
+
+
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "xlstm-125m"])
+def test_bf16_spec_keeps_float32_leaves(name):
+    """A bfloat16 model over a float32 master: the MoE router and xLSTM's
+    gate weights, biases and sLSTM leaves stay float32 leaves in the view
+    table, as in the reference's, and their views read the master's
+    float32 values bit for bit."""
+    cfg, _ = _configs(name)
+    params = JM.init_params(jax.random.PRNGKey(0),
+                            dataclasses.replace(cfg, dtype="bfloat16"))
+    want = jflat.make_flat_spec(params, master_dtype="float32")
+    tparams = lm_params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    got = flat.make_flat_spec(tparams, master_dtype="float32")
+    assert got.dtype == torch.float32
+    assert [str(d).replace("torch.", "") for d in got.dtypes] \
+        == [str(d) for d in want.dtypes]
+    assert torch.float32 in got.dtypes and torch.bfloat16 in got.dtypes
+    assert got.offsets == want.offsets and (got.n, got.p) == (want.n, want.p)
+    buf = flat.ravel(got, tparams)
+    np.testing.assert_array_equal(buf.numpy(),
+                                  np.asarray(jflat.ravel(want, params)))
+    for (path, v), (_, t) in zip(flat._leaves(flat.view_tree(got, buf)),
+                                 flat._leaves(tparams)):
+        assert v.dtype == t.dtype and torch.equal(v, t), path
 
 
 def test_lists_and_tuples_are_containers():

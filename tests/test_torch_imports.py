@@ -45,7 +45,8 @@ def test_scan_covers_every_slice():
                 "examples/failure_scenarios.py", "serving/personalized.py",
                 "benchmarks/serving_bench.py",
                 "examples/personalized_serving.py", "models/moe.py",
-                "models/xlstm.py", "examples/serve_batched.py"):
+                "models/xlstm.py", "examples/serve_batched.py",
+                "optim/sgd.py", "optim/adamw.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
