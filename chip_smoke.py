@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-one phases, each printing JSON lines; any failure exits non-zero.
+Twenty-two phases, each printing JSON lines; any failure exits non-zero.
 
 1. env/build — the card, its power limit, the torch and CUDA versions; TF32
    off for matmuls and convolutions; the CUDA kernels built with nvcc from
@@ -57,13 +57,14 @@ Twenty-one phases, each printing JSON lines; any failure exits non-zero.
    CUDA-graph replay, with the bound (float32: at a third of the TF32
    tensor-core peak, and at the SIMT peak beside it; its tensor-core work
    as ``mma_ops``) and the time of ``scaled_dot_product_attention`` as a
-   yardstick (the port never calls it).  Then phases 19's and 20's
+   yardstick (the port never calls it).  Then phases 19's, 20's and 22's
    prefill instances (``ATTN_SERVE_SHAPES``), checked in both dtypes and
    timed in bfloat16 beside SDPA (under gemma3's window with the window as
    an explicit mask): deepseek-v2-lite's MLA at Dqk 192 / Dv 128,
    granite's GQA at head dim 64, gemma3-12b's local layers at S = 2048,
    window 1024; musicgen-medium's MHA (24 heads of 64) and qwen2-vl-2b's
-   GQA 12 / 2 at head dim 128, each at 4 × 512.  Then phase 21's
+   GQA 12 / 2 at head dim 128, each at 4 × 512; qwen1.5-32b's MHA (40
+   heads of 128) at 4 × 512.  Then phase 21's
    training instances (``ATTN_TRAIN_SHAPES``, the client axis folded into
    B), checked in both dtypes and timed in the dtype phase 21 runs them:
    granite's f32 step (4, 128, 16, 8, 64), MLA's bf16 step (2, 256, 16,
@@ -384,9 +385,24 @@ Twenty-one phases, each printing JSON lines; any failure exits non-zero.
    on the card against the CPU by phase 8's rule, with CPU reruns that
    change only rounding drawn until the card is covered.
 
+22. the launch layer's serving steps on a torch.distributed mesh — a
+   one-rank group (gloo and NCCL on a ``HashStore``) and a ``(1, 1)``
+   ("data", "model") ``DeviceMesh`` on the card; qwen1.5-32b uncut in
+   bfloat16 (70.4 GB of weights made on the card from a seed) placed by
+   ``serve_specs`` as DTensors without a copy (the peak after placement
+   within PLACE_SLACK of the weights), 4 × 512 tokens through
+   ``build_prefill`` into caches of 1024 slots, then 16 greedy steps
+   through ``build_decode``: prefill ms, ms a step, tokens/s, the peak,
+   the device's busy share of 4 profiled steps; exactly 64 B6 launches a
+   prefill and none a step; decode against a no-cache forward within
+   BF16_LOGIT_*; the prefill's logits against the plain
+   ``serve_prefill`` on the same weights; a float32 cut (1 of 64 layers
+   at full width, 2 × 128, 8 steps) on the card's mesh against a CPU
+   mesh of the same group by phase 6's rule.
+
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
-instances timed on phase 16's path and on phases 19's and 20's five
+instances timed on phase 16's path and on phases 19's, 20's and 22's six
 models' (their launches), phase 21's training instances of B6 and B7
 (granite's f32, MLA's and gemma3's bf16, with their runs' launches), and
 the four SSD backward kernels, which
@@ -482,13 +498,15 @@ ATTN_TIMED = [ATTN_PATH_SHAPE, (1, 4096, 32, 8, 128, 0),
 # granite-moe's GQA 16 / 8 at head dim 64 there, gemma3-12b's local layers
 # at a 2048-token prefill (GQA 16 / 8, head dim 256, window 1024);
 # musicgen-medium's MHA 24 / 24 at head dim 64 and qwen2-vl-2b's GQA 12 / 2
-# (a group of 6) at head dim 128, each at phase 20's 4 × 512 prefill; the
-# kernels line names them by model
+# (a group of 6) at head dim 128, each at phase 20's 4 × 512 prefill;
+# qwen1.5-32b's MHA 40 / 40 at head dim 128 at phase 22's 4 × 512 prefill;
+# the kernels line names them by model
 ATTN_SERVE_SHAPES = {"mla_bf16": (1, 256, 16, 16, 192, 128, 0),
                      "granite_bf16": (1, 256, 16, 8, 64, 64, 0),
                      "gemma3_bf16": (1, 2048, 16, 8, 256, 256, 1024),
                      "musicgen_bf16": (4, 512, 24, 24, 64, 64, 0),
-                     "qwen2vl_bf16": (4, 512, 12, 2, 128, 128, 0)}
+                     "qwen2vl_bf16": (4, 512, 12, 2, 128, 128, 0),
+                     "qwen15_bf16": (4, 512, 40, 40, 128, 128, 0)}
 # Phase 21's training instances (B, S, H, Hkv, Dqk, Dv, window) with the
 # client axis folded into B, checked in both dtypes and timed in the dtype
 # phase 21 trains them in: granite-moe's GQA 16 / 8 at head dim 64 (2
@@ -6707,6 +6725,251 @@ def phase_family_training() -> dict:
     return out
 
 
+
+# Phase 22: the launch layer's serving steps (``repro_torch.launch.serve``,
+# ``build_prefill`` / ``build_decode``) on a torch.distributed mesh of one
+# rank: a ``(1, 1)`` ("data", "model") ``DeviceMesh`` over a one-rank group
+# (gloo for the CPU, NCCL for the card, on a ``HashStore``), every tensor a
+# DTensor placed by ``serve_specs`` (all replicated on one rank).
+# qwen1.5-32b uncut in bfloat16 (64 layers, d 5120, MHA 40 / 40 at head
+# dim 128, QKV bias, GLU 27,392, vocab 152,064; 70.4 GB of weights) from
+# seeded weights made on the card: LAUNCH_ROWS × LAUNCH_PROMPT tokens into
+# caches of LAUNCH_CACHE slots (5.37 GB), then LAUNCH_STEPS greedy steps,
+# after a warm-up of the same prefill and two steps.  The float32 cut (1
+# of 64 layers at full width, ≈8.3 GB) on the card's mesh against a
+# ``(1, 1)`` CPU mesh of the same group, within LOGIT_TOL
+LAUNCH_ARCH = "qwen1.5-32b"
+LAUNCH_ROWS, LAUNCH_PROMPT, LAUNCH_CACHE, LAUNCH_STEPS = 4, 512, 1024, 16
+LAUNCH_PROFILED = 4           # decode steps profiled for the busy share
+LAUNCH_CHECK = {"layers": 1, "rows": 2, "prompt": 128, "steps": 8}
+# placing the weights must not copy them: the peak after placement, above
+# what earlier phases still hold, within this of the weights' bytes
+PLACE_SLACK = 1 << 30
+
+
+def _launch_run(cfg, params, tokens: torch.Tensor, steps: int, mesh,
+                cache_len: int, fed=None, profiled: int = 0) -> dict:
+    """``build_prefill`` of ``tokens`` (rows, length) into fresh caches of
+    ``cache_len`` slots, then ``steps`` ``build_decode`` steps, greedy or
+    fed ``fed`` (rows, steps); then ``profiled`` more steps under
+    ``torch.profiler`` on the card for the device's busy share.  Returns
+    the logits of every step (float32, on the CPU), the ids fed, the walls
+    and the kernels' launches in the prefill and in the timed steps."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.round_profile import _busy_us
+    rows, length = tokens.shape
+    on_card = mesh.device_type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    profiled = profiled if on_card else 0
+    prefill, bundle = serve.build_prefill(
+        cfg, ShapeConfig("prefill", cache_len, rows, "prefill"), mesh)
+    decode, _ = serve.build_decode(
+        cfg, ShapeConfig("decode", cache_len, rows, "decode"), mesh)
+    placed = serve.place(params, bundle["param_ps"], mesh)
+    seen, ids, step_s = [], [], []
+    sync()
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(placed, {"tokens": tokens}, model_lib.init_caches(
+        cfg, rows, cache_len, device=mesh.device_type))
+    sync()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = _all_launches()
+    _reset_all_launches()
+    for i in range(steps):
+        whole = logits.full_tensor()[:, -1]
+        _require(bool(torch.isfinite(whole).all()),
+                 f"{cfg.name}: non-finite logits at step {i}")
+        seen.append(whole.float().cpu())
+        tok = whole.argmax(-1) if fed is None else fed[:, i].to(whole.device)
+        ids.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, caches = decode(placed, {"tokens": tok[:, None]}, caches,
+                                length + i)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    decode_launches = _all_launches()
+    whole = logits.full_tensor()[:, -1]
+    _require(bool(torch.isfinite(whole).all()),
+             f"{cfg.name}: non-finite logits after the last step")
+    seen.append(whole.float().cpu())
+    busy = None
+    if profiled:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for j in range(profiled):
+                logits, caches = decode(
+                    placed, {"tokens": whole.argmax(-1)[:, None]}, caches,
+                    length + steps + j)
+                whole = logits.full_tensor()[:, -1]
+            sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            busy = _busy_us([(e.time_range.start, e.time_range.end)
+                             for e in kernels]) / wall_us
+    return {"logits": torch.stack(seen, 1), "tokens": torch.stack(ids, 1),
+            "prefill_s": prefill_s, "step_s": step_s,
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches, "busy_share": busy}
+
+
+def _launch_vs_cpu(mesh, cpu_mesh) -> dict:
+    """The float32 cut served through the launch steps on the card's mesh,
+    then on the CPU mesh teacher-forced with the card's ids: logits within
+    LOGIT_TOL, each id the CPU's argmax wherever its margin exceeds
+    2·LOGIT_TOL (phase 6's rule)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_map
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(get_arch(LAUNCH_ARCH),
+                              n_layers=LAUNCH_CHECK["layers"])
+    params = model_lib.init_params(
+        torch.Generator(device=DEVICE).manual_seed(2), cfg)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    rows, length, steps = (LAUNCH_CHECK[k] for k in ("rows", "prompt",
+                                                     "steps"))
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab, (rows, length)))
+    card = _launch_run(cfg, params, tokens.to(DEVICE), steps, mesh,
+                       length + steps)
+    t0 = time.perf_counter()
+    host = _launch_run(cfg, cpu_params, tokens, steps, cpu_mesh,
+                       length + steps, fed=card["tokens"])
+    cpu_s = time.perf_counter() - t0
+    err = float((card["logits"] - host["logits"]).abs().max())
+    _require(err <= LOGIT_TOL,
+             f"{LAUNCH_ARCH} float32 cut: card logits differ from the "
+             f"CPU's by {err} > {LOGIT_TOL}")
+    ref = host["logits"][:, :-1]
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_TOL
+    _require(torch.equal(card["tokens"][clear], ref.argmax(-1)[clear]),
+             f"{LAUNCH_ARCH} float32 cut: a served id differs from the "
+             f"CPU's argmax where its margin exceeds {2 * LOGIT_TOL}")
+    out = {"model": LAUNCH_ARCH, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "rows": rows, "prompt_len": length,
+           "decode_steps": steps, "max_abs_logit_err": err,
+           "tol": LOGIT_TOL, "logit_std": float(host["logits"].std()),
+           "ids_checked": int(clear.sum()),
+           "near_ties": int((~clear).sum()),
+           "card_prefill_launches": {k: n for k, n in
+                                     card["prefill_launches"].items() if n},
+           "cpu_s": cpu_s}
+    del params, cpu_params
+    return out
+
+
+def phase_launch_serving() -> dict:
+    """Phase 22.  Returns the timing run's attention launches by the
+    kernels line's name."""
+    import torch.distributed as tdist
+    from repro_torch import dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import serve, specs as specs_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as model_lib
+    _free()
+    # what earlier phases still hold; the placement check reads above it
+    held = torch.cuda.memory_allocated()
+    tdist.init_process_group(backend="cpu:gloo,cuda:nccl",
+                             store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        cfg = dataclasses.replace(get_arch(LAUNCH_ARCH), dtype="bfloat16")
+        t0 = time.perf_counter()
+        params = model_lib.init_params(
+            torch.Generator(device=DEVICE).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        leaves = tree_leaves(params)
+        param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        torch.cuda.reset_peak_memory_stats()
+        bundle = specs_lib.serve_specs(cfg, ShapeConfig(
+            "prefill", LAUNCH_CACHE, LAUNCH_ROWS, "prefill"), mesh,
+            kind="prefill")
+        placed = serve.place(params, bundle["param_ps"], mesh)
+        torch.cuda.synchronize()
+        placed_peak = torch.cuda.max_memory_allocated() - held
+        shared = all(a.to_local().data_ptr() == b.data_ptr() for a, b in
+                     zip(tree_leaves(placed), leaves))
+        _require(shared and placed_peak <= param_bytes + PLACE_SLACK,
+                 f"placing {LAUNCH_ARCH}'s weights copied them: peak "
+                 f"{placed_peak} B for {param_bytes} B of weights, storage "
+                 f"shared: {shared}")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            1, cfg.vocab, (LAUNCH_ROWS, LAUNCH_PROMPT))).to(DEVICE)
+        _launch_run(cfg, placed, tokens, 2, mesh, LAUNCH_CACHE)   # warm-up
+        _free()
+        run = _launch_run(cfg, placed, tokens, LAUNCH_STEPS, mesh,
+                          LAUNCH_CACHE, profiled=LAUNCH_PROFILED)
+        peak = torch.cuda.max_memory_allocated()
+        want = {key: 0 for key in run["prefill_launches"]}
+        want["flash_attention_fwd"] = cfg.n_layers
+        _require(run["prefill_launches"] == want
+                 and not any(run["decode_launches"].values()),
+                 f"{LAUNCH_ARCH}: prefill launches "
+                 f"{run['prefill_launches']} (expected {cfg.n_layers} "
+                 f"attention launches, nothing else), decode "
+                 f"{run['decode_launches']} (expected none)")
+        decode_s = float(np.sum(run["step_s"]))
+        stats = {"phase": "launch_serving", "card": _card_line(),
+                 "model": LAUNCH_ARCH,
+                 "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+                 "mesh": dist.view(mesh).shape, "world": tdist.get_world_size(),
+                 "params": sum(t.numel() for t in leaves),
+                 "param_bytes": param_bytes, "init_s": init_s,
+                 "held_before_bytes": held,
+                 "placed_peak_bytes": placed_peak,
+                 "rows": LAUNCH_ROWS, "prompt_len": LAUNCH_PROMPT,
+                 "cache_len": LAUNCH_CACHE, "decode_steps": LAUNCH_STEPS,
+                 "prefill_ms": run["prefill_s"] * 1e3,
+                 "prefill_tokens_per_s": LAUNCH_ROWS * LAUNCH_PROMPT
+                 / run["prefill_s"],
+                 "decode_ms_per_step": decode_s / LAUNCH_STEPS * 1e3,
+                 "decode_ms_per_step_p50": float(np.median(run["step_s"]))
+                 * 1e3,
+                 "decode_tokens_per_s": LAUNCH_ROWS * LAUNCH_STEPS / decode_s,
+                 "decode_weight_bound_ms": param_bytes / HBM_BYTES_PER_S
+                 * 1e3,
+                 "decode_busy_share": run["busy_share"],
+                 "flash_launches_prefill": run["prefill_launches"][
+                     "flash_attention_fwd"],
+                 "peak_memory_bytes": peak}
+        # (f) the mesh's prefill against the plain serve_prefill
+        with torch.inference_mode():
+            plain, _ = model_lib.serve_prefill(params, {"tokens": tokens},
+                                               cfg)
+        plain = plain[:, -1].float().cpu()
+        stats["mesh_vs_plain_equal"] = bool(torch.equal(
+            run["logits"][:, 0], plain))
+        if not stats["mesh_vs_plain_equal"]:
+            stats["mesh_vs_plain"] = _gap_check(
+                f"{LAUNCH_ARCH}: the mesh's prefill against serve_prefill",
+                _logit_gaps(run["logits"][:, 0], plain))
+        # (e) decode against a no-cache forward of the same ids
+        stats["decode_vs_no_cache"] = _gap_check(
+            f"{LAUNCH_ARCH}: decode against a no-cache forward",
+            _decode_vs_forward(cfg, params, {"tokens": tokens}, run))
+        stats["tol"] = [BF16_LOGIT_MEDIAN_RTOL, BF16_LOGIT_RTOL]
+        _emit(stats)
+        del params, placed, leaves, run, plain
+        _free()
+        _emit({"phase": "launch_serving_vs_cpu", **_launch_vs_cpu(
+            mesh, make_local_mesh(1, 1, device_type="cpu"))})
+        _free()
+    finally:
+        dist.unset_mesh()
+        tdist.destroy_process_group()
+    return {"flash_attention_fwd_qwen15_bf16": stats[
+        "flash_launches_prefill"]}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6768,6 +7031,7 @@ def main() -> int:
     launches.update(timed("moe_mla_window", phase_moe_mla_window))
     launches.update(timed("direct_serving", phase_direct_serving))
     launches.update(timed("family_training", phase_family_training))
+    launches.update(timed("launch_serving", phase_launch_serving))
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -6799,7 +7063,8 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:113"),
         "flash_attention_bwd_dq_bf16": (bwd_src, bwd_rep + "150"),
         "flash_attention_bwd_dkv_bf16": (bwd_src, bwd_rep + "178"),
-        # the bfloat16 instances on phases 19's and 20's serving paths, each
+        # the bfloat16 instances on phases 19's, 20's and 22's serving paths,
+        # each
         # timed at its model's largest prefill (ATTN_SERVE_SHAPES)
         **{f"flash_attention_fwd_{name}": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",

@@ -82,23 +82,47 @@ def _read(path: str) -> dict:
     return _msgpack.unpackb(data)
 
 
-def _tensor(rec: dict, device: torch.device) -> torch.Tensor:
-    """The saved leaf as a tensor on ``device``: the bytes go to the
-    device once, from the file's buffer."""
+def _host(rec: dict) -> torch.Tensor:
+    """The saved leaf as a CPU tensor over the file's buffer (no copy)."""
     name = rec["dtype"]
     if name not in _DTYPES:
         raise TypeError(f"cannot restore dtype {name!r}")
-    out = torch.empty(tuple(rec["shape"]), dtype=_DTYPES[name],
-                      device=device)
+    dtype, shape = _DTYPES[name], tuple(rec["shape"])
+    nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype
+                                               ).element_size()
     data = rec["data"]
-    nbytes = out.numel() * out.element_size()
     if len(data) != nbytes:
         raise ValueError(f"{len(data)} bytes for a {name} leaf of shape "
-                         f"{tuple(rec['shape'])}")
-    if nbytes:
-        out.reshape(-1).view(torch.uint8).copy_(
-            torch.frombuffer(data, dtype=torch.uint8))
-    return out
+                         f"{shape}")
+    if not nbytes:
+        return torch.empty(shape, dtype=dtype)
+    return torch.frombuffer(data, dtype=torch.uint8).view(dtype).reshape(
+        shape)
+
+
+def _sharded(rec: dict, key: str, sharding_fn: Callable, device: Device):
+    """The leaf as a DTensor where ``sharding_fn(key, array)`` gives a
+    ``(mesh, placements)``: each rank cuts its own shard from the file's
+    array and moves only that to the mesh's device (``device`` where
+    given), so no rank builds a whole device copy.  ``None`` if the
+    function gives ``None``."""
+    from repro_torch import dist
+    full = _host(rec)
+    target = sharding_fn(key, full)
+    if target is None:
+        return None
+    mesh, pl = target
+    dev = torch.device(device if device is not None else mesh.device_type)
+    local = dist.shard_of(full, mesh, pl).contiguous().to(dev)
+    return dist.as_dtensor(local, mesh, tuple(pl), full.shape)
+
+
+def _tensor(rec: dict, device: torch.device) -> torch.Tensor:
+    """The saved leaf as a tensor of its own on ``device``: the bytes go
+    to the device once, from the file's buffer."""
+    host = _host(rec)
+    return torch.empty(host.shape, dtype=host.dtype,
+                       device=device).copy_(host)
 
 
 def _unflatten(like: PyTree, leaves: dict, path: tuple = ()) -> PyTree:
@@ -119,11 +143,13 @@ def load(path: str, like: PyTree, device: Device = None,
     """Restore into the structure of ``like``: each leaf on its ``like``
     leaf's device (a tensor's; the CPU for other leaves), or on ``device``
     where given, with the saved dtype.  Raises ``KeyError`` on a missing
-    leaf and ``ValueError`` on a shape mismatch, as the reference does."""
-    if sharding_fn is not None:
-        raise NotImplementedError(
-            "the PyTorch port restores on one card: sharding_fn (a sharded "
-            "restore across devices) is ROADMAP A15")
+    leaf and ``ValueError`` on a shape mismatch, as the reference does.
+
+    ``sharding_fn(key, array) -> (mesh, placements) | None`` restores a
+    leaf straight onto a ``DeviceMesh`` as a DTensor: ``array`` is the
+    file's leaf as a CPU tensor over the file's bytes, and each rank moves
+    only its own shard to the device (the reference's sharded restore);
+    ``None`` restores that leaf as above."""
     payload = _read(path)
     leaves = {}
     for key, proto in _flatten(like):
@@ -136,6 +162,11 @@ def load(path: str, like: PyTree, device: Device = None,
         if shape != proto_shape:
             raise ValueError(f"shape mismatch at {key}: "
                              f"{shape} vs {proto_shape}")
+        if sharding_fn is not None:
+            leaf = _sharded(rec, key, sharding_fn, device)
+            if leaf is not None:
+                leaves[key] = leaf
+                continue
         dev = (torch.device(device) if device is not None
                else proto.device if isinstance(proto, torch.Tensor)
                else torch.device("cpu"))

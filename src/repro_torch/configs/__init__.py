@@ -1,6 +1,6 @@
 from repro_torch.configs.base import (FedConfig, MLAConfig, MoEConfig,
-                                      ModelConfig, SSMConfig, XLSTMConfig,
-                                      reduced)
+                                      ModelConfig, SSMConfig, ShapeConfig,
+                                      XLSTMConfig, reduced)
 
 __all__ = ["FedConfig", "MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig",
-           "XLSTMConfig", "reduced"]
+           "ShapeConfig", "XLSTMConfig", "reduced"]

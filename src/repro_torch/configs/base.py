@@ -208,6 +208,16 @@ class ModelConfig:
         return dense_like + self.n_layers * (m.top_k + m.n_shared_experts) * per
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the launch layer (``configs/shapes.py``): the
+    sequence length, the global batch and the step kind."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
 def __getattr__(name: str):
     """``SCENARIOS`` and ``DEFENSES``: the registries themselves
     (fed/scenarios.py, core/robust.py), imported on first use — they live

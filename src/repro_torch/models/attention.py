@@ -13,7 +13,16 @@ computes it outside any kernel.
 
 Cache updates are functional, as in the reference: ``attention`` returns a
 new cache dict and never writes the one it was given.  The reference's
-``dist.constrain`` sharding hints are dropped (one device; ROADMAP A15).
+``dist.constrain`` sharding hints stand at the reference's sites; they do
+nothing without a mesh.  Under a mesh (``launch/serve.py``) the tensors are
+DTensors, and three ops run on each rank's shard in explicit regions: the
+flash kernel, which has no DTensor rule, on the local heads and batch rows
+(``_flash_sharded``); the cache write, a scatter without one, on the
+local rows, heads and ring slots (``_cache_insert_sharded``: a
+sequence-sharded cache, the ``long`` kind's, takes only the tokens whose
+slots it holds); and decode attention on the local rows and kv heads
+(``_decode_sharded``), its softmax combined across a sharded sequence by
+all-reduces, as DTensor's einsum rules differ between torch releases.
 ``cfg.remat`` is not honoured: the port keeps each layer's activations for
 the backward (small at the training path's sizes), and
 ``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``, which
@@ -33,7 +42,9 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import dist
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
 
@@ -195,28 +206,132 @@ def full_attention(q, k, v, q_pos, *, window: int = 0, is_global=True,
         q_pos = q_pos[0]        # so any row's positions give the same mask
     win = 0 if (is_global is True or not window) else window
     if isinstance(is_global, bool) and logit_cap == 0.0:
+        if dist.is_dtensor(q):
+            return _flash_sharded(q, k, v, win)
         return fa_ops.flash_attention_diff(q, k, v, causal=True, window=win,
                                            scale=q.shape[-1] ** -0.5)
     return blocked_attention(q, k, v, q_pos, q_pos, window=window,
                              is_global=is_global, logit_cap=logit_cap)
 
 
+def _flash_sharded(q, k, v, window: int):
+    """The flash kernel on each rank's shard of DTensors q (B, S, H, Dqk),
+    k (B, S, Hkv, Dqk), v (B, S, Hkv, Dv): the kernel has no DTensor rule,
+    so it runs on the local batch rows and query heads, with the kv heads
+    those query heads read (a group of H / Hkv query heads a kv head).  k
+    and v take q's batch sharding; a kv head sharding that does not line
+    up with q's (GQA on a mesh wider than Hkv: replicated by the
+    constrain's drop rule) is sliced locally.  The sequence and head dims
+    must be whole on every rank (``constrain`` puts heads on ``mp``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    if any(p.is_shard() and p.dim not in (0, 2) for p in pl) or any(
+            p.is_partial() for p in pl):
+        raise NotImplementedError(
+            f"flash attention under a mesh shards batch and heads only; "
+            f"q has placements {pl}")
+    B, S, H, _ = q.shape
+    Hkv = k.shape[2]
+    g = H // Hkv
+    h0, hl = dist.local_offset(mesh, pl, q.shape, 2)
+    lo, hi = h0 // g, (h0 + hl - 1) // g + 1
+    kv_pl = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+                  for p in pl)
+    if hl % g == 0:
+        # whole kv heads a rank: k and v shard their heads as q does, and
+        # this rank's shard is kv heads [lo, hi)
+        kv_pl = tuple(Shard(2) if p.is_shard() and p.dim == 2 else kp
+                      for p, kp in zip(pl, kv_pl))
+        k_loc = k.redistribute(mesh, kv_pl).to_local()
+        v_loc = v.redistribute(mesh, kv_pl).to_local()
+    else:
+        # ranks share a kv head: each slices the one its query heads read
+        k_loc = k.redistribute(mesh, kv_pl).to_local()[:, :, lo:hi]
+        v_loc = v.redistribute(mesh, kv_pl).to_local()[:, :, lo:hi]
+    o = fa_ops.flash_attention_diff(q.to_local(), k_loc, v_loc, causal=True,
+                                    window=window,
+                                    scale=q.shape[-1] ** -0.5)
+    return dist.as_dtensor(o, mesh, pl, (B, S, H, v.shape[-1]))
+
+
+def _decode_scores(q, k, q_pos, kv_pos, window, is_global, logit_cap):
+    """Masked float32 scores (B, Hkv, g, S) of one query against the
+    cache."""
+    B, _, H, D = q.shape
+    Hkv = k.shape[2]
+    qr = q.reshape(B, Hkv, H // Hkv, D).float() * D ** -0.5
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k.float())
+    s = softcap(s, logit_cap)
+    m = _mask_rows(q_pos, kv_pos, window, is_global)        # (B, S)
+    return torch.where(m[:, None, None, :], s, NEG_INF)
+
+
 def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
                      is_global=True, logit_cap: float = 0.0) -> torch.Tensor:
     """Single-position attention against the cache.  q (B, 1, H, D); k, v
     (B, S, Hkv, D); q_pos (B,); kv_pos (B, S)."""
-    B, _, H, D = q.shape
-    Hkv = k.shape[2]
-    g = H // Hkv
-    scale = D ** -0.5
-    qr = q.reshape(B, Hkv, g, D).float() * scale
-    s = torch.einsum("bhgd,bkhd->bhgk", qr, k.float())
-    s = softcap(s, logit_cap)
-    m = _mask_rows(q_pos, kv_pos, window, is_global)        # (B, S)
-    s = torch.where(m[:, None, None, :], s, NEG_INF)
+    if dist.is_dtensor(k):
+        return _decode_sharded(q, k, v, q_pos, kv_pos, window, is_global,
+                               logit_cap)
+    B, _, H, _ = q.shape
+    s = _decode_scores(q, k, q_pos, kv_pos, window, is_global, logit_cap)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     return o.reshape(B, 1, H, v.shape[-1]).to(q.dtype)
+
+
+def _whole(t) -> torch.Tensor:
+    return t.full_tensor() if dist.is_dtensor(t) else t
+
+
+def _decode_sharded(q, k, v, q_pos, kv_pos, window, is_global, logit_cap):
+    """``decode_attention`` on each rank's shard of the DTensor cache k, v
+    (B, S, Hkv, D): its batch rows, kv heads and ring slots.  q takes k's
+    batch and head sharding (the query heads of the local kv heads), the
+    positions their local rows and slots.  Where the cache's sequence is
+    whole on a rank this is the plain function on the local rows and
+    heads; where it is sharded (the ``long`` kind) each rank scores its
+    own slots and the softmax is combined across the sequence's mesh dims
+    by three all-reduces (the rows' max, the exponentials' sum, the
+    weighted values' sum).  The result takes q's placements, the sequence's
+    mesh dims replicated."""
+    import torch.distributed as tdist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = k.device_mesh, tuple(k.placements)
+    if any(p.is_partial() or (p.is_shard() and p.dim == 3) for p in pl):
+        raise NotImplementedError(
+            f"decode attention under a mesh shards batch, sequence and kv "
+            f"heads only; the cache has placements {pl}")
+    v = v.redistribute(mesh, pl)
+    q_pl = tuple(Shard(p.dim) if p.is_shard() and p.dim in (0, 2)
+                 else Replicate() for p in pl)
+    q = dist.as_dtensor(q, mesh, (Replicate(),) * mesh.ndim).redistribute(
+        mesh, q_pl)
+    b0, bn = dist.local_offset(mesh, pl, k.shape, 0)
+    s0, sn = dist.local_offset(mesh, pl, k.shape, 1)
+    q_pos = _whole(q_pos)[b0:b0 + bn]
+    kv_pos = _whole(kv_pos)[b0:b0 + bn, s0:s0 + sn]
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    B, _, H, _ = ql.shape
+    seq = [i for i, p in enumerate(pl) if p.is_shard() and p.dim == 1]
+    if not seq:
+        o = decode_attention(ql, kl, vl, q_pos, kv_pos, window=window,
+                             is_global=is_global, logit_cap=logit_cap)
+    else:
+        s = _decode_scores(ql, kl, q_pos, kv_pos, window, is_global,
+                           logit_cap)
+        m = s.amax(dim=-1, keepdim=True)
+        for i in seq:
+            tdist.all_reduce(m, tdist.ReduceOp.MAX, group=mesh.get_group(i))
+        e = torch.exp(s - m)
+        total = e.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgk,bkhd->bhgd", e, vl.float())
+        for i in seq:
+            tdist.all_reduce(total, group=mesh.get_group(i))
+            tdist.all_reduce(o, group=mesh.get_group(i))
+        o = (o / total).reshape(B, 1, H, vl.shape[-1]).to(ql.dtype)
+    return dist.as_dtensor(o, mesh, q_pl, tuple(q.shape[:3]) + (
+        v.shape[-1],))
 
 
 def _ring_slots(start: torch.Tensor, S: int, size: int) -> torch.Tensor:
@@ -229,6 +344,8 @@ def _cache_insert(buf: torch.Tensor, new: torch.Tensor,
     """A copy of ``buf`` (B, size, …) with ``new`` (B, S, …) written at the
     per-row ring slots ``(start[b] + arange(S)) % size``.  A write that
     covers the whole ring (S ≥ size) keeps the last ``size`` tokens."""
+    if dist.is_dtensor(buf):
+        return _cache_insert_sharded(buf, new, start)
     B, size = buf.shape[0], buf.shape[1]
     S = new.shape[1]
     rows = torch.arange(B, device=buf.device)[:, None]
@@ -244,6 +361,39 @@ def _cache_insert(buf: torch.Tensor, new: torch.Tensor,
     return out
 
 
+def _cache_insert_sharded(buf, new, start):
+    """``_cache_insert`` on each rank's shard of the DTensor ``buf``: the
+    scatter has no DTensor rule.  ``new`` takes ``buf``'s placements with
+    its sequence (the in-flight tokens) whole, ``start`` ``buf``'s batch
+    sharding; a rank whose shard of ``buf`` holds ring slots [lo, lo + n)
+    writes the tokens that land there, at slot − lo."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    new_pl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+                   for p in pl)
+    start_pl = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+                     for p in pl)
+    new = dist.as_dtensor(new, mesh, (Replicate(),) * mesh.ndim
+                          ).redistribute(mesh, new_pl).to_local()
+    start = dist.as_dtensor(start, mesh, (Replicate(),) * mesh.ndim
+                            ).redistribute(mesh, start_pl).to_local()
+    lo, n = dist.local_offset(mesh, pl, buf.shape, 1)
+    size, S = buf.shape[1], new.shape[1]
+    local = buf.to_local()
+    rows = torch.arange(local.shape[0], device=local.device)[:, None]
+    if S >= size:
+        slots = lo + torch.arange(n, device=local.device)[None]
+        idx = (slots - start[:, None].long() - S) % size
+        out = new[:, -size:][rows, idx].to(local.dtype)
+    else:
+        slots = _ring_slots(start, S, size)                  # (B, S)
+        keep = (slots >= lo) & (slots < lo + n)
+        out = local.clone()
+        out[rows.expand_as(slots)[keep], slots[keep] - lo] = new[keep].to(
+            local.dtype)
+    return dist.as_dtensor(out, mesh, pl, buf.shape)
+
+
 def _pos_insert(pos: torch.Tensor, q_pos: torch.Tensor,
                 start: torch.Tensor) -> torch.Tensor:
     """pos (B, size); q_pos (B, S) absolute positions; start (B,)."""
@@ -257,11 +407,11 @@ def _pos_insert(pos: torch.Tensor, q_pos: torch.Tensor,
 
 def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
               angles: torch.Tensor, q_pos: torch.Tensor, is_global=True,
-              cache: Optional[Params] = None
+              cache: Optional[Params] = None, seq_shard: bool = False
               ) -> tuple[torch.Tensor, Optional[Params]]:
     if cfg.mla is not None:
         return mla_attention(params, x, cfg, angles=angles, q_pos=q_pos,
-                             cache=cache)
+                             cache=cache, seq_shard=seq_shard)
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = x @ params["wq"]
@@ -272,6 +422,10 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q.reshape(B, S, H, hd), angles)
     k = apply_rope(k.reshape(B, S, Hkv, hd), angles)
     v = v.reshape(B, S, Hkv, hd)
+    # constrain drops any axis that does not divide: kv heads stay
+    # replicated on meshes wider than Hkv
+    q = constrain(q, "dp", None, "mp", None)
+    k = constrain(k, "dp", None, "mp", None)
 
     window = cfg.sliding_window
     if cache is None:
@@ -296,10 +450,15 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                                  is_global=is_global,
                                  logit_cap=cfg.attn_logit_softcap)
         else:
-            out = decode_attention(q, new_cache["k"], new_cache["v"],
-                                   q_pos_rows[:, 0], new_cache["pos"],
-                                   window=window, is_global=is_global,
+            kc, vc = new_cache["k"], new_cache["v"]
+            if seq_shard:
+                kc = constrain(kc, "dp", "sp", None, None)
+                vc = constrain(vc, "dp", "sp", None, None)
+            out = decode_attention(q, kc, vc, q_pos_rows[:, 0],
+                                   new_cache["pos"], window=window,
+                                   is_global=is_global,
                                    logit_cap=cfg.attn_logit_softcap)
+    out = constrain(out, "dp", None, "mp", None)
     y = out.reshape(B, S, H * hd) @ params["wo"]
     return y, new_cache
 
@@ -310,7 +469,8 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
 def mla_decode_absorbed(params: Params, cfg: ModelConfig,
                         q_nope: torch.Tensor, q_rope: torch.Tensor,
-                        cache: Params, q_pos: torch.Tensor) -> torch.Tensor:
+                        cache: Params, q_pos: torch.Tensor, *,
+                        seq_shard: bool = False) -> torch.Tensor:
     """Weight-absorbed MLA decode: scores and outputs in the
     ``kv_lora_rank``-dimensional latent space,
 
@@ -336,9 +496,12 @@ def mla_decode_absorbed(params: Params, cfg: ModelConfig,
     B = q_nope.shape[0]
     w_up = params["w_kv_up"].reshape(m.kv_lora_rank, H, dn + dv).float()
     w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
-    cd = cache["ckv"].dtype
-    ckv = cache["ckv"].float()                               # (B, S, r)
-    krope = cache["krope"].float()                           # (B, S, dr)
+    ckv, krope = cache["ckv"], cache["krope"]
+    if seq_shard:
+        ckv = constrain(ckv, "dp", "sp", None)
+        krope = constrain(krope, "dp", "sp", None)
+    cd = ckv.dtype
+    ckv, krope = ckv.float(), krope.float()                  # (B, S, r/dr)
     scale = (dn + dr) ** -0.5
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk)
     s = (torch.einsum("bhr,bsr->bhs", q_abs.to(cd).float(), ckv)
@@ -354,7 +517,7 @@ def mla_decode_absorbed(params: Params, cfg: ModelConfig,
 
 def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   angles: torch.Tensor, q_pos: torch.Tensor,
-                  cache: Optional[Params] = None
+                  cache: Optional[Params] = None, seq_shard: bool = False
                   ) -> tuple[torch.Tensor, Optional[Params]]:
     """Multi-head latent attention.  The rope part of q and of the shared
     key takes the first ``dr / 2`` frequencies of the table built for the
@@ -377,14 +540,17 @@ def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         up = (ckv_seq @ params["w_kv_up"]).reshape(B, -1, H, dn + dv)
         return up[..., :dn], up[..., dn:]
 
-    def in_flight() -> torch.Tensor:
+    def in_flight(constrained: bool = False) -> torch.Tensor:
         k_nope, v = expand(ckv)
         k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
-        return full_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                              q_pos, logit_cap=cfg.attn_logit_softcap)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        if constrained:                 # the reference's training path
+            qq = constrain(qq, "dp", None, "mp", None)
+        return full_attention(qq, k, v, q_pos,
+                              logit_cap=cfg.attn_logit_softcap)
 
     if cache is None:
-        out, new_cache = in_flight(), None
+        out, new_cache = in_flight(constrained=True), None
     else:
         slot = cache["idx"]                          # (B,)
         q_pos_rows = (q_pos if q_pos.dim() == 2
@@ -401,7 +567,10 @@ def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             out = in_flight()
         elif not m.absorb:
             # the naive decode: the whole cache up-projected every token
-            k_nope, v = expand(new_cache["ckv"])
+            ckv_c = new_cache["ckv"]
+            if seq_shard:
+                ckv_c = constrain(ckv_c, "dp", "sp", None)
+            k_nope, v = expand(ckv_c)
             size = k_nope.shape[1]
             k = torch.cat([k_nope, new_cache["krope"][:, :, None].expand(
                 B, size, H, dr)], dim=-1)
@@ -411,6 +580,7 @@ def mla_attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             out = mla_decode_absorbed(params, cfg, q_nope[:, 0],
                                       q_rope[:, 0], new_cache,
-                                      q_pos_rows[:, 0])
+                                      q_pos_rows[:, 0], seq_shard=seq_shard)
+    out = constrain(out, "dp", None, "mp", None)
     y = out.reshape(B, S, H * dv) @ params["wo"]
     return y, new_cache

@@ -69,9 +69,10 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_block(params: Params, kind: str, x: torch.Tensor,
                 cfg: ModelConfig, *, angles, q_pos,
-                cache: Optional[Params]
+                cache: Optional[Params], seq_shard: bool = False
                 ) -> tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss).  ``seq_shard``: an attention
+    decode reads its cache sequence-sharded (the ``long`` kind)."""
     _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in MIXERS:
@@ -83,7 +84,7 @@ def apply_block(params: Params, kind: str, x: torch.Tensor,
     is_global = kind != "attn_local" if cfg.sliding_window else True
     a, new_cache = attn_mod.attention(
         params["attn"], h, cfg, angles=angles, q_pos=q_pos,
-        is_global=is_global, cache=cache)
+        is_global=is_global, cache=cache, seq_shard=seq_shard)
     x = x + a
     if cfg.moe is not None:
         h = apply_norm(params["norm2"], x, cfg.norm, cfg.norm_eps)

@@ -23,6 +23,8 @@ def _normal(generator: torch.Generator, shape: tuple[int, ...], std: float,
     """``N(0, std²)`` drawn in float32, one leading index at a time (so a
     large stack never holds a whole float32 copy), cast to ``dtype``."""
     out = torch.empty(lead + shape, dtype=dtype, device=generator.device)
+    if out.is_meta:                  # shapes only (launch.specs)
+        return out
     flat = out.view((math.prod(lead),) + shape)
     for i in range(flat.shape[0]):
         flat[i] = (torch.randn(shape, generator=generator,

@@ -9,8 +9,9 @@ hand-written forward and backward kernels, which read the heads' ``x``
 and the groups' B and C straight out of the convolution's output; under
 the flat round's vmap one launch of each covers every client.  The single-token recurrence
 stays plain torch, as the reference computes it outside any kernel.  The
-reference's ``dist.constrain`` sharding hint is dropped (one device;
-ROADMAP A15).
+reference's ``dist.constrain`` sharding hint stands at its site (nothing
+without a mesh); sharded execution of this family waits for ROADMAP A15's
+training half.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_diff
 from repro_torch.models.layers import _normal, dense_init, rms_norm
 
@@ -130,6 +132,7 @@ def mamba(params: Params, x: torch.Tensor, cfg: ModelConfig,
     xs = xbc[..., :d_in].reshape(B_, S_, nh, P)
     Bm = xbc[..., d_in: d_in + G * N].reshape(B_, S_, G, N)
     Cm = xbc[..., d_in + G * N:].reshape(B_, S_, G, N)
+    xs = constrain(xs, "dp", None, "mp", None)
 
     dt = _softplus(dt_raw.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"])

@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain
 from repro_torch.models.layers import activation, dense_init
 
 
@@ -34,6 +35,7 @@ def mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = activation(x @ params["w_gate"], cfg.act) * h
     else:
         h = activation(h, cfg.act)
+    h = constrain(h, "dp", None, "mp")
     y = h @ params["w_out"]
     if cfg.mlp_bias:
         y = y + params["b_out"]

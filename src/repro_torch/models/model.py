@@ -34,9 +34,11 @@ from __future__ import annotations
 from typing import Any, Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree_util import tree_map
+from repro_torch.dist import constrain
 from repro_torch.device import resolve_device
 from repro_torch.models.blocks import (apply_block, init_block,
                                        init_block_cache)
@@ -159,7 +161,9 @@ def _embed(params: Params, batch: dict, cfg: ModelConfig, pos_offset):
                                      cfg.rope_theta)
     tokens = batch["tokens"]
     B, S = tokens.shape[0], tokens.shape[-1]
-    h = params["embed"][tokens.long()]
+    # a gather, as indexing is; on a vocab-sharded DTensor each rank looks
+    # up its own rows (indexing would gather the whole table first)
+    h = F.embedding(tokens.long(), params["embed"])
     q_pos = _row_positions(B, S, pos_offset, h.device)
     angles = rope_angles(q_pos, cfg.resolved_head_dim, cfg.rope_theta)
     return h, q_pos, angles
@@ -167,14 +171,23 @@ def _embed(params: Params, batch: dict, cfg: ModelConfig, pos_offset):
 
 def forward(params: Params, batch: dict, cfg: ModelConfig, *,
             caches: Optional[list] = None, pos_offset=0,
-            last_only: bool = False
+            seq_shard: bool = False, last_only: bool = False,
+            donate: bool = False
             ) -> tuple[torch.Tensor, Optional[list], torch.Tensor]:
     """Returns (logits, new_caches, aux_loss).  ``last_only`` computes the
-    LM head only for the final position (serving prefill)."""
+    LM head only for the final position (serving prefill); ``seq_shard``
+    reads attention caches sequence-sharded (long decode on a mesh);
+    ``donate`` writes the new caches into ``caches``' own buffers (each
+    layer's after that layer has read its own), so a serving step holds
+    one cache where a functional update holds two."""
     segments, n_groups = group_spec(cfg)
     h, q_pos, angles = _embed(params, batch, cfg, pos_offset)
+    h = constrain(h, "dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    new_layers: list[list] = [[] for _ in segments]
+    # each layer's new cache goes into one stacked buffer a leaf as soon as
+    # the layer returns it (the given cache's own, donated), so no third
+    # cache of per-layer pieces is ever held
+    new_caches = None if caches is None else [{} for _ in segments]
     for g in range(n_groups):
         for si, (kind, count, shared) in enumerate(segments):
             for c in range(count):
@@ -183,18 +196,18 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *,
                 cache = (None if caches is None
                          else tree_map(lambda t: t[g, c], caches[si]))
                 h, nc, a = apply_block(p, kind, h, cfg, angles=angles,
-                                       q_pos=q_pos, cache=cache)
+                                       q_pos=q_pos, cache=cache,
+                                       seq_shard=seq_shard)
                 aux = aux + a
-                new_layers[si].append(nc)
-    new_caches = None
-    if caches is not None:
-        new_caches = []
-        for si, (_kind, count, _shared) in enumerate(segments):
-            layers = new_layers[si]
-            new_caches.append({
-                key: torch.stack([lc[key] for lc in layers]).reshape(
-                    (n_groups, count) + layers[0][key].shape)
-                for key in layers[0]})
+                if new_caches is not None:
+                    out = new_caches[si]
+                    for key, t in nc.items():
+                        if key not in out:
+                            old = caches[si][key]
+                            out[key] = (old if donate and old.dtype == t.dtype
+                                        else torch.empty_like(old,
+                                                              dtype=t.dtype))
+                        out[key][g, c] = t
 
     h = apply_norm(params["final_norm"], h, cfg.norm, cfg.norm_eps)
     if last_only:
@@ -205,6 +218,8 @@ def forward(params: Params, batch: dict, cfg: ModelConfig, *,
         logits = h @ params["embed"].T
     else:
         logits = h @ params["head"]
+    # the audio head's logits (B, S, K, V) keep the codebook axis whole
+    logits = constrain(logits, "dp", *(None,) * (logits.dim() - 2), "mp")
     return logits, new_caches, aux
 
 
@@ -235,15 +250,17 @@ def lm_loss(params: Params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def serve_prefill(params: Params, batch: dict, cfg: ModelConfig,
-                  caches: Optional[list] = None):
+                  caches: Optional[list] = None, donate: bool = False):
     """Fill the KV caches for the prompt, return last-position logits."""
     logits, new_caches, _ = forward(params, batch, cfg, caches=caches,
-                                    last_only=True)
+                                    last_only=True, donate=donate)
     return logits, new_caches
 
 
 def serve_decode(params: Params, batch: dict, caches: list, pos_offset,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, seq_shard: bool = False,
+                 donate: bool = False):
     logits, new_caches, _ = forward(params, batch, cfg, caches=caches,
-                                    pos_offset=pos_offset)
+                                    pos_offset=pos_offset,
+                                    seq_shard=seq_shard, donate=donate)
     return logits, new_caches

@@ -18,7 +18,9 @@ keeps its place, so when the capacity binds (a decode tick routes only
 ``T = slots`` tokens: capacity 1 for deepseek-v2-lite and granite) a
 later slot's token loses that expert's share, and idle slots and prefill
 pads are routed like any token.  The reference's ``dist.constrain``
-hints on the (E, C, d) buffers are dropped (one device; ROADMAP A15).
+hints on the (E, C, d) buffers stand at its sites (nothing without a
+mesh); sharded execution of this family waits for ROADMAP A15's training
+half.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import constrain
 from repro_torch.models.layers import _normal, activation, dense_init
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -120,6 +123,7 @@ def moe(params: Params, x: torch.Tensor, cfg: ModelConfig
     buf = x.new_zeros((E * C + 1, d))
     buf[dst] = xt[torch.div(order, k, rounding_mode="floor")]
     buf = buf[:E * C].reshape(E, C, d)
+    buf = constrain(buf, "mp", None, None)                 # all-to-all here
 
     h = torch.bmm(buf, params["w_in"])
     if cfg.glu:
@@ -127,6 +131,7 @@ def moe(params: Params, x: torch.Tensor, cfg: ModelConfig
     else:
         h = activation(h, cfg.act)
     out = torch.bmm(h, params["w_out"])                    # (E, C, d)
+    out = constrain(out, "mp", None, None)
     out_flat = torch.cat([out.reshape(E * C, d), out.new_zeros((1, d))])
 
     # assignment j of token t reads the row its sorted place was sent to

@@ -1,7 +1,7 @@
 """Where the serving paths spend their time on the card.
 
     PYTHONPATH=src python -m repro_torch.roofline.serve_profile \
-        [--arch NAME | --hybrid | --personalized]
+        [--arch NAME | --hybrid | --personalized | --launch]
 
 Without ``--hybrid``: builds llama3-8b (or ``--arch``: any model the
 engine serves, e.g. deepseek-v2-lite-16b, granite-moe-1b-a400m or
@@ -31,6 +31,16 @@ behind ``PersonalizedServeEngine`` with a ν snapshot whose deltas' RMS is
 5% of the base's: four slots of four clients, two warm steps, then one
 decode tick profiled on the "none" engine (the shared path) and one on
 the "nu" engine (the row path).
+
+With ``--launch``: qwen1.5-32b uncut in bfloat16 through the launch
+layer's ``build_prefill`` / ``build_decode`` on a ``(1, 1)`` mesh of a
+one-rank group, as ``chip_smoke.py`` phase 22 serves it (4 × 512 into
+caches of 1024 slots); after a warm prefill and two steps, profiles one
+prefill and one decode step, then the same decode step on the plain
+tensors under the mesh's DTensors (``serve_decode``, no mesh), and one
+more mesh step under ``cProfile``, whose host seconds it sums by where
+the Python runs: DTensor (``torch/distributed/tensor``), the port
+(``repro_torch``), the rest.
 
 Prints one JSON line each: host wall time, the device's busy time (the
 union of kernel intervals) and idle share, kernel launches, the device
@@ -68,11 +78,12 @@ KERNELS = {"flash_attention_ms": "flash_fwd_kernel",
            "ssd_scan_ms": "ssd_scan_kernel"}
 
 
-def _profiled(name: str, fn, device: torch.device, top: int) -> dict:
+def _profiled(name: str, fn, device: torch.device, top: int,
+              grad_mode=torch.inference_mode) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         tic = time.perf_counter()
-        with torch.inference_mode():
+        with grad_mode():
             fn()
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -230,6 +241,82 @@ def profile_personalized(cfg: ModelConfig, device: str = "cuda",
     return _tagged(rows, cfg, dev)
 
 
+LAUNCH_ARCH, LAUNCH_CACHE = "qwen1.5-32b", 1024
+
+
+def _host_split(fn, device: torch.device) -> dict:
+    """Host seconds of one call of ``fn`` under ``cProfile``, summed by
+    where each function's own time was spent."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    with torch.no_grad():
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.disable()
+    groups = defaultdict(float)
+    for (path, _line, _fn), (_cc, _nc, tt, _ct, _callers) in \
+            pstats.Stats(prof).stats.items():
+        key = ("dtensor_s" if "torch/distributed/tensor" in path
+               else "port_s" if "repro_torch" in path else "other_s")
+        groups[key] += tt
+    return {"step": "launch_decode_cprofile", **dict(groups),
+            "total_s": sum(groups.values())}
+
+
+def profile_launch(cfg: ModelConfig, device: str = "cuda", top: int = 10,
+                   length: int = DIRECT_PROMPT) -> list[dict]:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device(device)
+    mesh = make_local_mesh(1, 1, device_type=dev.type)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    rows = HYBRID_ROWS
+    prefill_step, bundle = serve.build_prefill(
+        cfg, ShapeConfig("prefill", LAUNCH_CACHE, rows, "prefill"), mesh)
+    decode_step, _ = serve.build_decode(
+        cfg, ShapeConfig("decode", LAUNCH_CACHE, rows, "decode"), mesh)
+    placed = serve.place(params, bundle["param_ps"], mesh)
+    tokens = prompt_batch(cfg, rows, length, dev)["tokens"]
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = prefill_step(
+            placed, {"tokens": tokens},
+            init_caches(cfg, rows, LAUNCH_CACHE, device=dev))
+        state["pos"] = length
+
+    def step():
+        tok = state["logits"].full_tensor()[:, -1].argmax(-1)
+        state["logits"], state["caches"] = decode_step(
+            placed, {"tokens": tok[:, None]}, state["caches"], state["pos"])
+        state["pos"] += 1
+
+    def plain_step():
+        caches = [{k: t.to_local() for k, t in c.items()}
+                  for c in state["caches"]]
+        tok = state["logits"].full_tensor()[:, -1].argmax(-1)
+        serve_decode(params, {"tokens": tok[:, None]}, caches, state["pos"],
+                     cfg, donate=True)
+
+    prefill()
+    step()
+    step()
+    out = [_profiled(f"launch_prefill_{rows}x{length}_tokens", prefill, dev,
+                     top, torch.no_grad)]
+    step()
+    out.append(_profiled(f"launch_decode_step_{rows}_rows", step, dev, top,
+                         torch.no_grad))
+    plain_step()
+    out.append(_profiled(f"plain_decode_step_{rows}_rows", plain_step, dev,
+                         top, torch.no_grad))
+    out.append(_host_split(step, dev))
+    return _tagged(out, cfg, dev)
+
+
 def _tagged(rows: list[dict], cfg: ModelConfig,
             dev: torch.device) -> list[dict]:
     for row in rows:
@@ -253,6 +340,10 @@ def main() -> None:
     which.add_argument("--personalized", action="store_true",
                        help="profile a shared and a row-path tick of the "
                             "personalized engine on 2-layer gemma-2b")
+    which.add_argument("--launch", action="store_true",
+                       help="profile qwen1.5-32b's prefill and decode "
+                            "step through the launch layer on a (1, 1) "
+                            "mesh, beside a plain decode step")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -260,6 +351,9 @@ def main() -> None:
         cfg = dataclasses.replace(get_arch("gemma-2b"), n_layers=2,
                                   dtype="bfloat16")
         rows = profile_personalized(cfg)
+    elif args.launch:
+        rows = profile_launch(dataclasses.replace(get_arch(LAUNCH_ARCH),
+                                                  dtype="bfloat16"))
     else:
         cfg = dataclasses.replace(
             get_arch("zamba2-2.7b" if args.hybrid else args.arch),

@@ -184,9 +184,35 @@ def test_load_raises_reference_messages(data, tmp_path):
         with pytest.raises(want[0]) as got:
             serialize.load(path, tlike)
         assert str(got.value) == want[1]
-    assert sorted(serialize.load(path, sim.state)) == sorted(jlike)
-    with pytest.raises(NotImplementedError, match="A15"):
-        serialize.load(path, sim.state, sharding_fn=lambda k, a: None)
+    plain = serialize.load(path, sim.state)
+    assert sorted(plain) == sorted(jlike)
+    # a sharding_fn restores equal to the unsharded restore: leaves it
+    # gives no placement as they are, and on a one-rank CPU mesh the
+    # others as DTensors over the same values
+    keys = []
+
+    def none(key, arr):
+        keys.append(key)
+        assert isinstance(arr, torch.Tensor) and arr.device.type == "cpu"
+        return None
+    got = serialize.load(path, sim.state, sharding_fn=none)
+    assert keys == sorted(jlike)
+    for k in plain:
+        assert torch.equal(got[k], plain[k]), k
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_local_mesh
+    started = not tdist.is_initialized()
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cpu")
+        got = serialize.load(path, sim.state, sharding_fn=lambda k, a: (
+            mesh, (Replicate(), Replicate())))
+        for k in plain:
+            assert isinstance(got[k], DTensor), k
+            assert torch.equal(got[k].full_tensor(), plain[k]), k
+    finally:
+        if started and tdist.is_initialized():
+            tdist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
-    the Mamba2, population, paper-twin, buffered-async, fault, MoE and
-    xLSTM slices' included."""
+    the Mamba2, population, paper-twin, buffered-async, fault, MoE,
+    xLSTM and launch slices' included."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
                 "kernels/flash_attention/ops.py", "serving/engine.py",
@@ -46,7 +46,9 @@ def test_scan_covers_every_slice():
                 "benchmarks/serving_bench.py",
                 "examples/personalized_serving.py", "models/moe.py",
                 "models/xlstm.py", "examples/serve_batched.py",
-                "optim/sgd.py", "optim/adamw.py"):
+                "optim/sgd.py", "optim/adamw.py", "dist.py",
+                "configs/shapes.py", "launch/mesh.py", "launch/specs.py",
+                "launch/distributed.py", "launch/serve.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 
