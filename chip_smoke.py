@@ -399,12 +399,26 @@ Twenty-two phases, each printing JSON lines; any failure exits non-zero.
    ``serve_prefill`` on the same weights; a float32 cut (1 of 64 layers
    at full width, 2 × 128, 8 steps) on the card's mesh against a CPU
    mesh of the same group by phase 6's rule.
+23. the launch layer's training round on the same kind of mesh —
+   llama3-8b at full width (2 of 32 layers, P ≈ 1.487 B) in bfloat16 over
+   a float32 flat master, one client of two rows at seq 4096, k_max 2,
+   through ``launch.train.build_train_round``: three rounds as a chunk of
+   2 and its tail of 1 (the length-polymorphic chunk), exactly k_max ×
+   rounds B1 launches and a B6, dq and dk/dv launch a layer a step; the
+   chunk bit-equal to three single rounds on the mesh and to
+   ``make_flat_round`` on plain tensors; one tree-layout bfloat16 round
+   equal to ``make_round``'s; wall per round and per local step,
+   tokens/s, the busy share of one profiled round, peak memory, the host
+   seconds a round over the plain round's (DTensor's); a reduced float32
+   cut through the same chunk on the card's mesh against a CPU mesh by
+   phase 8's rule.
 
 Each phase prints its seconds.  Then the card's name and power limit, a
 ``{"kernels": [...]}`` line (the nine Pallas sites' kernels, the bf16
 instances timed on phase 16's path and on phases 19's, 20's and 22's six
-models' (their launches), phase 21's training instances of B6 and B7
-(granite's f32, MLA's and gemma3's bf16, with their runs' launches), and
+models' (their launches), phase 21's and 23's training instances of B6
+and B7 (granite's f32, MLA's, gemma3's and llama3-8b's bf16, with their
+runs' launches), and
 the four SSD backward kernels, which
 replace autodiff of
 ``src/repro/models/mamba2.py:74``), and
@@ -517,7 +531,9 @@ ATTN_SERVE_SHAPES = {"mla_bf16": (1, 256, 16, 16, 192, 128, 0),
 ATTN_TRAIN_SHAPES = {
     "granite_train_f32": ((4, 128, 16, 8, 64, 64, 0), torch.float32),
     "mla_train_bf16": ((2, 256, 16, 16, 192, 128, 0), torch.bfloat16),
-    "gemma3_train_bf16": ((2, 2048, 16, 8, 256, 256, 1024), torch.bfloat16)}
+    "gemma3_train_bf16": ((2, 2048, 16, 8, 256, 256, 1024), torch.bfloat16),
+    # phase 23's llama3-8b local step (1 client × 2 rows, seq 4096)
+    "llama3_train_bf16": ((2, 4096, 32, 8, 128, 128, 0), torch.bfloat16)}
 # and the rest of phase 21's forward shapes, checked in both dtypes: the
 # evals' (8 held-out rows; gemma3's one row, whose local layer is
 # ATTN_SERVE_SHAPES' gemma3), gemma3's global layer, and the tests' cuts
@@ -566,7 +582,8 @@ TF32_OPS_PER_S = 494.7e12          # H100 SXM dense TF32 tensor cores
 ATTN_BWD_TRAIN = {
     "granite_train_f32": ((4, 128, 128, 16, 8, 64, 0), torch.float32),
     "mla_train_bf16": ((2, 256, 256, 16, 16, 192, 0, 128), torch.bfloat16),
-    "gemma3_train_bf16": ((2, 2048, 2048, 16, 8, 256, 1024), torch.bfloat16)}
+    "gemma3_train_bf16": ((2, 2048, 2048, 16, 8, 256, 1024), torch.bfloat16),
+    "llama3_train_bf16": ((2, 4096, 4096, 32, 8, 128, 0), torch.bfloat16)}
 ATTN_BWD_SHAPES = [(4, 128, 128, 8, 1, 256, 0), (2, 128, 128, 4, 4, 64, 0),
                    (1, 256, 256, 32, 8, 128, 0), (2, 77, 77, 4, 2, 64, 0),
                    (1, 200, 200, 8, 2, 128, 0), (1, 512, 512, 4, 2, 64, 128),
@@ -6970,6 +6987,405 @@ def phase_launch_serving() -> dict:
     return {"flash_attention_fwd_qwen15_bf16": stats[
         "flash_launches_prefill"]}
 
+# Phase 23: the launch layer's training round (``repro_torch.launch.train``,
+# ``build_train_round``) on the same one-rank mesh: llama3-8b
+# (arXiv:2407.21783) at full width — d 4096, 32 / 8 heads of 128, GLU
+# 14,336, vocab 128,256, untied head — in bfloat16 over a float32 flat
+# master (the reference ``main``'s configuration for an uncut arch with
+# --param-layout flat --master-dtype float32), cut to 2 of 32 layers
+# (P ≈ 1.487 B, a 5.95 GB float32 buffer), ``train_4k``'s sequence of
+# 4096 kept with its global batch cut from 256 to 2 (M = 1 on one card,
+# two rows a client), k_max 2, three rounds run as a chunk of 2 and its
+# tail of 1 (the length-polymorphic chunk).  The chunked run is held to
+# three single rounds on the mesh and to three ``make_flat_round`` rounds
+# on plain tensors, bit for bit (a size-1 mesh replicates; were they not
+# equal, within PATH_SPREAD × the spread of a plain rerun with reversed
+# rows); one tree-layout bfloat16 round to the plain ``make_round``; and
+# the reduced float32 cut (LAUNCH_TRAIN_CHECK) on the card's mesh to a
+# ``(1, 1)`` CPU mesh of the same group by phase 8's rule
+LAUNCH_TRAIN_ARCH = "llama3-8b"
+LAUNCH_TRAIN = {"layers": 2, "global_batch": 2, "k_max": 2, "rounds": 3,
+                "chunk": 2, "lr": 3e-2}
+LAUNCH_TRAIN_CHECK = {"layers": 2, "d_model": 64, "vocab": 256, "seq": 32,
+                      "global_batch": 2, "lr": 0.1, "max_probes": 4}
+
+
+def _launch_train_inputs(cfg, m: int, k_max: int, b_local: int, seq: int,
+                         rounds: int, device, flip: bool = False):
+    """``rounds`` rounds of ``launch.train.round_inputs`` stacked on
+    ``device``: batches (rounds, m, k_max, b_local, seq) and K_i (rounds,
+    m); ``flip`` reverses each microbatch's rows (the same loss, other
+    roundings)."""
+    from repro_torch.launch import train
+    per = [train.round_inputs(cfg, m, k_max, b_local, seq, t)
+           for t in range(rounds)]
+    batches = {k: torch.stack([b[k] for b, _ in per]).to(device)
+               for k in per[0][0]}
+    if flip:
+        batches = {k: v.flip(3) for k, v in batches.items()}
+    return batches, torch.stack([k for _, k in per]).to(device)
+
+
+STATE_KEYS = ("params", "nu", "nu_i")
+# the slices in which a state buffer goes back to the card to be compared
+COMPARE_SLICE = 1 << 28
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    from repro_torch import dist
+    return t.to_local() if dist.is_dtensor(t) else t
+
+
+def _pinned(tensors: dict) -> dict:
+    """Copies of the card's ``tensors`` (DTensors: their local shards) in
+    pinned host memory."""
+    out = {}
+    for k, v in tensors.items():
+        v = _local(v)
+        out[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        out[k].copy_(v)
+    return out
+
+
+def _state_host(state: dict) -> dict:
+    """The round state's float buffers, whole, in pinned host memory."""
+    return _pinned({k: state[k] for k in STATE_KEYS})
+
+
+def _gaps(tensors: dict, host: dict) -> dict:
+    """Each tensor's largest |difference| from its pinned host copy, the
+    copy brought back to the card a slice at a time: 0.0 where the two
+    are equal to the bit, inf where they differ only in bits that no
+    difference shows (a NaN, a signed zero)."""
+    gaps = {}
+    for k, h in host.items():
+        v, h = _local(tensors[k]).reshape(-1), h.reshape(-1)
+        worst, same = 0.0, True
+        for i in range(0, v.numel(), COMPARE_SLICE):
+            a = v[i:i + COMPARE_SLICE]
+            b = h[i:i + COMPARE_SLICE].to(a.device, non_blocking=True)
+            if not torch.equal(a, b):
+                same = False
+                worst = max(worst, float((a.float() - b.float()).abs()
+                                         .max()))
+        gaps[k] = 0.0 if same else (worst or float("inf"))
+    return gaps
+
+
+def _launch_train_check(mesh, cpu_mesh) -> dict:
+    """The reduced float32 cut through ``build_train_round`` (flat,
+    fedagrac, a chunk of 2 and its tail) on the card's mesh against the
+    CPU mesh, by phase 8's rule: PATH_SPREAD × the largest spread of CPU
+    reruns that change only rounding (reversed rows, then one-ulp moves of
+    the initial master) plus PATH_RTOL, drawn until the card is
+    covered."""
+    from repro_torch.configs.base import FedConfig, ShapeConfig, reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import flat, rounds as rounds_lib
+    from repro_torch.core.fedopt import get_algorithm
+    from repro_torch.launch import train
+    from repro_torch.models import model as model_lib
+    c = LAUNCH_TRAIN_CHECK
+    cfg = reduced(get_arch(LAUNCH_TRAIN_ARCH), n_layers=c["layers"],
+                  d_model=c["d_model"], vocab=c["vocab"])
+    shape = ShapeConfig("t", seq_len=c["seq"],
+                        global_batch=c["global_batch"], kind="train")
+    fed = FedConfig(algorithm="fedagrac", lr=c["lr"], param_layout="flat")
+    algo = get_algorithm(fed.algorithm, fed)
+    k_max, n_rounds = LAUNCH_TRAIN["k_max"], LAUNCH_TRAIN["rounds"]
+
+    def run(on, flip=False, moved=None):
+        chunk, bundle = train.build_train_round(
+            cfg, shape, on, fed, k_max=k_max, chunk_rounds=2)
+        dev = torch.device(on.device_type)
+        params = model_lib.init_params(torch.Generator().manual_seed(3), cfg)
+        master = flat.ravel(bundle["flat_spec"], params)
+        if moved is not None:
+            master = _f32_moved(master, bundle["flat_spec"].n, moved)
+        m, b = bundle["m"], bundle["b_local"]
+        batches, ks = _launch_train_inputs(cfg, m, k_max, b, c["seq"],
+                                           n_rounds, dev, flip)
+        w = torch.full((m,), 1.0 / m, device=dev)
+        st = rounds_lib.init_state(master.to(dev), m, algo)
+        _reset_all_launches()
+        losses = []
+        for sl in (slice(0, 2), slice(2, n_rounds)):
+            r = sl.stop - sl.start
+            st, met = chunk(st, {k: v[sl] for k, v in batches.items()},
+                            ks[sl], w.expand(r, m), [algo.lam] * r)
+            losses += met["loss"].full_tensor().cpu().tolist()
+        return {"loss": np.array(losses),
+                "metric": np.array(losses[-1:]),
+                "params": st["params"].to_local().cpu(),
+                "launches": _all_launches()}
+
+    g, cpu = run(mesh), run(cpu_mesh)
+    probes = [run(cpu_mesh, flip=True)]
+    while (not _vs_covered(_lm_vs_cpu_margins(g, cpu, probes))
+           and len(probes) < c["max_probes"]):
+        probes.append(run(cpu_mesh, moved=len(probes)))
+    vs = _lm_vs_cpu_margins(g, cpu, probes)
+    _require(g["launches"]["calibrated_update"] == k_max * n_rounds,
+             f"the reduced cut's card run launched B1 "
+             f"{g['launches']['calibrated_update']} times, expected "
+             f"{k_max * n_rounds}")
+    for what, (diff, tol) in vs.items():
+        _require(bool(np.all(diff <= tol)),
+                 f"the reduced cut through build_train_round: {what} "
+                 f"differs from the CPU mesh by {diff}, more than {tol}")
+    return {"model": f"reduced {LAUNCH_TRAIN_ARCH}, {c['layers']} layers, "
+                     f"d {c['d_model']}", "seq": c["seq"],
+            "loss": g["loss"].tolist(), "probes": len(probes),
+            "vs_cpu": {k: float(np.max(d)) for k, (d, _) in vs.items()},
+            "tol": {k: float(np.min(t)) for k, (_, t) in vs.items()}}
+
+
+def phase_launch_training() -> tuple[dict, dict]:
+    """Phase 23.  Returns the chunked run's launches of B1 and of the
+    attention kernels, by the kernels line's names, and B1's check and
+    times at the path's ``(M, P)`` float32 rows (``check_update_at``)."""
+    import torch.distributed as tdist
+    from repro_torch import dist
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.core import flat, rounds as rounds_lib
+    from repro_torch.core.fedopt import get_algorithm
+    from repro_torch.core.tree_util import tree_leaves
+    from repro_torch.launch import specs as specs_lib, train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline.round_profile import _busy_us
+    _free()
+    tdist.init_process_group(backend="cpu:gloo,cuda:nccl",
+                             store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, 1, device_type="cuda")
+        lt = LAUNCH_TRAIN
+        k_max, n_rounds = lt["k_max"], lt["rounds"]
+        cfg = specs_lib.bf16_config(dataclasses.replace(
+            get_arch(LAUNCH_TRAIN_ARCH), n_layers=lt["layers"]))
+        shape = dataclasses.replace(SHAPES["train_4k"],
+                                    global_batch=lt["global_batch"])
+        fed = FedConfig(algorithm="fedagrac", lr=lt["lr"],
+                        param_layout="flat", master_dtype="float32")
+        algo = get_algorithm(fed.algorithm, fed)
+        chunk, bundle = train.build_train_round(cfg, shape, mesh, fed,
+                                                k_max=k_max,
+                                                chunk_rounds=lt["chunk"])
+        single, _ = train.build_train_round(cfg, shape, mesh, fed,
+                                            k_max=k_max)
+        fspec, m, b_local = (bundle["flat_spec"], bundle["m"],
+                             bundle["b_local"])
+        # B1 against its plain version at the rows the path updates (on
+        # a one-rank mesh each rank's shard is the whole row), before the
+        # model takes the card's memory
+        b1 = check_update_at(m, fspec.p)
+        _free()
+        params = model_lib.init_params(
+            torch.Generator(device=DEVICE).manual_seed(0), cfg)
+        master = flat.ravel(fspec, params)
+        del params
+        batches, ks = _launch_train_inputs(cfg, m, k_max, b_local,
+                                           shape.seq_len, n_rounds, DEVICE)
+        w = torch.full((m,), 1.0 / m, device=DEVICE)
+
+        def one(t):
+            return {k: v[t] for k, v in batches.items()}
+
+        part_s = {}
+        t_part = time.perf_counter()
+
+        def lap(name):
+            nonlocal t_part
+            now = time.perf_counter()
+            part_s[name] = now - t_part
+            t_part = now
+
+        # warm-up: one round (cuBLAS handles, the allocator's pools)
+        single(rounds_lib.init_state(master, m, algo), one(0), ks[0], w)
+        _free()
+        lap("init_and_warm_up")
+        torch.cuda.reset_peak_memory_stats()
+        # (a) the main path: a chunk of 2 and its tail of 1
+        _reset_all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m1 = chunk(rounds_lib.init_state(master, m, algo),
+                       {k: v[:2] for k, v in batches.items()}, ks[:2],
+                       w.expand(2, m), [algo.lam] * 2)
+        st, m2 = chunk(st, {k: v[2:] for k, v in batches.items()}, ks[2:],
+                       w.expand(1, m), [algo.lam])
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        launches = _all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        steps = k_max * n_rounds
+        want = {"calibrated_update": steps,
+                "flash_attention_fwd": cfg.n_layers * steps,
+                "flash_attention_bwd_dq": cfg.n_layers * steps,
+                "flash_attention_bwd_dkv": cfg.n_layers * steps}
+        _require(all(launches[k] == n for k, n in want.items())
+                 and not any(n for k, n in launches.items()
+                             if k not in want),
+                 f"{LAUNCH_TRAIN_ARCH} through build_train_round: launches "
+                 f"{launches}, expected {want} and no other")
+        losses = torch.cat([m1["loss"].full_tensor(),
+                            m2["loss"].full_tensor()]).cpu()
+        _require(bool(torch.isfinite(losses).all()),
+                 f"{LAUNCH_TRAIN_ARCH}: non-finite losses {losses.tolist()}")
+        chunked = _state_host(st)
+        del st
+        _free()
+        lap("chunked_run_and_host_copy")
+        # (b) three single rounds on the mesh: the chunk's rounds, bit for
+        # bit; each round's host seconds to issue it (no sync inside)
+        st = rounds_lib.init_state(master, m, algo)
+        mesh_wall, mesh_host = [], []
+        for t in range(n_rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = single(st, one(t), ks[t], w)
+            mesh_host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            mesh_wall.append(time.perf_counter() - t0)
+        chunk_gaps = _gaps(st, chunked)
+        chunk_equal = not any(chunk_gaps.values())
+        _require(chunk_equal, f"{LAUNCH_TRAIN_ARCH}: the chunk of 2 and its "
+                 f"tail differ from three single rounds by {chunk_gaps}")
+        lap("single_rounds_and_compare")
+        # the device's busy share over one more round, profiled
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = single(st, one(0), ks[0], w)
+            torch.cuda.synchronize()
+            prof_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = (_busy_us([(e.time_range.start, e.time_range.end)
+                          for e in kernels]) / prof_us if kernels else None)
+        del st
+        _free()
+        lap("profiled_round")
+        # (c) the same rounds through make_flat_round on plain tensors
+        dist.unset_mesh()
+
+        def plain_rounds(data):
+            fn = flat.make_flat_round(
+                fspec, lambda p, b: model_lib.lm_loss(p, b, cfg), algo,
+                lr=fed.lr, k_max=k_max)
+            st = rounds_lib.init_state(master, m, algo)
+            wall, host = [], []
+            for t in range(n_rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, _ = fn(st, {k: v[t] for k, v in data.items()}, ks[t], w)
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+            return st, wall, host
+
+        plain, plain_wall, plain_host = plain_rounds(batches)
+        gaps = _gaps(plain, chunked)
+        equal = not any(gaps.values())
+        vs_plain = None
+        if not equal:
+            # the rounding spread: the plain rounds again with each
+            # microbatch's rows reversed
+            plain_copy = _state_host(plain)
+            del plain
+            _free()
+            flipped, _, _ = plain_rounds({k: v.flip(3) for k, v in
+                                          batches.items()})
+            spread = _gaps(flipped, plain_copy)
+            vs_plain = {k: (gaps[k], PATH_SPREAD * spread[k])
+                        for k in STATE_KEYS}
+            for k, (diff, tol) in vs_plain.items():
+                _require(diff <= tol,
+                         f"{LAUNCH_TRAIN_ARCH}: the mesh's {k} differs from "
+                         f"make_flat_round's by {diff} > {tol}")
+            del flipped, plain_copy
+        else:
+            del plain
+        del chunked
+        _free()
+        lap("plain_rounds_and_compare")
+        # (d) one tree-layout bfloat16 round on the mesh and plain
+        tree_fed = dataclasses.replace(fed, param_layout="tree",
+                                       master_dtype="")
+        tree_step, _ = train.build_train_round(cfg, shape, mesh, tree_fed,
+                                               k_max=k_max)
+        params = flat.unravel(fspec, master)
+        del master
+        _free()
+        st, _ = tree_step(rounds_lib.init_state(params, m, algo), one(0),
+                          ks[0], w)
+        tree_mesh = _pinned(dict(enumerate(tree_leaves(st["params"]))))
+        del st
+        dist.unset_mesh()
+        st, _ = rounds_lib.make_round(
+            lambda p, b: model_lib.lm_loss(p, b, cfg), algo, lr=fed.lr,
+            k_max=k_max)(rounds_lib.init_state(params, m, algo), one(0),
+                         ks[0], w)
+        tree_plain = dict(enumerate(tree_leaves(st["params"])))
+        tree_finite = all(bool(torch.isfinite(t).all())
+                          for t in tree_plain.values())
+        tree_equal = not any(_gaps(tree_plain, tree_mesh).values())
+        _require(tree_finite and tree_equal,
+                 f"{LAUNCH_TRAIN_ARCH} tree bf16 round: finite "
+                 f"{tree_finite}, the mesh's equal to make_round's "
+                 f"{tree_equal}")
+        del st, params, tree_mesh, tree_plain
+        _free()
+        lap("tree_rounds")
+        tokens = m * k_max * b_local * shape.seq_len
+        wall = float(np.mean(mesh_wall))
+        stats = {"phase": "launch_training", "card": _card_line(),
+                 "model": LAUNCH_TRAIN_ARCH, "dtype": cfg.dtype,
+                 "master_dtype": fed.master_dtype, "layout": "flat",
+                 "algorithm": fed.algorithm, "n_layers": cfg.n_layers,
+                 "mesh": dist.view(mesh).shape,
+                 "world": tdist.get_world_size(), "params": fspec.n,
+                 "p": fspec.p, "clients": m, "b_local": b_local,
+                 "seq": shape.seq_len, "k_max": k_max,
+                 "k": ks.cpu().tolist(), "rounds": n_rounds,
+                 "chunks": [2, 1], "loss": losses.tolist(),
+                 "chunked_wall_s": chunk_s,
+                 "wall_per_round_s": mesh_wall,
+                 "wall_per_local_step_s": wall / k_max,
+                 "tokens_per_round": tokens,
+                 "tokens_per_s": tokens / wall,
+                 "plain_wall_per_round_s": plain_wall,
+                 "host_s_per_round": mesh_host,
+                 "plain_host_s_per_round": plain_host,
+                 "dtensor_host_s_per_round": float(np.mean(mesh_host)
+                                                   - np.mean(plain_host)),
+                 "dtensor_host_share": float(
+                     (np.mean(mesh_host) - np.mean(plain_host)) / wall),
+                 "busy_share": busy, "peak_memory_bytes": peak,
+                 "launches": {k: n for k, n in launches.items() if n},
+                 "chunk_equals_singles": chunk_equal,
+                 "mesh_vs_plain_equal": equal,
+                 "tree_bf16_round_equal": tree_equal}
+        if vs_plain is not None:
+            stats["mesh_vs_plain"] = vs_plain
+        check = _launch_train_check(mesh, make_local_mesh(1, 1,
+                                                          device_type="cpu"))
+        lap("reduced_cut_vs_cpu")
+        stats["part_s"] = part_s
+        _emit(stats)
+        _emit({"phase": "launch_training_vs_cpu", **check})
+        _free()
+    finally:
+        dist.unset_mesh()
+        tdist.destroy_process_group()
+    return ({"calibrated_update_llama3_train": launches["calibrated_update"],
+             **{f"{k}_llama3_train_bf16": launches[k]
+                for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv")}}, b1)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7032,6 +7448,9 @@ def main() -> int:
     launches.update(timed("direct_serving", phase_direct_serving))
     launches.update(timed("family_training", phase_family_training))
     launches.update(timed("launch_serving", phase_launch_serving))
+    lt_launches, timings["calibrated_update_llama3_train"] = timed(
+        "launch_training", phase_launch_training)
+    launches.update(lt_launches)
     _emit({"phase_time": "total", "s": time.perf_counter() - t_start})
     # again at the end, so that the tail of a long log names the card
     print(_card_line(), flush=True)
@@ -7040,6 +7459,10 @@ def main() -> int:
                "flash_attention_bwd.cu")
     bwd_rep = "src/repro/kernels/flash_attention/backward.py:"
     sources = {"calibrated_update": (
+        "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
+        "src/repro/kernels/calibrated_update/kernel.py:60"),
+        # B1 on phase 23's path, timed at its (M, P) float32 rows
+        "calibrated_update_llama3_train": (
         "src/repro_torch/kernels/calibrated_update/csrc/calibrated_update.cu",
         "src/repro/kernels/calibrated_update/kernel.py:60"),
         "calibrated_update_prox": (

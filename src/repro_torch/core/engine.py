@@ -48,10 +48,14 @@ def _run(state: dict, r: int, donate: bool, step: Callable
                    for key in per_round[0]}
 
 
-def make_round_chunk(round_fn: Callable, r: int, donate: bool = False,
+def make_round_chunk(round_fn: Callable, r: Optional[int],
+                     donate: bool = False,
                      sample_fn: Optional[Callable] = None) -> Callable:
     """``chunk_fn(state, batches, k_steps, weights, lam) -> (state,
-    metrics)`` running ``r`` rounds.
+    metrics)`` running ``r`` rounds.  ``r=None`` builds a
+    length-polymorphic chunk: it runs as many rounds as ``k_steps`` has
+    rows (the launch trainer's shorter tail chunk); a fixed ``r`` refuses
+    any other count.
 
     Inputs are stacked per round: ``batches`` holds ``(r, M, k_max, …)``
     tensors, ``k_steps`` is ``(r, M)``, ``weights`` ``(r, M)`` and ``lam``
@@ -73,9 +77,9 @@ def make_round_chunk(round_fn: Callable, r: int, donate: bool = False,
     def chunk_fn(state: dict, batches, k_steps: torch.Tensor,
                  weights: torch.Tensor, lam: Sequence[float],
                  noise: Optional[torch.Tensor] = None):
-        if k_steps.shape[0] != r:
-            raise ValueError(f"chunk built for {r} rounds, got "
-                             f"{k_steps.shape[0]}")
+        n = k_steps.shape[0]
+        if r is not None and n != r:
+            raise ValueError(f"chunk built for {r} rounds, got {n}")
         if sample_fn is not None:
             batches = sample_fn(batches)
 
@@ -84,7 +88,7 @@ def make_round_chunk(round_fn: Callable, r: int, donate: bool = False,
             return round_fn(st, {key: v[j] for key, v in batches.items()},
                             k_steps[j], weights[j], lam[j], **kw)
 
-        return _run(state, r, donate, step)
+        return _run(state, n, donate, step)
 
     return chunk_fn
 

@@ -268,7 +268,8 @@ def make_flat_client_update(spec: FlatSpec,
                             loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                             algo: Algorithm, *, lr: float, k_max: int,
                             track_nu: str = "delta",
-                            per_client_anchor: bool = False):
+                            per_client_anchor: bool = False,
+                            grad_fn: Optional[Callable] = None):
     """``f(anchor, c_all, batches, k_steps, lam) -> (x_i, g0_i, acc_i,
     loss0)`` on (M, P) rows (``stages.make_client_update``'s signature);
     ``c_all`` is ignored by algorithms without ν, ``g0_i`` is None unless
@@ -282,7 +283,11 @@ def make_flat_client_update(spec: FlatSpec,
     algorithms).  ``anchor`` is the ``(P,)`` model every client starts
     from, or with ``per_client_anchor=True`` the contiguous ``(M, P)`` rows
     each client starts from (the buffered-async path's dispatch-time
-    models), which are then also the prox term's x₀."""
+    models), which are then also the prox term's x₀.
+
+    ``grad_fn`` replaces ``flat_value_and_grad(spec, loss_fn)`` (a mesh's
+    ``param_constraint.flat_value_and_grad``, whose rows are a rank's
+    shard: the rows' width is the anchor's, not always ``spec.p``)."""
     needs_first = algo.selector in ("fedagrac", "first", "reverse")
     uses_nu = algo.uses_nu
     explicit = track_nu == "explicit" and uses_nu
@@ -291,7 +296,7 @@ def make_flat_client_update(spec: FlatSpec,
     # explicit ν accumulation do, and see the prox-augmented g as on the
     # reference's tree path
     fuse_prox = bool(algo.prox_mu) and not (needs_first or explicit)
-    grad_fn = flat_value_and_grad(spec, loss_fn)
+    grad_fn = grad_fn or flat_value_and_grad(spec, loss_fn)
 
     def run(anchor: torch.Tensor, c_all: Optional[torch.Tensor],
             batches: dict, k_steps: torch.Tensor, lam: float):
@@ -299,7 +304,7 @@ def make_flat_client_update(spec: FlatSpec,
         # the kernels return new tensors: per-client anchor rows are read,
         # never written
         x = (anchor if per_client_anchor
-             else anchor[None].expand(m, spec.p).contiguous())
+             else anchor[None].expand(m, anchor.shape[0]).contiguous())
         # the prox term reads the (M, P) anchors at every step; without it
         # the starting rows are freed after the first update
         anchors = x if algo.prox_mu else None
@@ -312,7 +317,7 @@ def make_flat_client_update(spec: FlatSpec,
                            ).to(torch.float32)                  # (k_max, M)
         g0, loss0, acc = None, None, None
         if explicit:
-            acc = torch.zeros((m, spec.p), dtype=spec.dtype,
+            acc = torch.zeros(x.shape, dtype=spec.dtype,
                               device=k_steps.device)
             # 1/K_i on the steps a client takes, 0 after (k_max, M)
             w_acc = torch.where(steps[:, None] < k_steps[None, :],
@@ -377,7 +382,8 @@ def make_flat_round(spec: FlatSpec,
                     track_nu: str = "delta", quantize_transmit: bool = False,
                     compression: Optional[compress.CompressionConfig] = None,
                     robust: Optional[robust_mod.RobustConfig] = None,
-                    attack=None):
+                    attack=None,
+                    param_constraint: Optional[stages.NoMesh] = None):
     """``round_fn(state, batches, k_steps, weights, lam=None, *,
     noise=None) -> (state, metrics)`` on flat state (core/rounds.py
     ``init_state``).  ``batches``
@@ -408,9 +414,18 @@ def make_flat_round(spec: FlatSpec,
     ``track_nu="explicit"`` takes ν̄⁽ⁱ⁾ from the local steps' accumulated
     gradients instead of the delta recovery; ``quantize_transmit`` int8
     fake-quantizes each client's ν transmit per leaf
-    (``quantize_int8_flat``)."""
-    client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
-                                            k_max=k_max, track_nu=track_nu)
+    (``quantize_int8_flat``).
+
+    ``param_constraint(arr, client_dims)`` places ``(…, P)`` buffers on a
+    mesh (launch/train.py's ``make_flat_param_constraint``) at the
+    reference's sites: x⁽ⁱ⁾ after the local steps, the new params, ν and
+    ν⁽ⁱ⁾; its other hooks (``stages.NoMesh``) run the local steps in the
+    mesh's region and sum over the client dim.  ``None`` is the same
+    computation as without the hook."""
+    constrain = stages.as_constraint(param_constraint)
+    client_update = constrain.local_steps(make_flat_client_update(
+        spec, loss_fn, algo, lr=lr, k_max=k_max, track_nu=track_nu,
+        grad_fn=constrain.flat_value_and_grad(spec, loss_fn)))
     aggregate = stages.AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
     rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
@@ -442,6 +457,7 @@ def make_flat_round(spec: FlatSpec,
                  if algo.uses_nu else None)                # (M, P)
         x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
                                                 k_steps, lam)
+        x_i = constrain(x_i, 1)
         r = state["round"]
         ids = quar = None
         if rb is not None:
@@ -462,12 +478,13 @@ def make_flat_round(spec: FlatSpec,
             x_srv = anchor[None] + d
         else:
             x_srv = x_i
-        agg = aggregate(anchor, x_srv, kf, w_agg, kbar)
+        agg = aggregate(anchor, x_srv, kf, w_agg, kbar,
+                        dot=constrain.rows_dot)
         if down_on:
             agg = (params0.float() + agg.float() - anchor.float()
                    ).to(spec.dtype)
-        new_state["params"] = stages.server_update(algo, state, params0, agg,
-                                                   new_state)
+        new_state["params"] = constrain(stages.server_update(
+            algo, state, params0, agg, new_state), 0)
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
@@ -483,8 +500,9 @@ def make_flat_round(spec: FlatSpec,
                 transmit = cs.up_nu(transmit, state, new_state)
             if rb is not None:
                 transmit, w_nu = rb.nu(transmit, weights, quar)
-            new_state["nu"] = tree_wsum(w_nu, transmit)
-            new_state["nu_i"] = avg_g
+            new_state["nu"] = constrain(
+                tree_wsum(w_nu, transmit, constrain.rows_dot), 0)
+            new_state["nu_i"] = constrain(avg_g, 1)
 
         if rb is not None:
             new_state["params"] = rb.guard(new_state["params"], params0)
@@ -513,7 +531,8 @@ def make_flat_cohort_round(spec: FlatSpec,
                            compression: Optional[
                                compress.CompressionConfig] = None,
                            robust: Optional[robust_mod.RobustConfig] = None,
-                           attack=None):
+                           attack=None,
+                           param_constraint: Optional[stages.NoMesh] = None):
     """``round_fn(state, batches, cohort, k_steps, cweights, lam=None, *,
     donate=False, last=None, noise=None) -> (state, metrics)``: one round of a sampled
     cohort of C clients over population-sized state (``nu_i`` is ``(M,
@@ -550,9 +569,12 @@ def make_flat_cohort_round(spec: FlatSpec,
     ``donate=True``: the caller hands the state over (a chunk that owns
     it, or a simulation replacing its own), and the ν⁽ⁱ⁾, error-feedback
     and health stores are updated in place instead of copied whole.
-    ``track_nu`` and ``quantize_transmit`` as in ``make_flat_round``."""
-    client_update = make_flat_client_update(spec, loss_fn, algo, lr=lr,
-                                            k_max=k_max, track_nu=track_nu)
+    ``track_nu``, ``quantize_transmit`` and ``param_constraint`` as in
+    ``make_flat_round`` (the ν⁽ⁱ⁾ store constrained after the scatter)."""
+    constrain = stages.as_constraint(param_constraint)
+    client_update = constrain.local_steps(make_flat_client_update(
+        spec, loss_fn, algo, lr=lr, k_max=k_max, track_nu=track_nu,
+        grad_fn=constrain.flat_value_and_grad(spec, loss_fn)))
     aggregate = stages.BUFFERED_AGGREGATORS[algo.aggregator]
     cs = compress.build_stages(compression, spec, algo.uses_nu)
     rb = robust_mod.build_round_robust(robust, spec, algo.uses_nu)
@@ -584,10 +606,11 @@ def make_flat_cohort_round(spec: FlatSpec,
             nu_bc = state["nu"] if algo.uses_nu else None
 
         # a fresh contiguous (C, P) correction, never a view of the store
-        c_all = (nu_bc[None] - state["nu_i"].index_select(0, cohort)
+        c_all = (nu_bc[None] - constrain.take_rows(state["nu_i"], cohort)
                  if algo.uses_nu else None)
         x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
                                                 k_steps, lam)
+        x_i = constrain(x_i, 1)
         r = state["round"]
         quar = rb.quarantined(state, r, cohort) if rb is not None else None
         w_agg = cweights
@@ -609,9 +632,10 @@ def make_flat_cohort_round(spec: FlatSpec,
             x_srv = x_i
         # the deltas are taken around the broadcast x̂ and added to the
         # true params: no re-base is needed
-        agg = aggregate(params0, anchor[None], x_srv, kf, w_agg, kbar)
-        new_params = stages.server_update(algo, state, params0, agg,
-                                          new_state)
+        agg = aggregate(params0, anchor[None], x_srv, kf, w_agg, kbar,
+                        dot=constrain.rows_dot)
+        new_params = constrain(stages.server_update(
+            algo, state, params0, agg, new_state), 0)
         if rb is not None:
             new_params = rb.guard(new_params, params0)
         new_state["params"] = new_params
@@ -631,17 +655,18 @@ def make_flat_cohort_round(spec: FlatSpec,
                                     last=last, in_place=donate)
             if rb is not None:
                 transmit, w_nu = rb.nu(transmit, cweights, quar)
-            new_nu = stages.nu_mass_mix(state["nu"],
-                                        tree_wsum(w_nu, transmit), mass)
+            new_nu = stages.nu_mass_mix(
+                state["nu"], tree_wsum(w_nu, transmit, constrain.rows_dot),
+                mass)
             if rb is not None:
                 # the guard, on ν and on the rows written into the store
                 # (the decayed rows mix two finite rows)
                 new_nu = rb.guard(new_nu, state["nu"])
                 avg_g = robust_mod.guarded_rows(avg_g, state["nu_i"], cohort)
-            new_state["nu"] = new_nu
-            new_state["nu_i"] = stages.scatter_nu_rows(
+            new_state["nu"] = constrain(new_nu, 0)
+            new_state["nu_i"] = constrain(stages.scatter_nu_rows(
                 state["nu_i"], new_nu, avg_g, cohort, nu_decay,
-                in_place=donate, last=last)
+                in_place=donate, last=last, put=constrain.put_rows), 1)
 
         metrics = {"loss": torch.dot(cweights, loss0) / mass, "kbar": kbar,
                    "mass": mass}

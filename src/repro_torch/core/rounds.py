@@ -3,13 +3,13 @@ counterpart), on either layout: ``params`` is the model tree (the tree
 layout) or its ``(P,)`` buffer (the flat layout, core/flat.py)."""
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import compress, flat, robust as robust_mod
 from repro_torch.core.fedopt import Algorithm
-from repro_torch.core.stages import make_layered_round
+from repro_torch.core.stages import NoMesh, make_layered_round
 from repro_torch.core.tree_util import (tree_leaves, tree_stack_zeros,
                                         tree_zeros)
 
@@ -67,12 +67,18 @@ def init_state(params: PyTree, n_clients: int, algo: Algorithm,
 def make_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                algo: Algorithm, *, lr: float, k_max: int,
                track_nu: str = "delta", quantize_transmit: bool = False,
-               compression=None, spec=None, robust=None, attack=None):
+               compression=None, spec=None, robust=None, attack=None,
+               param_constraint: Optional[NoMesh] = None):
     """The tree layout's synchronous round, ``round_fn(state, batches,
     k_steps, weights, lam=None, *, noise=None) -> (state, metrics)``
-    (``stages.make_layered_round``)."""
+    (``stages.make_layered_round``).  ``param_constraint(tree,
+    client_dims)`` places round values on a mesh at the reference's
+    sites (its other hooks: ``stages.NoMesh``); the reference's
+    ``spmd_axis_name`` has no ``torch.func.vmap`` argument, and its
+    counterpart is the region the constraint's ``local_steps`` opens."""
     return make_layered_round(
         loss_fn, algo, lr=lr, k_max=k_max, track_nu=track_nu,
         quantize_transmit=quantize_transmit, compression=compression,
-        spec=spec, robust=robust, attack=attack)
+        spec=spec, robust=robust, attack=attack,
+        param_constraint=param_constraint)
 

@@ -29,8 +29,8 @@ import torch
 from repro_torch.core import compress
 from repro_torch.core import robust as robust_mod
 from repro_torch.core.fedopt import Algorithm
-from repro_torch.core.tree_util import (expand, tree_leaves, tree_map,
-                                        tree_wsum)
+from repro_torch.core.tree_util import (expand, rows_dot, tree_leaves,
+                                        tree_map, tree_wsum)
 
 PyTree = Any
 
@@ -157,17 +157,20 @@ def zero_corrections(params: PyTree, m: int) -> PyTree:
 # ---------------------------------------------------------------------------
 
 def aggregate_mean(params0: PyTree, x_i: PyTree, kf: torch.Tensor,
-                   weights: torch.Tensor, kbar: torch.Tensor) -> PyTree:
-    """Plain weighted average  Σ ω_i x⁽ⁱ⁾."""
-    return tree_wsum(weights, x_i)
+                   weights: torch.Tensor, kbar: torch.Tensor,
+                   dot=rows_dot) -> PyTree:
+    """Plain weighted average  Σ ω_i x⁽ⁱ⁾ (``dot``: the client-dim sum, as
+    in ``tree_wsum``; every aggregator takes one)."""
+    return tree_wsum(weights, x_i, dot)
 
 
 def aggregate_fednova(params0: PyTree, x_i: PyTree, kf: torch.Tensor,
-                      weights: torch.Tensor, kbar: torch.Tensor) -> PyTree:
+                      weights: torch.Tensor, kbar: torch.Tensor,
+                      dot=rows_dot) -> PyTree:
     """FedNova:  x̃ + K̄ Σ ω_i (x⁽ⁱ⁾ − x̃)/K_i  (Wang et al. 2020)."""
     def one(p0, xi):
         d = (xi.float() - p0[None]) / expand(kf, xi)
-        return (p0 + kbar * torch.tensordot(weights, d, dims=1)
+        return (p0 + kbar * dot(weights, d)
                 ).to(p0.dtype)
     return tree_map(one, params0, x_i)
 
@@ -180,25 +183,25 @@ AGGREGATORS: dict[str, Callable] = {
 
 def buffered_mean(params: PyTree, anchor_i: PyTree, x_i: PyTree,
                   kf: torch.Tensor, sweights: torch.Tensor,
-                  kbar: torch.Tensor) -> PyTree:
+                  kbar: torch.Tensor, dot=rows_dot) -> PyTree:
     """Pseudo-delta average  x + Σ_i w̃_i (x⁽ⁱ⁾ − anchorᵢ)  over ``(C, …)``
     rows (``anchor_i`` ``(C, …)`` or ``(1, …)``).  The weights are not
     renormalized: with Σ w̃ = 1 this is the synchronous weighted
     average."""
     def one(p, ai, xi):
         d = xi.float() - ai.float()
-        return (p.float() + torch.tensordot(sweights, d, dims=1)
+        return (p.float() + dot(sweights, d)
                 ).to(p.dtype)
     return tree_map(one, params, anchor_i, x_i)
 
 
 def buffered_fednova(params: PyTree, anchor_i: PyTree, x_i: PyTree,
                      kf: torch.Tensor, sweights: torch.Tensor,
-                     kbar: torch.Tensor) -> PyTree:
+                     kbar: torch.Tensor, dot=rows_dot) -> PyTree:
     """Pseudo-delta FedNova:  x + K̄ Σ_i w̃_i (x⁽ⁱ⁾ − anchorᵢ)/K_i."""
     def one(p, ai, xi):
         d = (xi.float() - ai.float()) / expand(kf, xi)
-        return (p.float() + kbar * torch.tensordot(sweights, d, dims=1)
+        return (p.float() + kbar * dot(sweights, d)
                 ).to(p.dtype)
     return tree_map(one, params, anchor_i, x_i)
 
@@ -251,7 +254,8 @@ def last_occurrence(ids) -> "np.ndarray":
 def scatter_nu_rows(nu_i: PyTree, new_nu: PyTree, avg_g: PyTree,
                     ids: torch.Tensor, nu_decay: float = 0.0, *,
                     in_place: bool = False,
-                    last: Optional[torch.Tensor] = None) -> PyTree:
+                    last: Optional[torch.Tensor] = None,
+                    put: Optional[Callable] = None) -> PyTree:
     """Write the participants' fresh ν̄⁽ⁱ⁾ rows into the population-sized
     ``(M, …)`` store; the other rows first decay toward the new ν at
     ``nu_decay`` per round (their correction ν − ν⁽ⁱ⁾ → 0; 0 keeps them
@@ -264,17 +268,20 @@ def scatter_nu_rows(nu_i: PyTree, new_nu: PyTree, avg_g: PyTree,
     ``in_place=True`` updates ``nu_i``'s leaves themselves (``lerp_`` only
     when ``nu_decay > 0``, then ``index_copy_`` of the C rows) and returns
     them: for a caller that owns the state, whose store would otherwise be
-    copied whole every round."""
+    copied whole every round.  ``put(store, ids, rows)`` is the row write
+    (default ``index_copy_``; a mesh's ``param_constraint.put_rows``)."""
+    put = put or NoMesh.put_rows
+
     def one(store, nu, g):
         rows = (g if last is None else g.index_select(0, last)
                 ).to(store.dtype)
         if in_place:
             if nu_decay:
                 store.lerp_(nu.to(store.dtype), nu_decay)
-            return store.index_copy_(0, ids, rows)
+            return put(store, ids, rows)
         out = (torch.lerp(store, nu.to(store.dtype), nu_decay) if nu_decay
                else store.clone())
-        return out.index_copy_(0, ids, rows)
+        return put(out, ids, rows)
     return tree_map(one, nu_i, new_nu, avg_g)
 
 
@@ -430,6 +437,51 @@ def server_update(algo: Algorithm, state: dict, params0: PyTree,
 # composition: the tree layout's synchronous round
 # ---------------------------------------------------------------------------
 
+class NoMesh:
+    """The ``param_constraint`` of a round on one device, which is what
+    ``None`` means: every hook is the plain op.  A mesh's constraint
+    (launch/train.py) overrides them:
+
+    * ``constraint(tree, client_dims)`` places a round value at the
+      reference's sites (the clients' models after the local steps, the
+      new params, ν and ν⁽ⁱ⁾);
+    * ``local_steps(client_update)`` runs the clients' local steps
+      (``make_client_update``'s function) in the mesh's explicit region;
+    * ``flat_value_and_grad(spec, loss_fn)`` is the flat layout's
+      gradient there (None: core/flat.py's own);
+    * ``rows_dot(w, a)`` is Σ_m w[m]·a[m] over the client dim;
+    * ``take_rows`` / ``put_rows`` read and write rows of a ν⁽ⁱ⁾ store.
+
+    The reference's ``spmd_axis_name`` has no ``torch.func.vmap``
+    argument; the region a mesh's ``local_steps`` opens, each rank running
+    its data slice's clients, is its counterpart."""
+
+    def __call__(self, tree: PyTree, client_dims: int) -> PyTree:
+        return tree
+
+    def local_steps(self, client_update: Callable) -> Callable:
+        return client_update
+
+    def flat_value_and_grad(self, spec, loss_fn) -> Optional[Callable]:
+        return None
+
+    rows_dot = staticmethod(rows_dot)
+
+    @staticmethod
+    def take_rows(store: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return store.index_select(0, ids)
+
+    @staticmethod
+    def put_rows(store: torch.Tensor, ids: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+        return store.index_copy_(0, ids, rows)
+
+
+def as_constraint(param_constraint: Optional[NoMesh]) -> NoMesh:
+    """``param_constraint``, or the plain ``NoMesh`` for None."""
+    return NoMesh() if param_constraint is None else param_constraint
+
+
 class _Wire:
     """The wire stages of a tree round, built once: compression,
     robust aggregation and a payload attack, all on the rows of the flat
@@ -473,7 +525,8 @@ def make_layered_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                        track_nu: str = "delta",
                        quantize_transmit: bool = False,
                        compression=None, spec=None, robust=None,
-                       attack=None):
+                       attack=None,
+                       param_constraint: Optional[NoMesh] = None):
     """The four stages composed into the tree layout's synchronous round:
     ``round_fn(state, batches, k_steps, weights, lam=None, *, noise=None)
     -> (state, metrics)`` on tree state (core/rounds.py ``init_state``),
@@ -493,9 +546,16 @@ def make_layered_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     params, ν and ν⁽ⁱ⁾ wherever the new ones are non-finite, and the
     metrics hold ``quarantined``.  ``noise`` holds an attack's ``(2, M,
     P)`` noise rows (``Scenario.payload_noise``), else the attack draws
-    them from the round counter."""
-    client_update = make_client_update(loss_fn, algo, lr=lr, k_max=k_max,
-                                       track_nu=track_nu)
+    them from the round counter.
+
+    ``param_constraint(tree, client_dims)`` places round values on a mesh
+    (launch/train.py's) at the reference's sites: the clients' models
+    after the local steps, the new params, ν and ν⁽ⁱ⁾.  Its other hooks
+    (``NoMesh``) run the local steps in the mesh's region and sum over the
+    client dim.  ``None`` is the same computation as without the hook."""
+    constrain = as_constraint(param_constraint)
+    client_update = constrain.local_steps(make_client_update(
+        loss_fn, algo, lr=lr, k_max=k_max, track_nu=track_nu))
     aggregate = AGGREGATORS[algo.aggregator]
     wire = _Wire(compression, spec, robust, attack, algo.uses_nu)
     cs, rb, atk = wire.cs, wire.rb, wire.atk
@@ -516,6 +576,7 @@ def make_layered_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                  if algo.uses_nu else zero_corrections(params0, m))
         x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
                                                 k_steps, lam)
+        x_i = constrain(x_i, 1)
         r = state["round"]
         ids = quar = None
         if rb is not None:
@@ -539,15 +600,16 @@ def make_layered_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
             x_srv = wire.urr(a_flat[None] + d)
         else:
             x_srv = x_i
-        agg = aggregate(anchor, x_srv, kf, w_agg, kbar)
+        agg = aggregate(anchor, x_srv, kf, w_agg, kbar,
+                        dot=constrain.rows_dot)
         if wire.down:
             # the pseudo-gradient is measured against the broadcast the
             # clients anchored on, then applied to the true server model
             agg = tree_map(lambda p0, a, an: (p0.float() + a.float()
                                               - an.float()).to(p0.dtype),
                            params0, agg, anchor)
-        new_state["params"] = server_update(algo, state, params0, agg,
-                                            new_state)
+        new_state["params"] = constrain(
+            server_update(algo, state, params0, agg, new_state), 0)
         new_state["round"] = state["round"] + 1
 
         if algo.uses_nu:
@@ -568,8 +630,9 @@ def make_layered_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                 if rb is not None:
                     t_rows, w_nu = rb.nu(t_rows, weights, quar)
                 transmit = wire.urr(t_rows)
-            new_state["nu"] = tree_wsum(w_nu, transmit)
-            new_state["nu_i"] = avg_g
+            new_state["nu"] = constrain(
+                tree_wsum(w_nu, transmit, constrain.rows_dot), 0)
+            new_state["nu_i"] = constrain(avg_g, 1)
 
         if rb is not None:
             new_state["params"] = rb.guard(new_state["params"], params0)
@@ -595,7 +658,8 @@ def make_cohort_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                       nu_decay: float = 0.0, track_nu: str = "delta",
                       quantize_transmit: bool = False,
                       compression=None, spec=None, robust=None,
-                      attack=None):
+                      attack=None,
+                      param_constraint: Optional[NoMesh] = None):
     """One round of a sampled cohort of C clients over population-sized
     tree state (each ν⁽ⁱ⁾ leaf ``(M, …)``): ``round_fn(state, batches,
     cohort, k_steps, cweights, lam=None, *, donate=False, last=None,
@@ -611,9 +675,13 @@ def make_cohort_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     an id) makes the write the last occurrence's.  The wire stages work
     at the cohort's ids as in ``make_layered_round``; ``donate=True``
     (the caller hands the state over) updates the ν⁽ⁱ⁾, error-feedback
-    and health stores in place."""
-    client_update = make_client_update(loss_fn, algo, lr=lr, k_max=k_max,
-                                       track_nu=track_nu)
+    and health stores in place.  ``param_constraint`` as in
+    ``make_layered_round``, at the reference's sites (the ν⁽ⁱ⁾ store
+    after the scatter); its ``take_rows`` / ``put_rows`` read and write
+    the store's rows."""
+    constrain = as_constraint(param_constraint)
+    client_update = constrain.local_steps(make_client_update(
+        loss_fn, algo, lr=lr, k_max=k_max, track_nu=track_nu))
     aggregate = BUFFERED_AGGREGATORS[algo.aggregator]
     wire = _Wire(compression, spec, robust, attack, algo.uses_nu)
     cs, rb, atk = wire.cs, wire.rb, wire.atk
@@ -631,12 +699,13 @@ def make_cohort_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
         kbar = torch.dot(cweights, kf) / mass
         new_state = dict(state)
         anchor, nu_bc = wire.broadcast(state, new_state, algo.uses_nu)
-        c_all = (tree_map(lambda nu, nui: nu[None] - nui.index_select(
-                     0, cohort), nu_bc, state["nu_i"])
+        c_all = (tree_map(lambda nu, nui: nu[None] - constrain.take_rows(
+                     nui, cohort), nu_bc, state["nu_i"])
                  if algo.uses_nu
                  else zero_corrections(params0, cohort.shape[0]))
         x_i, g0_i, acc_i, loss0 = client_update(anchor, c_all, batches,
                                                 k_steps, lam)
+        x_i = constrain(x_i, 1)
         r = state["round"]
         quar = rb.quarantined(state, r, cohort) if rb is not None else None
         w_agg = cweights
@@ -659,8 +728,9 @@ def make_cohort_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
             x_srv = x_i
         # deltas around the broadcast x̂, added to the true params
         agg = aggregate(params0, tree_map(lambda a: a[None], anchor), x_srv,
-                        kf, w_agg, kbar)
-        new_params = server_update(algo, state, params0, agg, new_state)
+                        kf, w_agg, kbar, dot=constrain.rows_dot)
+        new_params = constrain(
+            server_update(algo, state, params0, agg, new_state), 0)
         if rb is not None:
             new_params = rb.guard(new_params, params0)
         new_state["params"] = new_params
@@ -683,17 +753,18 @@ def make_cohort_round(loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
                 if rb is not None:
                     t_rows, w_nu = rb.nu(t_rows, cweights, quar)
                 transmit = wire.urr(t_rows)
-            new_nu = nu_mass_mix(state["nu"], tree_wsum(w_nu, transmit),
-                                 mass)
+            new_nu = nu_mass_mix(
+                state["nu"], tree_wsum(w_nu, transmit, constrain.rows_dot),
+                mass)
             if rb is not None:
                 # the guard, on ν and on the rows written into the store
                 # (the decayed rows mix two finite rows)
                 new_nu = rb.guard(new_nu, state["nu"])
                 avg_g = robust_mod.guarded_rows(avg_g, state["nu_i"], cohort)
-            new_state["nu"] = new_nu
-            new_state["nu_i"] = scatter_nu_rows(
+            new_state["nu"] = constrain(new_nu, 0)
+            new_state["nu_i"] = constrain(scatter_nu_rows(
                 state["nu_i"], new_nu, avg_g, cohort, nu_decay,
-                in_place=donate, last=last)
+                in_place=donate, last=last, put=constrain.put_rows), 1)
 
         metrics = {"loss": torch.dot(cweights, loss0) / mass, "kbar": kbar,
                    "mass": mass}

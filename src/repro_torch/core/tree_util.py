@@ -47,9 +47,14 @@ def expand(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def tree_wsum(weights: torch.Tensor, tree: PyTree) -> PyTree:
+def rows_dot(weights: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Σ_m weights[m] · a[m] over the leading (client) dim."""
+    return torch.tensordot(weights, a, dims=1)
+
+
+def tree_wsum(weights: torch.Tensor, tree: PyTree, dot=rows_dot) -> PyTree:
     """Σ_m weights[m] · tree[m] per leaf, accumulated in float32 and returned
     in the leaf's dtype, so float32 weights never promote the round
-    state."""
-    return tree_map(lambda a: torch.tensordot(weights, a.float(), dims=1)
-                    .to(a.dtype), tree)
+    state.  ``dot`` is the client-dim sum (a mesh's ``param_constraint``
+    gives its own)."""
+    return tree_map(lambda a: dot(weights, a.float()).to(a.dtype), tree)

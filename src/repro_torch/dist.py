@@ -34,6 +34,7 @@ local or whole tensors.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -201,14 +202,19 @@ def _contiguous_stride(shape: Sequence[int]) -> tuple[int, ...]:
 def as_dtensor(local: torch.Tensor, mesh, pl,
                shape: Optional[Sequence[int]] = None):
     """A DTensor of global ``shape`` (default: ``local``'s, replicated)
-    over this rank's ``local`` shard, with no copy and no communication.
-    A DTensor passes through."""
+    over this rank's ``local`` shard, with no communication, and no copy
+    unless a shard of another shape is not contiguous (the global strides
+    are then the contiguous ones, which the shard must follow).  A DTensor
+    passes through."""
     from torch.distributed.tensor import DTensor
     if isinstance(local, DTensor):
         return local
     shape = tuple(local.shape if shape is None else shape)
-    stride = (local.stride() if shape == tuple(local.shape)
-              else _contiguous_stride(shape))
+    if shape == tuple(local.shape):
+        stride = local.stride()
+    else:
+        local = local.contiguous()
+        stride = _contiguous_stride(shape)
     return DTensor.from_local(local, mesh, pl, run_check=False,
                               shape=torch.Size(shape), stride=stride)
 
@@ -229,16 +235,301 @@ def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     """Redistribute the DTensor ``x`` to the placements its logical axis
     ``names`` (one per dim) give under the installed rules.
 
-    Does nothing when no mesh is installed or ``x`` is a plain tensor."""
+    Does nothing when no mesh is installed or ``x`` is a plain tensor.
+    Under ``torch.func.vmap`` (a training round's local steps on a mesh)
+    ``x`` is a batched tensor over a DTensor: ``on_physical`` redistributes
+    the DTensor, its vmapped dim kept as it lies."""
     if _MESH is None:
         return x
     if len(names) != x.dim():
         raise ValueError(
             f"constrain: {len(names)} axis names for rank-{x.dim()} value")
+    if _batched_dtensor(x):
+        return on_physical(lambda p: _constrained(p, names, 1), x)
     if not is_dtensor(x):
         return x
-    spec = [_physical(n, d) for n, d in zip(names, x.shape)]
-    pl = placements(spec, _MESH)
-    if tuple(x.placements) == pl:
+    return _constrained(x, names)
+
+
+# ---------------------------------------------------------------------------
+# the local steps' explicit region
+# ---------------------------------------------------------------------------
+
+def _submesh(mesh, dims: Sequence[int]):
+    """The sub-mesh of mesh dimensions ``dims``, or None where it has one
+    rank."""
+    if math.prod(mesh.size(i) for i in dims) <= 1:
+        return None
+    names = tuple(mesh.mesh_dim_names[i] for i in dims)
+    return mesh[names if len(names) > 1 else names[0]]
+
+
+def _model_dims(mesh, client_axes: Sequence[str]) -> tuple:
+    """The mesh dims of more than one rank that are not client axes."""
+    return tuple(i for i, n in enumerate(mesh.mesh_dim_names)
+                 if n not in client_axes and mesh.size(i) > 1)
+
+
+def model_submesh(mesh, client_axes: Sequence[str]):
+    """The sub-mesh of ``mesh``'s dims other than ``client_axes`` (the
+    model axes), or None where they have one rank between them."""
+    return _submesh(mesh, _model_dims(mesh, client_axes))
+
+
+class ClientRegion:
+    """The explicit region in which a round's local steps run on a mesh
+    (the counterpart of the reference's ``vmap`` with ``spmd_axis_name``,
+    which ``torch.func.vmap`` does not have): ``m`` clients, their dim
+    sharded over the mesh dims named in ``client_axes`` (the data axes).
+
+    Inside the region each rank holds only its data slice's ``m_local``
+    clients, rows ``start`` on, and the client axis never crosses ranks.
+    ``down`` turns a client stack into this rank's rows and ``whole`` a
+    value every client shares into this rank's copy: plain tensors where
+    the other mesh dims (the model axes) have one rank between them, else
+    DTensors on their sub-mesh ``sub``, placed there as before, so the
+    model stays tensor-parallel.  ``up`` is ``down``'s inverse."""
+
+    def __init__(self, mesh, client_axes: Sequence[str], m: int):
+        from torch.distributed.tensor import Replicate, Shard
+        self.mesh, self.m = mesh, m
+        self.other = _model_dims(mesh, client_axes)
+        self.client = tuple(i for i, n in enumerate(mesh.mesh_dim_names)
+                            if n in client_axes and mesh.size(i) > 1)
+        self.sub = _submesh(mesh, self.other)
+        self.rows_pl = tuple(Shard(0) if i in self.client else Replicate()
+                             for i in range(mesh.ndim))
+        self.start, self.m_local = local_offset(mesh, self.rows_pl, (m,), 0)
+
+    def _to(self, t, pl):
+        return t if tuple(t.placements) == pl else t.redistribute(self.mesh,
+                                                                  pl)
+
+    def _on_sub(self, local, pl, shape):
+        if self.sub is None:
+            return local
+        return as_dtensor(local, self.sub, tuple(pl[i] for i in self.other),
+                          shape)
+
+    def down(self, t):
+        """This rank's rows of the client stack ``t`` (a DTensor, or a
+        whole tensor the same on every rank)."""
+        if not is_dtensor(t):
+            return t.narrow(0, self.start, self.m_local)
+        from torch.distributed.tensor import Replicate, Shard
+        t = self._to(t, tuple(
+            Shard(0) if i in self.client else
+            Replicate() if p.is_partial() or (p.is_shard() and p.dim == 0)
+            else p for i, p in enumerate(t.placements)))
+        return self._on_sub(t.to_local(), t.placements,
+                            (self.m_local,) + tuple(t.shape[1:]))
+
+    def whole(self, t):
+        """This rank's copy of ``t``, a value every client shares (whole
+        over the client dims)."""
+        if not is_dtensor(t):
+            return t
+        from torch.distributed.tensor import Replicate
+        t = self._to(t, tuple(
+            Replicate() if i in self.client or p.is_partial() else p
+            for i, p in enumerate(t.placements)))
+        return self._on_sub(t.to_local(), t.placements, tuple(t.shape))
+
+    def up(self, t):
+        """``t``, this rank's client rows (plain, or a DTensor on the
+        sub-mesh), as a DTensor client stack of the mesh: rows over the
+        client dims, placed on the others as on the sub-mesh (a partial sum
+        made whole first)."""
+        if t is None:
+            return None
+        from torch.distributed.tensor import Replicate, Shard
+        sub_pl = {}
+        shape = (self.m,) + tuple(t.shape[1:])
+        if is_dtensor(t):
+            pl = tuple(Replicate() if p.is_partial() else p
+                       for p in t.placements)
+            if pl != tuple(t.placements):
+                t = t.redistribute(self.sub, pl)
+            sub_pl = dict(zip(self.other, pl))
+            t = t.to_local()
+        pl = tuple(Shard(0) if i in self.client else
+                   sub_pl.get(i, Replicate()) for i in range(self.mesh.ndim))
+        return as_dtensor(t, self.mesh, pl, shape)
+
+
+def _rows_whole(pl) -> tuple:
+    """``pl`` with every sharding of dim 0 replicated."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if p.is_shard() and p.dim == 0 else p
+                 for p in pl)
+
+
+def take_rows(store: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``store.index_select(0, ids)``.  A DTensor store whose rows are
+    sharded (the population's ν⁽ⁱ⁾ rows over the data axes) gathers
+    explicitly: each rank picks the rows it holds, zeros elsewhere, and a
+    sum over the row-sharding mesh dims makes every picked row whole
+    there, exactly (one row plus zeros); the other placements stay."""
+    if not is_dtensor(store):
+        return store.index_select(0, ids)
+    from torch.distributed.tensor import DTensor, Partial
+    mesh, pl = store.device_mesh, tuple(store.placements)
+    start, length = local_offset(mesh, pl, store.shape, 0)
+    ids = ids.to(torch.int64)
+    mine = (ids >= start) & (ids < start + length)
+    rows = store.to_local().index_select(0, (ids - start).clamp(0, length - 1))
+    rows = torch.where(mine.reshape((-1,) + (1,) * (rows.dim() - 1)), rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    partial = tuple(Partial() if p.is_shard() and p.dim == 0 else p
+                    for p in pl)
+    shape = (ids.shape[0],) + tuple(store.shape[1:])
+    out = DTensor.from_local(rows, mesh, partial, run_check=False,
+                             shape=torch.Size(shape),
+                             stride=_contiguous_stride(shape))
+    return out.redistribute(mesh, _rows_whole(pl))
+
+
+def put_rows(store: torch.Tensor, ids: torch.Tensor,
+             rows: torch.Tensor) -> torch.Tensor:
+    """``store.index_copy_(0, ids, rows)``.  A DTensor store whose rows are
+    sharded writes each rank's own rows from ``rows`` made whole over the
+    row-sharding dims (ids that repeat must carry equal rows).  No shape
+    depends on the ids: the ids another rank holds write the first own
+    id's row again (or, with none, the shard's first row its own value),
+    so every write to a row carries the same value."""
+    if not is_dtensor(store):
+        return store.index_copy_(0, ids, rows)
+    mesh, pl = store.device_mesh, tuple(store.placements)
+    start, length = local_offset(mesh, pl, store.shape, 0)
+    whole = _rows_whole(pl)
+    if is_dtensor(rows):
+        rows = (rows if tuple(rows.placements) == whole
+                else rows.redistribute(mesh, whole)).to_local()
+    else:
+        rows = shard_of(rows, mesh, whole)
+    local = store.to_local()
+    ids = ids.to(torch.int64)
+    mine = (ids >= start) & (ids < start + length)
+    first = torch.argmax(mine.to(torch.int8)).reshape(1)   # 0 if none
+    own = mine.any()
+    at = torch.where(mine, ids - start,
+                     torch.where(own, ids.index_select(0, first) - start, 0))
+    keep = torch.where(own, rows.index_select(0, first),
+                       local[:1].to(rows.dtype))
+    expand = mine.reshape((-1,) + (1,) * (rows.dim() - 1))
+    local.index_copy_(0, at, torch.where(expand, rows, keep).to(local.dtype))
+    return store
+
+
+def rows_dot(w: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``torch.tensordot(w, a, dims=1)``: Σ_m w[m]·a[m] over the leading
+    (client) dim.  For a DTensor ``a`` each rank sums its own rows (the
+    same op on the local shard, so a mesh whose client dims have one rank
+    gives the plain result bit for bit) and the partial sums are
+    all-reduced over the client dims in ``a``'s dtype before anything
+    else reads them; the other placements move down one dim."""
+    if not is_dtensor(a):
+        return torch.tensordot(w, a, dims=1)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, pl = a.device_mesh, tuple(a.placements)
+    start, length = local_offset(mesh, pl, a.shape, 0)
+    w = w.full_tensor() if is_dtensor(w) else w
+    out = torch.tensordot(w.narrow(0, start, length), a.to_local(), dims=1)
+    partial = tuple(Partial() if p.is_shard() and p.dim == 0
+                    else Shard(p.dim - 1) if p.is_shard() else p
+                    for p in pl)
+    shape = tuple(a.shape[1:])
+    out = DTensor.from_local(out, mesh, partial, run_check=False,
+                             shape=torch.Size(shape),
+                             stride=_contiguous_stride(shape))
+    return out.redistribute(mesh, tuple(
+        Replicate() if p.is_partial() else p for p in partial))
+
+
+def _batched_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.func.vmap`` batched tensor over a
+    DTensor."""
+    from torch._C import _functorch
+    return (_functorch.is_batchedtensor(x)
+            and is_dtensor(_functorch.get_unwrapped(x)))
+
+
+def on_mesh(x) -> bool:
+    """Whether ``x`` is a DTensor, or under ``torch.func.vmap`` a batched
+    tensor over one."""
+    return is_dtensor(x) or _batched_dtensor(x)
+
+
+def on_physical(fn, *xs):
+    """``fn(*xs)`` where the ``xs`` are DTensors, or under
+    ``torch.func.vmap`` (a training round's local steps on a model mesh)
+    batched tensors over DTensors: there ``fn`` runs on the physical
+    DTensors, each vmapped dim moved to the front, and the front dim of
+    what it returns is the vmapped one.  Autograd records the ops ``fn``
+    runs, so its backward is theirs."""
+    if not any(_batched_dtensor(x) for x in xs):
+        return fn(*xs)
+    return _OnPhysical.apply(fn, *xs)
+
+
+class _OnPhysical(torch.autograd.Function):
+    """``on_physical``'s vmap rule; only ever called under vmap."""
+
+    @staticmethod
+    def forward(fn, *xs):
+        return fn(*xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("on_physical is differentiated through the ops "
+                           "its vmap rule runs")
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *xs):
+        out = fn(*(x if d is None else x.movedim(d, 0)
+                   for x, d in zip(xs, in_dims[1:])))
+        return out, (0 if isinstance(out, torch.Tensor)
+                     else tuple(0 for _ in out))
+
+
+def _constrained(x, names, lead: int = 0):
+    """The DTensor ``x`` redistributed to the placements of ``names`` for
+    its last dims under the installed rules, its ``lead`` leading dims (a
+    vmapped one) kept as they lie."""
+    spec = [None] * lead + [_physical(n, s) for n, s in
+                            zip(names, x.shape[lead:])]
+    pl = tuple(p0 if p0.is_shard() and p0.dim < lead else p for p0, p in
+               zip(x.placements, placements(spec, x.device_mesh)))
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def _heads_whole(x, n: int):
+    """The DTensor ``x`` with its last dim made whole where the mesh dims
+    sharding it cut it into pieces that are not whole groups of ``n``
+    (heads)."""
+    last = x.dim() - 1
+    cut = [i for i, p in enumerate(x.placements)
+           if p.is_shard() and p.dim == last]
+    if n % math.prod(x.device_mesh.size(i) for i in cut) == 0:
         return x
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if i in cut else p
+               for i, p in enumerate(x.placements))
     return x.redistribute(x.device_mesh, pl)
+
+
+def split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x (…, n·d)`` as ``(…, n, d)``.  A DTensor (or, under vmap, a
+    batched DTensor) whose last dim is sharded in pieces that split a head
+    (a model axis wider than ``n``) is made whole there first, as the
+    reference's ``reshape`` reshards under XLA."""
+    if _batched_dtensor(x):
+        x = on_physical(lambda p: _heads_whole(p, n), x)
+    elif is_dtensor(x):
+        x = _heads_whole(x, n)
+    return x.reshape(tuple(x.shape[:-1]) + (n, x.shape[-1] // n))

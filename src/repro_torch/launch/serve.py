@@ -21,9 +21,16 @@ puts a whole tree on the mesh once, so a step finds it placed.
 Sharded execution on a mesh of more than one rank covers the dense family
 without a front end (llama3-8b, gemma-2b, qwen1.5-32b); the three refuse
 the other families there (ROADMAP A15).  A mesh of one rank takes every
-arch the port serves.  The reference's ``lower_serve`` and
-``lower_personalized_serve`` return an XLA ``Lowered``, which has no torch
-counterpart: they come with the dry run (ROADMAP A15's training half).
+arch the port serves.
+
+``lower_serve`` and ``lower_personalized_serve`` stand where the
+reference's return an XLA ``Lowered``, which has no torch counterpart:
+each runs its step once on ``FakeTensorMode`` tensors over the mesh it is
+given (a fake process group in the dry run, launch/dryrun.py) and returns
+``(trace, bundle)``, the trace holding the FLOPs a rank does, the bytes
+its ops move, the collectives by kind with their bytes, the per-rank
+bytes of the step's inputs and outputs and the rank's peak of live bytes
+(``roofline.analysis.trace_step``).
 """
 from __future__ import annotations
 
@@ -192,3 +199,39 @@ def build_personalized_decode(cfg: ModelConfig, shape: ShapeConfig, mesh,
         return logits, place(out, bundle["cache_ps"], mesh)
 
     return step, bundle
+
+
+def lower_serve(cfg: ModelConfig, shape: ShapeConfig, mesh, *, kind: str):
+    """One prefill, decode or long-decode step on fake tensors over
+    ``mesh``: ``(trace, bundle)``.  A decode step writes the cache's last
+    slot (position ``seq_len − 1``)."""
+    from repro_torch.roofline import analysis
+    if kind == "prefill":
+        step, bundle = build_prefill(cfg, shape, mesh)
+    else:
+        step, bundle = build_decode(cfg, shape, mesh, kind=kind)
+        decode = step
+
+        def step(params, batch, caches):
+            return decode(params, batch, caches, shape.seq_len - 1)
+    trace = analysis.trace_step(
+        step, (bundle["params"], bundle["batch"], bundle["caches"]),
+        (bundle["param_ps"], bundle["batch_ps"], bundle["cache_ps"]), mesh)
+    return trace, bundle
+
+
+def lower_personalized_serve(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                             spec):
+    """One personalized decode tick on fake tensors over ``mesh``:
+    ``(trace, bundle)``."""
+    from repro_torch.roofline import analysis
+    step, bundle = build_personalized_decode(cfg, shape, mesh, spec)
+
+    def tick(base, deltas, batch, caches):
+        return step(base, deltas, batch, caches, shape.seq_len - 1)
+    trace = analysis.trace_step(
+        tick, (bundle["base"], bundle["deltas"], bundle["batch"],
+               bundle["caches"]),
+        (bundle["base_ps"], bundle["delta_ps"], bundle["batch_ps"],
+         bundle["cache_ps"]), mesh)
+    return trace, bundle

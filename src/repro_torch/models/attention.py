@@ -17,7 +17,9 @@ new cache dict and never writes the one it was given.  The reference's
 nothing without a mesh.  Under a mesh (``launch/serve.py``) the tensors are
 DTensors, and three ops run on each rank's shard in explicit regions: the
 flash kernel, which has no DTensor rule, on the local heads and batch rows
-(``_flash_sharded``); the cache write, a scatter without one, on the
+(``_flash_sharded``; under ``torch.func.vmap``, when the training round's
+local steps run tensor-parallel, on the physical DTensors through
+``dist.on_physical``); the cache write, a scatter without one, on the
 local rows, heads and ring slots (``_cache_insert_sharded``: a
 sequence-sharded cache, the ``long`` kind's, takes only the tokens whose
 slots it holds); and decode attention on the local rows and kv heads
@@ -206,8 +208,9 @@ def full_attention(q, k, v, q_pos, *, window: int = 0, is_global=True,
         q_pos = q_pos[0]        # so any row's positions give the same mask
     win = 0 if (is_global is True or not window) else window
     if isinstance(is_global, bool) and logit_cap == 0.0:
-        if dist.is_dtensor(q):
-            return _flash_sharded(q, k, v, win)
+        if dist.on_mesh(q):
+            return dist.on_physical(
+                lambda q, k, v: _flash_sharded(q, k, v, win), q, k, v)
         return fa_ops.flash_attention_diff(q, k, v, causal=True, window=win,
                                            scale=q.shape[-1] ** -0.5)
     return blocked_attention(q, k, v, q_pos, q_pos, window=window,
@@ -215,24 +218,30 @@ def full_attention(q, k, v, q_pos, *, window: int = 0, is_global=True,
 
 
 def _flash_sharded(q, k, v, window: int):
-    """The flash kernel on each rank's shard of DTensors q (B, S, H, Dqk),
-    k (B, S, Hkv, Dqk), v (B, S, Hkv, Dv): the kernel has no DTensor rule,
-    so it runs on the local batch rows and query heads, with the kv heads
-    those query heads read (a group of H / Hkv query heads a kv head).  k
-    and v take q's batch sharding; a kv head sharding that does not line
-    up with q's (GQA on a mesh wider than Hkv: replicated by the
-    constrain's drop rule) is sliced locally.  The sequence and head dims
-    must be whole on every rank (``constrain`` puts heads on ``mp``)."""
+    """The flash kernel on each rank's shard of DTensors q (…, S, H, Dqk),
+    k (…, S, Hkv, Dqk), v (…, S, Hkv, Dv), the leading dims (the batch, and
+    under vmap the clients before it) folded into one: the kernel has no
+    DTensor rule, so it runs on the local batch rows and query heads, with
+    the kv heads those query heads read (a group of H / Hkv query heads a
+    kv head).  k and v take q's batch sharding; a kv head sharding that
+    does not line up with q's (GQA on a mesh wider than Hkv: replicated by
+    the constrain's drop rule) is sliced locally.  q keeps a sharding of
+    its batch or head dim; a partial sum, or a sharding of its sequence or
+    head width (which DTensor's propagation can give a projection under
+    vmap), is made whole first.  ``to_local`` and the wrap back are
+    differentiable, so autograd's backward runs the backward kernels on
+    the same shards."""
     from torch.distributed.tensor import Replicate, Shard
-    mesh, pl = q.device_mesh, tuple(q.placements)
-    if any(p.is_shard() and p.dim not in (0, 2) for p in pl) or any(
-            p.is_partial() for p in pl):
-        raise NotImplementedError(
-            f"flash attention under a mesh shards batch and heads only; "
-            f"q has placements {pl}")
+    lead = tuple(q.shape[:-3])
+    if len(lead) > 1:
+        q, k, v = (t.reshape((-1,) + tuple(t.shape[-3:])) for t in (q, k, v))
+    mesh = q.device_mesh
+    pl = tuple(Replicate() if p.is_partial() or (
+        p.is_shard() and p.dim not in (0, 2)) else p for p in q.placements)
+    if pl != tuple(q.placements):
+        q = q.redistribute(mesh, pl)
     B, S, H, _ = q.shape
-    Hkv = k.shape[2]
-    g = H // Hkv
+    g = H // k.shape[2]
     h0, hl = dist.local_offset(mesh, pl, q.shape, 2)
     lo, hi = h0 // g, (h0 + hl - 1) // g + 1
     kv_pl = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
@@ -251,7 +260,8 @@ def _flash_sharded(q, k, v, window: int):
     o = fa_ops.flash_attention_diff(q.to_local(), k_loc, v_loc, causal=True,
                                     window=window,
                                     scale=q.shape[-1] ** -0.5)
-    return dist.as_dtensor(o, mesh, pl, (B, S, H, v.shape[-1]))
+    o = dist.as_dtensor(o, mesh, pl, (B, S, H, v.shape[-1]))
+    return o.reshape(lead + (S, H, v.shape[-1])) if len(lead) > 1 else o
 
 
 def _decode_scores(q, k, q_pos, kv_pos, window, is_global, logit_cap):
@@ -388,9 +398,11 @@ def _cache_insert_sharded(buf, new, start):
     else:
         slots = _ring_slots(start, S, size)                  # (B, S)
         keep = (slots >= lo) & (slots < lo + n)
-        out = local.clone()
-        out[rows.expand_as(slots)[keep], slots[keep] - lo] = new[keep].to(
-            local.dtype)
+        # the tokens that land on other ranks write a spare slot n, cut
+        # off after: no shape depends on the data
+        out = torch.cat([local, local[:, :1]], dim=1)
+        out[rows, torch.where(keep, slots - lo, n)] = new.to(local.dtype)
+        out = out[:, :n].contiguous()
     return dist.as_dtensor(out, mesh, pl, buf.shape)
 
 
@@ -419,9 +431,11 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     v = x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), angles)
-    k = apply_rope(k.reshape(B, S, Hkv, hd), angles)
-    v = v.reshape(B, S, Hkv, hd)
+    # on a mesh, a projection sharded in pieces that split a head (a model
+    # axis wider than the heads) is made whole before the split
+    q = apply_rope(dist.split_heads(q, H), angles)
+    k = apply_rope(dist.split_heads(k, Hkv), angles)
+    v = dist.split_heads(v, Hkv)
     # constrain drops any axis that does not divide: kv heads stay
     # replicated on meshes wider than Hkv
     q = constrain(q, "dp", None, "mp", None)

@@ -62,14 +62,7 @@ NU_TOL = dict(rtol=1e-5, atol=1e-5)
 DISTS = ("fixed", "uniform", "lognormal", "bimodal", "trace")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    """Many tiny updates: one intra-op thread keeps them from spinning
-    against the other test workers' threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

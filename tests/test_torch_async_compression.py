@@ -61,12 +61,7 @@ REFERENCE = json.loads((Path(compression_bench.__file__).with_name(
     "reference_quick.json")).read_text())
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

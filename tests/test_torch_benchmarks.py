@@ -59,14 +59,7 @@ REFERENCE = json.loads((ROOT / "src" / "repro_torch" / "benchmarks"
 TWIN_ROUNDS = 2
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    """The twins run thousands of tiny rounds: one intra-op thread each
-    keeps them from spinning against the other test workers' threads."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 TASKS = {"lr_noniid": (dict(kind="lr", noniid=True), "make_task"),

@@ -20,6 +20,7 @@ the simulation's publish hooks) against the JAX package on the CPU.
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 msgpack = pytest.importorskip("msgpack")
 
 import jax  # noqa: E402

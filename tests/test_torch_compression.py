@@ -54,6 +54,7 @@ from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
 from repro_torch.fed import FederatedSimulation, History  # noqa: E402
 from repro_torch.kernels.quantize import ops as qops  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M, B, D, C, HIDDEN = 4, 6, 8, 4, 16
 LR, LAM = 0.05, 0.5

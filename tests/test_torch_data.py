@@ -17,6 +17,7 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import flat as tflat  # noqa: E402
 from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
 from repro_torch.data.partition import gaussian_k_schedule  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M = 4
 

@@ -29,6 +29,7 @@ from repro_torch.data import (DeviceBatcher, DeviceLMBatcher,  # noqa: E402
                               eval_metric, fedprox_synthetic)
 from repro_torch.fed import keyed  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 BOUNDS = [1, 2, 3, 611, 65535, 65536, 65537, 100_000, 2 ** 31 - 1]
 

@@ -45,6 +45,7 @@ from repro_torch.examples import fed_lm_train  # noqa: E402
 from repro_torch.fed import FederatedSimulation  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M_CLIENTS, BATCH = 3, 2
 PARAMS_RTOL, PARAMS_ATOL, LOSS_RTOL = 1e-5, 2e-6, 1e-5
@@ -141,20 +142,12 @@ def test_flat_lm_round_through_pallas_backward(monkeypatch):
     _assert_close(*_run_both("fedagrac", 128, rounds=1))
 
 
-@pytest.fixture
-def one_thread():
-    """torch on one intra-op thread for the test, restored after: with
-    several, the reduced hybrid's embedding gradient differs by an ulp
-    between identical calls on the CPU (ROADMAP C18), and the rounds
-    amplify it."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
+# this test needs the module's one intra-op thread (``_one_cpu_thread``):
+# with several, the reduced hybrid's embedding gradient differs by an ulp
+# between identical calls on the CPU (ROADMAP C18), and the rounds amplify
+# it
 @pytest.mark.parametrize("algo", ["fedagrac", "fedavg"])
-def test_flat_hybrid_rounds_match_reference(algo, one_thread):
+def test_flat_hybrid_rounds_match_reference(algo):
     """Two flat rounds of zamba2's hybrid stack — ``reduced(zamba2-2.7b,
     n_layers=4)``: d 128, 8 SSM heads of dim 32, d_state 16, chunk 16, a
     shared attention block after every 2 Mamba2 layers (two groups) — at

@@ -22,6 +22,7 @@ from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_fwd_bhsd)
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 CASES = [
     # B, S, H, Hkv, D, window (the cases of tests/test_kernels.py)

@@ -30,6 +30,7 @@ import numpy as np  # noqa: E402
 
 from repro.kernels.flash_attention import ops as jops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 GRAD_TOL = 1e-5
 CASES = [

@@ -30,6 +30,7 @@ from repro_torch.core.tree_util import tree_map  # noqa: E402
 from repro_torch.examples import serve_batched  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 GRAD_TOL = 2e-5

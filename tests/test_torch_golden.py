@@ -33,6 +33,7 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.core import flat, rounds  # noqa: E402
 from repro_torch.core.fedopt import get_algorithm  # noqa: E402
 from repro_torch.models.simple import quad_loss  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M, D, K_MAX, LR = 4, 6, 8, 0.01
 W = np.array([0.1, 0.2, 0.3, 0.4], np.float32)

@@ -17,6 +17,7 @@ from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
 from repro_torch.fed import FederatedSimulation  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models.simple import lr_loss  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -26,7 +27,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_scan_covers_every_slice():
     """The scan walks the whole package: each slice's modules are in it,
     the Mamba2, population, paper-twin, buffered-async, fault, MoE,
-    xLSTM and launch slices' included."""
+    xLSTM and launch slices' included (the launch trainer, the dry run and
+    its roofline too)."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("core/flat.py", "kernels/quantize/ops.py",
                 "kernels/flash_attention/ops.py", "serving/engine.py",
@@ -48,7 +50,9 @@ def test_scan_covers_every_slice():
                 "models/xlstm.py", "examples/serve_batched.py",
                 "optim/sgd.py", "optim/adamw.py", "dist.py",
                 "configs/shapes.py", "launch/mesh.py", "launch/specs.py",
-                "launch/distributed.py", "launch/serve.py"):
+                "launch/distributed.py", "launch/serve.py",
+                "launch/train.py", "launch/dryrun.py",
+                "roofline/analysis.py"):
         assert f"src/repro_torch/{mod}" in names, mod
 
 

@@ -15,6 +15,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.calibrated_update.kernel import (  # noqa: E402
     calibrated_update_2d, calibrated_update_prox_2d)
 from repro_torch.kernels.calibrated_update import ops  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 LR, LAM, MU = 0.03, 0.7, 0.1
 SHAPES = [(rows, cols) for rows in (3, 8, 100, 512, 1000)

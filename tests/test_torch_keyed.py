@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro_torch.fed import keyed  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 SEEDS = (0, 5, 0x5CE7A510, 0x5CE7A510 ^ 0x0BAD5EED, 2 ** 31 - 5)
 ROUNDS = (0, 3, 17, 1000)

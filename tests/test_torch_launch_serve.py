@@ -41,6 +41,7 @@ from repro_torch import dist  # noqa: E402
 from repro_torch.checkpoint import serialize  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.launch import distributed, mesh as mesh_lib  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = Path(__file__).with_name("_torch_mesh_worker.py")

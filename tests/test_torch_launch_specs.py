@@ -24,6 +24,7 @@ from repro_torch.configs.registry import ARCHS, get_arch  # noqa: E402
 from repro_torch.core.fedopt import get_algorithm  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 class FakeMesh:

@@ -32,6 +32,7 @@ from repro_torch.convert import (lm_caches_from_numpy,  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 CONFIGS = {"llama3-8b": dict(n_heads=4, n_kv_heads=2, head_dim=32),

@@ -50,6 +50,7 @@ from test_torch_fed_lm import (BATCH, LOSS_RTOL, M_CLIENTS,  # noqa: E402
                                PARAMS_ATOL, PARAMS_RTOL, _np_streams,
                                _setup)
 from test_torch_lm_families_round import _client_batches, _fed  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 # the reference against itself, every initial weight moved by one ulp of
 # its dtype: the masters up to 7.3e-3 apart, the losses 9.2e-4 (six draws)

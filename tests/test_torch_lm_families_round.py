@@ -57,6 +57,7 @@ from repro_torch.models import model as TM  # noqa: E402
 from test_torch_fed_lm import (BATCH, LOSS_RTOL, M_CLIENTS,  # noqa: E402
                                PARAMS_ATOL, PARAMS_RTOL, _np_streams,
                                _setup)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 # ROADMAP C23: the reference against itself under a one-ulp move of the
 # initial weights, the largest of four draws and two algorithms

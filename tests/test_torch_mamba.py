@@ -40,6 +40,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from _ssd_fake_card import plain_card  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 LOSS_RTOL = 1e-5

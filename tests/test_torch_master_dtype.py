@@ -60,6 +60,7 @@ from repro_torch.fed import (BufferedAsyncSimulation,  # noqa: E402
                              FederatedSimulation, clock)
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 STEP_ULPS, ROUND_ULPS, LOSS_RTOL = 8.0, 12.0, 2.0 ** -8
 SEQ, M_CLIENTS, BATCH = 16, 3, 2

@@ -36,6 +36,7 @@ from repro_torch.configs.base import reduced as treduced  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 BF16_TOL = 2.0 ** -7

@@ -32,6 +32,7 @@ from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from test_moe import dense_moe_ref  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 BF16_TOL = 2.0 ** -7

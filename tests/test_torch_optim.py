@@ -19,6 +19,7 @@ import numpy as np  # noqa: E402
 from repro import optim as jopt  # noqa: E402
 from repro_torch import optim as topt  # noqa: E402
 from repro_torch.core.tree_util import tree_leaves, tree_map  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL, BF16_TOL = 1e-6, 2.0 ** -8
 

@@ -35,6 +35,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import flat, theory  # noqa: E402
 from repro_torch.data import partition, synthetic  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 CNN_TOL = dict(rtol=1e-5, atol=1e-6)
 QUAD_TOL = dict(rtol=1e-5, atol=1e-6)

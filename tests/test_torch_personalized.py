@@ -38,6 +38,7 @@ from repro_torch.serving import (LoadGen, PersonalizedServeEngine,  # noqa
                                  lowrank_factors, make_personalizer,
                                  make_snapshot, personalized_decode, replay,
                                  save_snapshot)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 SHAPES = [(5, 6), (16, 4), (9, 8), (12, 3)]

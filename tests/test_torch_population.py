@@ -53,6 +53,7 @@ from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
 from repro_torch.fed import FederatedSimulation  # noqa: E402
 from repro_torch.fed import population as tpop  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M, C, B, D, N_CLASSES, K_MAX = 8, 4, 5, 8, 4, 4
 LR, LAM = 0.05, 0.5

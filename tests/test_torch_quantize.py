@@ -16,6 +16,7 @@ import numpy as np  # noqa: E402
 from repro.kernels.quantize import kernel as jkernel  # noqa: E402
 from repro.kernels.quantize import ops as jops  # noqa: E402
 from repro_torch.kernels.quantize import ops  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 ROWS = (1, 3, 100, 1000)
 COLS = (128, 384, 640)

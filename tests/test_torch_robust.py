@@ -60,12 +60,7 @@ ATTACKS = ("nan_inject", "inf_inject", "scale_attack", "sign_flip",
 DEFENSES = ("none", "clip", "median", "trimmed_mean", "krum")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 def _assert_states_close(got: dict, want: dict) -> None:

@@ -31,12 +31,7 @@ from test_torch_robust import _assert_states_close  # noqa: E402
 SEED, RATE, T_UPDATES = 2, 0.3, 8
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 def _run(kw, t_updates=T_UPDATES, jscenario=None, tscenario=None,

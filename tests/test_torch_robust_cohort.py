@@ -50,12 +50,7 @@ PM, C, B, D, N_CLASSES, K_MAX = 10, 5, 5, 8, 4, 3
 LR, LAM = 0.05, 0.5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

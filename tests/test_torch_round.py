@@ -33,6 +33,7 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.core import flat, rounds  # noqa: E402
 from repro_torch.core.fedopt import get_algorithm  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M, B, D, C, HIDDEN = 4, 6, 8, 4, 16
 LR, LAM = 0.05, 0.5

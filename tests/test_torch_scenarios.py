@@ -37,6 +37,7 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.fed import clock as tclock  # noqa: E402
 from repro_torch.fed import population as tpop  # noqa: E402
 from repro_torch.fed import scenarios as scn  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M = 10
 KNOBS = {"dropout": dict(dropout_rate=0.3, rejoin_delay=2.0),

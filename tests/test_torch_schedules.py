@@ -17,6 +17,7 @@ import numpy as np  # noqa: E402
 
 from repro.optim import schedules as jsched  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 STEPS = list(range(0, 220)) + [299, 300, 301, 999, 1000, 1001, 5000]
 EXACT = [("constant", (0.1,)), ("constant", (3e-4,)),

@@ -35,6 +35,7 @@ from repro_torch.serving import (LoadGen, Request, ServeEngine,  # noqa: E402
                                  latency_stats, replay)
 from repro_torch.serving.engine import (_invalidate_pads,  # noqa: E402
                                         _write_slot)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 # the request sets of tests/test_serving_engine.py: (prompt len, max new)

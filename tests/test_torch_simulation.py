@@ -30,6 +30,7 @@ from repro_torch.configs.base import FedConfig  # noqa: E402
 from repro_torch.data import FederatedBatcher, fedprox_synthetic  # noqa: E402
 from repro_torch.fed import FederatedSimulation  # noqa: E402
 from repro_torch.models.simple import lr_accuracy, lr_loss  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 M, T, N_EVAL = 10, 3, 4000
 LOSS_RTOL, KBAR_RTOL, METRIC_SAMPLES = 1e-5, 1e-6, 2

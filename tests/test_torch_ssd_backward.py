@@ -26,6 +26,7 @@ import numpy as np  # noqa: E402
 
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 GRAD_TOL = 1e-5
 DA_TOL = 2e-4

@@ -22,6 +22,7 @@ from repro.kernels.ssd_scan.ops import (  # noqa: E402
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
 from _ssd_fake_card import plain_card  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-4
 CASES = [

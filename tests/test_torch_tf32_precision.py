@@ -45,6 +45,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [

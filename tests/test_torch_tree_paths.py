@@ -61,12 +61,7 @@ PARAMS_TOL = dict(rtol=1e-5, atol=2e-6)
 NU_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 def _np(t):

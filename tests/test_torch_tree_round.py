@@ -77,12 +77,7 @@ CASES = ([(a, "sgd", 1.0) for a in ALGORITHMS]
             for opt, lr in (("momentum", 0.7), ("adam", 0.1))])
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 
 def _golden_batches(key=0):

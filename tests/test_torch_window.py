@@ -38,6 +38,7 @@ from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving import Request, ServeEngine  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 WINDOW = 16                      # reduced gemma3's sliding window

@@ -26,6 +26,7 @@ from repro_torch.convert import (lm_params_from_numpy,  # noqa: E402
                                  params_from_numpy)
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import xlstm as tx  # noqa: E402
+from _torch_one_thread import _one_cpu_thread  # noqa: E402,F401
 
 TOL = 2e-5
 RECURRENCE_TOL = 2e-4
